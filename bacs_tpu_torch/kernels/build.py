@@ -1,0 +1,119 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``bacs_tpu_torch/csrc/*.cu`` file is compiled into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/bacs_tpu_torch/libbacs_kernels_<hash>.so \
+         bacs_tpu_torch/csrc/*.cu
+
+The build runs at first use, into ``build/bacs_tpu_torch/`` at the root of
+the checkout, keyed by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one is loaded as it is.  Wrappers pass
+pointers (``tensor.data_ptr()``) and PyTorch's current stream as
+``ctypes.c_void_p``; each C entry point returns ``cudaGetLastError()`` of
+its launch, and :func:`check` raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "bacs_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point in csrc/, declared before first use
+SIGNATURES = {
+    # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
+    "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+}
+
+
+def find_nvcc() -> str | None:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))  # the toolkit's default
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    return None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libbacs_kernels_{source_hash()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels of bacs_tpu_torch are built from source at first use"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    # build under a private name and rename, so concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+        )
+    if verbose:
+        print(res.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {code}")

@@ -1,0 +1,112 @@
+"""DeepLabV3 (ABN ResNet backbone + ASPP head).
+
+Port of ``bacs_tpu/models/deeplab.py`` (``DeepLabHead``, ``DeepLabV3``).
+Public methods take and return NHWC tensors like the JAX module; inside,
+tensors are NCHW in channels_last memory, so the permutes at the edges are
+views.  Eager PyTorch has no dead-code elimination, so the pre-upsample path
+is its own method, :meth:`DeepLabV3.sem_logits`: the Predictor calls it and
+never builds the full-resolution ``logits`` (a 352 MB f32 tensor at 512^2,
+batch 16, VOC-21).  The background detector and the atrous encoder are
+ROADMAP.md queue 1 items 9 and 12 and raise until they land.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from bacs_tpu_torch.models.base import NetOutput
+from bacs_tpu_torch.models.norm import ABN
+from bacs_tpu_torch.models.resnet import conv, create_resnet
+from bacs_tpu_torch.ops.interpolate import resize_bilinear
+
+
+class DeepLabHead(nn.Module):
+    """ASPP head: 4 parallel map convs (1x1 + three dilated 3x3) -> concat
+    -> ABN -> 1x1 reduction, summed with a broadcast global-pooling branch,
+    then a final ABN."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int = 256,
+        hidden_channels: int = 256,
+        out_stride: int = 16,
+        norm: Callable[..., nn.Module] = ABN,
+    ):
+        super().__init__()
+        dil = [6, 12, 18] if out_stride == 16 else [12, 24, 32]
+        h = hidden_channels
+        self.map_conv0 = conv(in_channels, h, 1)
+        self.map_conv1 = conv(in_channels, h, 3, dilation=dil[0])
+        self.map_conv2 = conv(in_channels, h, 3, dilation=dil[1])
+        self.map_conv3 = conv(in_channels, h, 3, dilation=dil[2])
+        self.map_bn = norm(h * 4)
+        self.red_conv = conv(h * 4, out_channels, 1)
+        self.global_pooling_conv = conv(in_channels, h, 1)
+        self.global_pooling_bn = norm(h)
+        self.pool_red_conv = conv(h, out_channels, 1)
+        self.red_bn = norm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        maps = [self.map_conv0(x), self.map_conv1(x), self.map_conv2(x),
+                self.map_conv3(x)]
+        out = self.map_bn(torch.cat(maps, dim=1))
+        out = self.red_conv(out)
+        # global pooling branch (adaptive avg-pool to 1x1, broadcast back)
+        pool = x.mean(dim=(2, 3), keepdim=True)
+        pool = self.global_pooling_bn(self.global_pooling_conv(pool))
+        pool = self.pool_red_conv(pool)
+        return self.red_bn(out + pool)
+
+
+class DeepLabV3(nn.Module):
+    """DeepLabV3 with an ABN ResNet backbone; returns the NetOutput contract."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        backbone_name: str = "resnet101",
+        output_stride: int = 16,
+        norm: Callable[..., nn.Module] = ABN,
+        use_bg_detector: bool = False,
+        atrous_encoder: bool = False,
+        out_in_planes: int = 256,
+    ):
+        super().__init__()
+        if use_bg_detector:
+            raise NotImplementedError(
+                "the background detector is ROADMAP.md queue 1 item 9"
+            )
+        if atrous_encoder:
+            raise NotImplementedError(
+                "the atrous encoder is ROADMAP.md queue 1 item 12"
+            )
+        self.backbone = create_resnet(backbone_name, norm, output_stride)
+        self.base_classifier = DeepLabHead(
+            self.backbone.out_channels, out_in_planes,
+            out_stride=output_stride, norm=norm,
+        )
+        self.classifier_head = nn.Conv2d(out_in_planes, num_classes, 1)
+
+    def _head(self, x: torch.Tensor):
+        backbone_out, attentions = self.backbone(x.permute(0, 3, 1, 2))
+        feats = self.base_classifier(backbone_out)
+        return backbone_out, attentions + [feats], self.classifier_head(feats)
+
+    def sem_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Pre-upsample logits [N, h, w, C] of an NHWC image batch."""
+        return self._head(x)[2].permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> NetOutput:
+        backbone_out, attentions, sem = self._head(x)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        sem_logits = nhwc(sem)
+        return NetOutput(
+            logits=resize_bilinear(sem_logits.float(), tuple(x.shape[1:3])),
+            sem_logits=sem_logits,
+            penultimate=nhwc(backbone_out),
+            attentions=tuple(nhwc(a) for a in attentions),
+        )
