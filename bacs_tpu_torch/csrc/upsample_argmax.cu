@@ -34,22 +34,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bilinear_taps.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Source index pair and weight of output row/column `o`, exactly as
-// interp_matrix computes them (in double, weight rounded to f32).
-__device__ __forceinline__ void src_coord(int o, int out_dim, int in_dim,
-                                          int& lo, int& hi, float& wt) {
-  double s = (double)in_dim / (double)out_dim;
-  double c = ((double)o + 0.5) * s - 0.5;
-  c = fmin(fmax(c, 0.0), (double)(in_dim - 1));
-  lo = (int)floor(c);
-  hi = min(lo + 1, in_dim - 1);
-  wt = (float)(c - (double)lo);
-}
 
 template <typename T>
 __global__ void upsample_argmax_conf_kernel(const T* __restrict__ sem, int n,
@@ -62,26 +49,12 @@ __global__ void upsample_argmax_conf_kernel(const T* __restrict__ sem, int n,
   const int ox = (int)(p % W);
   const int oy = (int)((p / W) % H);
   const int b = (int)(p / ((long long)H * W));
-
-  int y0, y1, x0, x1;
-  float wy, wx;
-  src_coord(oy, H, h, y0, y1, wy);
-  src_coord(ox, W, w, x0, x1, wx);
-  const float wy0 = 1.f - wy, wx0 = 1.f - wx;
-
-  const T* base = sem + (size_t)b * h * w * c;
-  const T* p00 = base + ((size_t)y0 * w + x0) * c;
-  const T* p01 = base + ((size_t)y0 * w + x1) * c;
-  const T* p10 = base + ((size_t)y1 * w + x0) * c;
-  const T* p11 = base + ((size_t)y1 * w + x1) * c;
+  const bacs_taps::Taps<T> up(sem + (size_t)b * h * w * c, h, w, c, H, W, oy, ox);
 
   float m = -INFINITY, s = 0.f;
   int arg = 0;
   for (int ch = 0; ch < c; ++ch) {
-    // rows first, then columns: the order of the plain version's two einsums
-    const float left = wy0 * to_f32(p00[ch]) + wy * to_f32(p10[ch]);
-    const float right = wy0 * to_f32(p01[ch]) + wy * to_f32(p11[ch]);
-    const float v = wx0 * left + wx * right;
+    const float v = up(ch);
     if (v > m) {
       s = s * expf(m - v) + 1.f;
       m = v;

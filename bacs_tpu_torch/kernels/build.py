@@ -1,11 +1,16 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``bacs_tpu_torch/csrc/*.cu`` file is compiled into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``bacs_tpu_torch/csrc/*.cu`` file is compiled on its own, all at once
+in parallel, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).  One
+nvcc per source keeps the build at its slowest file's time rather than
+the sum of all, as each ported kernel adds a source and ``chip_smoke.py``
+builds them all inside a fixed time limit; ``build(verbose=True)`` prints
+each file's compile time:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/bacs_tpu_torch/libbacs_kernels_<hash>.so \
-         bacs_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <stem>.o bacs_tpu_torch/csrc/<stem>.cu  # each
+    nvcc -shared -o build/bacs_tpu_torch/libbacs_kernels_<hash>.so *.o
 
 The build runs at first use, into ``build/bacs_tpu_torch/`` at the root of
 the checkout, keyed by a hash of the sources and the flags, so an edited
@@ -24,6 +29,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -31,7 +38,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "bacs_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +47,17 @@ _I = ctypes.c_int
 SIGNATURES = {
     # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
     "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, partials, blocks, loss_out, count_out, stream)
+    "upsample_ce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                         _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, g, cols, dsem, stream)
+    "upsample_ce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  num_classes, conf, stream)
+    "upsample_confusion": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -84,23 +102,35 @@ def build(verbose: bool = False) -> Path:
             "kernels of bacs_tpu_torch are built from source at first use"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    # build under a private name and rename, so concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cu]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    # compile and link under a private directory and rename, so concurrent
+    # builders never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                for src, obj in zip(srcs, objs)]
+        # leaving the pool waits for every compiler before a failure is raised
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            compiled = list(pool.map(_nvcc, cmds))
+        lib = str(Path(tmp) / "lib.so")
+        _nvcc([nvcc, "-shared", "-o", lib, *objs])
+        os.replace(lib, out)
+    if verbose:
+        for src, (log, secs) in zip(srcs, compiled):
+            print(f"{log}nvcc {src.name}: {secs:.2f} s")
+    return out
+
+
+def _nvcc(cmd: list[str]) -> tuple[str, float]:
+    """Run one nvcc command; returns its stderr (ptxas's report) and its
+    seconds, or raises with them."""
+    t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                           f"{res.stderr}")
+    return res.stderr, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,7 @@ from torch import nn
 from bacs_tpu_torch.models.base import NetOutput  # noqa: F401
 from bacs_tpu_torch.models.deeplab import DeepLabHead, DeepLabV3  # noqa: F401
 from bacs_tpu_torch.models.norm import ABN, make_norm  # noqa: F401
-from bacs_tpu_torch.models.resnet import ResNet, create_resnet  # noqa: F401
+from bacs_tpu_torch.models.resnet import Conv2d, ResNet, create_resnet  # noqa: F401
 
 
 def create_network(
@@ -24,13 +24,20 @@ def create_network(
     use_bg_detector: bool = False,
     norm: str = "iabn_sync",
     dtype: torch.dtype = torch.float32,
+    param_dtype: torch.dtype | None = None,
     **kwargs: Any,
 ) -> nn.Module:
     """Build a network from a reference-style target name, on the CPU.
 
-    Convolutions hold ``dtype`` (they compute in it, as the Flax modules do
-    with ``dtype=``); ABN parameters and statistics stay float32.  Weights
-    are in channels_last memory.  ``kwargs`` takes the network config's
+    Convolutions compute in ``dtype``, as the Flax modules do with
+    ``dtype=``, and hold their weights in ``param_dtype`` (default:
+    ``dtype``).  The Predictor stores bf16 weights; training keeps f32
+    master weights (``param_dtype=torch.float32``) and each convolution
+    casts its input and weights to bf16 in its forward
+    (``models/resnet.py:Conv2d``), its gradients arriving back in f32.  ABN
+    parameters and statistics stay float32, and the ABN functions compute
+    in f32 on activations of the convolutions' dtype.  Weights are in
+    channels_last memory.  ``kwargs`` takes the network config's
     ``backbone``, ``output_stride`` and ``atrous_encoder``.
     """
     short = name.rsplit(".", 1)[-1].lower()
@@ -48,6 +55,7 @@ def create_network(
         atrous_encoder=bool(kwargs.get("atrous_encoder")),
     )
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            m.to(dtype=dtype, memory_format=torch.channels_last)
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+            m.to(dtype=param_dtype or dtype, memory_format=torch.channels_last)
     return model

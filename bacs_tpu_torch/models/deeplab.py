@@ -3,11 +3,13 @@
 Port of ``bacs_tpu/models/deeplab.py`` (``DeepLabHead``, ``DeepLabV3``).
 Public methods take and return NHWC tensors like the JAX module; inside,
 tensors are NCHW in channels_last memory, so the permutes at the edges are
-views.  Eager PyTorch has no dead-code elimination, so the pre-upsample path
-is its own method, :meth:`DeepLabV3.sem_logits`: the Predictor calls it and
-never builds the full-resolution ``logits`` (a 352 MB f32 tensor at 512^2,
-batch 16, VOC-21).  The background detector and the atrous encoder are
-ROADMAP.md queue 1 items 9 and 12 and raise until they land.
+views.  Eager PyTorch has no dead-code elimination, so nothing builds the
+full-resolution ``logits`` (a 352 MB f32 tensor at 512^2, batch 16, VOC-21)
+unless it is read: ``NetOutput.logits`` is computed on first access, the
+train and eval steps read only ``sem_logits`` on the kernel path, and the
+Predictor calls :meth:`DeepLabV3.sem_logits`.  The background detector and
+the atrous encoder are ROADMAP.md queue 1 items 9 and 12 and raise until
+they land.
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ from torch import nn
 
 from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.models.norm import ABN
-from bacs_tpu_torch.models.resnet import conv, create_resnet
-from bacs_tpu_torch.ops.interpolate import resize_bilinear
+from bacs_tpu_torch.models.resnet import Conv2d, conv, create_resnet
 
 
 class DeepLabHead(nn.Module):
@@ -89,7 +90,7 @@ class DeepLabV3(nn.Module):
             self.backbone.out_channels, out_in_planes,
             out_stride=output_stride, norm=norm,
         )
-        self.classifier_head = nn.Conv2d(out_in_planes, num_classes, 1)
+        self.classifier_head = Conv2d(out_in_planes, num_classes, 1)
 
     def _head(self, x: torch.Tensor):
         backbone_out, attentions = self.backbone(x.permute(0, 3, 1, 2))
@@ -103,10 +104,9 @@ class DeepLabV3(nn.Module):
     def forward(self, x: torch.Tensor) -> NetOutput:
         backbone_out, attentions, sem = self._head(x)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-        sem_logits = nhwc(sem)
         return NetOutput(
-            logits=resize_bilinear(sem_logits.float(), tuple(x.shape[1:3])),
-            sem_logits=sem_logits,
+            sem_logits=nhwc(sem),
             penultimate=nhwc(backbone_out),
             attentions=tuple(nhwc(a) for a in attentions),
+            out_hw=tuple(x.shape[1:3]),
         )

@@ -26,10 +26,27 @@ RESNET_STRUCTURES = {
 }
 
 
-def conv(in_features, features, kernel, stride=1, dilation=1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` whatever dtype its
+    parameters hold, as a Flax ``nn.Conv`` with ``dtype=`` does beside its
+    ``param_dtype``.  The forward casts input, weight and bias to
+    ``compute_dtype``; autograd casts the gradients back, so f32 master
+    weights train with bf16 convolutions and receive f32 gradients.
+    ``None`` computes in the weight's dtype.
+    """
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+def conv(in_features, features, kernel, stride=1, dilation=1) -> Conv2d:
     """Bias-free conv with the JAX package's explicit symmetric padding."""
     pad = ((kernel - 1) // 2) * dilation
-    return nn.Conv2d(
+    return Conv2d(
         in_features, features, kernel, stride=stride, padding=pad,
         dilation=dilation, bias=False,
     )

@@ -1,9 +1,12 @@
-"""Eval-mode ABN apply: normalize with running statistics + leaky-ReLU.
+"""ABN: batch norm fused with leaky-ReLU, in eval and train mode.
 
 Port of ``fused_abn_eval`` (``bacs_tpu/ops/abn_core.py:131``) and of the TPU
 kernel it names, ``abn_apply_pallas`` (``bacs_tpu/ops/abn_pallas.py:45``,
 pallas_call at :67).  In the port every eval-mode ABN layer goes through
 :func:`fused_abn_eval`: 107 launches per ResNet-101 DeepLabV3 forward.
+Train mode is :func:`fused_abn` (``bacs_tpu/ops/abn_core.py:52-128``), whose
+apply is the same Triton kernel fed the batch statistics (see its
+docstring).
 
 - :func:`abn_eval_plain`: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
   then leaky with ``slope`` (1 = identity, 0 = ReLU), computed in f32 and
@@ -88,7 +91,8 @@ def _abn_eval_kernel():
     return abn_eval_kernel
 
 
-def _abn_eval_triton(x, mean, var, scale, bias, eps, slope):
+def _abn_apply_triton(x, mean, var, scale, bias, eps, slope, counter):
+    """Launch the kernel on a CUDA tensor; ``counter.launches`` counts it."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -116,7 +120,7 @@ def _abn_eval_triton(x, mean, var, scale, bias, eps, slope):
             x, y, mean, var, scale, bias, rows, c, float(eps), float(slope),
             BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
         )
-    fused_abn_eval.launches += 1
+    counter.launches += 1
     return y
 
 
@@ -135,7 +139,83 @@ def fused_abn_eval(
     """
     if x.device.type == "cpu":
         return abn_eval_plain(x, mean, var, scale, bias, eps, slope)
-    return _abn_eval_triton(x, mean, var, scale, bias, eps, slope)
+    return _abn_apply_triton(x, mean, var, scale, bias, eps, slope, fused_abn_eval)
 
 
 fused_abn_eval.launches = 0
+
+
+# ---------------------------------------------------------------- train mode
+
+
+def _safe_scale(scale: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Sign-preserving clamp of ``scale`` away from 0: the backward divides
+    by it, and weight decay can drive it through 0 (``abn_core.py:38``)."""
+    mag = scale.abs().clamp_min(eps)
+    return torch.where(scale < 0, -mag, mag)
+
+
+class _FusedABN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, slope):
+        dims = tuple(range(x.dim() - 1))
+        rows = x.numel() // x.shape[-1]
+        mean = torch.mean(x, dims, dtype=torch.float32)
+        # squares in x's dtype, accumulated in f32, as the JAX function does
+        mean_sq = torch.mean(x * x, dims, dtype=torch.float32)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        if x.device.type == "cpu":
+            y = abn_eval_plain(x, mean, var, scale, bias, eps, slope)
+        else:
+            y = _abn_apply_triton(x, mean, var, scale.contiguous(),
+                                  bias.contiguous(), eps, slope, fused_abn)
+        # residuals: the OUTPUT and [C] vectors only; x is not saved
+        ctx.save_for_backward(y, scale, bias, torch.rsqrt(var + eps))
+        ctx.slope, ctx.rows = slope, rows
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        y, scale, bias, inv = ctx.saved_tensors
+        slope, rows, dt = ctx.slope, ctx.rows, y.dtype
+        dims = tuple(range(y.dim() - 1))
+        dy = dy.contiguous()
+        # recover x_hat from the output, in the activation dtype
+        pos = y >= 0
+        safe = _safe_scale(scale)
+        z = torch.where(pos, y, y * (1.0 / slope))
+        x_hat = torch.addcmul((-bias / safe).to(dt), z, (1.0 / safe).to(dt))
+        da = torch.where(pos, dy, dy * slope)
+        sum_da = torch.sum(da, dims, dtype=torch.float32)
+        sum_da_xhat = torch.sum(da * x_hat, dims, dtype=torch.float32)
+        g = (scale * inv).to(dt)
+        dx = g * (da - (sum_da / rows).to(dt)) - (g * (sum_da_xhat / rows).to(dt)) * x_hat
+        return dx, sum_da_xhat, sum_da, None, None
+
+
+def fused_abn(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = 1e-5,
+    slope: float = 0.01,
+):
+    """Train-mode ABN over the last axis of ``x`` -> (y, batch mean, batch
+    var), the statistics f32 and not differentiable.
+
+    Port of ``fused_abn`` (``bacs_tpu/ops/abn_core.py:52-128``) on one
+    device.  Forward: the f32 batch mean and mean of squares, biased
+    ``var = max(E[x^2] - mean^2, 0)``, then the apply and leaky with
+    ``slope`` (1 = identity).  The apply is K5's Triton kernel fed the batch
+    statistics (it computes the same function), counted on this function's
+    own ``launches``: 107 per ResNet-101 DeepLabV3 train forward; CPU
+    tensors take :func:`abn_eval_plain`.  Backward: the in-place-ABN
+    inversion; only ``y`` and the [C] vectors are saved, and x_hat is
+    recovered from ``y`` (``abn_core.py:96-125``).  The statistics and the
+    backward are plain PyTorch ops (ROADMAP.md queue 2, note A).
+    """
+    return _FusedABN.apply(x, scale, bias, float(eps), float(slope))
+
+
+fused_abn.launches = 0

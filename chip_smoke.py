@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving, training and eval paths on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -20,12 +21,35 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    before, and asserts 107 K5 launches and 1 K10 launch per forward;
    then times each kernel against its plain version at the forward's
    shapes, and profiles two served batches (a table of device time by
-   operator and kernel; device busy time and idle share).
+   operator and kernel; device busy time and idle share);
+6. holds the upsample+CE kernels (K1 forward and backward, CUDA) against
+   their plain versions at the training shape [16,32,32,21] -> 512^2 and
+   odd shapes, bf16 and f32, with ~5 % ignored labels;
+7. holds the upsample+argmax+confusion kernel (K2, CUDA) against its plain
+   version at the same shapes;
+8. runs one f32 CE train step of DeepLabV3-ResNet-101 at 4 x 128^2 on the
+   card and on the CPU (TF32 off), with identity activations and with the
+   configured leaky ones, and compares loss, gradients, the parameters
+   after the SGD update and the running statistics (every tensor to f32
+   rounding where the network is smooth);
+9. trains in bf16 (f32 master weights) at 512^2, batch 16, through
+   ``train.step.make_steps`` on seeded synthetic batches whose labels are
+   learnable from the colours: 2 warm-up and 18 timed steps with the
+   launch counters reset just before the timed ones; asserts 1 K1 forward,
+   1 K1 backward and 107 train-ABN applies per step and a falling loss,
+   prints the curve, the median img/s and the peak memory, and profiles
+   two steps (device time by kernel, busy and idle share);
+10. runs bf16 eval steps at 512^2, batch 16: asserts 107 eval-ABN (K5),
+   1 K1 forward and 1 K2 launch per step and that the confusion matrix
+   counts every valid pixel, and times the step;
+t. times K1 forward, K1 backward and K2 at the training shape beside
+   their plain versions, and computes every kernel's bound from its
+   inputs (bytes, f32 operations and special-function operations).
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
-JSON object of the kernels' launches, errors and times, the card's
-``nvidia-smi`` name and power limit, and the result line
+JSON object of every kernel's launches, error, times and bound on this
+card, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -50,6 +74,17 @@ K5_SHAPES = [(16, 256, 256, 64), (16, 128, 128, 256), (16, 64, 64, 512),
 K10_CASES = [((16, 32, 32, 21), (512, 512)), ((1, 32, 32, 21), (512, 512)),
              ((2, 33, 47, 21), (261, 373)), ((2, 8, 8, 150), (128, 128))]
 ABN_PER_FORWARD = 107  # stem 1 + 33 bottlenecks x 3 + 4 proj_bn + ASPP 3
+OPTIMIZER_YAML = "conf/bacs/optimizer/nesterov.yaml"
+SCHEDULER_YAML = "conf/bacs/scheduler/poly.yaml"
+MAX_ITERS = 20000  # poly horizon: about 30 VOC epochs of 10582 images at batch 16
+TRAIN_STEPS, WARMUP_STEPS, EVAL_STEPS = 18, 2, 3
+# the H100 SXM's published peaks (dense f32 on CUDA cores, HBM3 bandwidth)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# exponentials, logarithms and reciprocals run on the special-function
+# units: 16 per clock per SM at compute capability 9.0 (the CUDA C++
+# Programming Guide's throughput table), 132 SMs at the 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -155,6 +190,71 @@ def check_argmax(shape, out_hw, dtype, device, seed=0) -> float:
     err = float((conf.float() - ref_c.float()).abs().max())
     assert err <= 1e-3, f"confidence error {err}"
     return err
+
+
+def seeded_labels(n, out_hw, c, device, seed=0, ignore_share=0.05):
+    """int32 labels in [0, c) with about ``ignore_share`` of them 255."""
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    labels = torch.randint(0, c, (n, *out_hw), generator=g, device=device,
+                           dtype=torch.int32)
+    ignore = torch.rand((n, *out_hw), generator=g, device=device) < ignore_share
+    return torch.where(ignore, torch.full_like(labels, 255), labels)
+
+
+def check_ce(shape, out_hw, dtype, device, seed=0):
+    """K1 forward and backward against their plain versions; returns the
+    max abs errors of the per-image loss sums and of the gradient, each
+    also relative to the largest reference value."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem, ce_dsem_plain, ce_sums_per_image, ce_sums_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    labels = seeded_labels(shape[0], out_hw, shape[-1], device, seed)
+    loss, count = ce_sums_per_image(sem, labels, out_hw)
+    ref_loss, ref_count = ce_sums_plain(sem, labels, out_hw)
+    scale = (1.0 / ref_count.sum()).reshape(())
+    dsem = ce_dsem(sem, labels, out_hw, scale)
+    ref_dsem = ce_dsem_plain(sem, labels, out_hw, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(count, ref_count), "valid counts differ"
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    val_abs = float((loss - ref_loss).abs().max())
+    grad_abs = float((dsem.float() - ref_dsem.float()).abs().max())
+    val_err = val_abs / float(ref_loss.abs().max())
+    grad_err = grad_abs / float(ref_dsem.float().abs().max())
+    # the TPU kernels' tolerances against their fallbacks (value rtol 2e-3,
+    # gradient 5e-2 of the largest, scripts/check_kernels_tpu.py:96-97) in
+    # bf16, where the gradient is rounded to bf16 after sums in another
+    # order; f32 differs only by the order of the sums
+    val_tol, grad_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-3, 5e-2)
+    assert val_err <= val_tol, f"K1 value error {val_err}"
+    assert grad_err <= grad_tol, f"K1 gradient error {grad_err}"
+    return dict(val_abs=val_abs, grad_abs=grad_abs, val_rel=val_err,
+                grad_rel=grad_err)
+
+
+def check_confusion(shape, out_hw, dtype, device, seed=0) -> int:
+    """K2 against its plain version; returns the pixels counted differently,
+    each of which must have a top-2 margin <= 1e-4."""
+    from bacs_tpu_torch.ops.upsample_ce import upsample_plain
+    from bacs_tpu_torch.ops.upsample_confusion import (
+        confusion_plain, upsampled_confusion)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[0], shape[-1]
+    sem = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
+    labels = seeded_labels(n, out_hw, c, device, seed)
+    conf = upsampled_confusion(sem, labels, out_hw, c)
+    ref = confusion_plain(sem, labels, out_hw, c)
+    top2 = upsample_plain(sem, out_hw).topk(min(2, c), dim=-1).values
+    close = int(((top2[..., 0] - top2[..., -1]) <= 1e-4).sum()) if c > 1 else 0
+    torch.cuda.synchronize()
+    assert conf.dtype == torch.int32 and conf.shape == (c, c)
+    assert int(conf.sum()) == int((labels != 255).sum()), "pixels lost"
+    moved = int((conf - ref).abs().sum()) // 2
+    assert moved <= close, f"K2 moved {moved} pixels, {close} near ties"
+    return moved
 
 
 # ---------------------------------------------------------------- model
@@ -270,6 +370,176 @@ def profile(predictor, images_u8) -> float:
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30,
                                   max_name_column_width=48))
     return busy_ms
+
+
+# ---------------------------------------------------------------- training
+
+
+def load_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def train_state(cfg, params, stats, dtype, device, smooth=False):
+    """A CE train state: f32 master weights from the Flax trees, convs
+    computing in ``dtype``, nesterov SGD under the poly schedule.
+    ``smooth`` gives every ABN (and so every block output) the identity
+    activation in place of the configured leaky-ReLU."""
+    from bacs_tpu_torch.models import ABN, create_network
+    from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
+    from bacs_tpu_torch.train.state import TrainState
+    from bacs_tpu_torch.utils.flax_weights import load_flax_variables
+
+    model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
+                           backbone=cfg["backbone"], dtype=dtype,
+                           param_dtype=torch.float32)
+    load_flax_variables(model, params, stats)
+    if smooth:
+        for m in model.modules():
+            if isinstance(m, ABN):
+                m.activation, m.slope = "identity", 1.0
+    model.to(device)
+    opt_cfg = load_yaml(OPTIMIZER_YAML)
+    schedule = make_schedule(load_yaml(SCHEDULER_YAML), float(opt_cfg["lr"]), MAX_ITERS)
+    return TrainState(model, *make_optimizer(opt_cfg, model.parameters(), schedule))
+
+
+def ce_steps(device):
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.train.step import make_steps
+
+    task = TaskInfo(task_id=0, initial_classes=N_CLASSES, increment=0,
+                    num_classes=N_CLASSES)
+    return make_steps(ModelContext(task), create_method("loss.CrossEntropy"),
+                      N_CLASSES, device=device)
+
+
+def synthetic_batch(n, crop, gen, device):
+    """A batch whose labels are learnable from the image: a 4 x 4 grid of
+    blocks per image, each of a random class and painted its VOC colour,
+    plus noise; labels within 2 px of a block edge are 255 (about 6 %, as
+    VOC's object boundaries).  Made on ``device`` from ``gen``."""
+    from bacs_tpu_torch.data.transforms import normalize_image
+    from bacs_tpu_torch.viz.media import voc_colormap
+
+    k = crop // 4
+    cls = torch.randint(0, N_CLASSES, (n, 4, 4), generator=gen, device=device)
+    labels = cls.repeat_interleave(k, 1).repeat_interleave(k, 2).to(torch.int32)
+    palette = torch.from_numpy(voc_colormap()[:N_CLASSES]).to(device).float()
+    noise = torch.randn((n, crop, crop, 3), generator=gen, device=device) * 25
+    img = (palette[labels.long()] + noise).clamp(0, 255).to(torch.uint8)
+    edge = torch.arange(crop, device=device) % k
+    edge = (edge < 2) | (edge >= k - 2)
+    labels[:, edge, :] = 255
+    labels[:, :, edge] = 255
+    return {"image": normalize_image(img), "label": labels.contiguous()}
+
+
+def grads_and_stats(model):
+    grads = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
+    stats = {k: b.detach().float().cpu() for k, b in model.named_buffers()}
+    params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
+    return grads, params, stats
+
+
+def max_rel_error(got: dict, ref: dict, slack: dict | None = None):
+    """(max over tensors of max |got - ref| / max |ref|, its tensor's name).
+    ``slack`` gives each tensor an absolute error that is not counted."""
+    errs = {}
+    for k in ref:
+        err = float((got[k] - ref[k]).abs().max()) - (slack[k] if slack else 0.0)
+        errs[k] = max(err, 0.0) / max(float(ref[k].abs().max()), 1e-30)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def abn_joined(d: dict) -> dict:
+    """``d`` with each ABN's [C] scale and bias tensors joined into one.
+
+    In a network with identity activations, an ABN whose output reaches
+    the loss only through 1 x 1 convolutions into the next ABN has a bias
+    gradient of exactly 0 (the next ABN removes a constant shift); what a
+    device computes there is rounding noise (~1e-9) of its sums, whose
+    terms are those of the scale's gradient.  Joined, the pair is held to
+    the size of those terms."""
+    out = {}
+    for k, v in d.items():
+        stem = k.rsplit(".", 1)[0]
+        scale = d.get(stem + ".weight")
+        if scale is not None and scale.dim() == 1:
+            out[stem] = torch.cat([scale, d[stem + ".bias"]])
+        else:
+            out[k] = v
+    return out
+
+
+def norm_error(got: dict, ref: dict) -> float:
+    """||got - ref|| / ||ref|| over all tensors of two dicts."""
+    diff = sum(float(((got[k] - ref[k]) ** 2).sum()) for k in ref)
+    return (diff / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
+
+
+def profile_steps(fn, label: str, steps: int = 2) -> float:
+    """Device time by kernel over ``steps`` calls; returns busy ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1000 / steps
+    log(f"[p] profile of {steps} {label}, by device time:")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
+                                  max_name_column_width=60))
+    return busy_ms
+
+
+def bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the least time the H100 could take,
+    the largest of each input read once and each output written once at
+    the published 3.35 TB/s, the f32 operations at the published
+    67 TFLOP/s, and the special-function operations at SFU_OPS_PER_S."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(ops / F32_OPS_PER_S, sfu_ops / SFU_OPS_PER_S)
+    return 1000 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def upsample_bound(kernel: str, sem, out_hw, labels=None):
+    """The bound of an upsample kernel (K10, K1 forward or backward, K2) on
+    these inputs.  The least work interpolates separably: a lerp (3 f32
+    ops) per channel along W for every source row, then along H for every
+    output pixel the kernel needs, those with a valid label where there
+    are labels.  Per such pixel and channel, K10 and K1 forward add the
+    softmax statistics (max, subtract, exp, add: 4, the exp also on the SFU
+    with one log or reciprocal per pixel); K1 backward adds those, (p -
+    onehot) * g (3) and the transposed interpolation, the same again; K2
+    adds an argmax compare (1).  Bytes: sem and the labels read, the
+    outputs written once."""
+    n, h, _, c = sem.shape
+    H, W = out_hw
+    pix = n * H * W if labels is None else int((labels != 255).sum())
+    lerps = 3 * c * (n * h * W + pix)
+    in_bytes = sem.numel() * sem.element_size()
+    if labels is not None:
+        in_bytes += labels.numel() * labels.element_size()
+    sfu = pix * (c + 1)
+    if kernel == "k10":  # uint8 class and f16 confidence per pixel
+        return bound(in_bytes + n * H * W * 3, lerps + 4 * c * pix, sfu)
+    if kernel == "k1f":  # f32 sum and count per image
+        return bound(in_bytes + 2 * n * 4, lerps + 4 * c * pix, sfu)
+    if kernel == "k1b":  # dsem in sem's dtype
+        return bound(2 * in_bytes - labels.numel() * labels.element_size(),
+                     2 * lerps + 7 * c * pix, sfu)
+    if kernel == "k2":  # the int32 C x C matrix
+        return bound(in_bytes + c * c * 4, lerps + c * pix)
+    raise ValueError(kernel)
 
 
 # ---------------------------------------------------------------- main
@@ -398,8 +668,9 @@ def main() -> int:
 
     # kernel times against their plain versions, at the main path's shapes
     # (device time from CUDA-graph replay; "host-launched" adds launch cost)
-    k5_ms = k5_plain_ms = k5_host_ms = 0.0
+    k5_ms = k5_plain_ms = k5_host_ms = k5_elems = 0.0
     for shape, count in sorted(abn_shapes(p16, batches[0]).items()):
+        k5_elems += count * float(np.prod(shape))
         x = torch.randn(shape, device=dev).to(torch.bfloat16)
         v = [torch.rand(shape[-1], device=dev) + 0.5 for _ in range(4)]
         tk = device_ms(lambda: fused_abn_eval(x, *v, 1e-5, 0.01))
@@ -433,17 +704,214 @@ def main() -> int:
         f"predict_many wall {wall:.3f} ms per batch: device idle share "
         f"{1 - busy / wall:.3f}")
 
+    del p16
+    torch.cuda.empty_cache()
+    # bf16 in and out, one read and one write; a subtract, an FMA and a select
+    k5_bound = bound(2 * 2 * k5_elems, 3 * k5_elems)
+    k10_bound = upsample_bound("k10", sem, (CROP, CROP))
+
+    # 6. and 7. K1 forward and backward, K2, against their plain versions
+    k1f_err = k1b_err = 0.0
+    k2_moved = 0
+    for shape, out_hw in K10_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_ce(shape, out_hw, dt, dev)
+            k1f_err, k1b_err = max(k1f_err, e["val_abs"]), max(k1b_err, e["grad_abs"])
+            log(f"[6] K1 {shape}->{out_hw} {str(dt)[6:]}: ok, per-image sum max abs "
+                f"err {e['val_abs']:.3g} (rel {e['val_rel']:.3g}), gradient max abs "
+                f"err {e['grad_abs']:.3g} (rel {e['grad_rel']:.3g})")
+    for shape, out_hw in K10_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            moved = check_confusion(shape, out_hw, dt, dev)
+            k2_moved = max(k2_moved, moved)
+            log(f"[7] K2 {shape}->{out_hw} {str(dt)[6:]}: ok, {moved} pixels "
+                "counted differently (all near ties)")
+
+    # 8. one f32 train step, card (kernels) against CPU (plain versions),
+    # of the network with identity activations and of the configured one
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(args.seed)
+    small = synthetic_batch(4, 128, gen, "cpu")
+    for activation in ("identity", "leaky"):
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            state = train_state(cfg, params, stats, torch.float32, device,
+                                smooth=activation == "identity")
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            train_step, _, put_batch = ce_steps(device)
+            state, metrics = train_step(state, put_batch(small))
+            runs[device.type] = (float(metrics["loss"]), *grads_and_stats(state.model))
+            del state
+        (loss_g, grads_g, params_g, stats_g), (loss_c, grads_c, params_c, stats_c) = (
+            runs["cuda"], runs["cpu"])
+        upd_g = {k: params_g[k] - p0[k] for k in p0}
+        upd_c = {k: params_c[k] - p0[k] for k in p0}
+        grad_rel, grad_worst = max_rel_error(abn_joined(grads_g), abn_joined(grads_c))
+        # an f32 parameter holds its update only to one ulp of its value
+        ulp = {k: float(torch.finfo(torch.float32).eps * v.abs().max()) for k, v in p0.items()}
+        upd_rel, _ = max_rel_error(upd_g, upd_c, ulp)
+        stats_rel, _ = max_rel_error(stats_g, stats_c)
+        grad_norm, update_norm = norm_error(grads_g, grads_c), norm_error(upd_g, upd_c)
+        log(f"[8] f32 train step card vs CPU, RN101 4 x 128^2, {activation} "
+            f"activations: loss {loss_g:.7f} vs {loss_c:.7f}; gradients max rel err "
+            f"per tensor (each ABN's scale and bias joined) {grad_rel:.3g} "
+            f"({grad_worst}), norm rel err {grad_norm:.3g}; SGD update max rel err "
+            f"per tensor beyond one ulp of the parameter {upd_rel:.3g}, norm rel err "
+            f"{update_norm:.3g}; running statistics max rel err {stats_rel:.3g}")
+        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+        assert stats_rel <= 1e-4, stats_rel
+        if activation == "identity":
+            # a smooth network: the two devices differ by f32 rounding only,
+            # so every gradient and update tensor is held to its largest
+            # value, the ABN scales and biases and the head included
+            assert grad_rel <= 1e-4 and upd_rel <= 1e-4, (grad_rel, upd_rel)
+        else:
+            # pre-activations within rounding of 0 take different sides of
+            # the leaky kink on the two devices, and the ABN backward spreads
+            # such a pixel over its channel, so the gradients and the update
+            # are held to a few percent of their norm (the same effect
+            # between JAX and the port: tests/test_torch_train_step.py)
+            assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del runs, grads_g, grads_c, params_g, params_c
+    torch.cuda.empty_cache()
+
+    # 9. bf16 training at 512^2, batch 16, launches counted
+    from bacs_tpu_torch.ops.abn_core import fused_abn
+    from bacs_tpu_torch.ops.upsample_ce import ce_dsem, ce_sums_per_image
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+
+    def reset_counts():
+        for fn in (fused_abn_eval, fused_abn, ce_sums_per_image, ce_dsem,
+                   upsampled_confusion, upsampled_argmax_conf):
+            fn.launches = 0
+
+    def counts():
+        return dict(k5=fused_abn_eval.launches, train_abn=fused_abn.launches,
+                    k1f=ce_sums_per_image.launches, k1b=ce_dsem.launches,
+                    k2=upsampled_confusion.launches, k10=upsampled_argmax_conf.launches)
+
+    state = train_state(cfg, params, stats, torch.bfloat16, dev)
+    train_step, eval_step, _ = ce_steps(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = train_step(state, synthetic_batch(BATCH, CROP, gen, dev))
+        losses.append(float(metrics["loss"]))
+    train_batches = [synthetic_batch(BATCH, CROP, gen, dev) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for b in train_batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))  # a host read: synchronises
+        step_ms.append(1000 * (time.perf_counter() - t0))
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    log(f"[9] bf16 train step, batch {BATCH}, {CROP}^2: median {med:.3f} ms "
+        f"({BATCH * 1000 / med:.2f} img/s; min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f} ms over {TRAIN_STEPS} steps); peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {train_counts} over {TRAIN_STEPS} steps")
+    log(f"[9] loss curve: {' '.join(f'{v:.4f}' for v in losses)}")
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), "the loss did not fall"
+    assert train_counts["k1f"] == TRAIN_STEPS and train_counts["k1b"] == TRAIN_STEPS
+    assert train_counts["train_abn"] == ABN_PER_FORWARD * TRAIN_STEPS
+    assert train_counts["k5"] == train_counts["k2"] == 0
+    train_busy = profile_steps(lambda: train_step(state, train_batches[0]),
+                               f"bf16 train steps (batch {BATCH}, {CROP}^2)")
+    log(f"[p] train: device busy {train_busy:.3f} ms per step; median step wall "
+        f"{med:.3f} ms: device idle share {1 - train_busy / med:.3f}")
+
+    # 10. bf16 eval step at 512^2, batch 16, launches counted
+    conf_mat = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+    eval_step(state, conf_mat.clone(), train_batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    eval_ms = []
+    for b in train_batches[:EVAL_STEPS]:
+        t0 = time.perf_counter()
+        conf_mat, loss = eval_step(state, conf_mat, b)
+        float(loss)
+        eval_ms.append(1000 * (time.perf_counter() - t0))
+    eval_counts = counts()
+    valid = sum(int((b["label"] != 255).sum()) for b in train_batches[:EVAL_STEPS])
+    from bacs_tpu_torch.ops.confusion import iou_from_confusion
+
+    miou = float(iou_from_confusion(conf_mat).miou)
+    log(f"[10] bf16 eval step, batch {BATCH}, {CROP}^2: median "
+        f"{np.median(eval_ms):.3f} ms (min {min(eval_ms):.3f}); launches "
+        f"{eval_counts} over {EVAL_STEPS} steps; confusion counts "
+        f"{int(conf_mat.sum())} of {valid} valid pixels; mIoU after "
+        f"{WARMUP_STEPS + TRAIN_STEPS} steps {miou:.4f}")
+    assert int(conf_mat.sum()) == valid
+    assert eval_counts["k5"] == ABN_PER_FORWARD * EVAL_STEPS
+    assert eval_counts["k1f"] == eval_counts["k2"] == EVAL_STEPS
+    assert eval_counts["k1b"] == eval_counts["train_abn"] == 0
+
+    # kernel times at the training shape, beside the plain versions (those
+    # copy their interpolation matrices from the host, which a CUDA graph
+    # cannot capture, so they are timed host-launched by CUDA events; at
+    # these sizes they are bound by the device)
+    from bacs_tpu_torch.ops.upsample_ce import ce_dsem_plain, ce_sums_plain
+    from bacs_tpu_torch.ops.upsample_confusion import confusion_plain
+
+    labels = train_batches[0]["label"]
+    sem = (torch.randn((BATCH, CROP // 16, CROP // 16, N_CLASSES), device=dev)
+           * 3).to(torch.bfloat16)
+    g = torch.tensor(1.0 / float((labels != 255).sum()), device=dev)
+    hw = (CROP, CROP)
+    times = {
+        "k1f": (device_ms(lambda: ce_sums_per_image(sem, labels, hw)),
+                time_ms(lambda: ce_sums_plain(sem, labels, hw), iters=5)),
+        "k1b": (device_ms(lambda: ce_dsem(sem, labels, hw, g)),
+                time_ms(lambda: ce_dsem_plain(sem, labels, hw, g), iters=5)),
+        "k2": (device_ms(lambda: upsampled_confusion(sem, labels, hw, N_CLASSES)),
+               time_ms(lambda: confusion_plain(sem, labels, hw, N_CLASSES), iters=5)),
+    }
+    bounds = {k: upsample_bound(k, sem, hw, labels) for k in ("k1f", "k1b", "k2")}
+    for key, name in (("k1f", "K1 forward"), ("k1b", "K1 backward"), ("k2", "K2")):
+        log(f"[t] {name} {tuple(sem.shape)}->{CROP}^2 bf16, int32 labels: kernel "
+            f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, bound "
+            f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
+        f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
+
+    def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                # no single PyTorch call computes any of these functions
+                # (an interpolate and a cross-entropy are two calls)
+                "library_ms": None, **extra}
+
     print(json.dumps({"kernels": [
-        {"name": "abn_eval (K5)", "route": "triton",
-         "source": "bacs_tpu_torch/ops/abn_core.py",
-         "replaces": "bacs_tpu/ops/abn_pallas.py:45",
-         "launches": k5_launches, "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms},
-        {"name": "upsample_argmax_conf (K10)", "route": "cuda",
-         "source": "bacs_tpu_torch/csrc/upsample_argmax.cu",
-         "replaces": "bacs_tpu/ops/upsample_argmax.py:88",
-         "launches": k10_launches, "max_abs_err": k10_err,
-         "ms": k10_ms, "plain_ms": k10_plain_ms},
+        entry("abn_apply (K5)", "triton", "bacs_tpu_torch/ops/abn_core.py",
+              "bacs_tpu/ops/abn_pallas.py:45",
+              k5_launches + eval_counts["k5"] + train_counts["train_abn"],
+              k5_err, k5_ms, k5_plain_ms, k5_bound,
+              launches_by_path={"serve": k5_launches, "eval_step": eval_counts["k5"],
+                                "train_step_abn": train_counts["train_abn"]}),
+        entry("upsample_argmax_conf (K10)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_argmax.cu",
+              "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
+              k10_ms, k10_plain_ms, k10_bound),
+        entry("upsample_ce_sums (K1 forward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:787",
+              train_counts["k1f"] + eval_counts["k1f"], k1f_err, *times["k1f"],
+              bounds["k1f"]),
+        entry("upsample_ce_grad (K1 backward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:125",
+              train_counts["k1b"], k1b_err, *times["k1b"], bounds["k1b"]),
+        entry("upsample_confusion (K2)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_confusion.cu",
+              "bacs_tpu/ops/upsample_confusion.py:88", eval_counts["k2"], k2_moved,
+              *times["k2"], bounds["k2"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

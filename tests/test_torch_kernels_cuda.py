@@ -3,13 +3,14 @@
 Every test needs a CUDA device and skips with a reason where torch sees
 none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
-those of ``chip_smoke.py`` (phases 2 and 3), at small and at serving shapes.
+those of ``chip_smoke.py`` (phases 2, 3, 6 and 7), at small shapes and at
+the serving and training shapes.
 """
 
 import pytest
 import torch
 
-from chip_smoke import check_abn, check_argmax
+from chip_smoke import check_abn, check_argmax, check_ce, check_confusion
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +44,56 @@ def test_abn_eval_kernel_matches_plain(cuda, shape, slope, dtype):
 )
 def test_upsample_argmax_kernel_matches_plain(cuda, shape, out_hw, dtype):
     check_argmax(shape, out_hw, dtype, cuda)
+
+
+UPSAMPLE_CASES = [((16, 32, 32, 21), (512, 512)), ((2, 33, 47, 21), (261, 373)),
+                  ((2, 5, 7, 6), (37, 51)), ((2, 8, 8, 150), (128, 128)),
+                  ((2, 16, 16, 4), (16, 16)), ((1, 4, 4, 3), (7, 5))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", UPSAMPLE_CASES)
+def test_upsample_ce_kernels_match_plain(cuda, shape, out_hw, dtype):
+    check_ce(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize(  # 241 classes: the most whose histogram fits
+    "shape,out_hw", UPSAMPLE_CASES + [((1, 4, 4, 241), (32, 32))])
+def test_upsample_confusion_kernel_matches_plain(cuda, shape, out_hw, dtype):
+    check_confusion(shape, out_hw, dtype, cuda)
+
+
+def test_upsample_kernels_take_int64_labels_and_count_launches(cuda):
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem, ce_sums_per_image, upsampled_cross_entropy)
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+
+    sem = torch.randn(2, 5, 7, 6, device=cuda, requires_grad=True)
+    labels = torch.randint(0, 6, (2, 37, 51), device=cuda)
+    labels[0, :4] = 255
+    before = (ce_sums_per_image.launches, ce_dsem.launches)
+    loss = upsampled_cross_entropy(sem, labels, (37, 51))
+    loss.backward()
+    assert (ce_sums_per_image.launches, ce_dsem.launches) == (before[0] + 1,
+                                                              before[1] + 1)
+    ref = upsampled_cross_entropy(sem.detach().cpu().requires_grad_(),
+                                  labels.cpu(), (37, 51))
+    torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-5, atol=0)
+    before = upsampled_confusion.launches
+    conf = upsampled_confusion(sem.detach(), labels, (37, 51), 6)
+    assert upsampled_confusion.launches == before + 1
+    assert int(conf.sum()) == int((labels != 255).sum())
+    with pytest.raises(TypeError):
+        ce_sums_per_image(sem.detach().half(), labels, (37, 51))
+    with pytest.raises(TypeError):
+        upsampled_confusion(sem.detach(), labels.float(), (37, 51), 6)
+    with pytest.raises(ValueError):  # its histogram would not fit in shared memory
+        upsampled_confusion(sem.detach(), labels, (37, 51), 242)
+    with pytest.raises(ValueError):
+        ce_sums_per_image(sem.detach(), labels[:, :30], (37, 51))
+    with pytest.raises(ValueError):
+        ce_dsem(sem.detach(), labels, (37, 51), torch.ones(2, device=cuda))
 
 
 def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
@@ -104,3 +155,58 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
             assert np.abs(conf.astype(int) - ref_c.astype(int)).max() <= 1
     finally:
         torch.backends.cudnn.allow_tf32 = allow_tf32
+
+
+def test_train_and_eval_steps_on_the_card_match_the_cpu(cuda):
+    """``make_steps`` on the card (kernels) against the CPU (plain versions),
+    RN18 at 4 x 64^2 in f32 with TF32 off: the first loss within 1e-4 and
+    the eval step's confusion matrix on the initial weights equal but for
+    near ties; one K1 forward and backward per train step, one K1 forward
+    and one K2 per eval step."""
+    import numpy as np
+
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.models import create_network
+    from bacs_tpu_torch.ops.upsample_ce import ce_dsem, ce_sums_per_image
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+    from bacs_tpu_torch.train.optim import make_optimizer, poly_schedule
+    from bacs_tpu_torch.train.state import TaskInfo, TrainState
+    from bacs_tpu_torch.train.step import make_steps
+
+    torch.manual_seed(0)
+    sd = create_network("deeplab", 5, backbone="resnet18").state_dict()
+    rs = np.random.RandomState(0)
+    labels = rs.randint(0, 5, (4, 64, 64)).astype(np.int32)
+    labels[rs.rand(*labels.shape) < 0.05] = 255
+    batch = {"image": rs.randn(4, 64, 64, 3).astype(np.float32), "label": labels}
+    ctx = ModelContext(TaskInfo(num_classes=5))
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for device in (cuda, torch.device("cpu")):
+            model = create_network("deeplab", 5, backbone="resnet18")
+            model.load_state_dict(sd)
+            model.to(device)
+            opt, sched = make_optimizer({"momentum": 0.9, "nesterov": True},
+                                        model.parameters(), poly_schedule(0.01, 10))
+            state = TrainState(model, opt, sched)
+            train_step, eval_step, put_batch = make_steps(
+                ctx, create_method("loss.CrossEntropy"), 5, device=device)
+            b = put_batch(batch)
+            counts = (ce_sums_per_image.launches, ce_dsem.launches,
+                      upsampled_confusion.launches)
+            cm, _ = eval_step(state, torch.zeros((5, 5), dtype=torch.int32,
+                                                 device=device), b)
+            state, metrics = train_step(state, b)
+            launched = (ce_sums_per_image.launches - counts[0],
+                        ce_dsem.launches - counts[1],
+                        upsampled_confusion.launches - counts[2])
+            out[device.type] = (cm.cpu(), float(metrics["loss"]), launched)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    assert out["cuda"][2] == (2, 1, 1) and out["cpu"][2] == (0, 0, 0)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    moved = int((out["cuda"][0] - out["cpu"][0]).abs().sum()) // 2
+    assert int(out["cuda"][0].sum()) == int((labels != 255).sum())
+    assert moved <= 0.001 * int((labels != 255).sum())

@@ -131,8 +131,10 @@ def test_abn_module_eval_matches_jax(norm, kwargs):
 
 
 def test_abn_train_mode_raises():
+    """Train mode is ported for the fused branch (tests/test_torch_train_ops.py);
+    the non-fused one (ReLU, renorm) still raises, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ABN(8)(torch.zeros(1, 8, 2, 2))
+        ABN(8, activation="relu", activation_param=0.0)(torch.zeros(1, 8, 2, 2))
 
 
 def test_abn_cpu_does_not_count_launches():

@@ -116,6 +116,21 @@ def test_serving_path_imports_no_jax():
         "              dtype=torch.float32, device='cpu')\n"
         "preds, conf = p.predict(np.zeros((1, 32, 32, 3), np.uint8))\n"
         "assert preds.shape == (1, 32, 32) and conf.shape == (1, 32, 32)\n"
+        "from bacs_tpu_torch.methods import ModelContext, create_method\n"
+        "from bacs_tpu_torch.train.optim import make_optimizer, poly_schedule\n"
+        "from bacs_tpu_torch.train.state import TaskInfo, TrainState\n"
+        "from bacs_tpu_torch.train.step import make_steps\n"
+        "import bacs_tpu_torch.ops.confusion, bacs_tpu_torch.ops.losses\n"
+        "opt, sch = make_optimizer({'momentum': 0.9, 'nesterov': True},\n"
+        "                          m.parameters(), poly_schedule(0.01, 10))\n"
+        "ctx = ModelContext(TaskInfo(num_classes=4))\n"
+        "tr, ev, put = make_steps(ctx, create_method('loss.CrossEntropy'), 4,\n"
+        "                         device='cpu')\n"
+        "b = put({'image': np.zeros((2, 32, 32, 3), np.float32),\n"
+        "         'label': np.ones((2, 32, 32), np.int32)})\n"
+        "state, metrics = tr(TrainState(m, opt, sch), b)\n"
+        "cm, loss = ev(state, torch.zeros((4, 4), dtype=torch.int32), b)\n"
+        "assert int(cm.sum()) == 2 * 32 * 32\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'bacs_tpu'))\n"
         "assert not bad, bad\n"
