@@ -1,4 +1,4 @@
-// Bilinear taps shared by the upsample kernels (K1, K2, K10).
+// Bilinear taps shared by the upsample kernels (K1-K4, K10).
 //
 // The half-pixel (align_corners=False) source coordinates of
 // `interp_matrix` (bacs_tpu_torch/ops/upsample_tiles.py), clamped to the

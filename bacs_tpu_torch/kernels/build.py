@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point in csrc/, declared before first use
 SIGNATURES = {
     # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
@@ -55,6 +56,24 @@ SIGNATURES = {
     #  ignore_index, g, cols, dsem, stream)
     "upsample_ce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, weights, partials, blocks, loss_out, wsum_out, stream)
+    "upsample_wce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _I, _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, weights, g, cols, dsem, stream)
+    "upsample_wce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, max_seen, old_classes, ukd, gamma, threshold, partials,
+    #  blocks, loss_out, count_out, stream)
+    "upsample_bacs_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                          _I, _F, _F, _P, _I, _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, max_seen, old_classes, ukd, gamma, threshold, g, cols,
+    #  dsem, stream)
+    "upsample_bacs_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                           _I, _F, _F, _P, _P, _P, _P],
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     #  num_classes, conf, stream)
     "upsample_confusion": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -1,16 +1,20 @@
 """Continual-learning methods (port of ``bacs_tpu/methods``).
 
-Ported so far: the fine-tuning cross-entropy baseline.  ``create_method``
-keeps the JAX registry's names (reference ``_target_`` strings); every
-method not ported yet raises, naming its ROADMAP.md item.
+Ported so far: the fine-tuning cross-entropy baseline and BACS.
+``create_method`` keeps the JAX registry's names (reference ``_target_``
+strings); every method not ported yet raises, naming its ROADMAP.md item.
 """
 
+from bacs_tpu_torch.methods.bacs import BACSMethod  # noqa: F401
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux  # noqa: F401
 from bacs_tpu_torch.methods.ce import CrossEntropyMethod  # noqa: F401
 
 _METHODS = {
     "loss.crossentropy": CrossEntropyMethod,
     "crossentropy": CrossEntropyMethod,
+    "loss.bacsloss": BACSMethod,
+    "bacs": BACSMethod,
+    "bacsloss": BACSMethod,
 }
 
 # the JAX registry's other names -> the ROADMAP.md item that ports them
@@ -20,8 +24,7 @@ _NOT_PORTED = {
         "loss.prototypes", "prototypes", "loss.icarlloss", "icarl",
         "icarlloss", "loss.sdr", "sdr")},
     **{k: "queue 1 item 9" for k in (
-        "loss.experiencereplay", "experiencereplay", "er", "loss.bacsloss",
-        "bacs", "bacsloss")},
+        "loss.experiencereplay", "experiencereplay", "er")},
 }
 
 

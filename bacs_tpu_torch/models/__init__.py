@@ -1,4 +1,5 @@
-"""Network zoo of the port: DeepLabV3 on an ABN ResNet.
+"""Network zoo of the port: DeepLabV3 on an ABN ResNet, with the BACS
+background detector.
 
 ``create_network`` mirrors the JAX package's registry
 (``bacs_tpu/models/__init__.py``).  UNet and TranSeg are ROADMAP.md queue 1
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from bacs_tpu_torch.models.base import NetOutput  # noqa: F401
+from bacs_tpu_torch.models.bg_detector import BgDetector  # noqa: F401
 from bacs_tpu_torch.models.deeplab import DeepLabHead, DeepLabV3  # noqa: F401
 from bacs_tpu_torch.models.norm import ABN, make_norm  # noqa: F401
 from bacs_tpu_torch.models.resnet import Conv2d, ResNet, create_resnet  # noqa: F401
@@ -21,6 +23,7 @@ from bacs_tpu_torch.models.resnet import Conv2d, ResNet, create_resnet  # noqa: 
 def create_network(
     name: str,
     num_classes: int,
+    n_tasks: int = 1,
     use_bg_detector: bool = False,
     norm: str = "iabn_sync",
     dtype: torch.dtype = torch.float32,
@@ -37,7 +40,8 @@ def create_network(
     (``models/resnet.py:Conv2d``), its gradients arriving back in f32.  ABN
     parameters and statistics stay float32, and the ABN functions compute
     in f32 on activations of the convolutions' dtype.  Weights are in
-    channels_last memory.  ``kwargs`` takes the network config's
+    channels_last memory.  ``n_tasks`` is the background detector's head
+    count with ``use_bg_detector``.  ``kwargs`` takes the network config's
     ``backbone``, ``output_stride`` and ``atrous_encoder``.
     """
     short = name.rsplit(".", 1)[-1].lower()
@@ -51,6 +55,7 @@ def create_network(
         backbone_name=kwargs.get("backbone", "resnet101"),
         output_stride=kwargs.get("output_stride", 16),
         norm=make_norm(norm),
+        n_tasks=n_tasks,
         use_bg_detector=use_bg_detector,
         atrous_encoder=bool(kwargs.get("atrous_encoder")),
     )

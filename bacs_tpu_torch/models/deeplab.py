@@ -7,19 +7,21 @@ views.  Eager PyTorch has no dead-code elimination, so nothing builds the
 full-resolution ``logits`` (a 352 MB f32 tensor at 512^2, batch 16, VOC-21)
 unless it is read: ``NetOutput.logits`` is computed on first access, the
 train and eval steps read only ``sem_logits`` on the kernel path, and the
-Predictor calls :meth:`DeepLabV3.sem_logits`.  The background detector and
-the atrous encoder are ROADMAP.md queue 1 items 9 and 12 and raise until
-they land.
+Predictor calls :meth:`DeepLabV3.sem_logits`.  With ``use_bg_detector``
+the network carries the BACS background detector (``models/bg_detector.py``)
+and its penultimate output is the detector trunk's.  The atrous encoder is
+ROADMAP.md queue 1 item 12 and raises until it lands.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from bacs_tpu_torch.models.base import NetOutput
+from bacs_tpu_torch.models.bg_detector import BgDetector
 from bacs_tpu_torch.models.norm import ABN
 from bacs_tpu_torch.models.resnet import Conv2d, conv, create_resnet
 
@@ -72,15 +74,12 @@ class DeepLabV3(nn.Module):
         backbone_name: str = "resnet101",
         output_stride: int = 16,
         norm: Callable[..., nn.Module] = ABN,
+        n_tasks: int = 1,
         use_bg_detector: bool = False,
         atrous_encoder: bool = False,
         out_in_planes: int = 256,
     ):
         super().__init__()
-        if use_bg_detector:
-            raise NotImplementedError(
-                "the background detector is ROADMAP.md queue 1 item 9"
-            )
         if atrous_encoder:
             raise NotImplementedError(
                 "the atrous encoder is ROADMAP.md queue 1 item 12"
@@ -91,6 +90,9 @@ class DeepLabV3(nn.Module):
             out_stride=output_stride, norm=norm,
         )
         self.classifier_head = Conv2d(out_in_planes, num_classes, 1)
+        self.use_bg_detector = use_bg_detector
+        if use_bg_detector:
+            self.seen_fg_network = BgDetector(self.backbone.out_channels, n_tasks)
 
     def _head(self, x: torch.Tensor):
         backbone_out, attentions = self.backbone(x.permute(0, 3, 1, 2))
@@ -101,12 +103,33 @@ class DeepLabV3(nn.Module):
         """Pre-upsample logits [N, h, w, C] of an NHWC image batch."""
         return self._head(x)[2].permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> NetOutput:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> NetOutput:
+        """``generator`` draws the detector's dropout mask in training."""
         backbone_out, attentions, sem = self._head(x)
+        penultimate = backbone_out
+        if self.use_bg_detector:
+            penultimate = self.seen_fg_network.trunk(backbone_out, generator)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=nhwc(sem),
-            penultimate=nhwc(backbone_out),
+            penultimate=nhwc(penultimate),
             attentions=tuple(nhwc(a) for a in attentions),
             out_hw=tuple(x.shape[1:3]),
         )
+
+    # --- BgDetector passthroughs, NHWC penultimate features ---
+
+    def seen_map_task(self, penultimate, prototypes, task_num: int,
+                      stop_grads: bool) -> torch.Tensor:
+        """Seen-logit map against one task's prototype (detector training)."""
+        return self.seen_fg_network.seen_map_task(penultimate, prototypes, task_num,
+                                                  stop_grads)
+
+    def seen_probs(self, penultimate, prototypes, n_tasks: int) -> torch.Tensor:
+        """Sigmoid seen-probabilities against the first n_tasks prototypes."""
+        return self.seen_fg_network.seen_probs(penultimate, prototypes, n_tasks)
+
+    # the statistics that drift twice per buffer-population batch in the
+    # reference (``bacs_tpu/models/deeplab.py:168-179``): the backbone's
+    penultimate_stats_keys = ("backbone",)

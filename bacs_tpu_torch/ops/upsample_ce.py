@@ -1,31 +1,45 @@
-"""Fused bilinear upsample + cross-entropy: the full-res logits never exist.
+"""Fused bilinear upsample + a softmax loss: the full-res logits never exist.
 
-Port of the plain CE of ``bacs_tpu/ops/upsample_ce.py`` (K1).  The loss of
-the CE step is CE(bilinear_upsample(sem_logits), labels), mean over the
-pixels whose label is not ``ignore_index``; at 512^2, batch 16, VOC-21 the
-upsampled logits alone would be 352 MB of f32.
+Port of the fused losses of ``bacs_tpu/ops/upsample_ce.py`` that the CE and
+BACS steps run.  Each loss is a function of bilinear_upsample(sem_logits)
+and the labels; at 512^2, batch 16, VOC-21 the upsampled logits alone would
+be 352 MB of f32.  Three kernels, all in ``csrc/upsample_ce.cu``:
 
-- :func:`ce_sums_per_image` (K1 forward) gives, per image, the sum of the
-  NLL over valid pixels and the valid count.  A CUDA tensor launches
-  ``csrc/upsample_ce.cu`` (replacing ``_ce_sums_per_image_pallas``,
-  ``bacs_tpu/ops/upsample_ce.py:787``) or raises; a CPU tensor runs
-  :func:`ce_sums_plain`.
-- :func:`ce_dsem` (K1 backward) gives d(sum)/d(sem) times a scalar ``g``.
-  A CUDA tensor launches the same file's gradient kernel (replacing
-  ``_dsem_pallas``, ``upsample_ce.py:125``) or raises; a CPU tensor runs
-  :func:`ce_dsem_plain`, the jnp branch of ``_uces_bwd``
-  (``upsample_ce.py:159-174``).
-- :func:`upsampled_ce_sums` is the differentiable (sum, count) over the
-  whole batch: a ``torch.autograd.Function`` whose forward is K1 forward
-  and whose backward is K1 backward; the count takes no gradient.
-- :func:`upsampled_cross_entropy` divides outside the Function, so autograd
-  hands the backward g = 1 / max(count, 1) as a device scalar.
+- K1, plain CE (the CE step; the eval loss).  :func:`ce_sums_per_image`
+  (forward: per image, the NLL sum over valid pixels and the valid count;
+  replaces ``_ce_sums_per_image_pallas``, ``upsample_ce.py:787``) and
+  :func:`ce_dsem` (backward, replaces ``_dsem_pallas``, ``:125``; plain
+  version the jnp branch of ``_uces_bwd``, ``:159-174``).
+  :func:`upsampled_cross_entropy` divides by max(count, 1).
+- K4, class-weighted CE (the dark++ replay term of BACS).
+  :func:`wce_sums` (forward: Σ w[y] NLL and Σ w[y]; replaces
+  ``_wce_sums_pallas``, ``:233``) and :func:`wce_dsem` (backward, replaces
+  ``_dsem_pallas_w``, ``:243``; plain version the jnp branch of
+  ``_uwces_bwd``, ``:287-296``).  The weights are a constant and take no
+  gradient.  :func:`upsampled_weighted_cross_entropy` divides by
+  max(Σ w, 1e-8), so a batch with no weighted pixel gives 0.
+- K3, the BACS seen-weighted CE (the incremental step's main loss).
+  :func:`bacs_sum` (forward: the sum over pixels of the focal bg/fg and
+  new-vs-rest terms, weighted by the per-pixel max seen-probability
+  ``max_seen`` [N, H, W] f32 at full resolution, which takes no gradient;
+  replaces ``_bacs_pallas``, ``:396``) and :func:`bacs_dsem` (backward,
+  the same TPU kernel with ``want_grad``).  Its plain forward is
+  :func:`upsample_plain` + ``losses.weighted_cross_entropy`` times N H W
+  (``_bacs_wce_sum_jnp``, ``:326-338``), its plain backward autograd
+  through that, as JAX's ``jax.grad`` fallback (``:464-467``): independent
+  of the kernel's hand-derived gradient.
+  :func:`upsampled_bacs_weighted_ce` divides by N H W (the mean over all
+  pixels, ignored ones included, of the reference).
 
-Each wrapper's ``launches`` attribute counts kernel calls.  The plain
-versions upsample with the ``interp_matrix`` einsums in f32
-(``upsample_tiles.py``).  Labels other than ``ignore_index`` are expected in
-[0, C); one outside picks no logit, as the TPU kernel's one-hot.  Bounds and
-tolerances are in the kernel's source note.
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
+plain version for a CPU tensor; its ``launches`` attribute counts kernel
+calls.  The ``upsampled_*`` functions are differentiable in ``sem_logits``
+only (``torch.autograd.Function``s whose backward is the kernel's
+backward); autograd hands the backward the mean's scale as a device
+scalar.  The plain versions upsample with the ``interp_matrix`` einsums in
+f32 (``upsample_tiles.py``).  Labels other than ``ignore_index`` are
+expected in [0, C); one outside picks no logit, as the TPU kernels'
+one-hot.  Bounds and tolerances are in the kernels' source note.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from typing import Tuple
 import torch
 
 from bacs_tpu_torch.kernels import build
+from bacs_tpu_torch.ops.losses import cross_entropy, weighted_cross_entropy
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
 BLOCKS_PER_IMAGE = 256  # forward partial sums per image (one 256-thread block each)
@@ -98,44 +113,70 @@ def check_inputs(sem, labels, out_hw):
     return n, h, w, c, H, W
 
 
-def _ce_sums_cuda(sem, labels, out_hw, ignore_index):
-    n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
-    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
-    partials = torch.empty((n, blocks, 2), dtype=torch.float32, device=sem.device)
-    loss = torch.empty((n,), dtype=torch.float32, device=sem.device)
-    count = torch.empty((n,), dtype=torch.float32, device=sem.device)
-    lib = build.load_library()
-    with torch.cuda.device(sem.device):
-        code = lib.upsample_ce_sums(
-            sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
-            int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
-            partials.data_ptr(), blocks, loss.data_ptr(), count.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(code, "upsample_ce_sums")
-    ce_sums_per_image.launches += 1
-    return loss, count
-
-
-def _ce_dsem_cuda(sem, labels, out_hw, g, ignore_index):
-    n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
+def _check_g(g, sem):
     if (g.numel() != 1 or g.dtype != torch.float32 or g.device != sem.device
             or not g.is_contiguous()):
         raise ValueError(f"g must be one float32 value on {sem.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+
+
+def _check_weights(weights, sem):
+    c = sem.shape[-1]
+    if (weights.shape != (c,) or weights.dtype != torch.float32
+            or weights.device != sem.device or not weights.is_contiguous()):
+        raise ValueError(f"class weights must be a contiguous float32 [{c}] tensor "
+                         f"on {sem.device}, got {weights.dtype} "
+                         f"{tuple(weights.shape)} on {weights.device}")
+
+
+def _check_max_seen(max_seen, labels):
+    if (max_seen.shape != labels.shape or max_seen.dtype != torch.float32
+            or max_seen.device != labels.device or not max_seen.is_contiguous()):
+        raise ValueError(f"max_seen must be a contiguous float32 {tuple(labels.shape)} "
+                         f"tensor on {labels.device}, got {max_seen.dtype} "
+                         f"{tuple(max_seen.shape)} on {max_seen.device}")
+
+
+def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
+    """One forward entry point of ``csrc/upsample_ce.cu``: per-image
+    ([n] first sums, [n] second sums), f32."""
+    n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
+    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
+    partials = torch.empty((n, blocks, 2), dtype=torch.float32, device=sem.device)
+    a = torch.empty((n,), dtype=torch.float32, device=sem.device)
+    b = torch.empty((n,), dtype=torch.float32, device=sem.device)
+    lib = build.load_library()
+    with torch.cuda.device(sem.device):
+        code = getattr(lib, entry)(
+            sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
+            int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
+            *extra, partials.data_ptr(), blocks, a.data_ptr(), b.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(code, entry)
+    return a, b
+
+
+def _launch_grad(entry, sem, labels, out_hw, g, ignore_index, extra=()):
+    """One gradient entry point of ``csrc/upsample_ce.cu``: dsem in sem's
+    dtype."""
+    n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
+    _check_g(g, sem)
     cols = torch.empty((n, H, w, c), dtype=torch.float32, device=sem.device)
     dsem = torch.empty_like(sem)
     lib = build.load_library()
     with torch.cuda.device(sem.device):
-        code = lib.upsample_ce_grad(
+        code = getattr(lib, entry)(
             sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
             int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
-            g.data_ptr(), cols.data_ptr(), dsem.data_ptr(),
+            *extra, g.data_ptr(), cols.data_ptr(), dsem.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    build.check(code, "upsample_ce_grad")
-    ce_dsem.launches += 1
+    build.check(code, entry)
     return dsem
+
+
+# ---------------------------------------------------------------- K1: plain CE
 
 
 def ce_sums_per_image(sem, labels, out_hw, ignore_index=255):
@@ -143,7 +184,9 @@ def ce_sums_per_image(sem, labels, out_hw, ignore_index=255):
     CPU tensors take the plain version, CUDA tensors the kernel."""
     if sem.device.type == "cpu":
         return ce_sums_plain(sem, labels, out_hw, ignore_index)
-    return _ce_sums_cuda(sem, labels, out_hw, ignore_index)
+    out = _launch_sums("upsample_ce_sums", sem, labels, out_hw, ignore_index)
+    ce_sums_per_image.launches += 1
+    return out
 
 
 def ce_dsem(sem, labels, out_hw, g, ignore_index=255):
@@ -151,7 +194,9 @@ def ce_dsem(sem, labels, out_hw, g, ignore_index=255):
     dtype.  CPU tensors take the plain version, CUDA tensors the kernel."""
     if sem.device.type == "cpu":
         return ce_dsem_plain(sem, labels, out_hw, g, ignore_index)
-    return _ce_dsem_cuda(sem, labels, out_hw, g, ignore_index)
+    dsem = _launch_grad("upsample_ce_grad", sem, labels, out_hw, g, ignore_index)
+    ce_dsem.launches += 1
+    return dsem
 
 
 ce_sums_per_image.launches = 0
@@ -196,3 +241,194 @@ def upsampled_cross_entropy(
     """mean CE(bilinear_upsample(sem_logits), labels) over valid pixels."""
     loss_sum, count = upsampled_ce_sums(sem_logits, labels, out_hw, ignore_index)
     return loss_sum / torch.clamp(count, min=1.0)
+
+
+# ---------------------------------------------------------------- K4: class-weighted CE
+
+
+def wce_sums_plain(sem, labels, weights, out_hw, ignore_index=255):
+    """Plain version of K4 forward: (Σ w[y] NLL, Σ w[y]) over the valid
+    pixels, f32 scalars."""
+    up = upsample_plain(sem, out_hw)
+    valid = labels != ignore_index
+    wpix = weights.float()[torch.where(valid, labels, 0).long()] * valid
+    return (cross_entropy(up, labels, ignore_index, class_weights=weights,
+                          reduction="sum"), wpix.sum())
+
+
+def wce_dsem_plain(sem, labels, weights, out_hw, g, ignore_index=255):
+    """Plain version of K4 backward: K_H^T ((softmax - onehot) w[y] valid g)
+    K_W, in sem's dtype."""
+    kh, kw = (torch.from_numpy(k).to(sem.device) for k in kmats(sem.shape, out_hw))
+    up = upsample_plain(sem, out_hw)
+    valid = labels != ignore_index
+    _, onehot = _picked(up, labels, valid)
+    wpix = weights.float()[torch.where(valid, labels, 0).long()] * valid
+    dup = (torch.softmax(up, dim=-1) - onehot) * (wpix * g).unsqueeze(-1)
+    dsem = torch.einsum("Ww,nHWc->nHwc", kw, dup)
+    return torch.einsum("Hh,nHwc->nhwc", kh, dsem).to(sem.dtype)
+
+
+def wce_sums(sem, labels, weights, out_hw, ignore_index=255):
+    """K4 forward: (Σ w[y] NLL, Σ w[y]) over the batch's valid pixels, f32
+    scalars; ``weights`` [C] f32.  CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    if sem.device.type == "cpu":
+        return wce_sums_plain(sem, labels, weights, out_hw, ignore_index)
+    _check_weights(weights, sem)
+    loss, wsum = _launch_sums("upsample_wce_sums", sem, labels, out_hw, ignore_index,
+                              (weights.data_ptr(),))
+    wce_sums.launches += 1
+    return loss.sum(), wsum.sum()
+
+
+def wce_dsem(sem, labels, weights, out_hw, g, ignore_index=255):
+    """K4 backward: d(Σ w[y] NLL)/d(sem) times the scalar tensor ``g``, in
+    sem's dtype.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if sem.device.type == "cpu":
+        return wce_dsem_plain(sem, labels, weights, out_hw, g, ignore_index)
+    _check_weights(weights, sem)
+    dsem = _launch_grad("upsample_wce_grad", sem, labels, out_hw, g, ignore_index,
+                        (weights.data_ptr(),))
+    wce_dsem.launches += 1
+    return dsem
+
+
+wce_sums.launches = 0
+wce_dsem.launches = 0
+
+
+class _UpsampledWCESums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sem, labels, weights, out_hw, ignore_index):
+        loss, wsum = wce_sums(sem, labels, weights, out_hw, ignore_index)
+        ctx.save_for_backward(sem, labels, weights)
+        ctx.out_hw, ctx.ignore_index = out_hw, ignore_index
+        ctx.mark_non_differentiable(wsum)
+        return loss, wsum
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_wsum):
+        sem, labels, weights = ctx.saved_tensors
+        dsem = wce_dsem(sem, labels, weights, ctx.out_hw, g_sum.float().contiguous(),
+                        ctx.ignore_index)
+        return dsem, None, None, None, None
+
+
+def upsampled_wce_sums(sem_logits, labels, class_weights, out_hw, ignore_index=255):
+    """(Σ w[y] CE(upsample(sem), labels), Σ w[y]) over valid pixels, f32
+    scalars; differentiable in ``sem_logits`` only (the weights are a
+    constant, as torch's ``weight=``)."""
+    return _UpsampledWCESums.apply(sem_logits, labels, class_weights,
+                                   tuple(int(d) for d in out_hw), int(ignore_index))
+
+
+def upsampled_weighted_cross_entropy(sem_logits, labels, class_weights, out_hw,
+                                     ignore_index=255):
+    """torch-semantics weighted mean CE of the upsampled logits:
+    Σ w[y] NLL / max(Σ w[y], 1e-8) over valid pixels."""
+    loss, wsum = upsampled_wce_sums(sem_logits, labels, class_weights, out_hw,
+                                    ignore_index)
+    return loss / torch.clamp(wsum, min=1e-8)
+
+
+# ---------------------------------------------------------------- K3: BACS weighted CE
+
+
+def bacs_sum_plain(sem, labels, max_seen, out_hw, old_classes, gamma=2.0,
+                   threshold=0.5, ukd=True, ignore_index=255):
+    """Plain version of K3 forward: ``weighted_cross_entropy`` of the
+    upsampled logits times N H W (a sum over all pixels), f32 scalar."""
+    up = upsample_plain(sem, out_hw)
+    mean = weighted_cross_entropy(up, labels, max_seen.unsqueeze(-1), old_classes,
+                                  gamma=gamma, threshold=threshold, ukd=ukd,
+                                  ignore_index=ignore_index)
+    return mean * labels.numel()
+
+
+def bacs_dsem_plain(sem, labels, max_seen, out_hw, g, old_classes, gamma=2.0,
+                    threshold=0.5, ukd=True, ignore_index=255):
+    """Plain version of K3 backward: autograd through :func:`bacs_sum_plain`
+    times ``g``, in sem's dtype."""
+    with torch.enable_grad():
+        s = sem.detach().requires_grad_()
+        total = bacs_sum_plain(s, labels, max_seen, out_hw, old_classes, gamma,
+                               threshold, ukd, ignore_index) * g
+        (dsem,) = torch.autograd.grad(total, s)
+    return dsem.to(sem.dtype)
+
+
+def _bacs_extra(max_seen, labels, old_classes, gamma, threshold, ukd):
+    _check_max_seen(max_seen, labels)
+    return (max_seen.data_ptr(), int(old_classes), int(bool(ukd)), float(gamma),
+            float(threshold))
+
+
+def bacs_sum(sem, labels, max_seen, out_hw, old_classes, gamma=2.0,
+             threshold=0.5, ukd=True, ignore_index=255):
+    """K3 forward: Σ over the batch's valid pixels of the BACS terms, f32
+    scalar; ``max_seen`` [N, H, W] f32.  CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    if sem.device.type == "cpu":
+        return bacs_sum_plain(sem, labels, max_seen, out_hw, old_classes, gamma,
+                              threshold, ukd, ignore_index)
+    extra = _bacs_extra(max_seen, labels, old_classes, gamma, threshold, ukd)
+    loss, _ = _launch_sums("upsample_bacs_sum", sem, labels, out_hw, ignore_index,
+                           extra)
+    bacs_sum.launches += 1
+    return loss.sum()
+
+
+def bacs_dsem(sem, labels, max_seen, out_hw, g, old_classes, gamma=2.0,
+              threshold=0.5, ukd=True, ignore_index=255):
+    """K3 backward: d(Σ BACS terms)/d(sem) times the scalar tensor ``g``, in
+    sem's dtype.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if sem.device.type == "cpu":
+        return bacs_dsem_plain(sem, labels, max_seen, out_hw, g, old_classes, gamma,
+                               threshold, ukd, ignore_index)
+    extra = _bacs_extra(max_seen, labels, old_classes, gamma, threshold, ukd)
+    dsem = _launch_grad("upsample_bacs_grad", sem, labels, out_hw, g, ignore_index,
+                        extra)
+    bacs_dsem.launches += 1
+    return dsem
+
+
+bacs_sum.launches = 0
+bacs_dsem.launches = 0
+
+
+class _UpsampledBACSSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sem, labels, max_seen, out_hw, old_classes, gamma, threshold,
+                ukd, ignore_index):
+        ctx.save_for_backward(sem, labels, max_seen)
+        ctx.args = (out_hw, old_classes, gamma, threshold, ukd, ignore_index)
+        return bacs_sum(sem, labels, max_seen, out_hw, old_classes, gamma,
+                        threshold, ukd, ignore_index)
+
+    @staticmethod
+    def backward(ctx, g):
+        sem, labels, max_seen = ctx.saved_tensors
+        out_hw, *rest = ctx.args
+        dsem = bacs_dsem(sem, labels, max_seen, out_hw, g.float().contiguous(), *rest)
+        return (dsem,) + (None,) * 8
+
+
+def upsampled_bacs_wce_sum(sem_logits, labels, max_seen, out_hw, old_classes,
+                           gamma=2.0, threshold=0.5, ukd=True, ignore_index=255):
+    """Σ of the BACS weighted CE terms of the upsampled logits, f32 scalar;
+    differentiable in ``sem_logits`` only (``max_seen`` is a constant)."""
+    return _UpsampledBACSSum.apply(
+        sem_logits, labels, max_seen, tuple(int(d) for d in out_hw),
+        int(old_classes), float(gamma), float(threshold), bool(ukd), int(ignore_index))
+
+
+def upsampled_bacs_weighted_ce(sem_logits, labels, max_seen, out_hw, old_classes,
+                               gamma=2.0, threshold=0.5, ukd=True, ignore_index=255):
+    """BACS weighted CE of the upsampled logits, mean over ALL pixels
+    (ignored ones count in the denominator, the reference's quirk)."""
+    total = upsampled_bacs_wce_sum(sem_logits, labels, max_seen, out_hw, old_classes,
+                                   gamma, threshold, ukd, ignore_index)
+    return total / labels.numel()

@@ -163,7 +163,16 @@ def apply_updates(
     scheduler: torch.optim.lr_scheduler.LRScheduler,
 ) -> None:
     """One update from the parameters' ``.grad``: clip by value, step the
-    optimizer, advance the schedule."""
+    optimizer, advance the schedule.
+
+    A parameter that the loss did not reach (``.grad`` None, as the BACS
+    detector trunk at task > 0) gets a zero gradient first: torch optimizers
+    skip such a parameter, while the optax chain still decays it and moves
+    it by its momentum."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     for group in optimizer.param_groups:
         if group["grad_clip_value"]:
             torch.nn.utils.clip_grad_value_(group["params"], group["grad_clip_value"])

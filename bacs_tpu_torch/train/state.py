@@ -4,17 +4,24 @@ Port of ``bacs_tpu/train/state.py``.  ``TaskInfo`` is pure Python and is
 copied as it is.  The JAX ``TrainState`` is one pytree carried through a
 jitted step; in PyTorch the network holds its parameters and statistics
 and the optimizer its moments, so the state is a plain dataclass of those
-objects and the counters.  The continual-learning fields (prototypes,
-previous model, replay buffer, PLOP thresholds) come with their methods
-(ROADMAP.md queue 1 items 9 and 11).
+objects, the continual-learning tensors and the counters.  The JAX state's
+``rng`` key becomes ``generator``, a ``torch.Generator`` on the state's
+device that the train step hands to the method (dropout, replay draws);
+the frozen previous model is a module (``prev_params`` and
+``prev_batch_stats`` in JAX).  SDR's class prototypes and PLOP's
+thresholds come with their methods (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
+
+from bacs_tpu_torch.train.buffer import BufferState
 
 
 @dataclasses.dataclass
@@ -25,6 +32,28 @@ class TrainState:
     step: int = 0
     # batches consumed in the current epoch (mid-epoch resume granularity)
     epoch_step: int = 0
+    generator: Optional[torch.Generator] = None
+    # per-task foreground prototypes [n_tasks, D] and their feature counts
+    # [n_tasks], f32 (reference: loss/prototypes.py:53-90)
+    prototypes: Optional[torch.Tensor] = None
+    proto_counts: Optional[torch.Tensor] = None
+    # the frozen previous-task model, in eval mode, outside the optimizer
+    prev_model: Optional[nn.Module] = None
+    buffer: Optional[BufferState] = None
+    # the epoch within the task (the seen detector's weight schedule,
+    # bacs_tpu/methods/base.py:526-531)
+    epoch: int = 0
+
+
+def frozen_copy(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` in eval mode whose parameters take no gradient:
+    the previous-task model (reference: model.clone(),
+    base_network.py:37-50)."""
+    prev = copy.deepcopy(model).eval()
+    for p in prev.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    return prev
 
 
 @dataclasses.dataclass(frozen=True)

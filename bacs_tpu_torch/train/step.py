@@ -7,9 +7,11 @@ its ABN statistics and the optimizer are updated in place and the same
 state object is returned.
 
 - ``train_step(state, batch) -> (state, {"loss": ...})``: the network in
-  train mode; the method's loss, its gradients, and one optimizer update
-  (clip, weight decay, SGD-nesterov at the scheduled rate).  The gradients
-  stay in the parameters' ``.grad`` until the next step.
+  train mode; the method's loss (given ``state.generator`` for its random
+  draws), its gradients, one optimizer update (clip, weight decay,
+  SGD-nesterov at the scheduled rate), and the method's state updates
+  (prototypes and their counts, the buffer).  The gradients stay in the
+  parameters' ``.grad`` until the next step.
 - ``eval_step(state, conf_mat, batch) -> (conf_mat, loss)``: the network
   in eval mode, no gradients; the batch's confusion matrix is added to
   ``conf_mat`` in place.  Below label resolution it comes from the
@@ -18,10 +20,12 @@ state object is returned.
 - ``put_batch(batch) -> batch``: the image (float NHWC) and label (int
   [N, H, W]) arrays as contiguous tensors on the step's device.
 
-On the card every step of the CE method runs the hand-written kernels:
-the upsample+CE forward and backward (``ops/upsample_ce.py``) and the
-train-ABN apply in training; the eval ABN, the upsample+CE forward and the
-confusion kernel in evaluation.  Multi-device steps (the JAX mesh path,
+On the card every step runs the hand-written kernels: in training the
+train-ABN apply and, by method, the upsample+CE forward and backward (CE,
+K1) or the BACS seen-weighted and class-weighted upsample+CE forward and
+backward (BACS at task > 0, K3 and K4, ``ops/upsample_ce.py``) with the
+previous model's eval ABN; in evaluation the eval ABN, the upsample+CE
+forward and the confusion kernel.  Multi-device steps (the JAX mesh path,
 ``make_gspmd_steps``) are ROADMAP.md queue 1 item 10; ``_multi_step_impl``
 only hides the TPU host's dispatch cost and is not ported.
 """
@@ -46,9 +50,11 @@ def _train_step_impl(
     batch: Dict[str, torch.Tensor],
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     state.optimizer.zero_grad(set_to_none=True)
-    loss, _ = method.compute_loss(ctx, state, batch, True)
+    loss, aux = method.compute_loss(ctx, state, batch, True, state.generator)
     loss.backward()
     apply_updates(state.optimizer, state.scheduler)
+    for field, value in aux.state_updates.items():
+        setattr(state, field, value)
     state.step += 1
     state.epoch_step += 1
     return state, {"loss": loss.detach()}

@@ -11,6 +11,9 @@ transpose is the one of ``bacs_tpu/utils/torch_weights.py:515``):
     params      bias   [C]               -> bias          (ABN, classifier_head)
     batch_stats mean   [C]               -> running_mean
     batch_stats var    [C]               -> running_var
+    params      head_kernel [T, D, 1], head_bias [T, 1] -> the same names,
+                no transpose (the background detector's task heads,
+                ``seen_fg_network``)
 
 The trees are nested mappings of numpy-convertible arrays, as the JAX
 package's ``variables["params"]`` and ``variables["batch_stats"]`` are; no
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "head_kernel": "head_kernel", "head_bias": "head_bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -69,8 +73,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Di
             tree, leaf = params, "kernel" if arr.ndim == 4 else "scale"
             if arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)
-        elif name == "bias":
-            tree, leaf = params, "bias"
+        elif name in ("bias", "head_kernel", "head_bias"):
+            tree, leaf = params, name
         elif name in ("running_mean", "running_var"):
             tree, leaf = stats, name[len("running_"):]
         else:

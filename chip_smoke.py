@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and eval paths on one NVIDIA
-GPU (H100).
+"""Drive the PyTorch port's serving, training (CE and BACS) and eval paths
+on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -42,9 +42,33 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 10. runs bf16 eval steps at 512^2, batch 16: asserts 107 eval-ABN (K5),
    1 K1 forward and 1 K2 launch per step and that the confusion matrix
    counts every valid pixel, and times the step;
-t. times K1 forward, K1 backward and K2 at the training shape beside
-   their plain versions, and computes every kernel's bound from its
-   inputs (bytes, f32 operations and special-function operations).
+11. holds the class-weighted upsample+CE kernels (K4 forward and backward,
+   CUDA) against their plain versions at the dark++ replay shape
+   [12,32,32,17] -> 512^2 with its weights (0 for background and the new
+   class), at odd shapes, bf16 and f32, and with all-zero weights;
+12. holds the BACS seen-weighted upsample+CE kernels (K3 forward and
+   backward, CUDA) at the main batch's [16,32,32,17] -> 512^2 and odd
+   shapes, with ``max_seen`` on both sides of the threshold, ukd on and
+   off, old classes C - 1, bf16 and f32;
+13. runs one f32 BACS step at task 1 (RN101 4 x 128^2, replay 4 from 8
+   slots) on the card and on the CPU (TF32 off), the random draws injected
+   identically, and compares it as phase 8 does, prototypes included;
+14. at 512^2 in bf16: ``end_task`` of task 0 over 20 synthetic batches of 16
+   (the prototype sweep, the previous-model snapshot and the 300-slot
+   reservoir fill in train mode, evictions included), then task-1 BACS
+   steps (``bacs_plus_bg.yaml``: replay 2 x 12, the detector, the teacher
+   distillation): 2 warm-up and 10 timed with the counters reset just
+   before, asserting per step 1 K3 and 1 K4 forward and backward, no K1,
+   321 train-ABN applies and 107 eval-ABN (K5, the previous model); the
+   median img/s of the main batch, the peak memory, a two-step profile by
+   kernel, and the device time of each part of the step alone (the three
+   network forwards and backwards, the previous model, the teacher
+   distillation, the detector, K3/K4, SGD);
+15. one eval step at task 1: 107 K5, 1 K1 forward and 1 K2 per step, every
+   valid pixel counted;
+t. times K1, K2, K3 and K4 at the main path's shapes beside their plain
+   versions, and computes every kernel's bound from its inputs (bytes, f32
+   operations and special-function operations).
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
@@ -56,6 +80,8 @@ card, the card's ``nvidia-smi`` name and power limit, and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -66,6 +92,7 @@ import numpy as np
 import torch
 
 N_CLASSES = 21  # conf/bacs/dataset/voc.yaml
+N_TASKS = 6  # VOC 15-1 with background: 16 classes, then 5 tasks of 1
 CROP = 512
 BATCH = 16
 NETWORK_YAML = "conf/bacs/network/deep_lab.yaml"
@@ -73,6 +100,9 @@ K5_SHAPES = [(16, 256, 256, 64), (16, 128, 128, 256), (16, 64, 64, 512),
              (16, 32, 32, 1024), (16, 32, 32, 2048), (16, 1, 1, 256)]
 K10_CASES = [((16, 32, 32, 21), (512, 512)), ((1, 32, 32, 21), (512, 512)),
              ((2, 33, 47, 21), (261, 373)), ((2, 8, 8, 150), (128, 128))]
+# K4 at the dark++ replay batch, K3 at the main batch (17 classes at task 1)
+WEIGHTED_CASES = [((12, 32, 32, 17), (512, 512)), ((16, 32, 32, 17), (512, 512)),
+                  ((2, 33, 47, 17), (261, 373)), ((2, 5, 7, 6), (37, 51))]
 ABN_PER_FORWARD = 107  # stem 1 + 33 bottlenecks x 3 + 4 proj_bn + ASPP 3
 OPTIMIZER_YAML = "conf/bacs/optimizer/nesterov.yaml"
 SCHEDULER_YAML = "conf/bacs/scheduler/poly.yaml"
@@ -234,6 +264,79 @@ def check_ce(shape, out_hw, dtype, device, seed=0):
                 grad_rel=grad_err)
 
 
+def _rel_errors(val, ref_val, dsem, ref_dsem, dtype, name):
+    """Max abs errors of a loss value and its gradient, each also relative to
+    the largest reference value, held to the tolerances of ``check_ce``."""
+    val_abs = float((val - ref_val).abs().max())
+    grad_abs = float((dsem.float() - ref_dsem.float()).abs().max())
+    val_err = val_abs / max(float(ref_val.abs().max()), 1e-30)
+    grad_err = grad_abs / max(float(ref_dsem.float().abs().max()), 1e-30)
+    val_tol, grad_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-3, 5e-2)
+    assert val_err <= val_tol, f"{name} value error {val_err}"
+    assert grad_err <= grad_tol, f"{name} gradient error {grad_err}"
+    return dict(val_abs=val_abs, grad_abs=grad_abs, val_rel=val_err, grad_rel=grad_err)
+
+
+def beta_weights(c, device):
+    """The dark++ replay term's class weights at c = old + 1 classes: 1 for
+    the old foreground classes, 0 for background and the new class."""
+    ch = torch.arange(c, device=device)
+    return ((ch >= 1) & (ch < c - 1)).float()
+
+
+def check_wce(shape, out_hw, dtype, device, weights=None, seed=0):
+    """K4 forward and backward against their plain versions (``weights``
+    default: ``beta_weights``); returns the errors as ``check_ce``.  With
+    all-zero weights both sums and the gradient must be exactly 0."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        wce_dsem, wce_dsem_plain, wce_sums, wce_sums_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    labels = seeded_labels(shape[0], out_hw, shape[-1], device, seed)
+    w = beta_weights(shape[-1], device) if weights is None else weights
+    loss, wsum = wce_sums(sem, labels, w, out_hw)
+    ref_loss, ref_wsum = wce_sums_plain(sem, labels, w, out_hw)
+    scale = (1.0 / ref_wsum.clamp(min=1e-8)).reshape(())
+    dsem = wce_dsem(sem, labels, w, out_hw, scale)
+    ref_dsem = wce_dsem_plain(sem, labels, w, out_hw, scale)
+    torch.cuda.synchronize()
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    assert float((wsum - ref_wsum).abs()) <= 1e-5 * float(ref_wsum), "weight sums differ"
+    if float(w.abs().max()) == 0.0:
+        assert float(loss) == float(wsum) == 0.0 and not bool(dsem.any())
+        return dict(val_abs=0.0, grad_abs=0.0, val_rel=0.0, grad_rel=0.0)
+    return _rel_errors(loss, ref_loss, dsem, ref_dsem, dtype, "K4")
+
+
+def check_bacs(shape, out_hw, dtype, device, ukd=True, seed=0):
+    """K3 forward and backward against their plain versions, with
+    ``old_classes`` = C - 1, about a third of the labels background and
+    ``max_seen`` uniform in [0, 1) (both sides of the 0.5 threshold);
+    returns the errors as ``check_ce``.  The logits stay within a range
+    where the kernel's eps 1e-30 (which the plain version lacks) is
+    invisible."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_dsem_plain, bacs_sum, bacs_sum_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[0], shape[-1]
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    labels = seeded_labels(n, out_hw, c, device, seed)
+    bg = torch.rand(labels.shape, generator=g, device=device) < 0.3
+    labels = torch.where(bg & (labels != 255), torch.zeros_like(labels), labels)
+    max_seen = torch.rand(labels.shape, generator=g, device=device)
+    args = (c - 1, 2.0, 0.5, ukd)
+    total = bacs_sum(sem, labels, max_seen, out_hw, *args)
+    ref_total = bacs_sum_plain(sem, labels, max_seen, out_hw, *args)
+    scale = torch.tensor(1.0 / labels.numel(), device=device)
+    dsem = bacs_dsem(sem, labels, max_seen, out_hw, scale, *args)
+    ref_dsem = bacs_dsem_plain(sem, labels, max_seen, out_hw, scale, *args)
+    torch.cuda.synchronize()
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    return _rel_errors(total, ref_total, dsem, ref_dsem, dtype, "K3")
+
+
 def check_confusion(shape, out_hw, dtype, device, seed=0) -> int:
     """K2 against its plain version; returns the pixels counted differently,
     each of which must have a top-2 margin <= 1e-4."""
@@ -267,8 +370,11 @@ def network_cfg() -> dict:
         return yaml.safe_load(f)
 
 
-def seeded_variables(cfg: dict, seed: int):
-    """Flax-layout (params, batch_stats) for the configured network.
+def seeded_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
+                     smooth: bool = False):
+    """Flax-layout (params, batch_stats) for the configured network (with
+    the BACS background detector of N_TASKS heads if ``use_bg_detector``;
+    statistics calibrated for identity activations if ``smooth``).
 
     Convs are drawn as the JAX package initialises them (He normal over
     fan-out; LeCun normal for the classifier), ABN scale and bias with a
@@ -278,15 +384,18 @@ def seeded_variables(cfg: dict, seed: int):
     The running statistics are then calibrated: one small CPU forward sets
     every ABN's mean and variance to those of its actual input, so
     activations keep a trained network's scale through 101 layers instead
-    of growing without bound.
+    of growing without bound.  The detector's trunk norm is calibrated
+    the same way; its heads are LeCun normal.
     """
     from bacs_tpu_torch.data.transforms import normalize_image
     from bacs_tpu_torch.models import create_network
+    from bacs_tpu_torch.models.bg_detector import BatchNorm
     from bacs_tpu_torch.models.norm import ABN
     from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
 
     model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
-                           backbone=cfg["backbone"]).eval()
+                           backbone=cfg["backbone"], n_tasks=N_TASKS,
+                           use_bg_detector=use_bg_detector).eval()
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for k, t in model.state_dict().items():
@@ -295,6 +404,8 @@ def seeded_variables(cfg: dict, seed: int):
             if k.startswith("classifier_head"):
                 std = (1.0 / (t.shape[1] * t.shape[2] * t.shape[3])) ** 0.5
             sd[k] = torch.randn(t.shape, generator=g) * std
+        elif k.endswith("head_kernel"):  # [T, D, 1]
+            sd[k] = torch.randn(t.shape, generator=g) * t.shape[1] ** -0.5
         elif k.endswith("bn3.weight"):  # damped residual branch
             sd[k] = 0.1 + 0.2 * torch.rand(t.shape, generator=g)
         elif k.endswith("weight"):  # ABN scale
@@ -304,6 +415,10 @@ def seeded_variables(cfg: dict, seed: int):
         else:  # running statistics, calibrated below
             sd[k] = t.clone()
     model.load_state_dict(sd)
+    if smooth:
+        for m in model.modules():
+            if isinstance(m, ABN):
+                m.activation, m.slope = "identity", 1.0
 
     def calibrate(m, inputs):
         x = inputs[0].float()
@@ -311,10 +426,13 @@ def seeded_variables(cfg: dict, seed: int):
         m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False).clamp_min(1e-3))
 
     handles = [m.register_forward_pre_hook(calibrate) for m in model.modules()
-               if isinstance(m, ABN)]
+               if isinstance(m, (ABN, BatchNorm))]
     img = torch.randint(0, 256, (4, 128, 128, 3), generator=g, dtype=torch.uint8)
     with torch.no_grad():
-        model.sem_logits(normalize_image(img))
+        if use_bg_detector:  # the full forward: the trunk too
+            model(normalize_image(img))
+        else:
+            model.sem_logits(normalize_image(img))
     for h in handles:
         h.remove()
     return state_dict_to_flax(model.state_dict())
@@ -382,11 +500,13 @@ def load_yaml(path: str) -> dict:
         return yaml.safe_load(f)
 
 
-def train_state(cfg, params, stats, dtype, device, smooth=False):
-    """A CE train state: f32 master weights from the Flax trees, convs
+def train_state(cfg, params, stats, dtype, device, smooth=False, **state_kw):
+    """A train state: f32 master weights from the Flax trees, convs
     computing in ``dtype``, nesterov SGD under the poly schedule.
     ``smooth`` gives every ABN (and so every block output) the identity
-    activation in place of the configured leaky-ReLU."""
+    activation in place of the configured leaky-ReLU.  Flax trees with a
+    ``seen_fg_network`` build the network with the background detector;
+    ``state_kw`` are further ``TrainState`` fields."""
     from bacs_tpu_torch.models import ABN, create_network
     from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
     from bacs_tpu_torch.train.state import TrainState
@@ -394,7 +514,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False):
 
     model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
                            backbone=cfg["backbone"], dtype=dtype,
-                           param_dtype=torch.float32)
+                           param_dtype=torch.float32, n_tasks=N_TASKS,
+                           use_bg_detector="seen_fg_network" in params)
     load_flax_variables(model, params, stats)
     if smooth:
         for m in model.modules():
@@ -403,7 +524,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False):
     model.to(device)
     opt_cfg = load_yaml(OPTIMIZER_YAML)
     schedule = make_schedule(load_yaml(SCHEDULER_YAML), float(opt_cfg["lr"]), MAX_ITERS)
-    return TrainState(model, *make_optimizer(opt_cfg, model.parameters(), schedule))
+    return TrainState(model, *make_optimizer(opt_cfg, model.parameters(), schedule),
+                      **state_kw)
 
 
 def ce_steps(device):
@@ -417,16 +539,17 @@ def ce_steps(device):
                       N_CLASSES, device=device)
 
 
-def synthetic_batch(n, crop, gen, device):
+def synthetic_batch(n, crop, gen, device, n_classes=N_CLASSES):
     """A batch whose labels are learnable from the image: a 4 x 4 grid of
-    blocks per image, each of a random class and painted its VOC colour,
-    plus noise; labels within 2 px of a block edge are 255 (about 6 %, as
-    VOC's object boundaries).  Made on ``device`` from ``gen``."""
+    blocks per image, each of a random class in [0, n_classes) and painted
+    its VOC colour, plus noise; labels within 2 px of a block edge are 255
+    (about 6 %, as VOC's object boundaries).  Made on ``device`` from
+    ``gen``."""
     from bacs_tpu_torch.data.transforms import normalize_image
     from bacs_tpu_torch.viz.media import voc_colormap
 
     k = crop // 4
-    cls = torch.randint(0, N_CLASSES, (n, 4, 4), generator=gen, device=device)
+    cls = torch.randint(0, n_classes, (n, 4, 4), generator=gen, device=device)
     labels = cls.repeat_interleave(k, 1).repeat_interleave(k, 2).to(torch.int32)
     palette = torch.from_numpy(voc_colormap()[:N_CLASSES]).to(device).float()
     noise = torch.randn((n, crop, crop, 3), generator=gen, device=device) * 25
@@ -482,8 +605,9 @@ def norm_error(got: dict, ref: dict) -> float:
     return (diff / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
 
 
-def profile_steps(fn, label: str, steps: int = 2) -> float:
-    """Device time by kernel over ``steps`` calls; returns busy ms per call."""
+def device_kernels(fn, steps: int = 2) -> tuple:
+    """The profiler's device events (kernels, copies) of ``steps`` calls of
+    ``fn``, after one call unrecorded, and the profiler itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -493,8 +617,19 @@ def profile_steps(fn, label: str, steps: int = 2) -> float:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1000 / steps
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], prof
+
+
+def busy_ms(fn, steps: int = 2) -> float:
+    """Device time of one call of ``fn``: its kernels' total, profiled."""
+    events, _ = device_kernels(fn, steps)
+    return sum(e.self_device_time_total for e in events) / 1000 / steps
+
+
+def profile_steps(fn, label: str, steps: int = 2) -> float:
+    """Device time by kernel over ``steps`` calls; returns busy ms per call."""
+    events, prof = device_kernels(fn, steps)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1000 / steps
     log(f"[p] profile of {steps} {label}, by device time:")
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
                                   max_name_column_width=60))
@@ -511,35 +646,265 @@ def bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
     return 1000 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def upsample_bound(kernel: str, sem, out_hw, labels=None):
-    """The bound of an upsample kernel (K10, K1 forward or backward, K2) on
-    these inputs.  The least work interpolates separably: a lerp (3 f32
-    ops) per channel along W for every source row, then along H for every
-    output pixel the kernel needs, those with a valid label where there
-    are labels.  Per such pixel and channel, K10 and K1 forward add the
-    softmax statistics (max, subtract, exp, add: 4, the exp also on the SFU
-    with one log or reciprocal per pixel); K1 backward adds those, (p -
-    onehot) * g (3) and the transposed interpolation, the same again; K2
-    adds an argmax compare (1).  Bytes: sem and the labels read, the
-    outputs written once."""
+def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
+    """The bound of an upsample kernel (K10, K1, K2, K3, K4; "f" forward,
+    "b" backward) on these inputs.  The least work interpolates separably:
+    a lerp (3 f32 ops) per channel along W for every source row, then along
+    H for every output pixel the kernel needs: those with a valid label
+    where there are labels, and for K4 only those whose label weighs
+    (``extra``: the class weights).  Per such pixel and channel, K10, K1
+    and K4 forward add the softmax statistics (max, subtract, exp, add: 4,
+    the exp also on the SFU, with one log or reciprocal per pixel); K3
+    forward adds two more sums (foreground and old-class exp-sums: 6), and
+    per pixel three logarithms and the focal power (SFU 4 beyond the
+    exps); a backward adds (p - target) * g (3; K3 7, its three
+    normalisers) and the transposed interpolation, the same again; K2 adds
+    an argmax compare (1).  Bytes: sem, the labels and ``extra`` (K3's
+    max_seen, K4's weights) read, the outputs written once."""
     n, h, _, c = sem.shape
     H, W = out_hw
-    pix = n * H * W if labels is None else int((labels != 255).sum())
-    lerps = 3 * c * (n * h * W + pix)
-    in_bytes = sem.numel() * sem.element_size()
+    sem_bytes = sem.numel() * sem.element_size()
+    in_bytes = sem_bytes
+    pix = n * H * W
     if labels is not None:
         in_bytes += labels.numel() * labels.element_size()
+        valid = labels != 255
+        if kernel in ("k4f", "k4b"):
+            valid &= extra[torch.where(valid, labels, 0).long()] != 0
+        pix = int(valid.sum())
+    if extra is not None:
+        in_bytes += extra.numel() * extra.element_size()
+    lerps = 3 * c * (n * h * W + pix)
     sfu = pix * (c + 1)
     if kernel == "k10":  # uint8 class and f16 confidence per pixel
         return bound(in_bytes + n * H * W * 3, lerps + 4 * c * pix, sfu)
-    if kernel == "k1f":  # f32 sum and count per image
+    if kernel in ("k1f", "k4f"):  # f32 sums per image
         return bound(in_bytes + 2 * n * 4, lerps + 4 * c * pix, sfu)
-    if kernel == "k1b":  # dsem in sem's dtype
-        return bound(2 * in_bytes - labels.numel() * labels.element_size(),
-                     2 * lerps + 7 * c * pix, sfu)
+    if kernel in ("k1b", "k4b"):  # dsem in sem's dtype
+        return bound(in_bytes + sem_bytes, 2 * lerps + 7 * c * pix, sfu)
+    if kernel == "k3f":
+        return bound(in_bytes + 2 * n * 4, lerps + 6 * c * pix, pix * (c + 4))
+    if kernel == "k3b":
+        return bound(in_bytes + sem_bytes, 2 * lerps + 13 * c * pix, pix * (c + 4))
     if kernel == "k2":  # the int32 C x C matrix
         return bound(in_bytes + c * c * 4, lerps + c * pix)
     raise ValueError(kernel)
+
+
+# ---------------------------------------------------------------- BACS
+
+# conf/bacs/loss/bacs_plus_bg.yaml with the detector of
+# conf/bacs/training/der_15_1_bg.yaml, VOC 15-1 with background: 16 classes
+# at task 0, then one per task
+BACS_METHOD = dict(use_bg_detector=True, bg_weighted_ce=True, alpha=0.8, beta=0.5,
+                   buffer_size=300, replay_minibatch_size=12)
+BACS_TASK = dict(initial_classes=16, increment=1, num_classes=N_CLASSES,
+                 n_tasks=N_TASKS, max_epochs=30)
+BACS_STEPS, FILL_BATCHES = 10, 20
+# per BACS step: the main, alpha and beta train forwards; the previous model
+TRAIN_ABN_PER_BACS_STEP = 3 * ABN_PER_FORWARD
+# device kernels of a profile, by name, in the order they are matched
+KERNEL_KINDS = (
+    ("K3 (BACS upsample+CE, forward and backward)", ("BacsTerm",)),
+    ("K4 (class-weighted upsample+CE)", ("WceTerm",)),
+    ("K1 (upsample+CE)", ("CeTerm",)),
+    ("ABN apply (K5, Triton)", ("abn_eval_kernel",)),
+    ("convolutions and matrix products (cuDNN, cuBLAS)", (
+        "conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad", "fprop")),
+    ("bilinear upsample (teacher distillation, detector), forward and backward",
+     ("upsample_bilinear",)),
+    ("SGD (foreach)", ("multi_tensor_apply",)),
+)
+
+
+def bacs_steps(task_id, device, **method_kw):
+    """(ctx, method, (train_step, eval_step, put_batch)) of the BACS method
+    at ``task_id``."""
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.train.step import make_steps
+
+    ctx = ModelContext(TaskInfo(task_id=task_id, **BACS_TASK))
+    method = create_method("loss.BACSLoss", **{**BACS_METHOD, **method_kw})
+    return ctx, method, make_steps(ctx, method, N_CLASSES, device=device)
+
+
+@contextlib.contextmanager
+def injected_draws(keys, crop_params):
+    """The BACS step's random draws fixed, whatever the device: the two
+    buffer samples take the Gumbel ``keys`` in turn, the replay crop and
+    flip take ``crop_params``, the autocontrast does not apply (its
+    stretched images make the stem's batch variance cancel, which amplifies
+    rounding: tests/test_torch_bacs_step.py)."""
+    import bacs_tpu_torch.methods.bacs as bacs_mod
+    from bacs_tpu_torch.data.transforms import apply_crop_params
+
+    saved = (bacs_mod.buffer_lib.sample, bacs_mod.random_autocontrast,
+             bacs_mod.replay_augment)
+    sample, autocontrast, _ = saved
+    turn = itertools.cycle(keys)
+    bacs_mod.buffer_lib.sample = lambda buf, n, gen=None: sample(buf, n, keys=next(turn))
+    bacs_mod.random_autocontrast = lambda x, gen=None, p=0.5: autocontrast(x, gen, 0.0)
+    bacs_mod.replay_augment = lambda im, lab, gen=None: apply_crop_params(
+        im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
+    try:
+        yield
+    finally:
+        (bacs_mod.buffer_lib.sample, bacs_mod.random_autocontrast,
+         bacs_mod.replay_augment) = saved
+
+
+def bacs_step_card_vs_cpu(cfg, seed, dev):
+    """[13] One f32 BACS step at task 1, RN101 4 x 128^2 (replay 4 from 8
+    slots), on the card and on the CPU (TF32 off), with identity and with
+    the configured leaky activations; the draws injected and the
+    detector's dropout off.  Holds the loss, every gradient and update
+    tensor (each norm's scale and bias joined), the running statistics and
+    the prototypes, as phase [8]."""
+    from bacs_tpu_torch.train import buffer as buffer_lib
+    from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
+
+    crop, n, replay, slots = 128, 4, 4, 8
+    # statistics calibrated for each network's own activations, so the
+    # previous model's eval-mode embeddings keep the train-mode scale
+    variables = {a: seeded_variables(cfg, seed, use_bg_detector=True,
+                                     smooth=a == "identity")
+                 for a in ("identity", "leaky")}
+    params = variables["leaky"][0]
+    gen = torch.Generator().manual_seed(seed)
+    batch = synthetic_batch(n, crop, gen, "cpu", n_classes=17)
+    fill = synthetic_batch(slots + 2, crop, gen, "cpu", n_classes=16)
+    _, method, _ = bacs_steps(1, "cpu", buffer_size=slots, replay_minibatch_size=replay)
+    buf = method.init_buffer(TaskInfo(task_id=0, **BACS_TASK), (crop, crop),
+                             (crop // 16, crop // 16), device="cpu")
+    buffer_lib.add_batch(buf, fill["image"],
+                         torch.randn((slots + 2, crop // 16, crop // 16, N_CLASSES),
+                                     generator=gen),
+                         fill["label"], -torch.rand(slots + 2, generator=gen), task_id=0,
+                         n_classes=16, generator=gen)
+    dim = len(params["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
+    protos = torch.rand((N_TASKS, dim), generator=gen)
+    counts = torch.tensor([50.0] + [0.0] * (N_TASKS - 1))
+    keys = [-torch.log(-torch.log(torch.rand(slots, generator=gen))) for _ in range(2)]
+    crop_params = dict(i=torch.tensor([3.5, 0.0, 40.25, 0.0]),
+                       j=torch.tensor([0.0, 17.0, 2.5, 0.0]),
+                       ch=torch.tensor([80.0, 128.0, 61.0, 128.0]),
+                       cw=torch.tensor([105.0, 66.0, 120.0, 128.0]),
+                       flip=torch.tensor([True, False, False, True]))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trunk = [k for k in params["seen_fg_network"] if k.startswith("base_")]
+    for activation, (params, stats) in variables.items():
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            state = train_state(
+                cfg, params, stats, torch.float32, device, smooth=activation == "identity",
+                generator=torch.Generator(device).manual_seed(seed),
+                prototypes=protos.to(device), proto_counts=counts.to(device),
+                buffer=buf.to(device))
+            state.model.seen_fg_network.dropout_rate = 0.0
+            state.prev_model = frozen_copy(state.model)
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            _, _, (train_step, _, put_batch) = bacs_steps(
+                1, device, buffer_size=slots, replay_minibatch_size=replay)
+            with injected_draws([k.to(device) for k in keys], crop_params):
+                state, metrics = train_step(state, put_batch(batch))
+            runs.append((float(metrics["loss"]), *grads_and_stats(state.model),
+                         state.prototypes.cpu(), state.proto_counts.cpu()))
+            del state
+        (loss_g, grads_g, params_g, stats_g, protos_g, counts_g), (
+            loss_c, grads_c, params_c, stats_c, protos_c, counts_c) = runs
+        for k in trunk:  # no gradient reaches the detector trunk at task 1
+            for grads in (grads_g, grads_c):
+                assert not any(bool(v.any()) for key, v in grads.items()
+                               if key.startswith(f"seen_fg_network.{k}")), k
+        upd_g = {k: params_g[k] - p0[k] for k in p0}
+        upd_c = {k: params_c[k] - p0[k] for k in p0}
+        grad_rel, grad_worst = max_rel_error(abn_joined(grads_g), abn_joined(grads_c))
+        ulp = {k: float(torch.finfo(torch.float32).eps * v.abs().max()) for k, v in p0.items()}
+        upd_rel, upd_worst = max_rel_error(upd_g, upd_c, ulp)
+        stats_rel, _ = max_rel_error(stats_g, stats_c)
+        proto_rel = float((protos_g - protos_c).abs().max() / protos_c.abs().max())
+        grad_norm, update_norm = norm_error(grads_g, grads_c), norm_error(upd_g, upd_c)
+        log(f"[13] f32 BACS step card vs CPU, RN101 {n} x {crop}^2, task 1, replay "
+            f"{replay}, {activation} activations: loss {loss_g:.7f} vs {loss_c:.7f}; "
+            f"gradients max rel err per tensor {grad_rel:.3g} ({grad_worst}), norm rel "
+            f"err {grad_norm:.3g}; update max rel err per tensor beyond one ulp "
+            f"{upd_rel:.3g} ({upd_worst}), norm rel err {update_norm:.3g}; running "
+            f"statistics {stats_rel:.3g}; prototypes {proto_rel:.3g}, counts "
+            f"{counts_g.tolist()}")
+        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+        assert stats_rel <= 1e-4 and proto_rel <= 1e-4, (stats_rel, proto_rel)
+        assert torch.equal(counts_g, counts_c)
+        if activation == "identity":
+            assert grad_rel <= 1e-4 and upd_rel <= 1e-4, (grad_rel, upd_rel)
+        else:
+            assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def profile_by_kind(fn, label: str, steps: int = 2):
+    """Device time of ``steps`` calls by kernel (the table) and by kind
+    (``KERNEL_KINDS``, the rest summed as "other"); returns (busy ms per
+    call, {kind: ms per call})."""
+    events, prof = device_kernels(fn, steps)
+    parts: dict = {}
+    for e in events:
+        part = next((p for p, keys in KERNEL_KINDS
+                     if any(k in e.key for k in keys)),
+                    "other (elementwise, reductions, copies: train-ABN statistics and "
+                    "backward, residual adds, losses)")
+        parts[part] = parts.get(part, 0.0) + e.self_device_time_total / 1000 / steps
+    log(f"[p] profile of {steps} {label}, by device time:")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
+                                  max_name_column_width=60))
+    return sum(parts.values()), parts
+
+
+def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict:
+    """{part: ms} of a task-1 BACS step's parts, each run alone at the
+    step's shapes and timed by ``timer``: the three network forwards and
+    backwards, the previous model's forward, the teacher distillation (on
+    the embeddings ``att`` and seen-probabilities ``seen``), the seen
+    detector and the SGD update.  Moves the state's parameters."""
+    from bacs_tpu_torch.ops.losses import binary_focal_loss
+    from bacs_tpu_torch.train.optim import apply_updates
+
+    model, image, labels = state.model, batch["image"], batch["label"]
+    n_replay = method.replay_minibatch_size
+
+    def network(images):
+        def run():
+            state.optimizer.zero_grad(set_to_none=True)
+            out = ctx.forward(model, images, True, state.generator)
+            out.sem_logits.float().square().mean().backward()
+        return run
+
+    with torch.no_grad():
+        pen = ctx.forward(model, image, True, state.generator).penultimate
+
+    def detector():
+        with torch.no_grad():
+            model.seen_probs(pen, state.prototypes, ctx.task.task_id + 1)
+        seen_logits = model.seen_map_task(pen, state.prototypes, ctx.task.task_id,
+                                          stop_grads=True)
+        binary_focal_loss(seen_logits[..., 0], (labels != 0).long(),
+                          gamma=method.seen_gamma).backward()
+
+    return {
+        f"main batch: network forward + backward ({image.shape[0]} images, train mode)":
+            timer(network(image)),
+        f"alpha and beta replay: network forward + backward (2 x {n_replay} images)":
+            2 * timer(network(image[:n_replay].contiguous())),
+        f"previous model: eval forward ({image.shape[0]} images, K5)":
+            timer(lambda: ctx.forward_prev(state, image)),
+        "teacher distillation, forward + backward":
+            timer(lambda: method._teacher_distill(att[0], att[1], seen, labels).backward()),
+        "seen detector: probabilities, map, focal loss, backward": timer(detector),
+        "SGD update (zero-fill, clip, foreach SGD)":
+            timer(lambda: apply_updates(state.optimizer, state.scheduler)),
+    }
 
 
 # ---------------------------------------------------------------- main
@@ -780,18 +1145,20 @@ def main() -> int:
 
     # 9. bf16 training at 512^2, batch 16, launches counted
     from bacs_tpu_torch.ops.abn_core import fused_abn
-    from bacs_tpu_torch.ops.upsample_ce import ce_dsem, ce_sums_per_image
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_sum, ce_dsem, ce_sums_per_image, wce_dsem, wce_sums)
     from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
 
+    counters = dict(k5=fused_abn_eval, train_abn=fused_abn, k1f=ce_sums_per_image,
+                    k1b=ce_dsem, k2=upsampled_confusion, k10=upsampled_argmax_conf,
+                    k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem)
+
     def reset_counts():
-        for fn in (fused_abn_eval, fused_abn, ce_sums_per_image, ce_dsem,
-                   upsampled_confusion, upsampled_argmax_conf):
+        for fn in counters.values():
             fn.launches = 0
 
     def counts():
-        return dict(k5=fused_abn_eval.launches, train_abn=fused_abn.launches,
-                    k1f=ce_sums_per_image.launches, k1b=ce_dsem.launches,
-                    k2=upsampled_confusion.launches, k10=upsampled_argmax_conf.launches)
+        return {k: fn.launches for k, fn in counters.items()}
 
     state = train_state(cfg, params, stats, torch.bfloat16, dev)
     train_step, eval_step, _ = ce_steps(dev)
@@ -854,6 +1221,145 @@ def main() -> int:
     assert eval_counts["k1f"] == eval_counts["k2"] == EVAL_STEPS
     assert eval_counts["k1b"] == eval_counts["train_abn"] == 0
 
+    del state, train_batches
+    torch.cuda.empty_cache()
+
+    # 11. and 12. K4 and K3 forward and backward against their plain versions
+    k4f_err = k4b_err = k3f_err = k3b_err = 0.0
+    for shape, out_hw in WEIGHTED_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_wce(shape, out_hw, dt, dev)
+            k4f_err, k4b_err = max(k4f_err, e["val_abs"]), max(k4b_err, e["grad_abs"])
+            log(f"[11] K4 {shape}->{out_hw} {str(dt)[6:]}, weights 0 for background "
+                f"and the new class: ok, sum max abs err {e['val_abs']:.3g} (rel "
+                f"{e['val_rel']:.3g}), gradient max abs err {e['grad_abs']:.3g} (rel "
+                f"{e['grad_rel']:.3g})")
+    for dt in (torch.float32, torch.bfloat16):
+        check_wce((12, 32, 32, 17), (CROP, CROP), dt, dev,
+                  weights=torch.zeros(17, device=dev))
+    log("[11] K4 with all-zero weights, f32 and bf16: sums and gradient exactly 0")
+    for shape, out_hw in WEIGHTED_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for ukd in (True, False):
+                e = check_bacs(shape, out_hw, dt, dev, ukd=ukd)
+                k3f_err, k3b_err = max(k3f_err, e["val_abs"]), max(k3b_err, e["grad_abs"])
+                log(f"[12] K3 {shape}->{out_hw} {str(dt)[6:]} ukd={ukd}, old classes "
+                    f"{shape[-1] - 1}: ok, sum max abs err {e['val_abs']:.3g} (rel "
+                    f"{e['val_rel']:.3g}), gradient max abs err {e['grad_abs']:.3g} "
+                    f"(rel {e['grad_rel']:.3g})")
+
+    # 13. one f32 BACS step, card against CPU
+    bacs_step_card_vs_cpu(cfg, args.seed, dev)
+    torch.cuda.empty_cache()
+
+    # 14. BACS at 512^2, bf16: end_task of task 0 fills the buffer, then
+    # task-1 steps with the launches counted
+    from bacs_tpu_torch.methods.bacs import DISTILL_CHUNK
+
+    params_d, stats_d = seeded_variables(cfg, args.seed, use_bg_detector=True)
+    dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
+    state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
+                        generator=torch.Generator(dev).manual_seed(args.seed),
+                        prototypes=torch.zeros((N_TASKS, dim), device=dev),
+                        proto_counts=torch.zeros(N_TASKS, device=dev))
+    ctx0, method, _ = bacs_steps(0, dev)
+    state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP // 16, CROP // 16),
+                                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    fill = [synthetic_batch(BATCH, CROP, gen, dev, n_classes=16)
+            for _ in range(FILL_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = method.end_task(state, ctx0, fill)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter() - t0
+    buf = state.buffer
+    n_valid = int(buf.valid.sum())
+    log(f"[14] end_task of task 0 over {FILL_BATCHES} batches of {BATCH} at {CROP}^2: "
+        f"{t_end:.3f} s (prototype sweep, snapshot, fill in train mode); buffer "
+        f"{n_valid} valid of {buf.size}, num_seen {buf.num_seen}, class counts "
+        f"{buf.class_counts.tolist()}; prototype counts {state.proto_counts.tolist()}")
+    assert n_valid == BACS_METHOD["buffer_size"] == buf.size
+    assert buf.num_seen == FILL_BATCHES * BATCH
+    assert float(state.proto_counts[0]) > 0 and state.prev_model is not None
+    del fill
+    ctx1, _, (bacs_train, bacs_eval, _) = bacs_steps(1, dev)
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = bacs_train(state, synthetic_batch(BATCH, CROP, gen, dev, 17))
+        losses.append(float(metrics["loss"]))
+    bacs_batches = [synthetic_batch(BATCH, CROP, gen, dev, 17) for _ in range(BACS_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for b in bacs_batches:
+        t0 = time.perf_counter()
+        state, metrics = bacs_train(state, b)
+        losses.append(float(metrics["loss"]))  # a host read: synchronises
+        step_ms.append(1000 * (time.perf_counter() - t0))
+    bacs_counts = counts()
+    bacs_peak = torch.cuda.max_memory_allocated()
+    bacs_med = float(np.median(step_ms))
+    log(f"[14] bf16 BACS step (task 1), batch {BATCH} + replay 2 x "
+        f"{BACS_METHOD['replay_minibatch_size']}, {CROP}^2: median {bacs_med:.3f} ms "
+        f"({BATCH * 1000 / bacs_med:.2f} img/s of the main batch; min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f} ms over {BACS_STEPS} steps); peak "
+        f"memory {bacs_peak / 2**30:.3f} GiB; launches {bacs_counts} over {BACS_STEPS} "
+        f"steps; prototype counts {state.proto_counts.tolist()}")
+    log(f"[14] loss: {' '.join(f'{v:.4f}' for v in losses)}")
+    assert all(np.isfinite(losses)), losses
+    for key in ("k3f", "k3b", "k4f", "k4b"):
+        assert bacs_counts[key] == BACS_STEPS, (key, bacs_counts)
+    assert bacs_counts["k1f"] == bacs_counts["k1b"] == bacs_counts["k2"] == 0
+    assert bacs_counts["train_abn"] == TRAIN_ABN_PER_BACS_STEP * BACS_STEPS
+    assert bacs_counts["k5"] == ABN_PER_FORWARD * BACS_STEPS  # the previous model
+    assert bool((state.proto_counts[:2] > 0).all())
+    bacs_busy, parts = profile_by_kind(lambda: bacs_train(state, bacs_batches[0]),
+                                       f"bf16 BACS steps (batch {BATCH}, {CROP}^2)")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[p] BACS step by kernel kind: {ms:.3f} ms ({ms / bacs_busy:.1%}) {part}")
+    log(f"[p] BACS: device busy {bacs_busy:.3f} ms per step; median step wall "
+        f"{bacs_med:.3f} ms: device idle share {1 - bacs_busy / bacs_med:.3f}")
+    # the teacher distillation alone, forward and backward, at the step's
+    # shapes: its wall time by events and its memory (its device time is
+    # among the step's parts)
+    att = [torch.randn((BATCH, CROP // 16, CROP // 16, 256), device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    att[1].requires_grad_()
+    seen = torch.rand((BATCH, CROP, CROP, 2), device=dev)
+    mask = bacs_batches[0]["label"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    distill_ms = time_ms(lambda: method._teacher_distill(att[0], att[1], seen, mask).backward(),
+                         iters=5, warmup=1)
+    distill_peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"[14] teacher distillation forward + backward alone: {distill_ms:.3f} ms, peak "
+        f"{distill_peak / 2**30:.3f} GiB above its inputs (chunks of {DISTILL_CHUNK} "
+        f"images, recomputed in the backward)")
+    # K3 and K4 are added from the kernel times below
+    step_parts = bacs_step_parts(state, ctx1, method, bacs_batches[0], att, seen)
+
+    # 15. one bf16 eval step at task 1 (17 classes), launches counted
+    conf_mat = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+    bacs_eval(state, conf_mat.clone(), bacs_batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    for b in bacs_batches[:EVAL_STEPS]:
+        conf_mat, loss = bacs_eval(state, conf_mat, b)
+        assert np.isfinite(float(loss))
+    bacs_eval_counts = counts()
+    valid = sum(int((b["label"] != 255).sum()) for b in bacs_batches[:EVAL_STEPS])
+    log(f"[15] bf16 eval step at task 1, batch {BATCH}: launches {bacs_eval_counts} over "
+        f"{EVAL_STEPS} steps; confusion counts {int(conf_mat.sum())} of {valid} valid "
+        f"pixels")
+    assert int(conf_mat.sum()) == valid
+    assert bacs_eval_counts["k5"] == ABN_PER_FORWARD * EVAL_STEPS
+    assert bacs_eval_counts["k1f"] == bacs_eval_counts["k2"] == EVAL_STEPS
+    assert sum(bacs_eval_counts[k] for k in ("k1b", "k3f", "k3b", "k4f", "k4b",
+                                             "train_abn")) == 0
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -861,7 +1367,7 @@ def main() -> int:
     from bacs_tpu_torch.ops.upsample_ce import ce_dsem_plain, ce_sums_plain
     from bacs_tpu_torch.ops.upsample_confusion import confusion_plain
 
-    labels = train_batches[0]["label"]
+    labels = synthetic_batch(BATCH, CROP, gen, dev)["label"]
     sem = (torch.randn((BATCH, CROP // 16, CROP // 16, N_CLASSES), device=dev)
            * 3).to(torch.bfloat16)
     g = torch.tensor(1.0 / float((labels != 255).sum()), device=dev)
@@ -875,12 +1381,50 @@ def main() -> int:
                time_ms(lambda: confusion_plain(sem, labels, hw, N_CLASSES), iters=5)),
     }
     bounds = {k: upsample_bound(k, sem, hw, labels) for k in ("k1f", "k1b", "k2")}
-    for key, name in (("k1f", "K1 forward"), ("k1b", "K1 backward"), ("k2", "K2")):
-        log(f"[t] {name} {tuple(sem.shape)}->{CROP}^2 bf16, int32 labels: kernel "
+    # K3 at the main batch's shape, K4 at the replay batch's, on the labels
+    # of the BACS step (17 classes) and its old-class weights
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem_plain, bacs_sum_plain, wce_dsem_plain, wce_sums_plain)
+
+    lab3 = bacs_batches[0]["label"]
+    lab4 = bacs_batches[1]["label"][:BACS_METHOD["replay_minibatch_size"]].contiguous()
+    sem3 = (torch.randn((BATCH, CROP // 16, CROP // 16, 17), device=dev) * 3).to(
+        torch.bfloat16)
+    sem4 = sem3[:lab4.shape[0]].contiguous()
+    ms = torch.rand((BATCH, CROP, CROP), device=dev)
+    w4 = beta_weights(17, dev)
+    g3 = torch.tensor(1.0 / lab3.numel(), device=dev)
+    g4 = (1.0 / wce_sums_plain(sem4, lab4, w4, hw)[1]).reshape(())
+    times.update({
+        "k3f": (device_ms(lambda: bacs_sum(sem3, lab3, ms, hw, 16)),
+                time_ms(lambda: bacs_sum_plain(sem3, lab3, ms, hw, 16), iters=5)),
+        "k3b": (device_ms(lambda: bacs_dsem(sem3, lab3, ms, hw, g3, 16)),
+                time_ms(lambda: bacs_dsem_plain(sem3, lab3, ms, hw, g3, 16), iters=3)),
+        "k4f": (device_ms(lambda: wce_sums(sem4, lab4, w4, hw)),
+                time_ms(lambda: wce_sums_plain(sem4, lab4, w4, hw), iters=5)),
+        "k4b": (device_ms(lambda: wce_dsem(sem4, lab4, w4, hw, g4)),
+                time_ms(lambda: wce_dsem_plain(sem4, lab4, w4, hw, g4), iters=5)),
+    })
+    bounds.update({k: upsample_bound(k, sem3, hw, lab3, ms) for k in ("k3f", "k3b")})
+    bounds.update({k: upsample_bound(k, sem4, hw, lab4, w4) for k in ("k4f", "k4b")})
+    for key, name, shape in (
+            ("k1f", "K1 forward", sem.shape), ("k1b", "K1 backward", sem.shape),
+            ("k2", "K2", sem.shape), ("k3f", "K3 forward", sem3.shape),
+            ("k3b", "K3 backward", sem3.shape), ("k4f", "K4 forward", sem4.shape),
+            ("k4b", "K4 backward", sem4.shape)):
+        log(f"[t] {name} {tuple(shape)}->{CROP}^2 bf16, int32 labels: kernel "
             f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, bound "
             f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
+    step_parts["K3 and K4, forward + backward"] = sum(
+        times[k][0] for k in ("k3f", "k3b", "k4f", "k4b"))
+    for part, ms in step_parts.items():
+        log(f"[p] BACS step alone by part: {ms:.3f} ms ({ms / bacs_busy:.1%} of the "
+            f"step's busy time) {part}")
+    rest = bacs_busy - sum(step_parts.values())
+    log(f"[p] BACS step alone by part: {rest:.3f} ms ({rest / bacs_busy:.1%}) the rest "
+        f"(losses, prototype folds, replay draws, augmentation, autocontrast)")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -893,25 +1437,42 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("abn_apply (K5)", "triton", "bacs_tpu_torch/ops/abn_core.py",
               "bacs_tpu/ops/abn_pallas.py:45",
-              k5_launches + eval_counts["k5"] + train_counts["train_abn"],
+              k5_launches + eval_counts["k5"] + train_counts["train_abn"]
+              + bacs_counts["k5"] + bacs_counts["train_abn"] + bacs_eval_counts["k5"],
               k5_err, k5_ms, k5_plain_ms, k5_bound,
               launches_by_path={"serve": k5_launches, "eval_step": eval_counts["k5"],
-                                "train_step_abn": train_counts["train_abn"]}),
+                                "train_step_abn": train_counts["train_abn"],
+                                "bacs_step_prev_model": bacs_counts["k5"],
+                                "bacs_step_abn": bacs_counts["train_abn"],
+                                "bacs_eval_step": bacs_eval_counts["k5"]}),
         entry("upsample_argmax_conf (K10)", "cuda",
               "bacs_tpu_torch/csrc/upsample_argmax.cu",
               "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
               k10_ms, k10_plain_ms, k10_bound),
         entry("upsample_ce_sums (K1 forward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:787",
-              train_counts["k1f"] + eval_counts["k1f"], k1f_err, *times["k1f"],
-              bounds["k1f"]),
+              train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"],
+              k1f_err, *times["k1f"], bounds["k1f"]),
         entry("upsample_ce_grad (K1 backward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:125",
               train_counts["k1b"], k1b_err, *times["k1b"], bounds["k1b"]),
         entry("upsample_confusion (K2)", "cuda",
               "bacs_tpu_torch/csrc/upsample_confusion.cu",
-              "bacs_tpu/ops/upsample_confusion.py:88", eval_counts["k2"], k2_moved,
-              *times["k2"], bounds["k2"]),
+              "bacs_tpu/ops/upsample_confusion.py:88",
+              eval_counts["k2"] + bacs_eval_counts["k2"], k2_moved, *times["k2"],
+              bounds["k2"]),
+        entry("upsample_bacs_sum (K3 forward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
+              bacs_counts["k3f"], k3f_err, *times["k3f"], bounds["k3f"]),
+        entry("upsample_bacs_grad (K3 backward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
+              bacs_counts["k3b"], k3b_err, *times["k3b"], bounds["k3b"]),
+        entry("upsample_wce_sums (K4 forward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:233",
+              bacs_counts["k4f"], k4f_err, *times["k4f"], bounds["k4f"]),
+        entry("upsample_wce_grad (K4 backward)", "cuda",
+              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:243",
+              bacs_counts["k4b"], k4b_err, *times["k4b"], bounds["k4b"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

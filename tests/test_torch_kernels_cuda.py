@@ -3,14 +3,15 @@
 Every test needs a CUDA device and skips with a reason where torch sees
 none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
-those of ``chip_smoke.py`` (phases 2, 3, 6 and 7), at small shapes and at
-the serving and training shapes.
+those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11 and 12), at small shapes
+and at the serving and training shapes.
 """
 
 import pytest
 import torch
 
-from chip_smoke import check_abn, check_argmax, check_ce, check_confusion
+from chip_smoke import (
+    check_abn, check_argmax, check_bacs, check_ce, check_confusion, check_wce)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,6 +63,72 @@ def test_upsample_ce_kernels_match_plain(cuda, shape, out_hw, dtype):
     "shape,out_hw", UPSAMPLE_CASES + [((1, 4, 4, 241), (32, 32))])
 def test_upsample_confusion_kernel_matches_plain(cuda, shape, out_hw, dtype):
     check_confusion(shape, out_hw, dtype, cuda)
+
+
+WEIGHTED_CASES = [((12, 32, 32, 17), (512, 512)), ((16, 32, 32, 17), (512, 512)),
+                  ((2, 33, 47, 17), (261, 373)), ((2, 5, 7, 6), (37, 51)),
+                  ((2, 8, 8, 40), (128, 128)), ((1, 4, 4, 3), (7, 5))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", WEIGHTED_CASES)
+def test_upsample_wce_kernels_match_plain(cuda, shape, out_hw, dtype):
+    """K4 with the dark++ weights (0 for background and the new class)."""
+    check_wce(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("kind", ["ones", "zeros", "random"])
+def test_upsample_wce_kernels_other_weights(cuda, kind):
+    """All-ones, all-zero (sums and gradient exactly 0, not NaN) and
+    positive random weights, at the replay shape in bf16 and an odd one in
+    f32."""
+    w = {"ones": torch.ones(17, device=cuda), "zeros": torch.zeros(17, device=cuda),
+         "random": torch.rand(17, device=cuda) + 0.1}[kind]
+    check_wce((12, 32, 32, 17), (512, 512), torch.bfloat16, cuda, weights=w)
+    check_wce((2, 5, 7, 17), (37, 51), torch.float32, cuda, weights=w)
+
+
+@pytest.mark.parametrize("ukd", [True, False], ids=["ukd", "no-ukd"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", WEIGHTED_CASES)
+def test_upsample_bacs_kernels_match_plain(cuda, shape, out_hw, dtype, ukd):
+    check_bacs(shape, out_hw, dtype, cuda, ukd=ukd)
+
+
+def test_weighted_upsample_kernels_count_launches_and_reject_bad_inputs(cuda):
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_sum, upsampled_bacs_weighted_ce,
+        upsampled_weighted_cross_entropy, wce_dsem, wce_sums)
+
+    sem = torch.randn(2, 5, 7, 6, device=cuda, requires_grad=True)
+    labels = torch.randint(0, 6, (2, 37, 51), device=cuda)
+    labels[0, :4] = 255
+    w = torch.rand(6, device=cuda)
+    ms = torch.rand(2, 37, 51, device=cuda)
+    before = (wce_sums.launches, wce_dsem.launches, bacs_sum.launches,
+              bacs_dsem.launches)
+    upsampled_weighted_cross_entropy(sem, labels, w, (37, 51)).backward()
+    upsampled_bacs_weighted_ce(sem, labels, ms, (37, 51), 5).backward()
+    assert (wce_sums.launches, wce_dsem.launches, bacs_sum.launches,
+            bacs_dsem.launches) == tuple(b + 1 for b in before)
+    for got, ref in (
+        (upsampled_weighted_cross_entropy(sem, labels, w, (37, 51)),
+         upsampled_weighted_cross_entropy(sem.cpu(), labels.cpu(), w.cpu(), (37, 51))),
+        (upsampled_bacs_weighted_ce(sem, labels, ms, (37, 51), 5, ukd=False),
+         upsampled_bacs_weighted_ce(sem.cpu(), labels.cpu(), ms.cpu(), (37, 51), 5,
+                                    ukd=False)),
+    ):
+        torch.testing.assert_close(got.detach().cpu(), ref.detach(), rtol=1e-5, atol=0)
+    with pytest.raises(ValueError):
+        wce_sums(sem.detach(), labels, w[:5], (37, 51))
+    with pytest.raises(ValueError):
+        wce_sums(sem.detach(), labels, w.double(), (37, 51))
+    with pytest.raises(ValueError):
+        bacs_sum(sem.detach(), labels, ms[:, :30], (37, 51), 5)
+    with pytest.raises(ValueError):
+        bacs_dsem(sem.detach(), labels, ms.half(), (37, 51), torch.ones((), device=cuda), 5)
+    with pytest.raises(TypeError):
+        bacs_sum(sem.detach().half(), labels, ms, (37, 51), 5)
 
 
 def test_upsample_kernels_take_int64_labels_and_count_launches(cuda):

@@ -15,7 +15,6 @@ import jax
 
 from bacs_tpu.models import create_network as jax_create_network
 from bacs_tpu_torch.models import create_network
-from bacs_tpu_torch.models.deeplab import DeepLabV3
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict,
     load_flax_variables,
@@ -135,7 +134,5 @@ def test_bf16_network_keeps_abn_in_float32():
 def test_unported_networks_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_network("networks.UNet", NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepLabV3(NUM_CLASSES, backbone_name="resnet18", use_bg_detector=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_network("deeplab", NUM_CLASSES, atrous_encoder=True)

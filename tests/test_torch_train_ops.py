@@ -287,10 +287,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optim.make_optimizer(OPTIMIZERS[0], [torch.nn.Parameter(torch.zeros(2))],
                              optim.poly_schedule(0.01, 10), accumulate_steps=2)
-    for name in ("loss.BACSLoss", "mib", "loss.PLOPLoss", "er"):
+    for name in ("mib", "loss.PLOPLoss", "er"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_method(name)
     with pytest.raises(ValueError, match="unknown"):
         create_method("nonsense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_method("loss.CrossEntropy", use_bg_detector=True)
+        create_method("loss.BACSLoss", mixup=True)
