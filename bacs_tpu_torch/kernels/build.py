@@ -77,6 +77,31 @@ SIGNATURES = {
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     #  num_classes, conf, stream)
     "upsample_confusion": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, g [n], cols, dsem, stream)
+    "upsample_ce_grad_per_image": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, old_classes, partials, blocks, loss_out, count_out, stream)
+    "upsample_uce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                          _P, _P, _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  ignore_index, old_classes, g, cols, dsem, stream)
+    "upsample_uce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P],
+    # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha, partials,
+    #  blocks, t_out, b_out, stream)
+    "upsample_ukd_sum": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,
+                         _P, _P],
+    # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha, g, cols,
+    #  dsem, stream)
+    "upsample_ukd_grad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                          _P],
+    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+    #  thresholds, max_entropy, ent_scale, ignore_index, blocks, out, counts,
+    #  stream)
+    "upsample_plop_pseudo": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
+                             _I, _I, _P, _P, _P],
 }
 
 

@@ -12,9 +12,11 @@ class-weighted CE through ``_fused_gate`` (``:255-274``) to K1 or K4, the
 BACS seen-probability-weighted CE through the same gate to K3, the
 prototype folds (``update_task_prototypes``, ``:129-163``, detached), the
 frozen previous model's forward (``forward_prev``, under ``no_grad``) and
-the seen detector's focal term; and ``end_task`` and ``_sweep_prototypes``
-(``:539-587``).  ``begin_task``, a no-op for every ported method, comes
-with the continual loop that calls it (ROADMAP.md queue 1 item 8).  The
+the seen detector's focal term; MiB's unbiased KD through the same gate to
+K7 (``ukd_with_upsample``, ``:355-384``), MiB's and PLOP's plain CE over
+all pixels to K1's sums (``ce_over_all_pixels``); and ``begin_task`` (a no-op but
+for PLOP), ``end_task`` and ``_sweep_prototypes`` (``:539-587``).  The
+continual loop that calls the task hooks is ROADMAP.md queue 1 item 8.  The
 JAX context's ``axis_name`` and ``spatial_mesh`` serve multi-device steps
 (ROADMAP.md queue 1 item 10) and are not ported.
 
@@ -36,10 +38,11 @@ from torch import nn
 from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.ops.interpolate import resize_nearest
 from bacs_tpu_torch.ops.losses import (
-    binary_focal_loss, cross_entropy, weighted_cross_entropy)
+    binary_focal_loss, cross_entropy, unbiased_knowledge_distillation,
+    weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_ce import (
-    upsampled_bacs_weighted_ce, upsampled_cross_entropy,
-    upsampled_weighted_cross_entropy)
+    upsampled_bacs_weighted_ce, upsampled_ce_sums, upsampled_cross_entropy,
+    upsampled_unbiased_kd, upsampled_weighted_cross_entropy)
 from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
 
 
@@ -220,6 +223,44 @@ class Method:
             ignore_index=self.ignore_index, class_weights=class_weights,
         )
 
+    def ce_over_all_pixels(self, ctx: ModelContext, out: NetOutput,
+                           labels: torch.Tensor) -> torch.Tensor:
+        """Plain CE summed over the valid pixels and divided by N H W (MiB's
+        and PLOP's reduction), through ``_fused_gate``: K1's sums, or the
+        composed loss on the full-resolution logits."""
+        sem = out.sem_logits[..., : ctx.n_cur]
+        if self._fused_gate(ctx, sem, labels):
+            total, _ = upsampled_ce_sums(sem.contiguous(), labels, tuple(labels.shape[1:3]),
+                                         self.ignore_index)
+            return total / labels.numel()
+        return cross_entropy(out.logits[..., : ctx.n_cur], labels, self.ignore_index,
+                             reduction="none").mean()
+
+    def ukd_with_upsample(self, ctx: ModelContext, out: NetOutput, old_out: NetOutput,
+                          labels: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+        """MiB's unbiased KD against the frozen previous model (its old
+        classes), mean over ALL pixels, through ``_fused_gate``: K7 on the
+        two pre-upsample logit tensors, or the composed loss on the
+        full-resolution logits.  The teacher takes no gradient."""
+        sem_new = out.sem_logits[..., : ctx.n_cur]
+        old = ctx.task.old_classes
+        if self._fused_gate(ctx, sem_new, labels):
+            return upsampled_unbiased_kd(
+                sem_new.contiguous(), old_out.sem_logits[..., :old].contiguous(),
+                tuple(labels.shape[1:3]), alpha=alpha)
+        return unbiased_knowledge_distillation(
+            out.logits[..., : ctx.n_cur], old_out.logits[..., :old].detach(), alpha=alpha)
+
+    def prototype_updates(self, ctx: ModelContext, state, penultimate: torch.Tensor,
+                          labels: torch.Tensor, train: bool) -> Dict[str, Any]:
+        """The batch folded into the per-task prototypes (train only, with
+        ``track_prototypes``), as ``TrainState`` updates."""
+        if not (train and self.track_prototypes):
+            return {}
+        protos, counts = update_task_prototypes(state.prototypes, state.proto_counts,
+                                                penultimate, labels, ctx.task)
+        return {"prototypes": protos, "proto_counts": counts}
+
     def compute_base_loss(
         self,
         ctx: ModelContext,
@@ -296,6 +337,11 @@ class Method:
 
     # ------------------------------------------------------------------
     # task-boundary hooks, on the host
+
+    def begin_task(self, state, ctx: ModelContext, data: Any):
+        """Called before training task ``ctx.task.task_id``; ``data``
+        iterates the task's train batches."""
+        return state
 
     def end_task(self, state, ctx: ModelContext, data: Any):
         """Called after a task; ``data`` iterates the task's train batches

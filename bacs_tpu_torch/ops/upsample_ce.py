@@ -1,9 +1,11 @@
 """Fused bilinear upsample + a softmax loss: the full-res logits never exist.
 
-Port of the fused losses of ``bacs_tpu/ops/upsample_ce.py`` that the CE and
-BACS steps run.  Each loss is a function of bilinear_upsample(sem_logits)
-and the labels; at 512^2, batch 16, VOC-21 the upsampled logits alone would
-be 352 MB of f32.  Three kernels, all in ``csrc/upsample_ce.cu``:
+Port of the fused losses of ``bacs_tpu/ops/upsample_ce.py`` that the CE,
+BACS, MiB and PLOP steps run.  Each loss is a function of
+bilinear_upsample(sem_logits) and the labels (K7: of two upsampled logit
+tensors); at 512^2, batch 16, VOC-21 the upsampled logits alone would be
+352 MB of f32.  Six kernels, all in ``csrc/upsample_ce.cu`` (PLOP's
+pseudo-labels, K9, are in ``ops/upsample_pseudo.py``):
 
 - K1, plain CE (the CE step; the eval loss).  :func:`ce_sums_per_image`
   (forward: per image, the NLL sum over valid pixels and the valid count;
@@ -30,6 +32,24 @@ be 352 MB of f32.  Three kernels, all in ``csrc/upsample_ce.cu``:
   of the kernel's hand-derived gradient.
   :func:`upsampled_bacs_weighted_ce` divides by N H W (the mean over all
   pixels, ignored ones included, of the reference).
+- K8, K1's backward with one cotangent per image (PLOP's adaptive
+  factor): :func:`ce_dsem_per_image` (replaces ``_dsem_pallas(per_image=
+  True)``, ``:125``; plain version the jnp branch of ``_ucespi_bwd``,
+  ``:823-831``).  :func:`upsampled_ce_sums_per_image` returns the K1
+  forward's per-image sums and counts and takes its backward here.
+- K6, MiB's unbiased CE: :func:`uce_sums` (forward: per image, the sum
+  over valid pixels and the valid count; replaces ``_uce_pallas``,
+  ``:543``) and :func:`uce_dsem` (backward, the same TPU kernel with
+  ``want_grad``).  Plain forward :func:`upsample_plain` +
+  ``losses.unbiased_cross_entropy`` (``_uce_sums_jnp``, ``:504-512``),
+  plain backward autograd through it.  MiB divides the sum by N H W;
+  :func:`upsampled_unbiased_cross_entropy` by max(count, 1).
+- K7, MiB's unbiased KD of a student/teacher pair: :func:`ukd_sum`
+  (forward: the sum T over every output pixel; replaces ``_ukd_pallas``,
+  ``:695``) and :func:`ukd_dsem` (the student's backward; the teacher takes
+  none).  Plain forward both upsamples + ``unbiased_knowledge_distillation``
+  times -N H W (``_ukd_sum_jnp``, ``:648-655``), plain backward autograd.
+  :func:`upsampled_unbiased_kd` is -T / (N H W).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain version for a CPU tensor; its ``launches`` attribute counts kernel
@@ -49,7 +69,9 @@ from typing import Tuple
 import torch
 
 from bacs_tpu_torch.kernels import build
-from bacs_tpu_torch.ops.losses import cross_entropy, weighted_cross_entropy
+from bacs_tpu_torch.ops.losses import (
+    cross_entropy, unbiased_cross_entropy, unbiased_knowledge_distillation,
+    weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
 BLOCKS_PER_IMAGE = 256  # forward partial sums per image (one 256-thread block each)
@@ -113,10 +135,10 @@ def check_inputs(sem, labels, out_hw):
     return n, h, w, c, H, W
 
 
-def _check_g(g, sem):
-    if (g.numel() != 1 or g.dtype != torch.float32 or g.device != sem.device
+def _check_g(g, sem, numel=1):
+    if (g.numel() != numel or g.dtype != torch.float32 or g.device != sem.device
             or not g.is_contiguous()):
-        raise ValueError(f"g must be one float32 value on {sem.device}, got "
+        raise ValueError(f"g must be {numel} float32 value(s) on {sem.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
 
 
@@ -157,11 +179,12 @@ def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
     return a, b
 
 
-def _launch_grad(entry, sem, labels, out_hw, g, ignore_index, extra=()):
+def _launch_grad(entry, sem, labels, out_hw, g, ignore_index, extra=(),
+                 g_numel=1):
     """One gradient entry point of ``csrc/upsample_ce.cu``: dsem in sem's
-    dtype."""
+    dtype; ``g`` holds ``g_numel`` f32 values (1, or one per image)."""
     n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
-    _check_g(g, sem)
+    _check_g(g, sem, g_numel)
     cols = torch.empty((n, H, w, c), dtype=torch.float32, device=sem.device)
     dsem = torch.empty_like(sem)
     lib = build.load_library()
@@ -199,8 +222,27 @@ def ce_dsem(sem, labels, out_hw, g, ignore_index=255):
     return dsem
 
 
+def ce_dsem_per_image_plain(sem, labels, out_hw, g, ignore_index=255):
+    """Plain version of K8: :func:`ce_dsem_plain` with image n's pixels
+    scaled by g[n]."""
+    return ce_dsem_plain(sem, labels, out_hw, g.float().reshape(-1, 1, 1, 1),
+                         ignore_index)
+
+
+def ce_dsem_per_image(sem, labels, out_hw, g, ignore_index=255):
+    """K8: d(Σ_n g[n] NLL_n)/d(sem), ``g`` f32 [n], in sem's dtype.  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    if sem.device.type == "cpu":
+        return ce_dsem_per_image_plain(sem, labels, out_hw, g, ignore_index)
+    dsem = _launch_grad("upsample_ce_grad_per_image", sem, labels, out_hw, g,
+                        ignore_index, g_numel=sem.shape[0])
+    ce_dsem_per_image.launches += 1
+    return dsem
+
+
 ce_sums_per_image.launches = 0
 ce_dsem.launches = 0
+ce_dsem_per_image.launches = 0
 
 
 class _UpsampledCESums(torch.autograd.Function):
@@ -230,6 +272,36 @@ def upsampled_ce_sums(
     f32 scalars; differentiable in ``sem_logits`` only."""
     return _UpsampledCESums.apply(sem_logits, labels, tuple(int(d) for d in out_hw),
                                   int(ignore_index))
+
+
+class _UpsampledCESumsPerImage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sem, labels, out_hw, ignore_index):
+        loss, count = ce_sums_per_image(sem, labels, out_hw, ignore_index)
+        ctx.save_for_backward(sem, labels)
+        ctx.out_hw, ctx.ignore_index = out_hw, ignore_index
+        ctx.mark_non_differentiable(count)
+        return loss, count
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_count):
+        sem, labels = ctx.saved_tensors
+        dsem = ce_dsem_per_image(sem, labels, ctx.out_hw, g_loss.float().contiguous(),
+                                 ctx.ignore_index)
+        return dsem, None, None, None
+
+
+def upsampled_ce_sums_per_image(
+    sem_logits: torch.Tensor,
+    labels: torch.Tensor,
+    out_hw: Tuple[int, int],
+    ignore_index: int = 255,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([n] Σ CE(upsample(sem), labels) over each image's valid pixels, [n]
+    valid counts), f32; differentiable in ``sem_logits`` only: the forward
+    is K1's, the backward K8."""
+    return _UpsampledCESumsPerImage.apply(sem_logits, labels,
+                                          tuple(int(d) for d in out_hw), int(ignore_index))
 
 
 def upsampled_cross_entropy(
@@ -432,3 +504,209 @@ def upsampled_bacs_weighted_ce(sem_logits, labels, max_seen, out_hw, old_classes
     total = upsampled_bacs_wce_sum(sem_logits, labels, max_seen, out_hw, old_classes,
                                    gamma, threshold, ukd, ignore_index)
     return total / labels.numel()
+
+
+# ---------------------------------------------------------------- K6: MiB unbiased CE
+
+
+def uce_sums_plain(sem, labels, out_hw, old_classes, ignore_index=255):
+    """Plain version of K6 forward: (Σ unbiased NLL over the valid pixels,
+    valid count), f32 scalars."""
+    up = upsample_plain(sem, out_hw)
+    nll = unbiased_cross_entropy(up, labels, old_classes, ignore_index, reduction="none")
+    return nll.sum(), (labels != ignore_index).sum().float()
+
+
+def uce_dsem_plain(sem, labels, out_hw, g, old_classes, ignore_index=255):
+    """Plain version of K6 backward: autograd through :func:`uce_sums_plain`
+    times ``g``, in sem's dtype."""
+    with torch.enable_grad():
+        s = sem.detach().requires_grad_()
+        total = uce_sums_plain(s, labels, out_hw, old_classes, ignore_index)[0] * g
+        (dsem,) = torch.autograd.grad(total, s)
+    return dsem.to(sem.dtype)
+
+
+def uce_sums(sem, labels, out_hw, old_classes, ignore_index=255):
+    """K6 forward: (Σ unbiased NLL over the batch's valid pixels, valid
+    count), f32 scalars.  CPU tensors take the plain version, CUDA tensors
+    the kernel."""
+    if sem.device.type == "cpu":
+        return uce_sums_plain(sem, labels, out_hw, old_classes, ignore_index)
+    loss, count = _launch_sums("upsample_uce_sums", sem, labels, out_hw, ignore_index,
+                               (int(old_classes),))
+    uce_sums.launches += 1
+    return loss.sum(), count.sum()
+
+
+def uce_dsem(sem, labels, out_hw, g, old_classes, ignore_index=255):
+    """K6 backward: d(Σ unbiased NLL)/d(sem) times the scalar tensor ``g``,
+    in sem's dtype.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if sem.device.type == "cpu":
+        return uce_dsem_plain(sem, labels, out_hw, g, old_classes, ignore_index)
+    dsem = _launch_grad("upsample_uce_grad", sem, labels, out_hw, g, ignore_index,
+                        (int(old_classes),))
+    uce_dsem.launches += 1
+    return dsem
+
+
+uce_sums.launches = 0
+uce_dsem.launches = 0
+
+
+class _UpsampledUCESums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sem, labels, out_hw, old_classes, ignore_index):
+        loss, count = uce_sums(sem, labels, out_hw, old_classes, ignore_index)
+        ctx.save_for_backward(sem, labels)
+        ctx.args = (out_hw, old_classes, ignore_index)
+        ctx.mark_non_differentiable(count)
+        return loss, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        sem, labels = ctx.saved_tensors
+        out_hw, old_classes, ignore_index = ctx.args
+        dsem = uce_dsem(sem, labels, out_hw, g_sum.float().contiguous(), old_classes,
+                        ignore_index)
+        return dsem, None, None, None, None
+
+
+def upsampled_uce_sums(sem_logits, labels, out_hw, old_classes, ignore_index=255):
+    """(Σ unbiased CE(upsample(sem), labels) over valid pixels, valid count),
+    f32 scalars; differentiable in ``sem_logits`` only."""
+    return _UpsampledUCESums.apply(sem_logits, labels, tuple(int(d) for d in out_hw),
+                                   int(old_classes), int(ignore_index))
+
+
+def upsampled_unbiased_cross_entropy(sem_logits, labels, out_hw, old_classes,
+                                     ignore_index=255):
+    """Mean over the VALID pixels of MiB's unbiased CE of the upsampled
+    logits (``losses.unbiased_cross_entropy`` semantics)."""
+    loss, count = upsampled_uce_sums(sem_logits, labels, out_hw, old_classes,
+                                     ignore_index)
+    return loss / torch.clamp(count, min=1.0)
+
+
+# ---------------------------------------------------------------- K7: MiB unbiased KD
+
+
+def ukd_sum_plain(sem, sem_old, out_hw, alpha=1.0):
+    """Plain version of K7 forward: the sum T over every output pixel of the
+    upsampled pair, f32 scalar (the loss is -T / (N H W))."""
+    up, up_old = upsample_plain(sem, out_hw), upsample_plain(sem_old, out_hw)
+    n_tot = up.shape[0] * up.shape[1] * up.shape[2]
+    return -unbiased_knowledge_distillation(up, up_old, alpha=alpha) * n_tot
+
+
+def ukd_dsem_plain(sem, sem_old, out_hw, g, alpha=1.0):
+    """Plain version of K7 backward: autograd through :func:`ukd_sum_plain`
+    in the student times ``g``, in sem's dtype."""
+    with torch.enable_grad():
+        s = sem.detach().requires_grad_()
+        (dsem,) = torch.autograd.grad(ukd_sum_plain(s, sem_old.detach(), out_hw, alpha) * g,
+                                      s)
+    return dsem.to(sem.dtype)
+
+
+def _check_pair(sem, sem_old, out_hw):
+    """Raise unless K7 takes (sem, sem_old, out_hw); returns (n, h, w, c,
+    c_old, H, W)."""
+    if sem.device.type != "cuda":
+        raise ValueError(f"kernel needs a CUDA tensor, got {sem.device}")
+    if sem.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sem must be float32 or bfloat16, got {sem.dtype}")
+    if sem_old.dtype != sem.dtype:
+        raise TypeError(f"the teacher's dtype {sem_old.dtype} is not the "
+                        f"student's {sem.dtype}")
+    if (sem.dim() != 4 or sem_old.dim() != 4 or not sem.is_contiguous()
+            or not sem_old.is_contiguous() or sem_old.device != sem.device):
+        raise ValueError("sem and sem_old must be contiguous [n, h, w, c] tensors "
+                         "on one device")
+    n, h, w, c = sem.shape
+    c_old = sem_old.shape[-1]
+    if tuple(sem_old.shape[:3]) != (n, h, w) or not 1 <= c_old < c:
+        raise ValueError(f"teacher {tuple(sem_old.shape)} does not pair with student "
+                         f"{tuple(sem.shape)} (same n, h, w; fewer channels)")
+    H, W = (int(d) for d in out_hw)
+    if min(n, h, w, H, W) < 1:
+        raise ValueError(f"unsupported shape {tuple(sem.shape)} -> {(H, W)}")
+    return n, h, w, c, c_old, H, W
+
+
+def ukd_sum(sem, sem_old, out_hw, alpha=1.0):
+    """K7 forward: the sum T of the unbiased KD terms over every upsampled
+    pixel, f32 scalar; ``sem_old`` has fewer channels than ``sem``.  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    if sem.device.type == "cpu":
+        return ukd_sum_plain(sem, sem_old, out_hw, alpha)
+    n, h, w, c, c_old, H, W = _check_pair(sem, sem_old, out_hw)
+    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
+    partials = torch.empty((n, blocks, 2), dtype=torch.float32, device=sem.device)
+    t = torch.empty((n,), dtype=torch.float32, device=sem.device)
+    scratch = torch.empty((n,), dtype=torch.float32, device=sem.device)
+    lib = build.load_library()
+    with torch.cuda.device(sem.device):
+        code = lib.upsample_ukd_sum(
+            sem.data_ptr(), sem_old.data_ptr(), int(sem.dtype == torch.bfloat16), n, h,
+            w, c, c_old, H, W, float(alpha), partials.data_ptr(), blocks, t.data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(code, "upsample_ukd_sum")
+    ukd_sum.launches += 1
+    return t.sum()
+
+
+def ukd_dsem(sem, sem_old, out_hw, g, alpha=1.0):
+    """K7 backward: dT/d(sem) times the scalar tensor ``g``, in sem's dtype
+    (the teacher takes no gradient).  CPU tensors take the plain version,
+    CUDA tensors the kernel."""
+    if sem.device.type == "cpu":
+        return ukd_dsem_plain(sem, sem_old, out_hw, g, alpha)
+    n, h, w, c, c_old, H, W = _check_pair(sem, sem_old, out_hw)
+    _check_g(g, sem)
+    cols = torch.empty((n, H, w, c), dtype=torch.float32, device=sem.device)
+    dsem = torch.empty_like(sem)
+    lib = build.load_library()
+    with torch.cuda.device(sem.device):
+        code = lib.upsample_ukd_grad(
+            sem.data_ptr(), sem_old.data_ptr(), int(sem.dtype == torch.bfloat16), n, h,
+            w, c, c_old, H, W, float(alpha), g.data_ptr(), cols.data_ptr(),
+            dsem.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(code, "upsample_ukd_grad")
+    ukd_dsem.launches += 1
+    return dsem
+
+
+ukd_sum.launches = 0
+ukd_dsem.launches = 0
+
+
+class _UpsampledUKDSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sem, sem_old, out_hw, alpha):
+        ctx.save_for_backward(sem, sem_old)
+        ctx.out_hw, ctx.alpha = out_hw, alpha
+        return ukd_sum(sem, sem_old, out_hw, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        sem, sem_old = ctx.saved_tensors
+        dsem = ukd_dsem(sem, sem_old, ctx.out_hw, g.float().contiguous(), ctx.alpha)
+        return dsem, None, None, None
+
+
+def upsampled_ukd_sum(sem_new, sem_old, out_hw, alpha=1.0):
+    """The sum T of MiB's unbiased KD over the upsampled pair (the loss is
+    -T / (N H W)); differentiable in ``sem_new`` only: the teacher is a
+    constant, as the reference detaches the old model's outputs."""
+    return _UpsampledUKDSum.apply(sem_new, sem_old.detach(),
+                                  tuple(int(d) for d in out_hw), float(alpha))
+
+
+def upsampled_unbiased_kd(sem_new, sem_old, out_hw, alpha=1.0):
+    """MiB's unbiased KD of the bilinear-upsampled pair, the mean over ALL
+    pixels (``losses.unbiased_knowledge_distillation`` semantics); neither
+    full-resolution logit tensor exists."""
+    n_tot = sem_new.shape[0] * int(out_hw[0]) * int(out_hw[1])
+    return -upsampled_ukd_sum(sem_new, sem_old, out_hw, alpha) / n_tot

@@ -8,8 +8,8 @@ objects, the continual-learning tensors and the counters.  The JAX state's
 ``rng`` key becomes ``generator``, a ``torch.Generator`` on the state's
 device that the train step hands to the method (dropout, replay draws);
 the frozen previous model is a module (``prev_params`` and
-``prev_batch_stats`` in JAX).  SDR's class prototypes and PLOP's
-thresholds come with their methods (ROADMAP.md queue 1 item 11).
+``prev_batch_stats`` in JAX).  SDR's class prototypes come with their
+method (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ class TrainState:
     # the epoch within the task (the seen detector's weight schedule,
     # bacs_tpu/methods/base.py:526-531)
     epoch: int = 0
+    # PLOP's per-class entropy thresholds [num_classes] f32 and the
+    # entropy normaliser log(C_cur), a scalar f32 tensor, both on the
+    # state's device, set by PlopMethod.begin_task
+    plop_thresholds: Optional[torch.Tensor] = None
+    plop_max_entropy: Optional[torch.Tensor] = None
 
 
 def frozen_copy(model: nn.Module) -> nn.Module:

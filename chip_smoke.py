@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (CE and BACS) and eval paths
-on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving, training (CE, BACS, MiB and PLOP) and
+eval paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -66,7 +66,26 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    distillation, the detector, K3/K4, SGD);
 15. one eval step at task 1: 107 K5, 1 K1 forward and 1 K2 per step, every
    valid pixel counted;
-t. times K1, K2, K3 and K4 at the main path's shapes beside their plain
+16. holds MiB's kernels, the unbiased upsample+CE (K6) and the unbiased KD
+   of an upsampled student/teacher pair (K7), forward and backward,
+   against their plain versions at the step's [12,32,32,17] (teacher 16
+   channels) -> 512^2 and odd shapes, bf16 and f32, KD alpha 1 and 0.7;
+17. holds PLOP's kernels, K1's backward with a per-image cotangent (K8; and
+   K1's scalar case bit for bit) and the pseudo-labels (K9; labels equal
+   wherever no threshold or top-2 tie lies within 1e-5), the same way;
+18. runs one f32 task-1 MiB and PLOP step (RN101 4 x 128^2, after the
+   MultiHead imprinting; PLOP's thresholds set clear of every pixel's
+   entropy) on the CPU and on the card (TF32 off) and compares them as
+   phase 13 does;
+19. at 512^2 in bf16, batch 12 (``cont_15_1.yaml``), per method: ``end_task``
+   of task 0 (the previous-model snapshot), the imprinting, for PLOP
+   ``begin_task`` over 10 batches (timed), then 2 warm-up and 10 timed
+   task-1 steps with the counters reset just before, asserting per step
+   (MiB) 1 K6 and 1 K7 each way or (PLOP) 1 K9, 1 K1 forward and 1 K8,
+   and 107 train-ABN and 107 K5 (the previous model), a finite loss; the
+   median img/s, the peak memory and a two-step profile by kernel kind;
+20. the task-1 eval steps of both: 107 K5, 1 K1 forward and 1 K2 per step;
+t. times K1-K4 and K6-K9 at the main path's shapes beside their plain
    versions, and computes every kernel's bound from its inputs (bytes, f32
    operations and special-function operations).
 
@@ -337,6 +356,120 @@ def check_bacs(shape, out_hw, dtype, device, ukd=True, seed=0):
     return _rel_errors(total, ref_total, dsem, ref_dsem, dtype, "K3")
 
 
+def check_uce(shape, out_hw, dtype, device, seed=0):
+    """K6 forward and backward against their plain versions, old classes C -
+    1, about a third of the labels background; returns the errors as
+    ``check_ce``.  The gradient's scale is MiB's 1 / (N H W)."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        uce_dsem, uce_dsem_plain, uce_sums, uce_sums_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[0], shape[-1]
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    labels = seeded_labels(n, out_hw, c, device, seed)
+    bg = torch.rand(labels.shape, generator=g, device=device) < 0.3
+    labels = torch.where(bg & (labels != 255), torch.zeros_like(labels), labels)
+    loss, count = uce_sums(sem, labels, out_hw, c - 1)
+    ref_loss, ref_count = uce_sums_plain(sem, labels, out_hw, c - 1)
+    scale = torch.tensor(1.0 / labels.numel(), device=device)
+    dsem = uce_dsem(sem, labels, out_hw, scale, c - 1)
+    ref_dsem = uce_dsem_plain(sem, labels, out_hw, scale, c - 1)
+    torch.cuda.synchronize()
+    assert float(count) == float(ref_count), "valid counts differ"
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    return _rel_errors(loss, ref_loss, dsem, ref_dsem, dtype, "K6")
+
+
+def check_ukd(shape, out_hw, dtype, device, alpha=1.0, seed=0):
+    """K7 forward and backward against their plain versions: a student of
+    C channels and a teacher of C - 1; returns the errors as ``check_ce``.
+    The gradient's scale is MiB's -1 / (N H W)."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ukd_dsem, ukd_dsem_plain, ukd_sum, ukd_sum_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    sem_old = (torch.randn((*shape[:3], shape[-1] - 1), generator=g, device=device)
+               * 3).to(dtype)
+    total = ukd_sum(sem, sem_old, out_hw, alpha)
+    ref_total = ukd_sum_plain(sem, sem_old, out_hw, alpha)
+    scale = torch.tensor(-1.0 / (shape[0] * out_hw[0] * out_hw[1]), device=device)
+    dsem = ukd_dsem(sem, sem_old, out_hw, scale, alpha)
+    ref_dsem = ukd_dsem_plain(sem, sem_old, out_hw, scale, alpha)
+    torch.cuda.synchronize()
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    return _rel_errors(total, ref_total, dsem, ref_dsem, dtype, "K7")
+
+
+def check_ce_per_image(shape, out_hw, dtype, device, seed=0):
+    """K8 against its plain version with a per-image cotangent (PLOP's
+    factor over N H W); and K8 with every image's g equal to K1's scalar
+    gives K1's gradient bit for bit.  Returns the gradient's errors."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem, ce_dsem_per_image, ce_dsem_per_image_plain)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = shape[0]
+    sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    labels = seeded_labels(n, out_hw, shape[-1], device, seed)
+    gvec = torch.rand(n, generator=g, device=device) / (n * out_hw[0] * out_hw[1])
+    dsem = ce_dsem_per_image(sem, labels, out_hw, gvec)
+    ref = ce_dsem_per_image_plain(sem, labels, out_hw, gvec)
+    same_g = gvec[:1].reshape(())
+    assert torch.equal(ce_dsem(sem, labels, out_hw, same_g),
+                       ce_dsem_per_image(sem, labels, out_hw, same_g.expand(n).contiguous()))
+    torch.cuda.synchronize()
+    assert dsem.dtype == dtype and dsem.shape == sem.shape
+    grad_abs = float((dsem.float() - ref.float()).abs().max())
+    grad_rel = grad_abs / max(float(ref.float().abs().max()), 1e-30)
+    assert grad_rel <= (1e-4 if dtype == torch.float32 else 5e-2), f"K8 error {grad_rel}"
+    return dict(grad_abs=grad_abs, grad_rel=grad_rel)
+
+
+def check_pseudo(shape, out_hw, dtype, device, seed=0):
+    """K9 against its plain version: a teacher of C_old = C channels,
+    labels in [0, C] (C the new class) with ignored ones, each class's
+    threshold the mean of two random pixels' entropies (not the entropy of
+    a pixel, which the clamped upsample repeats at the borders),
+    max_entropy log(C + 1).  A
+    pixel within 1e-5 of its threshold, or whose top two logits are within
+    1e-5, may take the other branch: the labels agree at every other pixel,
+    and such flips stay under 1e-4 of the pixels; den is equal, num within
+    the flips.  Returns the number of pixels labelled differently."""
+    from bacs_tpu_torch.ops.losses import pixel_entropy
+    from bacs_tpu_torch.ops.upsample_ce import upsample_plain
+    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels, pseudo_labels_plain
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[0], shape[-1]
+    sem = (torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+    labels = seeded_labels(n, out_hw, c + 1, device, seed)
+    bg = torch.rand(labels.shape, generator=g, device=device) < 0.3
+    labels = torch.where(bg & (labels != 255), torch.zeros_like(labels), labels)
+    me = torch.tensor(float(np.log(c + 1)), device=device)
+    up = upsample_plain(sem, out_hw)
+    ent = (pixel_entropy(torch.softmax(up, dim=-1)) / me).flatten()
+    pick = torch.randint(0, ent.numel(), (2, max(c, N_CLASSES)), generator=g, device=device)
+    thr = ent[pick].mean(dim=0)
+    new, num, den = plop_pseudo_labels(sem, labels, thr, out_hw, me)
+    ref, ref_num, ref_den = pseudo_labels_plain(sem, labels, thr, out_hw, me)
+    top2 = up.topk(min(2, c), dim=-1).values
+    pred = up.argmax(dim=-1)
+    decisive = ((ent.reshape(pred.shape) - thr[pred]).abs() > 1e-5) & (
+        (top2[..., 0] - top2[..., -1]) > 1e-5 if c > 1 else True)
+    torch.cuda.synchronize()
+    assert new.dtype == torch.int32 and new.shape == labels.shape
+    differ = new != ref
+    flips = int(differ.sum())
+    assert not bool(differ[decisive].any()), "K9 differs at a decisive pixel"
+    assert flips <= 1e-4 * labels.numel(), f"K9: {flips} pixels flipped"
+    assert torch.equal(den, ref_den), "K9 den differs"
+    assert float((num - ref_num).abs().max()) <= flips, "K9 num differs beyond the flips"
+    if labels.numel() >= 4096:
+        assert 0 < float(num.sum()) < float(den.sum()), "no mix of kept and ignored pixels"
+    return flips
+
+
 def check_confusion(shape, out_hw, dtype, device, seed=0) -> int:
     """K2 against its plain version; returns the pixels counted differently,
     each of which must have a top-2 margin <= 1e-4."""
@@ -605,6 +738,41 @@ def norm_error(got: dict, ref: dict) -> float:
     return (diff / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
 
 
+def hold_step(label: str, activation: str, card, cpu, p0: dict, extra: str = "") -> None:
+    """Log and hold one f32 train step on the card against the same step on
+    the CPU; ``card`` and ``cpu`` are (loss, grads, params, stats) and
+    ``p0`` the parameters before the step.  The loss rtol 1e-5 and the
+    running statistics to 1e-4 of each tensor's largest value.  With
+    identity activations the network is smooth and the two devices differ
+    by f32 rounding only, so every gradient (each ABN's scale and bias
+    joined, ``abn_joined``) and every update beyond one ulp of its
+    parameter (an f32 parameter holds its update only to that) is held to
+    1e-4 of its tensor's largest value.  With the leaky ones,
+    pre-activations within rounding of 0 take different sides of the kink
+    on the two devices and the ABN backward spreads such a pixel over its
+    channel, so gradients and updates are held to 5e-2 of their norm (the
+    same effect between JAX and the port: tests/test_torch_train_step.py)."""
+    (loss_g, grads_g, params_g, stats_g), (loss_c, grads_c, params_c, stats_c) = card, cpu
+    upd_g = {k: params_g[k] - p0[k] for k in p0}
+    upd_c = {k: params_c[k] - p0[k] for k in p0}
+    grad_rel, grad_worst = max_rel_error(abn_joined(grads_g), abn_joined(grads_c))
+    ulp = {k: float(torch.finfo(torch.float32).eps * v.abs().max()) for k, v in p0.items()}
+    upd_rel, upd_worst = max_rel_error(upd_g, upd_c, ulp)
+    stats_rel, _ = max_rel_error(stats_g, stats_c)
+    grad_norm, update_norm = norm_error(grads_g, grads_c), norm_error(upd_g, upd_c)
+    log(f"{label}, {activation} activations: loss {loss_g:.7f} vs {loss_c:.7f}; gradients "
+        f"max rel err per tensor (each ABN's scale and bias joined) {grad_rel:.3g} "
+        f"({grad_worst}), norm rel err {grad_norm:.3g}; SGD update max rel err per tensor "
+        f"beyond one ulp of the parameter {upd_rel:.3g} ({upd_worst}), norm rel err "
+        f"{update_norm:.3g}; running statistics max rel err {stats_rel:.3g}{extra}")
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+    assert stats_rel <= 1e-4, stats_rel
+    if activation == "identity":
+        assert grad_rel <= 1e-4 and upd_rel <= 1e-4, (grad_rel, upd_rel)
+    else:
+        assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
+
+
 def device_kernels(fn, steps: int = 2) -> tuple:
     """The profiler's device events (kernels, copies) of ``steps`` calls of
     ``fn``, after one call unrecorded, and the profiler itself."""
@@ -647,8 +815,8 @@ def bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
 
 
 def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
-    """The bound of an upsample kernel (K10, K1, K2, K3, K4; "f" forward,
-    "b" backward) on these inputs.  The least work interpolates separably:
+    """The bound of an upsample kernel (K10, K1, K2, K3, K4, K6, K7, K8, K9;
+    "f" forward, "b" backward) on these inputs.  The least work interpolates separably:
     a lerp (3 f32 ops) per channel along W for every source row, then along
     H for every output pixel the kernel needs: those with a valid label
     where there are labels, and for K4 only those whose label weighs
@@ -660,7 +828,20 @@ def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
     exps); a backward adds (p - target) * g (3; K3 7, its three
     normalisers) and the transposed interpolation, the same again; K2 adds
     an argmax compare (1).  Bytes: sem, the labels and ``extra`` (K3's
-    max_seen, K4's weights) read, the outputs written once."""
+    max_seen, K4's weights) read, the outputs written once.
+
+    K6 is K1 with the old classes' exp-sum (5 per channel forward, 9
+    backward) and two logarithms per pixel; K8 is K1's backward with a
+    per-image g.  K7 (``extra``: the teacher, C_old channels) interpolates
+    both tensors at every output pixel (no labels), takes the teacher's
+    softmax (4 per teacher channel), the student's with the group exp-sum
+    (5 per channel) and the q_i z_i products (2 per teacher channel); the
+    exponentials of both and three logarithms or reciprocals per pixel;
+    its backward adds q0 s_G + q - p (5 per channel) and the transposed
+    interpolation of the student.  K9 (``extra``: the thresholds) works only
+    at the pixels whose label is below C: the softmax (4 per channel), the
+    probability, its logarithm and the entropy's sum (4), one exponential
+    and one logarithm per channel; it writes the int32 labels."""
     n, h, _, c = sem.shape
     H, W = out_hw
     sem_bytes = sem.numel() * sem.element_size()
@@ -668,7 +849,7 @@ def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
     pix = n * H * W
     if labels is not None:
         in_bytes += labels.numel() * labels.element_size()
-        valid = labels != 255
+        valid = labels != 255 if kernel != "k9" else labels < c
         if kernel in ("k4f", "k4b"):
             valid &= extra[torch.where(valid, labels, 0).long()] != 0
         pix = int(valid.sum())
@@ -688,6 +869,22 @@ def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
         return bound(in_bytes + sem_bytes, 2 * lerps + 13 * c * pix, pix * (c + 4))
     if kernel == "k2":  # the int32 C x C matrix
         return bound(in_bytes + c * c * 4, lerps + c * pix)
+    if kernel == "k6f":
+        return bound(in_bytes + 2 * n * 4, lerps + 5 * c * pix, pix * (c + 2))
+    if kernel == "k6b":
+        return bound(in_bytes + sem_bytes, 2 * lerps + 9 * c * pix, pix * (c + 2))
+    if kernel == "k8":  # and g [n]
+        return bound(in_bytes + n * 4 + sem_bytes, 2 * lerps + 7 * c * pix, sfu)
+    if kernel in ("k7f", "k7b"):  # extra: the teacher
+        co = extra.shape[-1]
+        pix = n * H * W
+        pair = 3 * (c + co) * (n * h * W + pix)
+        ops, sfu = pair + (6 * co + 5 * c) * pix, pix * (c + co + 3)
+        if kernel == "k7f":  # f32 sums per image
+            return bound(in_bytes + 2 * n * 4, ops, sfu)
+        return bound(in_bytes + sem_bytes, ops + 3 * c * (n * h * W + pix) + 5 * c * pix, sfu)
+    if kernel == "k9":  # extra: the thresholds; int32 labels out
+        return bound(in_bytes + n * H * W * 4 + 2 * n * 4, lerps + 8 * c * pix, pix * 2 * c)
     raise ValueError(kernel)
 
 
@@ -705,9 +902,12 @@ BACS_STEPS, FILL_BATCHES = 10, 20
 TRAIN_ABN_PER_BACS_STEP = 3 * ABN_PER_FORWARD
 # device kernels of a profile, by name, in the order they are matched
 KERNEL_KINDS = (
+    ("K6 (MiB unbiased upsample+CE, forward and backward)", ("UceTerm",)),
+    ("K7 (MiB unbiased KD of the upsampled pair, forward and backward)", ("ukd_",)),
+    ("K9 (PLOP pseudo-labels)", ("pseudo_kernel",)),
     ("K3 (BACS upsample+CE, forward and backward)", ("BacsTerm",)),
     ("K4 (class-weighted upsample+CE)", ("WceTerm",)),
-    ("K1 (upsample+CE)", ("CeTerm",)),
+    ("K1 (upsample+CE) and K8 (its per-image backward)", ("CeTerm",)),
     ("ABN apply (K5, Triton)", ("abn_eval_kernel",)),
     ("convolutions and matrix products (cuDNN, cuBLAS)", (
         "conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad", "fprop")),
@@ -819,28 +1019,12 @@ def bacs_step_card_vs_cpu(cfg, seed, dev):
             for grads in (grads_g, grads_c):
                 assert not any(bool(v.any()) for key, v in grads.items()
                                if key.startswith(f"seen_fg_network.{k}")), k
-        upd_g = {k: params_g[k] - p0[k] for k in p0}
-        upd_c = {k: params_c[k] - p0[k] for k in p0}
-        grad_rel, grad_worst = max_rel_error(abn_joined(grads_g), abn_joined(grads_c))
-        ulp = {k: float(torch.finfo(torch.float32).eps * v.abs().max()) for k, v in p0.items()}
-        upd_rel, upd_worst = max_rel_error(upd_g, upd_c, ulp)
-        stats_rel, _ = max_rel_error(stats_g, stats_c)
         proto_rel = float((protos_g - protos_c).abs().max() / protos_c.abs().max())
-        grad_norm, update_norm = norm_error(grads_g, grads_c), norm_error(upd_g, upd_c)
-        log(f"[13] f32 BACS step card vs CPU, RN101 {n} x {crop}^2, task 1, replay "
-            f"{replay}, {activation} activations: loss {loss_g:.7f} vs {loss_c:.7f}; "
-            f"gradients max rel err per tensor {grad_rel:.3g} ({grad_worst}), norm rel "
-            f"err {grad_norm:.3g}; update max rel err per tensor beyond one ulp "
-            f"{upd_rel:.3g} ({upd_worst}), norm rel err {update_norm:.3g}; running "
-            f"statistics {stats_rel:.3g}; prototypes {proto_rel:.3g}, counts "
-            f"{counts_g.tolist()}")
-        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
-        assert stats_rel <= 1e-4 and proto_rel <= 1e-4, (stats_rel, proto_rel)
-        assert torch.equal(counts_g, counts_c)
-        if activation == "identity":
-            assert grad_rel <= 1e-4 and upd_rel <= 1e-4, (grad_rel, upd_rel)
-        else:
-            assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
+        hold_step(f"[13] f32 BACS step card vs CPU, RN101 {n} x {crop}^2, task 1, replay "
+                  f"{replay}", activation, (loss_g, grads_g, params_g, stats_g),
+                  (loss_c, grads_c, params_c, stats_c), p0,
+                  f"; prototypes {proto_rel:.3g}, counts {counts_g.tolist()}")
+        assert proto_rel <= 1e-4 and torch.equal(counts_g, counts_c), proto_rel
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
@@ -905,6 +1089,297 @@ def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict
         "SGD update (zero-fill, clip, foreach SGD)":
             timer(lambda: apply_updates(state.optimizer, state.scheduler)),
     }
+
+
+# ---------------------------------------------------------------- MiB and PLOP
+
+# conf/experiments/{mib,plop}_config.yaml with training/cont_15_1.yaml: VOC
+# 15-1 (16 classes with background at task 0, then one per task), batch 12
+MIB_PLOP_METHODS = ("loss.MiB", "loss.PlopLoss")
+MIB_PLOP_BATCH, MIB_PLOP_STEPS, PLOP_BEGIN_BATCHES = 12, 10, 10
+OLD_CLASSES = 16
+MIB_PLOP_CASES = [((12, 32, 32, 17), (512, 512)), ((2, 33, 47, 17), (261, 373)),
+                  ((2, 5, 7, 6), (37, 51))]
+
+
+def method_steps(name, task_id, device):
+    """(ctx, method, (train_step, eval_step, put_batch)) of a method on the
+    VOC 15-1 tasks at ``task_id``."""
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.train.step import make_steps
+
+    ctx = ModelContext(TaskInfo(task_id=task_id, **BACS_TASK))
+    method = create_method(name)
+    return ctx, method, make_steps(ctx, method, N_CLASSES, device=device)
+
+
+def mib_plop_kernel_checks(dev) -> dict:
+    """[16] K6 and K7, [17] K8 and K9 against their plain versions at the
+    MiB and PLOP steps' shapes and odd ones, f32 and bf16; returns the
+    largest absolute errors (K9: pixels flipped)."""
+    errs = dict(k6f=0.0, k6b=0.0, k7f=0.0, k7b=0.0, k8=0.0, k9=0)
+    for shape, out_hw in MIB_PLOP_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_uce(shape, out_hw, dt, dev)
+            errs["k6f"], errs["k6b"] = max(errs["k6f"], e["val_abs"]), max(errs["k6b"],
+                                                                          e["grad_abs"])
+            log(f"[16] K6 {shape}->{out_hw} {str(dt)[6:]}, old classes {shape[-1] - 1}: ok, "
+                f"sum max abs err {e['val_abs']:.3g} (rel {e['val_rel']:.3g}), gradient "
+                f"max abs err {e['grad_abs']:.3g} (rel {e['grad_rel']:.3g})")
+            for alpha in (1.0, 0.7):
+                e = check_ukd(shape, out_hw, dt, dev, alpha=alpha)
+                errs["k7f"] = max(errs["k7f"], e["val_abs"])
+                errs["k7b"] = max(errs["k7b"], e["grad_abs"])
+                log(f"[16] K7 {shape}->{out_hw} {str(dt)[6:]}, teacher {shape[-1] - 1} "
+                    f"channels, alpha {alpha}: ok, sum max abs err {e['val_abs']:.3g} (rel "
+                    f"{e['val_rel']:.3g}), gradient max abs err {e['grad_abs']:.3g} (rel "
+                    f"{e['grad_rel']:.3g})")
+    for shape, out_hw in MIB_PLOP_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_ce_per_image(shape, out_hw, dt, dev)
+            errs["k8"] = max(errs["k8"], e["grad_abs"])
+            teacher = (*shape[:3], shape[-1] - 1)
+            flips = check_pseudo(teacher, out_hw, dt, dev)
+            errs["k9"] = max(errs["k9"], flips)
+            log(f"[17] K8 {shape}->{out_hw} {str(dt)[6:]}: ok, gradient max abs err "
+                f"{e['grad_abs']:.3g} (rel {e['grad_rel']:.3g}), K1's scalar case bit for "
+                f"bit; K9 {teacher}: ok, {flips} pixels flipped (all within 1e-5 of a "
+                "threshold or a tie)")
+    return errs
+
+
+def plop_thresholds_with_margin(state, ctx, batch):
+    """PLOP thresholds [N_CLASSES] f32 (CPU) for ``batch`` that no pixel of
+    the step's mask lies within 1e-5 of: from the previous model's
+    entropies, each class's in the widest gap of its pixels' values (else
+    just above them all).  A pixel whose top two teacher logits are within
+    1e-4 (where the devices' rounding could pick another class) is labelled
+    255 in ``batch`` first, in place.  So the two devices label alike."""
+    from bacs_tpu_torch.ops.losses import pixel_entropy
+    from bacs_tpu_torch.ops.upsample_ce import upsample_plain
+
+    old = ctx.task.old_classes
+    with torch.no_grad():
+        sem = ctx.forward_prev(state, batch["image"]).sem_logits[..., :old]
+    up = upsample_plain(sem, tuple(batch["label"].shape[1:3])).double()
+    ent = pixel_entropy(torch.softmax(up, dim=-1)) / np.log(ctx.n_cur)
+    pred = up.argmax(dim=-1)
+    top2 = up.topk(2, dim=-1).values
+    batch["label"][(top2[..., 0] - top2[..., 1]) <= 1e-4] = 255
+    mask = batch["label"] < old
+    thr = torch.zeros(N_CLASSES)
+    for c in range(old):
+        vals = torch.unique(ent[mask & (pred == c)])  # sorted
+        gaps = vals.diff()
+        if len(gaps) and float(gaps.max()) > 1e-4:
+            i = int(gaps.argmax())
+            thr[c] = float(vals[i] + vals[i + 1]) / 2
+        else:
+            thr[c] = (float(vals[-1]) if len(vals) else 0.0) + 1e-3
+    assert float((ent - thr.double()[pred]).abs()[mask].min()) > 1e-5
+    return thr
+
+
+def mib_plop_step_card_vs_cpu(cfg, seed, dev):
+    """[18] One f32 task-1 step of MiB and of PLOP after the imprinting,
+    RN101 4 x 128^2, on the CPU and on the card (TF32 off), with identity
+    and with the configured leaky activations; PLOP's thresholds set with
+    a margin from the CPU's teacher (``plop_thresholds_with_margin``).
+    Held as phase [13] holds the BACS step."""
+    from bacs_tpu_torch.train.learner import multihead_init
+    from bacs_tpu_torch.train.state import frozen_copy
+
+    crop, n = 128, 4
+    variables = {a: seeded_variables(cfg, seed, smooth=a == "identity")
+                 for a in ("identity", "leaky")}
+    batch = synthetic_batch(n, crop, torch.Generator().manual_seed(seed), "cpu",
+                            n_classes=OLD_CLASSES + 1)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in MIB_PLOP_METHODS:
+        for activation, (params, stats) in variables.items():
+            runs, thresholds = [], None
+            for device in (torch.device("cpu"), dev):
+                ctx, _, (train_step, _, put_batch) = method_steps(name, 1, device)
+                state = train_state(cfg, params, stats, torch.float32, device,
+                                    smooth=activation == "identity")
+                state.prev_model = frozen_copy(state.model)
+                multihead_init(state, ctx.task)
+                if name == "loss.PlopLoss":
+                    if thresholds is None:
+                        thresholds = plop_thresholds_with_margin(state, ctx, batch)
+                    state.plop_thresholds = thresholds.to(device)
+                    state.plop_max_entropy = torch.tensor(float(np.log(ctx.n_cur)),
+                                                          device=device)
+                p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+                state, metrics = train_step(state, put_batch(batch))
+                runs.append((float(metrics["loss"]), *grads_and_stats(state.model)))
+                del state
+            hold_step(f"[18] f32 {name} step card vs CPU, RN101 {n} x {crop}^2, task 1",
+                      activation, runs[1], runs[0], p0)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def mib_plop_steps_512(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
+    """[19] per method at 512^2 in bf16, batch 12: ``end_task`` of task 0
+    (the previous-model snapshot), the imprinting of the new class, for
+    PLOP ``begin_task`` over PLOP_BEGIN_BATCHES synthetic batches (timed),
+    then 2 warm-up and MIB_PLOP_STEPS timed task-1 steps with the counters
+    reset just before, the launches asserted per step, a finite loss, and a
+    two-step profile by kernel; [20] its task-1 eval steps.  Returns, per
+    method, the launch counts of the timed steps and of the eval steps."""
+    from bacs_tpu_torch.train.learner import multihead_init
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    n_cls = OLD_CLASSES + 1
+    results = {}
+    for name in MIB_PLOP_METHODS:
+        state = train_state(cfg, params, stats, torch.bfloat16, dev,
+                            generator=torch.Generator(dev).manual_seed(seed))
+        ctx0, method, _ = method_steps(name, 0, dev)
+        state = method.end_task(state, ctx0, [])
+        ctx1, _, (train_step, eval_step, _) = method_steps(name, 1, dev)
+        multihead_init(state, ctx1.task)
+        if name == "loss.PlopLoss":
+            begin = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, n_cls)
+                     for _ in range(PLOP_BEGIN_BATCHES)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = method.begin_task(state, ctx1, begin)
+            t_begin = time.perf_counter() - t0
+            thr = state.plop_thresholds.cpu()
+            log(f"[19] PLOP begin_task of task 1 over {PLOP_BEGIN_BATCHES} batches of "
+                f"{MIB_PLOP_BATCH} at {CROP}^2: {t_begin:.3f} s; thresholds of the "
+                f"{ctx1.n_cur} classes {[round(float(v), 5) for v in thr[:ctx1.n_cur]]}, "
+                f"max entropy {float(state.plop_max_entropy):.5f}")
+            assert bool(torch.isfinite(thr).all()) and bool((thr[:ctx1.n_cur] >= 0.001).all())
+            del begin
+        losses = []
+        for _ in range(WARMUP_STEPS):
+            state, metrics = train_step(state, synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev,
+                                                               n_cls))
+            losses.append(float(metrics["loss"]))
+        batches = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, n_cls)
+                   for _ in range(MIB_PLOP_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_ms = []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, b)
+            losses.append(float(metrics["loss"]))  # a host read: synchronises
+            step_ms.append(1000 * (time.perf_counter() - t0))
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(step_ms))
+        log(f"[19] bf16 {name} step (task 1), batch {MIB_PLOP_BATCH}, {CROP}^2: median "
+            f"{med:.3f} ms ({MIB_PLOP_BATCH * 1000 / med:.2f} img/s; min {min(step_ms):.3f}, "
+            f"max {max(step_ms):.3f} ms over {MIB_PLOP_STEPS} steps); peak memory "
+            f"{peak / 2**30:.3f} GiB; launches {got} over {MIB_PLOP_STEPS} steps")
+        log(f"[19] {name} loss: {' '.join(f'{v:.4f}' for v in losses)}")
+        assert all(np.isfinite(losses)), losses
+        per_step = {k: v / MIB_PLOP_STEPS for k, v in got.items()}
+        assert per_step["train_abn"] == per_step["k5"] == ABN_PER_FORWARD, per_step
+        if name == "loss.MiB":
+            ran, idle = ("k6f", "k6b", "k7f", "k7b"), ("k1f", "k1b", "k8", "k9")
+        else:  # K1's forward per image, K8 its backward
+            ran, idle = ("k9", "k1f", "k8"), ("k1b", "k6f", "k6b", "k7f", "k7b")
+        assert all(per_step[k] == 1 for k in ran), per_step
+        assert all(got[k] == 0 for k in idle + ("k2", "k3f", "k3b", "k4f", "k4b", "k10")), got
+        busy, parts = profile_by_kind(lambda: train_step(state, batches[0]),
+                                      f"bf16 {name} steps (batch {MIB_PLOP_BATCH}, {CROP}^2)")
+        for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+            log(f"[p] {name} step by kernel kind: {ms:.3f} ms ({ms / busy:.1%}) {part}")
+        log(f"[p] {name}: device busy {busy:.3f} ms per step; median step wall {med:.3f} "
+            f"ms: device idle share {1 - busy / med:.3f}")
+
+        conf_mat = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+        eval_step(state, conf_mat.clone(), batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        for b in batches[:EVAL_STEPS]:
+            conf_mat, loss = eval_step(state, conf_mat, b)
+            assert np.isfinite(float(loss))
+        ev = counts()
+        valid = sum(int((b["label"] != 255).sum()) for b in batches[:EVAL_STEPS])
+        log(f"[20] bf16 {name} eval step at task 1, batch {MIB_PLOP_BATCH}: launches {ev} "
+            f"over {EVAL_STEPS} steps; confusion counts {int(conf_mat.sum())} of {valid} "
+            f"valid pixels")
+        assert int(conf_mat.sum()) == valid
+        assert ev["k5"] == ABN_PER_FORWARD * EVAL_STEPS
+        assert ev["k1f"] == ev["k2"] == EVAL_STEPS
+        assert sum(v for k, v in ev.items() if k not in ("k5", "k1f", "k2")) == 0, ev
+        results[name] = dict(steps=got, eval=ev)
+        del state, batches
+        torch.cuda.empty_cache()
+    return results
+
+
+def mib_plop_kernel_times(dev, seed) -> tuple:
+    """[t] K6-K9 at the MiB and PLOP steps' shapes (student bf16 [12, 32, 32,
+    17], teacher [12, 32, 32, 16], 512^2, synthetic labels of 17 classes)
+    beside their plain versions (timed host-launched by CUDA events, as
+    K1-K4's), and their bounds; returns ({key: (ms, plain ms)}, {key:
+    bound}).  K9 and K8 take the entropy thresholds that PLOP's
+    ``begin_task`` sets on this teacher and these labels (each class's
+    histogram median), so K8's labels keep the share of pixels a step's
+    would."""
+    from bacs_tpu_torch.methods.plop import NB_BINS, add_entropy_histogram, entropy_thresholds
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem_per_image, ce_dsem_per_image_plain, uce_dsem, uce_dsem_plain, uce_sums,
+        uce_sums_plain, ukd_dsem, ukd_dsem_plain, ukd_sum, ukd_sum_plain, upsample_plain)
+    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels, pseudo_labels_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    hw = (CROP, CROP)
+    lab = synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, OLD_CLASSES + 1)["label"]
+    h = CROP // 16
+    sem = (torch.randn((MIB_PLOP_BATCH, h, h, OLD_CLASSES + 1), generator=gen, device=dev)
+           * 3).to(torch.bfloat16)
+    old = (torch.randn((MIB_PLOP_BATCH, h, h, OLD_CLASSES), generator=gen, device=dev)
+           * 3).to(torch.bfloat16)
+    g = torch.tensor(1.0 / lab.numel(), device=dev)
+    g_kd = -g
+    hist = torch.zeros((OLD_CLASSES + 1, NB_BINS), dtype=torch.int64, device=dev)
+    add_entropy_histogram(hist, upsample_plain(old, hw), lab)
+    thr = entropy_thresholds(hist, N_CLASSES).to(dev)
+    me = torch.tensor(float(np.log(OLD_CLASSES + 1)), device=dev)
+    pseudo, num, den = plop_pseudo_labels(old, lab, thr, hw, me)
+    log(f"[t] K8/K9 labels: begin_task's thresholds on this teacher "
+        f"{[round(v, 5) for v in thr[:OLD_CLASSES + 1].tolist()]}; "
+        f"{float(num.sum() / den.sum()):.4f} of the {int(den.sum())} background and "
+        f"old-class pixels keep a pseudo-label; {float((pseudo != 255).float().mean()):.4f} "
+        f"of all pixels have a valid label (the input had "
+        f"{float((lab != 255).float().mean()):.4f})")
+    gvec = (num / den.clamp(min=1) / lab.numel()).contiguous()
+    times = {
+        "k6f": (device_ms(lambda: uce_sums(sem, lab, hw, OLD_CLASSES)),
+                time_ms(lambda: uce_sums_plain(sem, lab, hw, OLD_CLASSES), iters=5)),
+        "k6b": (device_ms(lambda: uce_dsem(sem, lab, hw, g, OLD_CLASSES)),
+                time_ms(lambda: uce_dsem_plain(sem, lab, hw, g, OLD_CLASSES), iters=3)),
+        "k7f": (device_ms(lambda: ukd_sum(sem, old, hw)),
+                time_ms(lambda: ukd_sum_plain(sem, old, hw), iters=5)),
+        "k7b": (device_ms(lambda: ukd_dsem(sem, old, hw, g_kd)),
+                time_ms(lambda: ukd_dsem_plain(sem, old, hw, g_kd), iters=3)),
+        "k8": (device_ms(lambda: ce_dsem_per_image(sem, pseudo, hw, gvec)),
+               time_ms(lambda: ce_dsem_per_image_plain(sem, pseudo, hw, gvec), iters=5)),
+        "k9": (device_ms(lambda: plop_pseudo_labels(old, lab, thr, hw, me)),
+               time_ms(lambda: pseudo_labels_plain(old, lab, thr, hw, me), iters=5)),
+    }
+    bounds = {k: upsample_bound(k, sem, hw, lab) for k in ("k6f", "k6b")}
+    bounds.update({k: upsample_bound(k, sem, hw, extra=old) for k in ("k7f", "k7b")})
+    bounds["k8"] = upsample_bound("k8", sem, hw, pseudo)
+    bounds["k9"] = upsample_bound("k9", old, hw, lab, thr)
+    for key, label in (("k6f", "K6 forward"), ("k6b", "K6 backward"), ("k7f", "K7 forward"),
+                       ("k7b", "K7 backward"), ("k8", "K8"), ("k9", "K9")):
+        shape = tuple((old if key == "k9" else sem).shape)
+        log(f"[t] {label} {shape}->{CROP}^2 bf16, int32 labels: kernel {times[key][0]:.4f} "
+            f"ms, plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+            f"({bounds[key][1]})")
+    return times, bounds
 
 
 # ---------------------------------------------------------------- main
@@ -1109,49 +1584,25 @@ def main() -> int:
             state, metrics = train_step(state, put_batch(small))
             runs[device.type] = (float(metrics["loss"]), *grads_and_stats(state.model))
             del state
-        (loss_g, grads_g, params_g, stats_g), (loss_c, grads_c, params_c, stats_c) = (
-            runs["cuda"], runs["cpu"])
-        upd_g = {k: params_g[k] - p0[k] for k in p0}
-        upd_c = {k: params_c[k] - p0[k] for k in p0}
-        grad_rel, grad_worst = max_rel_error(abn_joined(grads_g), abn_joined(grads_c))
-        # an f32 parameter holds its update only to one ulp of its value
-        ulp = {k: float(torch.finfo(torch.float32).eps * v.abs().max()) for k, v in p0.items()}
-        upd_rel, _ = max_rel_error(upd_g, upd_c, ulp)
-        stats_rel, _ = max_rel_error(stats_g, stats_c)
-        grad_norm, update_norm = norm_error(grads_g, grads_c), norm_error(upd_g, upd_c)
-        log(f"[8] f32 train step card vs CPU, RN101 4 x 128^2, {activation} "
-            f"activations: loss {loss_g:.7f} vs {loss_c:.7f}; gradients max rel err "
-            f"per tensor (each ABN's scale and bias joined) {grad_rel:.3g} "
-            f"({grad_worst}), norm rel err {grad_norm:.3g}; SGD update max rel err "
-            f"per tensor beyond one ulp of the parameter {upd_rel:.3g}, norm rel err "
-            f"{update_norm:.3g}; running statistics max rel err {stats_rel:.3g}")
-        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
-        assert stats_rel <= 1e-4, stats_rel
-        if activation == "identity":
-            # a smooth network: the two devices differ by f32 rounding only,
-            # so every gradient and update tensor is held to its largest
-            # value, the ABN scales and biases and the head included
-            assert grad_rel <= 1e-4 and upd_rel <= 1e-4, (grad_rel, upd_rel)
-        else:
-            # pre-activations within rounding of 0 take different sides of
-            # the leaky kink on the two devices, and the ABN backward spreads
-            # such a pixel over its channel, so the gradients and the update
-            # are held to a few percent of their norm (the same effect
-            # between JAX and the port: tests/test_torch_train_step.py)
-            assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
+        hold_step("[8] f32 train step card vs CPU, RN101 4 x 128^2", activation,
+                  runs["cuda"], runs["cpu"], p0)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    del runs, grads_g, grads_c, params_g, params_c
+    del runs
     torch.cuda.empty_cache()
 
     # 9. bf16 training at 512^2, batch 16, launches counted
     from bacs_tpu_torch.ops.abn_core import fused_abn
     from bacs_tpu_torch.ops.upsample_ce import (
-        bacs_dsem, bacs_sum, ce_dsem, ce_sums_per_image, wce_dsem, wce_sums)
+        bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
+        uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
     from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
 
     counters = dict(k5=fused_abn_eval, train_abn=fused_abn, k1f=ce_sums_per_image,
                     k1b=ce_dsem, k2=upsampled_confusion, k10=upsampled_argmax_conf,
-                    k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem)
+                    k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem,
+                    k6f=uce_sums, k6b=uce_dsem, k7f=ukd_sum, k7b=ukd_dsem,
+                    k8=ce_dsem_per_image, k9=plop_pseudo_labels)
 
     def reset_counts():
         for fn in counters.values():
@@ -1359,6 +1810,17 @@ def main() -> int:
     assert bacs_eval_counts["k1f"] == bacs_eval_counts["k2"] == EVAL_STEPS
     assert sum(bacs_eval_counts[k] for k in ("k1b", "k3f", "k3b", "k4f", "k4b",
                                              "train_abn")) == 0
+    del state
+    torch.cuda.empty_cache()
+
+    # 16.-17. K6-K9 against their plain versions; 18. an f32 MiB and PLOP
+    # step card against CPU; 19.-20. MiB and PLOP at 512^2 with the launches
+    # counted, and their eval steps
+    mib_plop_errs = mib_plop_kernel_checks(dev)
+    mib_plop_step_card_vs_cpu(cfg, args.seed, dev)
+    torch.cuda.empty_cache()
+    mib_plop = mib_plop_steps_512(cfg, params, stats, args.seed, dev, reset_counts, counts)
+    mib, plop = mib_plop["loss.MiB"], mib_plop["loss.PlopLoss"]
 
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
@@ -1417,6 +1879,7 @@ def main() -> int:
             f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
+    mp_times, mp_bounds = mib_plop_kernel_times(dev, args.seed)
     step_parts["K3 and K4, forward + backward"] = sum(
         times[k][0] for k in ("k3f", "k3b", "k4f", "k4b"))
     for part, ms in step_parts.items():
@@ -1438,20 +1901,28 @@ def main() -> int:
         entry("abn_apply (K5)", "triton", "bacs_tpu_torch/ops/abn_core.py",
               "bacs_tpu/ops/abn_pallas.py:45",
               k5_launches + eval_counts["k5"] + train_counts["train_abn"]
-              + bacs_counts["k5"] + bacs_counts["train_abn"] + bacs_eval_counts["k5"],
+              + bacs_counts["k5"] + bacs_counts["train_abn"] + bacs_eval_counts["k5"]
+              + sum(r[p][k] for r in (mib, plop) for p, k in (
+                  ("steps", "k5"), ("steps", "train_abn"), ("eval", "k5"))),
               k5_err, k5_ms, k5_plain_ms, k5_bound,
               launches_by_path={"serve": k5_launches, "eval_step": eval_counts["k5"],
                                 "train_step_abn": train_counts["train_abn"],
                                 "bacs_step_prev_model": bacs_counts["k5"],
                                 "bacs_step_abn": bacs_counts["train_abn"],
-                                "bacs_eval_step": bacs_eval_counts["k5"]}),
+                                "bacs_eval_step": bacs_eval_counts["k5"],
+                                "mib_step_prev_model": mib["steps"]["k5"],
+                                "mib_step_abn": mib["steps"]["train_abn"],
+                                "plop_step_prev_model": plop["steps"]["k5"],
+                                "plop_step_abn": plop["steps"]["train_abn"],
+                                "mib_plop_eval_steps": mib["eval"]["k5"] + plop["eval"]["k5"]}),
         entry("upsample_argmax_conf (K10)", "cuda",
               "bacs_tpu_torch/csrc/upsample_argmax.cu",
               "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
               k10_ms, k10_plain_ms, k10_bound),
         entry("upsample_ce_sums (K1 forward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:787",
-              train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"],
+              train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"]
+              + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"],
               k1f_err, *times["k1f"], bounds["k1f"]),
         entry("upsample_ce_grad (K1 backward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:125",
@@ -1459,8 +1930,8 @@ def main() -> int:
         entry("upsample_confusion (K2)", "cuda",
               "bacs_tpu_torch/csrc/upsample_confusion.cu",
               "bacs_tpu/ops/upsample_confusion.py:88",
-              eval_counts["k2"] + bacs_eval_counts["k2"], k2_moved, *times["k2"],
-              bounds["k2"]),
+              eval_counts["k2"] + bacs_eval_counts["k2"] + mib["eval"]["k2"]
+              + plop["eval"]["k2"], k2_moved, *times["k2"], bounds["k2"]),
         entry("upsample_bacs_sum (K3 forward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
               bacs_counts["k3f"], k3f_err, *times["k3f"], bounds["k3f"]),
@@ -1473,6 +1944,21 @@ def main() -> int:
         entry("upsample_wce_grad (K4 backward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:243",
               bacs_counts["k4b"], k4b_err, *times["k4b"], bounds["k4b"]),
+        *(entry(name, "cuda", source, replaces, run[key], mib_plop_errs[key],
+                *mp_times[key], mp_bounds[key])
+          for name, source, replaces, run, key in (
+              ("upsample_uce_sums (K6 forward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+               "bacs_tpu/ops/upsample_ce.py:543", mib["steps"], "k6f"),
+              ("upsample_uce_grad (K6 backward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+               "bacs_tpu/ops/upsample_ce.py:543", mib["steps"], "k6b"),
+              ("upsample_ukd_sum (K7 forward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+               "bacs_tpu/ops/upsample_ce.py:695", mib["steps"], "k7f"),
+              ("upsample_ukd_grad (K7 backward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+               "bacs_tpu/ops/upsample_ce.py:695", mib["steps"], "k7b"),
+              ("upsample_ce_grad_per_image (K8)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+               "bacs_tpu/ops/upsample_ce.py:125", plop["steps"], "k8"),
+              ("upsample_plop_pseudo (K9)", "bacs_tpu_torch/csrc/upsample_pseudo.cu",
+               "bacs_tpu/ops/upsample_ce.py:904", plop["steps"], "k9"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

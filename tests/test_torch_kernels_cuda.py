@@ -3,15 +3,16 @@
 Every test needs a CUDA device and skips with a reason where torch sees
 none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
-those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11 and 12), at small shapes
-and at the serving and training shapes.
+those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16 and 17), at small
+shapes and at the serving and training shapes.
 """
 
 import pytest
 import torch
 
 from chip_smoke import (
-    check_abn, check_argmax, check_bacs, check_ce, check_confusion, check_wce)
+    check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
+    check_pseudo, check_uce, check_ukd, check_wce)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +94,88 @@ def test_upsample_wce_kernels_other_weights(cuda, kind):
 @pytest.mark.parametrize("shape,out_hw", WEIGHTED_CASES)
 def test_upsample_bacs_kernels_match_plain(cuda, shape, out_hw, dtype, ukd):
     check_bacs(shape, out_hw, dtype, cuda, ukd=ukd)
+
+
+# MiB's and PLOP's shapes at task 1 (17 classes, the teacher 16), odd ones
+MIB_PLOP_CASES = [((12, 32, 32, 17), (512, 512)), ((2, 33, 47, 17), (261, 373)),
+                  ((2, 5, 7, 6), (37, 51)), ((2, 8, 8, 40), (128, 128)),
+                  ((1, 4, 4, 3), (7, 5))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", MIB_PLOP_CASES)
+def test_upsample_uce_kernels_match_plain(cuda, shape, out_hw, dtype):
+    """K6, old classes C - 1."""
+    check_uce(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.7])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", MIB_PLOP_CASES)
+def test_upsample_ukd_kernels_match_plain(cuda, shape, out_hw, dtype, alpha):
+    """K7, a teacher of C - 1 channels."""
+    check_ukd(shape, out_hw, dtype, cuda, alpha=alpha)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", MIB_PLOP_CASES)
+def test_upsample_ce_per_image_kernel_matches_plain(cuda, shape, out_hw, dtype):
+    """K8, and K1's scalar case bit for bit."""
+    check_ce_per_image(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", [((12, 32, 32, 16), (512, 512))] + [
+    ((n, h, w, c - 1), hw) for (n, h, w, c), hw in MIB_PLOP_CASES[1:]])
+def test_upsample_pseudo_kernel_matches_plain(cuda, shape, out_hw, dtype):
+    """K9 under the margin rule of ``chip_smoke.check_pseudo``."""
+    check_pseudo(shape, out_hw, dtype, cuda)
+
+
+def test_mib_plop_kernels_count_launches_and_reject_bad_inputs(cuda):
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem_per_image, ce_sums_per_image, uce_dsem, uce_sums, ukd_dsem, ukd_sum,
+        upsampled_ce_sums_per_image, upsampled_unbiased_cross_entropy,
+        upsampled_unbiased_kd)
+    from bacs_tpu_torch.ops.upsample_pseudo import (
+        plop_pseudo_labels, upsampled_plop_pseudo_labels)
+
+    sem = torch.randn(2, 5, 7, 6, device=cuda, requires_grad=True)
+    old = torch.randn(2, 5, 7, 5, device=cuda, requires_grad=True)
+    labels = torch.randint(0, 6, (2, 37, 51), device=cuda)
+    labels[0, :4] = 255
+    counters = (uce_sums, uce_dsem, ukd_sum, ukd_dsem, ce_sums_per_image,
+                ce_dsem_per_image, plop_pseudo_labels)
+    before = [f.launches for f in counters]
+    upsampled_unbiased_cross_entropy(sem, labels, (37, 51), 5).backward()
+    upsampled_unbiased_kd(sem, old, (37, 51)).backward()
+    assert old.grad is None
+    thr = torch.full((21,), 0.05, device=cuda)
+    me = torch.tensor(1.79, device=cuda)
+    pseudo, num, den = upsampled_plop_pseudo_labels(old, labels, thr, (37, 51), me)
+    sums, _ = upsampled_ce_sums_per_image(sem, pseudo, (37, 51))
+    (sums * num / den.clamp(min=1)).sum().backward()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1, 1, 1, 1]
+    for got, ref in (
+        (upsampled_unbiased_cross_entropy(sem, labels, (37, 51), 5),
+         upsampled_unbiased_cross_entropy(sem.cpu(), labels.cpu(), (37, 51), 5)),
+        (upsampled_unbiased_kd(sem, old, (37, 51), 0.7),
+         upsampled_unbiased_kd(sem.cpu(), old.cpu(), (37, 51), 0.7)),
+    ):
+        torch.testing.assert_close(got.detach().cpu(), ref.detach(), rtol=1e-5, atol=0)
+    s = sem.detach()
+    with pytest.raises(TypeError):
+        ukd_sum(s, old.detach().bfloat16(), (37, 51))
+    with pytest.raises(ValueError):  # the teacher must have fewer channels
+        ukd_sum(s, s, (37, 51))
+    with pytest.raises(ValueError):
+        ukd_sum(s, old.detach()[:, :4].contiguous(), (37, 51))
+    with pytest.raises(ValueError):  # one g per image
+        ce_dsem_per_image(s, labels, (37, 51), torch.ones((), device=cuda))
+    with pytest.raises(ValueError):
+        plop_pseudo_labels(old.detach(), labels, thr[:4], (37, 51), me)
+    with pytest.raises(TypeError):
+        uce_sums(s.half(), labels, (37, 51), 5)
 
 
 def test_weighted_upsample_kernels_count_launches_and_reject_bad_inputs(cuda):
