@@ -8,7 +8,9 @@ kernel (Triton or CUDA C++ under ``csrc/``) beside a plain PyTorch version:
 a wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors.  The package imports neither ``jax`` nor ``flax``.
 
-Ported so far: the serving path (``serve.Predictor``).
+Ported so far: serving (``serve.Predictor``); the CE, BACS, MiB and PLOP
+train steps and the eval step (``train/step.py``); the continual trainer
+and its command line (``python -m bacs_tpu_torch.main``, ``train/loop.py``).
 """
 
 __version__ = "0.1.0"

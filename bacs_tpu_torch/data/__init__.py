@@ -1,1 +1,1 @@
-"""Input transforms."""
+"""Data: sources, continual scenarios, transforms and the DataModule."""

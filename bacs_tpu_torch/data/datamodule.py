@@ -1,0 +1,354 @@
+"""DataModule: continual-learning train and eval batch streams on the card.
+
+Port of ``bacs_tpu/data/datamodule.py`` (``DataModule``,
+``create_datamodule``, ``:84-560``): the task state, the debug (6 samples)
+and sweep (10 %) subsets, per-task train streams, and eval streams over one
+task's validation images with the labels of tasks 0..t visible, padded to
+whole batches with the padding's labels ignored and ``n_real`` given.
+
+- The index order is the JAX package's: the per-epoch permutation of a
+  ``RandomState((seed, t, epoch).__hash__() % 2**31)``, the tiling of a
+  task smaller than a batch, the subsets' ``RandomState(seed + t)`` and
+  ``RandomState(seed + 77 + t)`` draws (``:197-305``).
+- The augmentation draws come from a ``torch.Generator`` on the card,
+  seeded from the same numpy draw that seeds JAX's key (``:305``): the two
+  packages crop differently from one seed, as their generators differ.
+- Host decode runs in a prefetch thread (``_prefetch``, two batches ahead)
+  into pinned host memory; the consumer thread copies each batch to the
+  card without blocking and transforms it there.  A ``DeviceCache``
+  source skips both: its batches are gathered on the card.
+
+Not ported: multihost slicing (``process_shard``) and the multi-process
+decode pool (ROADMAP.md queue 1 items 10 and 7: ``training.num_workers``
+is not read, and decoding stays in the one prefetch thread).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from bacs_tpu_torch.data import transforms
+from bacs_tpu_torch.data.continual import (
+    ContinualScenario,
+    compute_class_sets,
+    shuffle_class_order,
+)
+from bacs_tpu_torch.data.datasets import (
+    DecodedCache,
+    DeviceCache,
+    SyntheticSource,
+    make_voc_source,
+)
+
+
+def _prefetch(iterator, depth: int = 2):
+    """Run `iterator` in a daemon thread, keeping `depth` items ready.
+
+    Worker exceptions re-raise at the consumer (a failed decode must not
+    silently truncate the epoch).  Abandoning the generator early (break /
+    exception in the consumer) sets `stop`, so the worker exits instead of
+    blocking forever on a full queue holding decoded batches."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+            put(sentinel)
+        except BaseException as e:  # noqa: BLE001 — relayed to consumer
+            put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def _identity_table(num_classes: int) -> np.ndarray:
+    return np.concatenate(
+        [np.arange(256)[:num_classes], np.full(256 - num_classes, 255)]
+    ).astype(np.int32)
+
+
+class DataModule:
+    def __init__(
+        self,
+        train_source,
+        val_source,
+        num_classes: int,
+        crop_size: int = 512,
+        batch_size: int = 8,
+        initial_increment: int = 0,
+        increment: int = 0,
+        mode: str = "overlap",
+        shuffle_classes: bool = False,
+        seed: int = 42,
+        debug: bool = False,
+        sweep: bool = False,
+        cache_dir: Optional[str] = None,
+        device: torch.device | str = "cuda",
+    ):
+        self.train_source = train_source
+        self.val_source = val_source
+        self.num_classes = num_classes
+        self.crop_size = crop_size
+        self.batch_size = batch_size
+        self.debug = debug
+        self.sweep = sweep
+        self.seed = seed
+        self.task_id = 0
+        self.device = torch.device(device)
+        # continual detection (reference: base_datamodule.py:37-40)
+        self.continual = 0 < initial_increment < num_classes - 1
+        class_order = (
+            shuffle_class_order(num_classes, seed) if shuffle_classes else None
+        )
+        if self.continual:
+
+            def _sets(source, tag):
+                cache = (
+                    os.path.join(cache_dir, f"class_sets_{tag}.npz")
+                    if cache_dir
+                    else None
+                )
+                return compute_class_sets(
+                    (lambda i=i: source.load_label(i) for i in range(len(source))),
+                    cache,
+                )
+
+            self.train_scenario = ContinualScenario(
+                _sets(train_source, "train"), initial_increment, increment,
+                num_classes, mode=mode, class_order=class_order,
+            )
+            # eval scenario always uses overlap membership
+            # (reference: base_datamodule.py:278-306 "with_prev_tasks")
+            self.val_scenario = ContinualScenario(
+                _sets(val_source, "val"), initial_increment, increment,
+                num_classes, mode="overlap", class_order=class_order,
+            )
+            self.n_tasks = self.train_scenario.n_tasks
+        else:
+            self.train_scenario = None
+            self.val_scenario = None
+            self.n_tasks = 1
+
+    # ------------------------------------------------------------------
+
+    def set_task_id(self, task_id: int):
+        self.task_id = task_id
+
+    @property
+    def class_names(self):
+        return getattr(self.train_source, "class_names", None)
+
+    def _subset(self, indices: np.ndarray, rng: np.random.RandomState):
+        """debug → 6 random samples; sweep → 10%
+        (reference: base_datamodule.py:331-339)."""
+        if self.debug:
+            take = min(6, len(indices))
+            return rng.choice(indices, size=take, replace=False)
+        if self.sweep:
+            take = max(1, int(0.1 * len(indices)))
+            return rng.choice(indices, size=take, replace=False)
+        return indices
+
+    def train_indices(self, task_id: Optional[int] = None) -> np.ndarray:
+        t = self.task_id if task_id is None else task_id
+        if self.continual:
+            idx = self.train_scenario.task_indices(t)
+        else:
+            idx = np.arange(len(self.train_source))
+        return self._subset(idx, np.random.RandomState(self.seed + t))
+
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self.train_indices()) // max(self.batch_size, 1))
+
+    # ------------------------------------------------------------------
+
+    def train_index_batches(self, epoch: int):
+        """(index batches of one epoch, the augmentation seed, the label
+        table) of the current task."""
+        t = self.task_id
+        indices = self.train_indices(t)
+        rng = np.random.RandomState((self.seed, t, epoch).__hash__() % (2**31))
+        perm = rng.permutation(indices)
+        global_batch = self.batch_size
+        n_steps = max(1, len(perm) // global_batch) if len(perm) >= global_batch else 1
+        if len(perm) < global_batch:  # tile tiny debug sets to a full batch
+            perm = np.resize(perm, global_batch)
+        table = (self.train_scenario.label_table(t, train=True) if self.continual
+                 else _identity_table(self.num_classes))
+        seed = int(rng.randint(2**31))
+        batches = [perm[s * global_batch:(s + 1) * global_batch] for s in range(n_steps)]
+        return batches, seed, table
+
+    def eval_index_batches(self, task_id: int):
+        """(index batches padded to whole batches, real counts, label table)
+        of task ``task_id``'s validation images."""
+        if self.continual:
+            idx = self.val_scenario.task_indices(task_id)
+            table = self.val_scenario.label_table(self.task_id, train=False)
+        else:
+            idx = np.arange(len(self.val_source))
+            table = _identity_table(self.num_classes)
+        idx = self._subset(idx, np.random.RandomState(self.seed + 77 + task_id))
+        n_steps = math.ceil(len(idx) / self.batch_size)
+        batches, n_reals = [], []
+        for s in range(n_steps):
+            batch_idx = idx[s * self.batch_size:(s + 1) * self.batch_size]
+            n_reals.append(len(batch_idx))
+            if len(batch_idx) < self.batch_size:  # pad to a whole batch
+                batch_idx = np.resize(batch_idx, self.batch_size)
+            batches.append(batch_idx)
+        return batches, n_reals, table
+
+    def _gather(self, source, indices):
+        """One index batch decoded on the host (pinned when bound for the
+        card)."""
+        pairs = [source.load(int(i)) for i in indices]
+        out = [torch.from_numpy(np.stack(x)) for x in zip(*pairs)]
+        if self.device.type == "cuda":
+            out = [x.pin_memory() for x in out]
+        return out
+
+    def _device_stream(self, source, index_batches) -> Iterator:
+        """(images, labels) uint8 tensors on the card per index batch."""
+        if isinstance(source, DeviceCache):
+            for idx in index_batches:
+                yield source.load_batch(idx)
+            return
+        host = _prefetch(self._gather(source, idx) for idx in index_batches)
+        for imgs, lbls in host:
+            yield (imgs.to(self.device, non_blocking=True),
+                   lbls.to(self.device, non_blocking=True))
+
+    def train_batches(self, epoch: int,
+                      augment: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+        """One epoch of batches for the current task, on the card."""
+        batches, seed, table = self.train_index_batches(epoch)
+        table = torch.from_numpy(table).to(self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        for imgs, lbls in self._device_stream(self.train_source, batches):
+            if augment:
+                yield transforms.train_transform(gen, imgs, lbls, table, crop=self.crop_size)
+            else:
+                yield transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)
+
+    def eval_batches(self, task_id: int) -> Iterator[Dict[str, torch.Tensor]]:
+        """Eval batches for ONE task's val subset with labels of tasks 0..t
+        visible (reference: base_datamodule.py:407-431 get_val_test_all);
+        each carries ``n_real``, its count of real (unpadded) images."""
+        batches, n_reals, table = self.eval_index_batches(task_id)
+        table = torch.from_numpy(table).to(self.device)
+        for n_real, (imgs, lbls) in zip(n_reals, self._device_stream(self.val_source, batches)):
+            if n_real < self.batch_size:  # padded duplicates count for nothing
+                lbls = lbls.clone()
+                lbls[n_real:] = 255
+            out = transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)
+            out["n_real"] = n_real
+            yield out
+
+    def eval_task_range(self, up_to_task: int) -> List[int]:
+        """Tasks evaluated after training task t: 0..t
+        (reference: trainer.py:371-383)."""
+        if not self.continual:
+            return [0]
+        return list(range(up_to_task + 1))
+
+
+def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule:
+    """Build a DataModule on ``device`` from a reference-style config tree
+    (reference `_target_` strings: dataloaders.VocDataModule etc.)."""
+    dcfg = config["dataset"]
+    tcfg = config["training"]
+    target = str(dcfg.get("_target_", "synthetic")).lower().rsplit(".", 1)[-1]
+    inner = dcfg.get("dataset", {})
+    root = inner.get("root", "~/data")
+    num_classes = int(inner.get("num_classes", 21))
+    crop = int(inner.get("crop_size", 512))
+    common = dict(
+        num_classes=num_classes,
+        crop_size=crop,
+        batch_size=int(tcfg.get("batch_size", 8)),
+        initial_increment=int(tcfg.get("initial_increment", 0) or 0),
+        increment=int(tcfg.get("increment", 0) or 0),
+        mode=str(tcfg.get("mode", "overlap")),
+        shuffle_classes=bool(tcfg.get("shuffle_classes", False)),
+        seed=int(tcfg.get("seed", 42)),
+        debug=bool(tcfg.get("debug", False)),
+        sweep=bool(tcfg.get("sweep", False)),
+        device=device,
+    )
+    if bool(inner.get("download", False)):
+        raise NotImplementedError(
+            "dataset.download is ROADMAP.md queue 1 item 7; place the data under "
+            f"{root} (no network)")
+    cache_decoded = inner.get("cache_decoded", False)
+
+    def _maybe_cache(src):
+        if not cache_decoded:
+            return src
+        if str(cache_decoded).lower() == "device":
+            return DeviceCache(src, device)
+        if str(cache_decoded).lower() == "disk":
+            return DecodedCache(src, os.path.expanduser(os.path.join(root, "cache")))
+        return DecodedCache(src)
+
+    if "voc" in target:
+        train = _maybe_cache(make_voc_source(root, "train", crop))
+        val = _maybe_cache(make_voc_source(root, "val", crop))
+        common["cache_dir"] = os.path.expanduser(os.path.join(root, "cache"))
+    elif "ade" in target or "cityscape" in target:
+        raise NotImplementedError(
+            f"the {dcfg['_target_']} source (ADE20K, Cityscapes) is ROADMAP.md queue 1 item 7")
+    else:  # synthetic
+        n_train = int(inner.get("n_train", 64))
+        n_val = int(inner.get("n_val", 16))
+        style = str(inner.get("style", "flat"))
+        # controlled background-shift regime (see SyntheticSource.__init__)
+        era_kw = {}
+        cooccur = float(inner.get("cooccur", -1.0))
+        if cooccur >= 0 or bool(inner.get("bg_drift", False)):
+            era_kw = dict(
+                cooccur=max(cooccur, 0.0),
+                bg_drift=bool(inner.get("bg_drift", False)),
+                cooccur_initial=int(tcfg.get("initial_increment", 0) or 0),
+                cooccur_increment=int(tcfg.get("increment", 0) or 1),
+            )
+        train = SyntheticSource(n_train, crop, num_classes, seed=1, style=style, **era_kw)
+        val = SyntheticSource(n_val, crop, num_classes, seed=2, style=style, **era_kw)
+        if inner.get("n_domains", None):
+            raise NotImplementedError(
+                "the domain-shifted synthetic source (dataset.dataset.n_domains) is "
+                "ROADMAP.md queue 1 item 7")
+        if str(cache_decoded).lower() == "device":
+            train, val = DeviceCache(train, device), DeviceCache(val, device)
+    return DataModule(train, val, **common)

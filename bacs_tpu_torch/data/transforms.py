@@ -1,9 +1,12 @@
-"""Image normalization and the replay augmentation, on the tensors' device.
+"""The on-device transforms: normalization, label remap, the train and eval
+transforms, and the replay augmentation, on the tensors' device.
 
 Port of ``bacs_tpu/data/transforms.py``: ``normalize_image`` /
-``denormalize_image`` (``:29-40``) and ``replay_augment`` (``:121-138``),
-which re-applies the train transform (RandomResizedCrop, scale 0.5-2.0,
-and a horizontal flip) to buffered crops at every replay.  The draws
+``denormalize_image`` (``:29-40``), ``remap_labels`` (``:43-45``),
+``train_transform`` (RandomResizedCrop, scale 0.5-2.0, and a horizontal
+flip, then normalize and remap, ``:101-118``), ``eval_transform``
+(``:141-161``) and ``replay_augment`` (``:121-138``), which re-applies the
+train augmentation to buffered crops at every replay.  The draws
 (:func:`sample_crop_params`) come from a ``torch.Generator``; what they
 make of the pixels (:func:`apply_crop_params`, :func:`resize_region`) is a
 function of the parameters (i, j, ch, cw, flip), computed in the same
@@ -106,11 +109,11 @@ def resize_region(img: torch.Tensor, i, j, ch, cw, out: int, method: str) -> tor
 
 
 def apply_crop_params(images: torch.Tensor, labels: torch.Tensor,
-                      params: Dict[str, torch.Tensor]):
+                      params: Dict[str, torch.Tensor], out: Optional[int] = None):
     """The augmentation for given parameters: images [N, H, W, 3] resized
     bilinearly and labels [N, H, W] by nearest to the same out x out grid
-    (out = H), then flipped where ``flip``."""
-    crop = images.shape[1]
+    (default out = H), then flipped where ``flip``."""
+    crop = out or images.shape[1]
     region = (params["i"], params["j"], params["ch"], params["cw"])
     img = resize_region(images, *region, crop, "bilinear")
     lbl = resize_region(labels, *region, crop, "nearest")
@@ -128,3 +131,43 @@ def replay_augment(images: torch.Tensor, labels: torch.Tensor,
     params = sample_crop_params(images.shape[0], tuple(images.shape[1:3]),
                                 generator, images.device)
     return apply_crop_params(images, labels, params)
+
+
+def remap_labels(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Apply a [256] lookup table (int32, on the labels' device) to integer
+    labels."""
+    return table[labels.long().clamp(0, 255)]
+
+
+def train_transform(generator: Optional[torch.Generator], images: torch.Tensor,
+                    labels: torch.Tensor, table: torch.Tensor, crop: int = 512,
+                    scale: Tuple[float, float] = (0.5, 2.0)) -> Dict[str, torch.Tensor]:
+    """uint8 images [N, H, W, 3] and labels [N, H, W] -> the augmented batch
+    {image: normalized f32 [N, crop, crop, 3], label: int32 [N, crop, crop]}:
+    a crop region and a flip per image drawn from ``generator`` on the
+    images' device, the region resized to ``crop`` (bilinear images,
+    nearest labels), then normalize and remap."""
+    params = sample_crop_params(images.shape[0], tuple(images.shape[1:3]), generator,
+                                images.device, scale)
+    img, lbl = apply_crop_params(images, labels, params, out=crop)
+    return {"image": normalize_image(img), "label": remap_labels(lbl, table)}
+
+
+def eval_transform(images: torch.Tensor, labels: torch.Tensor, table: torch.Tensor,
+                   crop: int = 512) -> Dict[str, torch.Tensor]:
+    """Resize (short side -> crop) + CenterCrop + Normalize.  Sources arrive
+    square; one of another size than ``crop`` is resized: images by
+    anti-aliased bilinear interpolation with half-pixel centres (JAX's
+    ``jax.image.resize(..., "linear")``), labels by the nearest source row
+    and column ``floor(k * h / crop)``."""
+    n, h, w, _ = images.shape
+    if (h, w) != (crop, crop):
+        x = images.float().permute(0, 3, 1, 2)
+        images = torch.nn.functional.interpolate(
+            x, size=(crop, crop), mode="bilinear", align_corners=False,
+            antialias=True).permute(0, 2, 3, 1)
+        k = torch.arange(crop, device=labels.device, dtype=torch.float32)
+        ys = torch.floor(k * (h / crop)).long().clamp(0, h - 1)
+        xs = torch.floor(k * (w / crop)).long().clamp(0, w - 1)
+        labels = labels[:, ys][:, :, xs]
+    return {"image": normalize_image(images), "label": remap_labels(labels, table)}

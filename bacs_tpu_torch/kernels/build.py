@@ -102,6 +102,10 @@ SIGNATURES = {
     #  stream)
     "upsample_plop_pseudo": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
                              _I, _I, _P, _P, _P],
+    # (c, is_bf16, vec [2, C], slope, n, H, W, C, p, stream)
+    "stem_pool_fwd": [_P, _I, _P, _F, _I, _I, _I, _I, _P, _P],
+    # (c, dap, is_bf16, vec [7, C], slope, n, H, W, C, codes, dc, stream)
+    "stem_pool_grad": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

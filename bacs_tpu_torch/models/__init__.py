@@ -42,7 +42,12 @@ def create_network(
     in f32 on activations of the convolutions' dtype.  Weights are in
     channels_last memory.  ``n_tasks`` is the background detector's head
     count with ``use_bg_detector``.  ``kwargs`` takes the network config's
-    ``backbone``, ``output_stride`` and ``atrous_encoder``.
+    ``backbone``, ``output_stride``, ``atrous_encoder`` and the ABN gate
+    ``fused_stem`` (default false: the stem's fused ABN + max-pool, K12),
+    as ``bacs_tpu/models/__init__.py:45-46``.  ``fused_abn=false`` (the
+    non-fused train ABN) is ROADMAP.md queue 1 item 2 and ``remat``
+    (stage rematerialisation) other than false is queue 1 item 3; both
+    raise.
     """
     short = name.rsplit(".", 1)[-1].lower()
     if short not in ("deeplabv3", "deeplab", "deep_lab"):
@@ -50,11 +55,21 @@ def create_network(
             f"network {name!r} is ROADMAP.md queue 1 item 12; only DeepLabV3 "
             "is ported"
         )
+    if not kwargs.get("fused_abn", True):
+        raise NotImplementedError(
+            "network.fused_abn=false (the non-fused train-mode ABN) is "
+            "ROADMAP.md queue 1 item 2; only the fused ABN is ported"
+        )
+    if kwargs.get("remat"):
+        raise NotImplementedError(
+            f"network.remat={kwargs['remat']!r} (stage rematerialisation) is "
+            "ROADMAP.md queue 1 item 3; only remat=false is ported"
+        )
     model = DeepLabV3(
         num_classes=num_classes,
         backbone_name=kwargs.get("backbone", "resnet101"),
         output_stride=kwargs.get("output_stride", 16),
-        norm=make_norm(norm),
+        norm=make_norm(norm, fused_stem=bool(kwargs.get("fused_stem", False))),
         n_tasks=n_tasks,
         use_bg_detector=use_bg_detector,
         atrous_encoder=bool(kwargs.get("atrous_encoder")),

@@ -12,8 +12,10 @@ max-pool padded by 1, padding counting as -inf as in Flax.
 - Train mode: the fused branch of the JAX module (``norm.py:102-139``):
   ``fused_abn`` (in-place-ABN backward) on the batch statistics, then the
   torch-style running update with momentum and the n/(n-1) Bessel factor
-  on the variance (``norm.py:65-72``).  The stem's fused ABN + max-pool
-  kernel (``fused_stem``) stays off, as its JAX default is.  The non-fused
+  on the variance (``norm.py:65-72``).  With ``fused_stem`` (off by
+  default, as in JAX) the stem's ABN + max-pool on an even H and W is one
+  kernel, K12 (``ops/stem_pool.py``), its running update counting the
+  unpooled rows.  The non-fused
   branch, which the JAX module takes for ReLU (``bn``) and the renorm/ABR
   variants (``norm.py:141-185``), and cross-GPU statistics are ROADMAP.md
   queue 1 items 2 and 10; they raise.
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bacs_tpu_torch.ops.abn_core import fused_abn, fused_abn_eval
+from bacs_tpu_torch.ops.stem_pool import fused_abn_pool
 
 
 def activation_slope(activation: str, param: float) -> float:
@@ -65,6 +68,7 @@ class ABN(nn.Module):
         activation_param: float = 0.01,
         renorm: bool = False,
         pool: bool = False,
+        fused_stem: bool = False,
     ):
         super().__init__()
         self.features = features
@@ -74,6 +78,7 @@ class ABN(nn.Module):
         self.activation_param = activation_param
         self.renorm = renorm
         self.pool = pool
+        self.fused_stem = fused_stem
         self.slope = activation_slope(activation, activation_param)
         # the JAX module's fused branch: an invertible activation, no renorm
         self.fusable = not renorm and (
@@ -90,12 +95,12 @@ class ABN(nn.Module):
             y = fused_abn_eval(x, self.running_mean, self.running_var,
                                self.weight, self.bias, self.eps, self.slope)
         elif self.fusable:
+            if self.pool and self.fused_stem and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+                p, mean, var = fused_abn_pool(x, self.weight, self.bias, self.eps, self.slope)
+                self._update_running(x, mean, var)
+                return p.permute(0, 3, 1, 2)
             y, mean, var = fused_abn(x, self.weight, self.bias, self.eps, self.slope)
-            n = x.numel() // self.features
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m * n / max(n - 1, 1))
+            self._update_running(x, mean, var)
         else:
             raise NotImplementedError(
                 f"train-mode ABN with activation {self.activation!r}"
@@ -107,27 +112,38 @@ class ABN(nn.Module):
             y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)
         return y
 
+    @torch.no_grad()
+    def _update_running(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
+        """Torch-style momentum update, the variance Bessel-corrected over
+        the rows of the (unpooled) input."""
+        n = x.numel() // self.features
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m * n / max(n - 1, 1))
+
     def extra_repr(self) -> str:
         return (f"{self.features}, activation={self.activation}, "
-                f"slope={self.slope}, renorm={self.renorm}, pool={self.pool}")
+                f"slope={self.slope}, renorm={self.renorm}, pool={self.pool}, "
+                f"fused_stem={self.fused_stem}")
 
 
 _RENORMS = ("iabr_sync", "abr_sync", "iabr", "abr")
 _LEAKY_NORMS = ("iabn_sync", "abn_sync", "iabn", "abn") + _RENORMS
 
 
-def make_norm(norm: str):
+def make_norm(norm: str, fused_stem: bool = False):
     """Norm-layer factory from the reference's norm strings.
 
     Returns ``f(features, **overrides) -> ABN``.  The sync variants differ
     from the others only across GPUs (ROADMAP.md queue 1 item 10); ``bn``
     keeps the reference's momentum 3e-4 (``bacs_tpu/models/norm.py:205-213``).
+    ``fused_stem`` is the config gate ``network.fused_stem``.
     """
     if norm == "bn":
         return functools.partial(ABN, activation="relu", activation_param=0.0,
-                                 momentum=0.0003)
+                                 momentum=0.0003, fused_stem=fused_stem)
     if norm in _LEAKY_NORMS:
         return functools.partial(ABN, activation="leaky_relu",
                                  activation_param=0.01,
-                                 renorm=norm in _RENORMS)
+                                 renorm=norm in _RENORMS, fused_stem=fused_stem)
     raise NotImplementedError(f"Selected Norm {norm} is not supported")

@@ -1,1 +1,2 @@
-"""Training: the train state, optimizers and schedules, and the step factory."""
+"""Training: the train state, optimizers and schedules, the step factory,
+metrics and the continual task loop."""

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (CE, BACS, MiB and PLOP) and
-eval paths on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving, training (CE, BACS, MiB and PLOP), eval
+and continual-trainer paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -85,9 +85,33 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    and 107 train-ABN and 107 K5 (the previous model), a finite loss; the
    median img/s, the peak memory and a two-step profile by kernel kind;
 20. the task-1 eval steps of both: 107 K5, 1 K1 forward and 1 K2 per step;
-t. times K1-K4 and K6-K9 at the main path's shapes beside their plain
-   versions, and computes every kernel's bound from its inputs (bytes, f32
-   operations and special-function operations).
+21. holds the fused stem's kernels (K12: ABN apply + leaky + 3x3/2 max-pool,
+   forward and backward, CUDA) against their plain versions at the stem's
+   [16|12, 256, 256, 64], two small odd-sized cases and an input on three
+   levels (ties), f32 (value rtol 2e-3, gradient 5e-2) and bf16 (values
+   exact, gradients exact outside windows with a near tie), and that a
+   CUDA tensor the kernel does not take raises;
+22. phase 8 with ``fused_stem``: one f32 train step card against CPU, K12
+   launched once each way on the card;
+23. the bf16 512^2 CE step at batch 16 with the fused stem on against off
+   (phase 9's configuration), timed in turns on the same batches: median
+   wall, busy time, peak memory, the stem's kernels' share, and per step 1
+   K12 each way and 106 train-ABN applies (off: none and 107);
+24. the continual protocol through the CLI's ``bacs_tpu_torch.main.train``
+   in-process: ``conf/bacs/bacs_plus_config`` with ``der_15_1_bg``,
+   ``bacs_plus_bg`` and the fused stem, DeepLabV3-ResNet-101 at 512^2 in
+   bf16, batch 12, on the synthetic source at VOC's 21 classes (400 train
+   and 48 validation images), one step per new class: all 6 tasks, BACS's
+   ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``,
+   the run stopped after task 1's first mid-task checkpoint and resumed;
+   asserts the metric keys, 1 K12 each way per train-mode network pass of
+   every train step (1 pass at task 0, 3 later) and a finite final mIoU;
+   prints the seconds of each task's parts, ``Trainer.throughput``, the
+   checkpoints' sizes and times, and the last task's device idle share;
+t. times K1-K4, K6-K9 and K12 at the main path's shapes beside their plain
+   versions (K12 also beside the unfused ABN + max-pool pair), and computes
+   every kernel's bound from its inputs (bytes, f32 operations and
+   special-function operations).
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
@@ -633,11 +657,13 @@ def load_yaml(path: str) -> dict:
         return yaml.safe_load(f)
 
 
-def train_state(cfg, params, stats, dtype, device, smooth=False, **state_kw):
+def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=False,
+                **state_kw):
     """A train state: f32 master weights from the Flax trees, convs
     computing in ``dtype``, nesterov SGD under the poly schedule.
     ``smooth`` gives every ABN (and so every block output) the identity
-    activation in place of the configured leaky-ReLU.  Flax trees with a
+    activation in place of the configured leaky-ReLU; ``fused_stem`` the
+    stem's fused ABN + max-pool (K12).  Flax trees with a
     ``seen_fg_network`` build the network with the background detector;
     ``state_kw`` are further ``TrainState`` fields."""
     from bacs_tpu_torch.models import ABN, create_network
@@ -648,7 +674,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False, **state_kw):
     model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
                            backbone=cfg["backbone"], dtype=dtype,
                            param_dtype=torch.float32, n_tasks=N_TASKS,
-                           use_bg_detector="seen_fg_network" in params)
+                           use_bg_detector="seen_fg_network" in params,
+                           fused_stem=fused_stem)
     load_flax_variables(model, params, stats)
     if smooth:
         for m in model.modules():
@@ -773,14 +800,16 @@ def hold_step(label: str, activation: str, card, cpu, p0: dict, extra: str = "")
         assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
 
 
-def device_kernels(fn, steps: int = 2) -> tuple:
+def device_kernels(fn, steps: int = 2, warm: bool = True) -> tuple:
     """The profiler's device events (kernels, copies) of ``steps`` calls of
-    ``fn``, after one call unrecorded, and the profiler itself."""
+    ``fn``, after one call unrecorded where ``warm``, and the profiler
+    itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
@@ -902,6 +931,7 @@ BACS_STEPS, FILL_BATCHES = 10, 20
 TRAIN_ABN_PER_BACS_STEP = 3 * ABN_PER_FORWARD
 # device kernels of a profile, by name, in the order they are matched
 KERNEL_KINDS = (
+    ("K12 (fused stem: ABN + leaky + max-pool, forward and backward)", ("stem_pool",)),
     ("K6 (MiB unbiased upsample+CE, forward and backward)", ("UceTerm",)),
     ("K7 (MiB unbiased KD of the upsampled pair, forward and backward)", ("ukd_",)),
     ("K9 (PLOP pseudo-labels)", ("pseudo_kernel",)),
@@ -1382,6 +1412,386 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
     return times, bounds
 
 
+# ---------------------------------------------------------------- fused stem (K12)
+
+# the stem's conv output at the CLI's batch (der_15_1_bg.yaml) and at phase
+# [9]'s; two small odd-sized cases (H/2 odd, W = 2)
+STEM_MAIN = (12, 256, 256, 64)
+STEM_CASES = [(BATCH, 256, 256, 64), STEM_MAIN, (3, 6, 2, 5), (2, 10, 2, 64)]
+STEM_TIES = (4, 64, 64, 64)  # inputs on 3 levels: most windows repeat their max
+ABN_PER_FUSED_STEM_FORWARD = ABN_PER_FORWARD - 1  # the stem's ABN is K12's
+
+
+def ce_step_card_vs_cpu(label, cfg, params, stats, dev, seed, fused_stem=False) -> None:
+    """[8] (and [22] with ``fused_stem``): one f32 CE train step of RN101 at 4
+    x 128^2 on the card and on the CPU (TF32 off), with identity and with
+    the configured leaky activations, held by ``hold_step``.  With the fused
+    stem the card's step launches K12 once each way."""
+    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd, stem_pool_grad
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = synthetic_batch(4, 128, torch.Generator().manual_seed(seed), "cpu")
+    for activation in ("identity", "leaky"):
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            state = train_state(cfg, params, stats, torch.float32, device,
+                                smooth=activation == "identity", fused_stem=fused_stem)
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            train_step, _, put_batch = ce_steps(device)
+            k12 = stem_pool_fwd.launches, stem_pool_grad.launches
+            state, metrics = train_step(state, put_batch(small))
+            runs[device.type] = (float(metrics["loss"]), *grads_and_stats(state.model))
+            if device.type == "cuda":
+                launched = (stem_pool_fwd.launches - k12[0], stem_pool_grad.launches - k12[1])
+                assert launched == ((1, 1) if fused_stem else (0, 0)), launched
+            del state
+        hold_step(label, activation, runs["cuda"], runs["cpu"], p0,
+                  "; K12 launched once each way on the card" if fused_stem else "")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def stem_step_compare(cfg, params, stats, dev, seed, reset_counts, counts) -> dict:
+    """[23] The bf16 512^2 CE train step at batch 16 with the fused stem on
+    against phase [9]'s configuration (off), on the same synthetic batches,
+    timed in turns (off, on, on, off; 9 steps each after 2 warm-up):
+    median wall, peak memory, launches per step (on: 1 K12 each way and
+    106 train-ABN applies; off: none and 107) and a two-step profile each,
+    with the stem's kernels' share (on: K12; off: the max-pool's)."""
+    train_step, _, _ = ce_steps(dev)
+    states = {name: train_state(cfg, params, stats, torch.bfloat16, dev,
+                                fused_stem=name == "on") for name in ("off", "on")}
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    batches = [synthetic_batch(BATCH, CROP, gen, dev) for _ in range(TRAIN_STEPS // 2)]
+    for state in states.values():
+        for b in batches[:WARMUP_STEPS]:
+            float(train_step(state, b)[1]["loss"])
+    walls, peaks, got = {"off": [], "on": []}, {}, {}
+    for name in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for b in batches:
+            t0 = time.perf_counter()
+            _, metrics = train_step(states[name], b)
+            assert np.isfinite(float(metrics["loss"]))  # a host read: synchronises
+            walls[name].append(1000 * (time.perf_counter() - t0))
+        peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+        for k, v in counts().items():
+            got.setdefault(name, {})[k] = got.get(name, {}).get(k, 0) + v
+    out = {}
+    for name, state in states.items():
+        steps = len(walls[name])
+        per_step = {k: v / steps for k, v in got[name].items()}
+        on = name == "on"
+        assert per_step["k12f"] == per_step["k12b"] == (1 if on else 0), per_step
+        assert per_step["train_abn"] == (ABN_PER_FUSED_STEM_FORWARD if on else ABN_PER_FORWARD)
+        assert per_step["k1f"] == per_step["k1b"] == 1, per_step
+        events, prof = device_kernels(lambda: train_step(state, batches[0]))
+        busy = sum(e.self_device_time_total for e in events) / 1000 / 2
+        stem = sum(e.self_device_time_total for e in events
+                   if ("stem_pool" if on else "max_pool") in e.key) / 1000 / 2
+        med = float(np.median(walls[name]))
+        log(f"[23] bf16 CE train step, batch {BATCH}, {CROP}^2, fused stem {name}: median "
+            f"{med:.3f} ms ({BATCH * 1000 / med:.2f} img/s) over {steps} steps in two turns; "
+            f"peak memory {peaks[name] / 2**30:.3f} GiB (both states resident); device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / med:.3f}; {'K12' if on else 'max-pool'} "
+            f"kernels {stem:.3f} ms ({stem / busy:.1%} of busy); launches per step {per_step}")
+        out[name] = dict(med=med, busy=busy, stem=stem, peak=peaks[name], counts=got[name])
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def stem_inputs(shape, dtype, device, seed=0, levels=None):
+    """(c, scale, bias, dp) of the fused stem, seeded; ``levels`` puts every
+    input on a few levels (ties)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = torch.randn(shape, generator=g, device=device) * 2 + 0.3
+    if levels:
+        c = torch.round(c * levels / 4) * (4.0 / levels)
+    ch = shape[-1]
+    scale = torch.rand(ch, generator=g, device=device) + 0.5
+    scale[::3] *= -1  # negative scales flip the order before the activation
+    bias = torch.randn(ch, generator=g, device=device) * 0.1
+    n, h, w, _ = shape
+    dp = torch.randn((n, h // 2, w // 2, ch), generator=g, device=device).to(dtype)
+    return c.to(dtype).contiguous(), scale, bias, dp
+
+
+def near_tie_cells(c, vec, slope):
+    """[n, H, W, C] bool: the input cells of every window whose top two
+    candidates (f32 y) lie within one bf16 ulp of the max, where the
+    kernel's and the plain version's argmax may part."""
+    from bacs_tpu_torch.ops.stem_pool import _activate
+
+    n, h, w, ch = c.shape
+    y = torch.nn.functional.pad(_activate(c, vec[0], vec[1], slope), (0, 0, 1, 1, 1, 1),
+                                value=-1e30)
+    planes = torch.stack([y[:, ky:ky + h:2, kx:kx + w:2, :] for ky in range(3)
+                          for kx in range(3)])
+    top2 = planes.topk(2, dim=0).values
+    ulp = top2[0].abs() * 2.0 ** -7
+    near = (top2[0] - top2[1]) <= ulp
+    cells = torch.zeros((n, h + 2, w + 2, ch), dtype=torch.bool, device=c.device)
+    for ky in range(3):
+        for kx in range(3):
+            cells[:, ky:ky + h:2, kx:kx + w:2, :] |= near
+    return cells[:, 1:h + 1, 1:w + 1, :]
+
+
+def check_stem(shape, dtype, device, seed=0, levels=None) -> dict:
+    """[21] K12 forward and backward against their plain versions on the same
+    inputs (the vectors of ``forward_vectors`` / ``backward_vectors``).  f32:
+    values within rtol 2e-3 and gradients within 5e-2 of their largest
+    (``scripts/check_kernels_tpu.py:247-248``); bf16: values exact, gradients
+    exact outside windows with a near tie.  Returns the errors and whether
+    both came out bit-equal."""
+    from bacs_tpu_torch.ops.stem_pool import (
+        backward_vectors, forward_vectors, stem_pool_fwd, stem_pool_grad,
+        stem_pool_grad_plain, stem_pool_plain)
+
+    slope = 0.01
+    c, scale, bias, dp = stem_inputs(shape, dtype, device, seed, levels)
+    with torch.no_grad():
+        mean, _, inv, vec = forward_vectors(c, scale, bias)
+        p, p_ref = stem_pool_fwd(c, vec, slope), stem_pool_plain(c, vec, slope)
+        dap, vec7, _, _ = backward_vectors(c, p_ref, dp, scale, bias, mean, inv, vec, slope)
+        dc, dc_ref = stem_pool_grad(c, dap, vec7, slope), stem_pool_grad_plain(c, dap, vec7, slope)
+    torch.cuda.synchronize()
+    val_err = float((p.float() - p_ref.float()).abs().max())
+    diff = (dc.float() - dc_ref.float()).abs()
+    grad_err = float(diff.max())
+    excluded = 0
+    if dtype == torch.float32:
+        assert val_err <= 2e-3 * float(p_ref.abs().max()), (shape, val_err)
+        assert grad_err <= 5e-2 * float(dc_ref.abs().max()), (shape, grad_err)
+    else:
+        assert val_err == 0.0, (shape, val_err)
+        near = near_tie_cells(c, vec, slope)
+        excluded = int(near.sum())
+        assert not bool((diff[~near] > 0).any()), (shape, grad_err)
+    return {"val_abs": val_err, "grad_abs": grad_err, "excluded": excluded,
+            "bit_equal": val_err == 0.0 and grad_err == 0.0}
+
+
+def stem_raises(device) -> None:
+    """[21] CUDA tensors the kernel does not take raise: f16, odd H, a
+    non-contiguous layout; none falls back to the plain version."""
+    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd
+
+    vec = torch.zeros((2, 8), device=device)
+    for c, err in ((torch.zeros((1, 4, 4, 8), dtype=torch.float16, device=device), TypeError),
+                   (torch.zeros((1, 5, 4, 8), device=device), ValueError),
+                   (torch.zeros((1, 8, 4, 4), device=device).permute(0, 2, 3, 1), ValueError)):
+        try:
+            stem_pool_fwd(c, vec, 0.01)
+        except err:
+            continue
+        raise AssertionError(f"K12 took {c.dtype} {tuple(c.shape)}")
+
+
+def stem_bound(c, kernel: str):
+    """K12's bound on these inputs: bytes (c read, p written; backward c and
+    dap read, dc written), the operations (per input cell the affine and
+    leaky, 4; per window 9 compares; the backward adds the BN backward, 5
+    per cell) far below the f32 rate."""
+    n, h, w, ch = c.shape
+    cells, wins, e = c.numel(), n * (h // 2) * (w // 2) * ch, c.element_size()
+    if kernel == "k12f":
+        return bound((cells + wins) * e, 4 * cells + 9 * wins)
+    return bound((2 * cells + wins) * e, 9 * cells + 9 * wins)
+
+
+def stem_kernel_times(dev, shape=STEM_MAIN) -> dict:
+    """[t] K12 at ``shape`` in bf16: the kernels alone and their plain
+    versions (CUDA-graph replay), the whole fused ABN + pool autograd pass
+    and the unfused pair the port runs with fused_stem off (K5's
+    ``fused_abn`` apply then ``F.max_pool2d``, and their autograd backward;
+    host-launched CUDA events); backward = forward + backward - forward."""
+    import torch.nn.functional as F
+
+    from bacs_tpu_torch.ops.abn_core import fused_abn
+    from bacs_tpu_torch.ops.stem_pool import (
+        backward_vectors, forward_vectors, fused_abn_pool, stem_pool_fwd, stem_pool_grad,
+        stem_pool_grad_plain, stem_pool_plain)
+
+    c, scale, bias, dp = stem_inputs(shape, torch.bfloat16, dev, seed=5)
+    with torch.no_grad():
+        mean, _, inv, vec = forward_vectors(c, scale, bias)
+        p = stem_pool_fwd(c, vec, 0.01)
+        dap, vec7, _, _ = backward_vectors(c, p, dp, scale, bias, mean, inv, vec, 0.01)
+    scale.requires_grad_()
+    bias.requires_grad_()
+    x = c.clone().requires_grad_()
+
+    def unfused():
+        y, _, _ = fused_abn(x, scale, bias)
+        return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1)
+
+    def fused():
+        return fused_abn_pool(x, scale, bias)[0]
+
+    def fwd_bwd(fn, g):
+        return lambda: fn().backward(g)
+
+    with torch.no_grad():
+        fwd = {"unfused": time_ms(unfused, iters=10), "fused": time_ms(fused, iters=10)}
+    both = {"unfused": time_ms(fwd_bwd(unfused, dp.permute(0, 3, 1, 2)), iters=10),
+            "fused": time_ms(fwd_bwd(fused, dp), iters=10)}
+    out = {
+        "k12f": (device_ms(lambda: stem_pool_fwd(c, vec, 0.01)),
+                 device_ms(lambda: stem_pool_plain(c, vec, 0.01)),
+                 fwd["unfused"], fwd["fused"]),
+        "k12b": (device_ms(lambda: stem_pool_grad(c, dap, vec7, 0.01)),
+                 device_ms(lambda: stem_pool_grad_plain(c, dap, vec7, 0.01)),
+                 both["unfused"] - fwd["unfused"], both["fused"] - fwd["fused"]),
+    }
+    for key, label in (("k12f", "forward"), ("k12b", "backward")):
+        bnd = stem_bound(c, key)
+        kernel, plain, pair, whole = out[key]
+        log(f"[t] K12 {label} {tuple(shape)} bf16: kernel {kernel:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); the whole fused ABN + pool "
+            f"{label} {whole:.4f} ms against the unfused pair fused_abn (K5 apply) + "
+            f"max_pool2d {pair:.4f} ms (host-launched, CUDA events)")
+        out[key] = (kernel, plain, pair, whole, bnd)
+    return out
+
+
+# ---------------------------------------------------------------- the trainer
+
+# [24] the paper's BACS+ recipe through the port's CLI: conf/bacs with
+# training/der_15_1_bg.yaml (batch 12, the detector, 300 slots, alpha 0.8,
+# beta 0.5), the fused stem, on the synthetic source at VOC's widths; one
+# step per new class, one epoch per task.  400 / 48 images give every task
+# train and validation images (tasks 1-5: 31-37 and 4-8), and task 0 16
+# steps over 223 images, so the reservoir fills.
+CLI_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "+network.fused_stem=true",
+                 "dataset._target_=dataloaders.SyntheticDataModule",
+                 "+dataset.dataset.n_train=400", "+dataset.dataset.n_val=48",
+                 "+training.steps_per_class=1", "training.epochs=1"]
+CLI_CKPT = "build/chip_smoke_ckpt"
+
+
+def cli_protocol(seed: int) -> dict:
+    """[24] ``bacs_tpu_torch.main.train`` in-process on the full-width config:
+    all 6 tasks, stopped after task 1's first mid-task checkpoint and resumed
+    from it.  Counts K12 per train step (one each way per train-mode network
+    pass: 1 at task 0, 3 at later tasks), records the logged metric keys,
+    profiles the last task (device busy against its wall) and returns the
+    counts, the final mIoU, the per-task seconds and the throughput."""
+    import shutil
+    from unittest import mock
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd, stem_pool_grad
+    from bacs_tpu_torch.train import loop
+    from bacs_tpu_torch.utils import checkpoint
+    from bacs_tpu_torch.utils.logging import Logger
+
+    ckpt = os.path.abspath(CLI_CKPT)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    config = load_config("conf/bacs", "bacs_plus_config",
+                         CLI_OVERRIDES + [f"training.seed={42 + seed}",
+                                          f"training.ckpt_dir={ckpt}"])
+    metrics, per_step, trainers, saves = [], [], [], []
+    make_steps, Trainer = loop.make_steps, loop.Trainer
+
+    def counting_steps(ctx, *a, **k):
+        train_step, eval_step, put_batch = make_steps(ctx, *a, **k)
+
+        def step(state, batch):
+            f0, b0 = stem_pool_fwd.launches, stem_pool_grad.launches
+            state, out = train_step(state, batch)
+            per_step.append((ctx.task.task_id, stem_pool_fwd.launches - f0,
+                             stem_pool_grad.launches - b0, float(out["loss"])))
+            return state, out
+        return step, eval_step, put_batch
+
+    class Recorded(Trainer):
+        def fit(self):
+            trainers.append(self)
+            return super().fit()
+
+        def _run_task(self, task_id):
+            if task_id < self.n_tasks - 1:
+                return super()._run_task(task_id)
+            events, _ = device_kernels(lambda: results.append(super(Recorded, self)
+                                                              ._run_task(task_id)),
+                                       steps=1, warm=False)
+            busy = sum(e.self_device_time_total for e in events) / 1e6
+            self.last_task_busy = (busy, self.task_seconds[-1]["wall"])
+            return results.pop()
+
+    results = []
+    fwd0, bwd0 = stem_pool_fwd.launches, stem_pool_grad.launches
+    with contextlib.ExitStack() as patched:
+        for obj, name, value in ((loop, "make_steps", counting_steps), (loop, "Trainer", Recorded),
+                                 (Logger, "log_metrics", lambda self, m: metrics.append(dict(m)))):
+            patched.enter_context(mock.patch.object(obj, name, value))
+        t0 = time.perf_counter()
+        try:
+            with checkpoint.resume_check_saves(stop_task=1, record=saves):
+                cli.train(config, "cuda")
+            raise AssertionError("the first run was not stopped")
+        except checkpoint.Interrupted as e:
+            t_first = time.perf_counter() - t0
+            log(f"[24] first run stopped after task 1's mid-task checkpoint {e} at "
+                f"{t_first:.1f} s")
+        t0 = time.perf_counter()
+        with checkpoint.resume_check_saves(record=saves):
+            miou = cli.train(config, "cuda")
+        t_resumed = time.perf_counter() - t0
+    launches = {"k12f": stem_pool_fwd.launches - fwd0, "k12b": stem_pool_grad.launches - bwd0}
+    first, resumed = trainers
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(miou=miou, metrics=metrics, per_step=per_step, saves=saves,
+                launches=launches, first=first, resumed=resumed, t_first=t_first,
+                t_resumed=t_resumed)
+
+
+def report_cli(run: dict) -> None:
+    """[24] log and hold the protocol run."""
+    n_tasks = run["resumed"].n_tasks
+    keys = {k for m in run["metrics"] for k in m}
+    want = {f"test.{d}/Task {t}/{k}" for t in range(n_tasks) for d in range(t + 1)
+            for k in ("mIoU", "IoU-Old", "loss", "Accuracy")}
+    want |= {f"test.{d}_aux_bg/{k}" for d in range(n_tasks)
+             for k in ("mIoU", "IoU-bg", "bg_prob_mean", "fg_prob_mean")}
+    want |= {f"Final/test.{d}/{k}" for d in range(n_tasks) for k in ("mIoU", "Avg-IoU")}
+    missing = want - keys
+    assert not missing, sorted(missing)[:10]
+    assert n_tasks == N_TASKS and np.isfinite(run["miou"]), run["miou"]
+    for task_id, f, b, _ in run["per_step"]:
+        passes = 1 if task_id == 0 else 3  # main; main, alpha and beta replay
+        assert f == b == passes, (task_id, f, b)
+    non_finite = sum(not np.isfinite(loss) for *_, loss in run["per_step"])
+    final = {k: v for m in run["metrics"] for k, v in m.items() if k.startswith("Final/")}
+    log(f"[24] CLI train() on conf/bacs/bacs_plus_config {' '.join(CLI_OVERRIDES)}: "
+        f"final mIoU {run['miou']:.4f}; first run {run['t_first']:.1f} s (tasks 0-1, "
+        f"stopped), resumed run {run['t_resumed']:.1f} s (tasks 1-5); {len(keys)} metric keys, "
+        f"all expected present")
+    log(f"[24] Final: {json.dumps({k: round(v, 4) for k, v in sorted(final.items())})}")
+    log(f"[24] train steps (task, K12 forward, K12 backward, loss): {run['per_step']}; "
+        f"{non_finite} non-finite losses; K12 launches over both runs (the boundary "
+        f"passes' train-mode forwards included) {run['launches']}")
+    for name in ("first", "resumed"):
+        tr = run[name]
+        for k, sec in enumerate(tr.task_seconds):
+            log(f"[24] {name} run, task {k + (0 if name == 'first' else 1)}: "
+                + ", ".join(f"{p} {v:.2f} s" for p, v in sec.items()))
+        log(f"[24] {name} run: Trainer.throughput {tr.throughput:.2f} img/s (steps after "
+            f"each task's second; 0 where no task trains more than two)")
+    busy, wall = run["resumed"].last_task_busy
+    log(f"[24] last task (5) profiled: device busy {busy:.3f} s of its {wall:.3f} s wall "
+        f"(under the profiler): device idle share {1 - busy / wall:.3f}")
+    for task_id, step, sec, size in run["saves"]:
+        log(f"[24] checkpoint step_{task_id}/{step}: {size / 2**30:.3f} GiB in {sec:.2f} s")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1400,6 +1810,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = nvidia_smi()
+    t_main = time.perf_counter()
 
     # 1. environment and build
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1569,26 +1980,8 @@ def main() -> int:
 
     # 8. one f32 train step, card (kernels) against CPU (plain versions),
     # of the network with identity activations and of the configured one
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator().manual_seed(args.seed)
-    small = synthetic_batch(4, 128, gen, "cpu")
-    for activation in ("identity", "leaky"):
-        runs = {}
-        for device in (dev, torch.device("cpu")):
-            state = train_state(cfg, params, stats, torch.float32, device,
-                                smooth=activation == "identity")
-            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
-            train_step, _, put_batch = ce_steps(device)
-            state, metrics = train_step(state, put_batch(small))
-            runs[device.type] = (float(metrics["loss"]), *grads_and_stats(state.model))
-            del state
-        hold_step("[8] f32 train step card vs CPU, RN101 4 x 128^2", activation,
-                  runs["cuda"], runs["cpu"], p0)
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    del runs
-    torch.cuda.empty_cache()
+    ce_step_card_vs_cpu("[8] f32 train step card vs CPU, RN101 4 x 128^2", cfg, params,
+                        stats, dev, args.seed)
 
     # 9. bf16 training at 512^2, batch 16, launches counted
     from bacs_tpu_torch.ops.abn_core import fused_abn
@@ -1596,13 +1989,15 @@ def main() -> int:
         bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
         uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
     from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd, stem_pool_grad
     from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
 
     counters = dict(k5=fused_abn_eval, train_abn=fused_abn, k1f=ce_sums_per_image,
                     k1b=ce_dsem, k2=upsampled_confusion, k10=upsampled_argmax_conf,
                     k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem,
                     k6f=uce_sums, k6b=uce_dsem, k7f=ukd_sum, k7b=ukd_dsem,
-                    k8=ce_dsem_per_image, k9=plop_pseudo_labels)
+                    k8=ce_dsem_per_image, k9=plop_pseudo_labels, k12f=stem_pool_fwd,
+                    k12b=stem_pool_grad)
 
     def reset_counts():
         for fn in counters.values():
@@ -1822,6 +2217,40 @@ def main() -> int:
     mib_plop = mib_plop_steps_512(cfg, params, stats, args.seed, dev, reset_counts, counts)
     mib, plop = mib_plop["loss.MiB"], mib_plop["loss.PlopLoss"]
 
+    # 21. K12 forward and backward against their plain versions
+    stem_err = {"k12f": 0.0, "k12b": 0.0}
+    for shape, levels in [(sh, None) for sh in STEM_CASES] + [(STEM_TIES, 3)]:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_stem(shape, dt, dev, levels=levels)
+            stem_err = {"k12f": max(stem_err["k12f"], e["val_abs"]),
+                        "k12b": max(stem_err["k12b"], e["grad_abs"])}
+            log(f"[21] K12 {shape} {str(dt)[6:]}{' on 3 levels (ties)' if levels else ''}: ok, "
+                f"pooled max abs err {e['val_abs']:.3g}, gradient max abs err "
+                f"{e['grad_abs']:.3g}, bit-equal {e['bit_equal']}"
+                + (f", {e['excluded']} cells in near-tie windows" if dt == torch.bfloat16 else ""))
+    stem_raises(dev)
+    log("[21] K12 raises on a float16, an odd-height and a non-contiguous CUDA tensor")
+
+    # 22. one f32 train step with the fused stem, card against CPU
+    ce_step_card_vs_cpu("[22] f32 train step with the fused stem card vs CPU, RN101 4 x 128^2",
+                        cfg, params, stats, dev, args.seed, fused_stem=True)
+
+    # 23. the bf16 512^2 CE step with the fused stem on against off
+    stem_steps = stem_step_compare(cfg, params, stats, dev, args.seed, reset_counts, counts)
+    log(f"[23] fused stem on against off: wall {stem_steps['on']['med'] - stem_steps['off']['med']:+.3f} "
+        f"ms, busy {stem_steps['on']['busy'] - stem_steps['off']['busy']:+.3f} ms, peak "
+        f"{(stem_steps['on']['peak'] - stem_steps['off']['peak']) / 2**30:+.3f} GiB per step; "
+        f"phase [9]'s median with it off was {med:.3f} ms")
+
+    # 24. the continual protocol through the CLI's train(), launches counted
+    reset_counts()
+    t_cli = time.perf_counter()
+    cli = cli_protocol(args.seed)
+    cli_counts = counts()
+    t_cli = time.perf_counter() - t_cli
+    report_cli(cli)
+    assert cli_counts["k12f"] == cli["launches"]["k12f"] and cli_counts["k12b"] > 0
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -1880,6 +2309,7 @@ def main() -> int:
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
     mp_times, mp_bounds = mib_plop_kernel_times(dev, args.seed)
+    stem_times = stem_kernel_times(dev)
     step_parts["K3 and K4, forward + backward"] = sum(
         times[k][0] for k in ("k3f", "k3b", "k4f", "k4b"))
     for part, ms in step_parts.items():
@@ -1888,6 +2318,9 @@ def main() -> int:
     rest = bacs_busy - sum(step_parts.values())
     log(f"[p] BACS step alone by part: {rest:.3f} ms ({rest / bacs_busy:.1%}) the rest "
         f"(losses, prototype folds, replay draws, augmentation, autocontrast)")
+
+    log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
+        f"{t_cli:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1959,6 +2392,19 @@ def main() -> int:
                "bacs_tpu/ops/upsample_ce.py:125", plop["steps"], "k8"),
               ("upsample_plop_pseudo (K9)", "bacs_tpu_torch/csrc/upsample_pseudo.cu",
                "bacs_tpu/ops/upsample_ce.py:904", plop["steps"], "k9"))),
+        *({**entry(name, "cuda", "bacs_tpu_torch/csrc/stem_pool.cu", replaces,
+                   cli_counts[key], stem_err[key], stem_times[key][0], stem_times[key][1],
+                   stem_times[key][4],
+                   launches_by_path={"cli_protocol": cli_counts[key],
+                                     "ce_step_fused_stem": stem_steps["on"]["counts"][key]},
+                   fused_abn_pool_ms=stem_times[key][3],
+                   library_is="the unfused pair the port runs with fused_stem off: "
+                              "fused_abn (K5 apply) + F.max_pool2d (autograd backward for "
+                              "the backward), CUDA events"),
+            "library_ms": stem_times[key][2]}
+          for name, replaces, key in (
+              ("stem_pool_fwd (K12 forward)", "bacs_tpu/ops/stem_pool.py:232", "k12f"),
+              ("stem_pool_grad (K12 backward)", "bacs_tpu/ops/stem_pool.py:338", "k12b"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

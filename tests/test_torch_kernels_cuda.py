@@ -3,8 +3,8 @@
 Every test needs a CUDA device and skips with a reason where torch sees
 none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
-those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16 and 17), at small
-shapes and at the serving and training shapes.
+those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16, 17 and 21), at
+small shapes and at the serving and training shapes.
 """
 
 import pytest
@@ -12,7 +12,7 @@ import torch
 
 from chip_smoke import (
     check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
-    check_pseudo, check_uce, check_ukd, check_wce)
+    check_pseudo, check_stem, check_uce, check_ukd, check_wce, stem_raises)
 
 pytestmark = pytest.mark.cuda
 
@@ -360,3 +360,40 @@ def test_train_and_eval_steps_on_the_card_match_the_cpu(cuda):
     moved = int((out["cuda"][0] - out["cpu"][0]).abs().sum()) // 2
     assert int(out["cuda"][0].sum()) == int((labels != 255).sum())
     assert moved <= 0.001 * int((labels != 255).sum())
+
+
+STEM_SHAPES = [(2, 8, 12, 8), (3, 6, 2, 5), (2, 10, 2, 64), (12, 256, 256, 64)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("levels", [None, 3], ids=["random", "ties"])
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_pool_kernels_match_plain(cuda, shape, levels, dtype):
+    """K12 forward and backward (f32: value rtol 2e-3, gradient 5e-2; bf16:
+    values exact, gradients exact outside windows with a near tie), on
+    random inputs and on inputs on three levels (ties)."""
+    check_stem(shape, dtype, cuda, levels=levels)
+
+
+def test_stem_pool_kernels_raise_and_count_launches(cuda):
+    """A CUDA tensor the kernel does not take raises; the autograd function
+    launches each kernel once per call on the card and agrees with its CPU
+    run (the plain versions) to f32 rounding of the statistics."""
+    from bacs_tpu_torch.ops.stem_pool import fused_abn_pool, stem_pool_fwd, stem_pool_grad
+
+    stem_raises(cuda)
+    g = torch.Generator().manual_seed(0)
+    c = torch.randn((2, 16, 12, 8), generator=g)
+    scale, bias = torch.rand(8, generator=g) + 0.5, torch.randn(8, generator=g) * 0.1
+    w = torch.randn((2, 8, 6, 8), generator=g)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        x = c.to(device).requires_grad_()
+        f0, b0 = stem_pool_fwd.launches, stem_pool_grad.launches
+        p, mean, var = fused_abn_pool(x, scale.to(device), bias.to(device))
+        (p * w.to(device)).sum().backward()
+        if device.type == "cuda":
+            assert (stem_pool_fwd.launches - f0, stem_pool_grad.launches - b0) == (1, 1)
+        out[device.type] = [t.detach().cpu() for t in (p, mean, var, x.grad)]
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
