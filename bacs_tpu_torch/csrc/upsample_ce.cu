@@ -19,12 +19,13 @@
 //       and backward `_bacs_pallas` (:396), per-pixel terms `_bacs_terms`
 //       (:341).
 // The TPU kernels are `make_sums_kernel(fn)` / `make_dz_kernel(fn)`
-// (bacs_tpu/ops/upsample_tiles.py:334-375) over a per-tile term; here a
-// device functor (CeTerm, WceTerm, BacsTerm) gives one output pixel's loss
-// sums and its per-channel gradient, and the kernels below are templates
-// over it.  For logits up = bilinear_upsample(sem) (half-pixel centres,
-// clamped: the weights of `interp_matrix`) and labels t, `ignore_index`
-// dropped:
+// (bacs_tpu/ops/upsample_tiles.py:334-375, `call_sums` :423 and `call_dz`
+// :448) over a per-tile term; here a device functor (CeTerm, WceTerm,
+// BacsTerm, UceTerm) gives one output pixel's loss sums and its gradient
+// coefficients from the pixel's softmax statistics, and the two kernels
+// below (`sums_kernel`, `grad_bands_kernel`) are templates over it.  For
+// logits up = bilinear_upsample(sem) (half-pixel centres, clamped: the
+// weights of `interp_matrix`) and labels t, `ignore_index` dropped:
 //   K1: per image, sum of logsumexp(up) - up[t], and the valid count;
 //       d/dup = softmax - onehot(t).
 //   K4: per image, sum of w[t] (logsumexp(up) - up[t]) and of w[t] (w a
@@ -54,49 +55,65 @@
 // K8, one value per image.  The [N, H, W, C] full-resolution logits never
 // exist.
 //
-// Design.  Forward: one thread per output pixel (grid-stride within its
-// image, grid = (blocks per image, N)); the functor makes one online pass
-// over the channels (running max, the rescaled exp-sums it needs and the
-// logits it picks) and returns the pixel's two sums; a block sum in a fixed
-// order goes to a [N, blocks, 2] scratch, and a second launch sums each
-// image's partials in a fixed order.  No float atomics, so the sums are
-// deterministic.  The TPU grid ran in order and carried the sums in
-// scratch; Hopper's blocks run in parallel.  Backward, in the gather form
-// (deterministic, no atomics), separable as the plain version's einsums:
-//   pass 1, one thread per (n, output row oy, source column x): for every
-//     output column ox whose taps include x, the functor recomputes the
-//     pixel's statistics and its gradient coefficients, and the thread adds
-//     w_x(ox) * g * d/dup into 32 channel accumulators in registers ->
-//     cols[n, oy, x, :] (f32 scratch);
-//   pass 2, one thread per dsem element (n, y, x, c): the sum over the
-//     output rows whose taps include y of w_y(oy) * cols[n, oy, x, c].
-// Each output pixel's statistics are recomputed by the (at most two)
-// source columns it touches, and its exponentials again per channel chunk:
-// about 4x the forward's exponentials.  K3's gradient needs three
-// normalisers (all channels, foreground, old classes), kept per pixel as
-// three coefficients.  K7 reads its teacher's taps beside the student's
-// (pair kernels below, on the same reductions and the same second pass);
-// the teacher's softmax weights are recomputed where the student's pass
-// needs them, not held in an array that would spill.  The TPU kernels' row
-// blocks, -1e30 channel padding,
-// hoisted W-interp einsum, `W % 128` gate and fixed ignore label 255 are
-// TPU tiling and are not carried over; every shape and ignore label is
-// taken.
+// Design (K1, K3, K4, K6, K8).  The taps come from tables the wrapper
+// builds on the host with the arithmetic of `interp_matrix`
+// (ops/upsample_ce.py:tap_tables): per output row and column its source
+// pair lo, hi and weight wt, and per source column the output columns
+// whose lo (weight 1 - wt) or hi (weight wt) is that column.  No kernel of
+// this family divides in double or calls `floor`.  A block takes one image
+// and a band of output rows (grid = (bands, N), bands of about N H / 1024
+// rows, so ~1024 blocks).  For each output row it stages in shared memory,
+// as f32, the rows-lerped source columns that a tile of output pixels
+// reads (`stage_row`, the plain version's first einsum; the forward's tile
+// is the whole row where it fits, the backward's 256 pixels); one thread
+// per output pixel then lerps its channels along W from the stage (one
+// lerp a channel) into registers, in chunks of KC (16, 24 or 32 by c, a
+// template parameter, so no work for padding past 24 at the main path's 17
+// and 21 channels), takes the chunk's max first (branch-free) and then its
+// exponentials (`ex2.approx` after one FFMA), once per channel, with a
+// rescale per chunk past the first.
+//   Forward (`sums_kernel`): the functor turns the statistics into the
+//     pixel's two sums; a block sum in a fixed order goes to an [N, bands,
+//     2] scratch, and a second launch sums each image's partials in a
+//     fixed order.
+//   Backward (`grad_bands_kernel`): the functor turns the same statistics
+//     into gradient coefficients, and the pixel writes g * d/dup of a
+//     chunk, times each of its two W weights, to shared memory (with c <=
+//     32 the exponentials are still in registers; past 32 channels each
+//     chunk's are taken again).  The block then reduces the tile along W
+//     in the gather form, each source column's sum over the output columns
+//     of its inverse table in a fixed order, and adds it with the row's
+//     two weights into an accumulator of the source rows the band touches
+//     (in shared memory where it fits, else in the block's slab of the
+//     scratch), one thread per (column, channel).  The band's accumulator
+//     goes to an [N, bands, rows, w, c] f32 scratch; a second launch
+//     (`band_sum_kernel`) sums, for each dsem element, the at most few
+//     bands that touch its source row, in band order, and writes dsem in
+//     sem's dtype.
+// Each output pixel's statistics and exponentials are computed once (c <=
+// 32); no float atomics, so two launches on the same inputs give bit-equal
+// sums and dsem, and K8 with every g equal is K1 bit for bit.  The TPU
+// kernels' row blocks, -1e30 channel padding, hoisted W-interp einsum,
+// `W % 128` gate and fixed ignore label 255 are TPU tiling and are not
+// carried over; every shape and ignore label is taken.  K7 keeps its own
+// pair kernels (below), on the one-thread-per-pixel design of the first
+// port and `bilinear_taps.cuh`.
 //
 // Bound on the H100 at the training shapes (sem [16, 32, 32, 21] bf16 for
 // K1, [16, 32, 32, 17] for K3, [12, 32, 32, 17] for K4, K6, K7 (its teacher
 // [12, 32, 32, 16]) and K8; labels [n, 512, 512] int32; K3 also max_seen
-// [16, 512, 512] f32): the forward moves
-// 17-34 MB (5-10 us at 3.35 TB/s) but computes ~70-90 M upsampled logits,
-// each with 4 loads, 3 lerps and an exponential, so it is bound by
-// operations (instruction issue and the SFU's exponentials), not by device
-// memory.  The backward does four times the exponentials.  Measured times
-// are in PERF.md.
+// [16, 512, 512] f32): the forward moves 17-34 MB (5-10 us at 3.35 TB/s)
+// but computes ~70-90 M upsampled logits, each with a lerp and an
+// exponential, so it is bound by operations (instruction issue and the
+// SFU's exponentials, ~0.01-0.02 ms), not by device memory; the backward
+// adds per pixel and channel a gradient term, two stores to shared memory
+// and two adds of the transposed interpolation.  Measured times, and the
+// variants that show where the time goes, are in PERF.md.
 //
 // Tolerance against the plain versions (bacs_tpu_torch/ops/upsample_ce.py):
-// sums in another order than the einsums; value rtol 2e-3 and gradient
-// rtol 5e-2 of the largest gradient, the tolerances the TPU kernels hold
-// against their own fallbacks (scripts/check_kernels_tpu.py:96-97).
+// sums in another order than the einsums, `ex2.approx`; value rtol 2e-3 and
+// gradient rtol 5e-2 of the largest gradient, the tolerances the TPU kernels
+// hold against their own fallbacks (scripts/check_kernels_tpu.py:96-97).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,7 +125,28 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // channels accumulated in registers (backward)
+constexpr int kChunk = 32;          // K7: channels accumulated in registers (backward)
+// Blocks per SM the family's kernels are built for (the register cap):
+// the forwards 4; the backwards 3 (about 80 registers, no spills), K3's 4
+// (its three normalisers; measured faster so, the others slower).
+constexpr int kSumsMinBlocks = 4;
+constexpr size_t kSmemMax = 232448; // shared memory a block may use on Hopper
+
+using bacs_taps::to_f32;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (MUFU.EX2; 0 for -inf).  exp(v - m) is
+// ex2(v log2(e) - m log2(e)), one FFMA and one MUFU.
+__device__ __forceinline__ float ex2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
 
 // Sum of (a, b) over the block in a fixed order: warp shuffles, then
 // thread 0 over the warp sums.  Every thread of the block must call it;
@@ -131,204 +169,600 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   return r;
 }
 
-// Online max m and rescaled exp-sum s of the c upsampled logits at one
-// pixel, the logit of label t (0 where t is outside [0, c)), and, where
-// the caller asks (old >= 0), the exp-sums over channels >= 1 (s_fg) and
-// < old (s_old) and the logit of channel 0, all relative to the same m.
-struct Stats {
-  float m, s, picked, s_fg, s_old, x0;
+// The host-built tap tables (ops/upsample_ce.py:launch_plan), one int32
+// buffer in this order: the W axis (lo, hi, wt [W]; lo_first, lo_last,
+// hi_first, hi_last [w]: the output columns whose lo / hi is the source
+// column, with a nonzero weight, first > last where none), the H axis (lo,
+// hi, wt [H]), the bands (band_y0 [bands]: the first source row a band
+// touches; band_first, band_last [h]: the bands that touch a source row).
+struct Plan {
+  const int *xlo, *xhi, *xlo_first, *xlo_last, *xhi_first, *xhi_last;
+  const int *ylo, *yhi, *band_y0, *band_first, *band_last;
+  const float *xwt, *ywt;
+  int band;   // output rows per band
+  int tile;   // output pixels per tile (<= kThreads, one a thread)
+  int span;   // the most source columns a tile reads
+  int rows;   // the most source rows a band touches
+  int nb;     // bands
 };
 
+Plan make_plan(const void* tables, int h, int w, int H, int W, int band, int tile,
+               int span, int rows) {
+  Plan p;
+  const int* q = (const int*)tables;
+  p.xlo = q; q += W;
+  p.xhi = q; q += W;
+  p.xwt = (const float*)q; q += W;
+  p.xlo_first = q; q += w;
+  p.xlo_last = q; q += w;
+  p.xhi_first = q; q += w;
+  p.xhi_last = q; q += w;
+  p.ylo = q; q += H;
+  p.yhi = q; q += H;
+  p.ywt = (const float*)q; q += H;
+  p.nb = (H + band - 1) / band;
+  p.band_y0 = q; q += p.nb;
+  p.band_first = q; q += h;
+  p.band_last = q;
+  p.band = band;
+  p.tile = tile;
+  p.span = span;
+  p.rows = rows;
+  return p;
+}
+
+// Stages the source columns [xs0, xs0 + nx) of output row (y0, y1, wy),
+// lerped along H in f32: stage[xi * ldc + ch].  Every thread calls it.
 template <typename T>
-__device__ __forceinline__ Stats pixel_stats(const bacs_taps::Taps<T>& up,
-                                             int c, long long t, int old) {
-  Stats st{-INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int ch = 0; ch < c; ++ch) {
-    const float v = up(ch);
-    if (v > st.m) {
-      const float r = expf(st.m - v);
-      st.s = st.s * r + 1.f;
-      if (old >= 0) {
-        st.s_fg = st.s_fg * r + (ch >= 1 ? 1.f : 0.f);
-        st.s_old = st.s_old * r + (ch < old ? 1.f : 0.f);
-      }
-      st.m = v;
-    } else {
-      const float e = expf(v - st.m);
-      st.s += e;
-      if (old >= 0) {
-        if (ch >= 1) st.s_fg += e;
-        if (ch < old) st.s_old += e;
-      }
-    }
-    if (ch == t) st.picked = v;
-    if (ch == 0) st.x0 = v;
+__device__ __forceinline__ void stage_row(const T* __restrict__ img, int w, int c,
+                                          int ldc, int y0, int y1, float wy, int xs0,
+                                          int nx, float* __restrict__ stage) {
+  const T* r0 = img + ((size_t)y0 * w + xs0) * c;
+  const T* r1 = img + ((size_t)y1 * w + xs0) * c;
+  const float wy0 = 1.f - wy;
+  const int total = nx * c;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int xi = i / c;
+    stage[xi * ldc + (i - xi * c)] = wy0 * to_f32(r0[i]) + wy * to_f32(r1[i]);
   }
+}
+
+// One output pixel's view of the stage: its two source columns and their
+// W weights.
+struct Pixel {
+  const float *ra, *rb;
+  float wa, wb;
+
+  __device__ __forceinline__ float operator()(int ch) const {
+    return wa * ra[ch] + wb * rb[ch];
+  }
+  // the logits of channels [c0, c0 + KC), -inf past c
+  template <int KC>
+  __device__ __forceinline__ void chunk(int c0, int c, float (&v)[KC]) const {
+#pragma unroll
+    for (int k = 0; k < KC; ++k) v[k] = c0 + k < c ? (*this)(c0 + k) : -INFINITY;
+  }
+};
+
+// A pixel's softmax statistics: max m, exp-sum s relative to m, and where
+// the term asks (kGroups) the exp-sums over channels >= 1 (s_fg) and < old
+// (s_old); the logit of label t (0 where t is outside [0, c)) and of
+// channel 0.
+struct Stats {
+  float m, s, s_fg, s_old, picked, x0;
+};
+
+// Folds one chunk of KC logits into st: its max first, one rescale of the
+// sums, then the chunk's exponentials e (relative to the new max; 0 past c).
+template <bool kGroups, int KC>
+__device__ __forceinline__ void fold_chunk(const float (&v)[KC], int c0, int old,
+                                           Stats& st, float (&e)[KC]) {
+  float cm = v[0];
+#pragma unroll
+  for (int k = 1; k < KC; ++k) cm = fmaxf(cm, v[k]);
+  const float m = fmaxf(st.m, cm);
+  const float mb = m * kLog2e;
+  const float r = ex2(st.m * kLog2e - mb);  // 0 at the first chunk (st.m = -inf)
+  float s = st.s * r, s_fg = st.s_fg * r, s_old = st.s_old * r;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    e[k] = ex2(fmaf(v[k], kLog2e, -mb));
+    s += e[k];
+    if (kGroups) {
+      s_fg += c0 + k >= 1 ? e[k] : 0.f;
+      s_old += c0 + k < old ? e[k] : 0.f;
+    }
+  }
+  st.m = m;
+  st.s = s;
+  st.s_fg = s_fg;
+  st.s_old = s_old;
+}
+
+// The statistics of one pixel over all c channels; e holds the last
+// chunk's exponentials (all of them where c <= KC).
+template <bool kGroups, int KC>
+__device__ __forceinline__ Stats pixel_stats(const Pixel& px, int c, long long t,
+                                             int old, float (&e)[KC]) {
+  Stats st{-INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < c; c0 += KC) {
+    float v[KC];
+    px.chunk(c0, c, v);
+    fold_chunk<kGroups>(v, c0, old, st, e);
+  }
+  st.picked = (t >= 0 && t < c) ? px((int)t) : 0.f;
+  st.x0 = px(0);
   return st;
 }
 
-// The gradient of one output pixel, d/dup[ch] scaled by the tap weight
-// times g: e(ch) * (a + [ch >= 1] a_fg + [ch < old] a_old)
-//          - [ch == 0] d0 - [ch == t] dt,  e(ch) = exp(up[ch] - m).
+// The gradient of one output pixel, d/dup[ch] times g, from its channel's
+// exponential e = exp(up[ch] - m):
+//   e * (a + [ch >= 1] a_fg + [ch < old] a_old) - [ch == 0] d0 - [ch == t] dt.
 struct PixelGrad {
-  float m, a, a_fg, a_old, d0, dt;
+  float a, a_fg, a_old, d0, dt;
   long long t;
   int old;
 
-  __device__ __forceinline__ float operator()(int ch, float v) const {
+  __device__ __forceinline__ float operator()(int ch, float e) const {
     float coef = a;
     if (ch >= 1) coef += a_fg;
     if (ch < old) coef += a_old;
-    return coef * expf(v - m) - (ch == 0 ? d0 : 0.f) - (ch == t ? dt : 0.f);
+    return coef * e - (ch == 0 ? d0 : 0.f) - (ch == t ? dt : 0.f);
   }
 };
 
+// The per-pixel terms (fast logarithms and divisions: a few per pixel,
+// well inside the tolerance).  Each has: kGroups (whether it needs s_fg / s_old),
+// groups_old() (the old-class count of s_old), counts(t, c) (false where a
+// valid pixel adds nothing: K4's zero weights), value(st, t, q) (the
+// pixel's two sums; q its flat index in the batch) and grad(st, t, q, g)
+// (its gradient coefficients times g); kGradMinBlocks, the backward's
+// blocks per SM.
+
 // K1: plain cross-entropy.
 struct CeTerm {
-  template <typename T>
-  __device__ __forceinline__ float2 value(const bacs_taps::Taps<T>& up, int c,
-                                          long long t, long long) const {
-    const Stats st = pixel_stats(up, c, t, -1);
-    return make_float2(st.m + logf(st.s) - st.picked, 1.f);
+  static constexpr int kGradMinBlocks = 3;
+  static constexpr bool kGroups = false;
+  __device__ __forceinline__ int groups_old() const { return 0; }
+  __device__ __forceinline__ bool counts(long long, int) const { return true; }
+  __device__ __forceinline__ float2 value(const Stats& st, long long, long long) const {
+    return make_float2(st.m + __logf(st.s) - st.picked, 1.f);
   }
-  // false where the pixel adds nothing to the gradient
-  template <typename T>
-  __device__ __forceinline__ bool grad(const bacs_taps::Taps<T>& up, int c,
-                                       long long t, long long, float wg,
-                                       PixelGrad& pg) const {
-    const Stats st = pixel_stats(up, c, t, -1);
-    pg = PixelGrad{st.m, wg / st.s, 0.f, 0.f, 0.f, wg, t, 0};
-    return true;
+  __device__ __forceinline__ PixelGrad grad(const Stats& st, long long t, long long,
+                                            float g) const {
+    return PixelGrad{__fdividef(g, st.s), 0.f, 0.f, 0.f, g, t, 0};
   }
 };
 
 // K4: class-weighted cross-entropy, weights [c] f32.
 struct WceTerm {
+  static constexpr int kGradMinBlocks = 3;
+  static constexpr bool kGroups = false;
   const float* w;
 
-  template <typename T>
-  __device__ __forceinline__ float2 value(const bacs_taps::Taps<T>& up, int c,
-                                          long long t, long long) const {
-    const float wt = (t >= 0 && t < c) ? w[t] : 0.f;
-    if (wt == 0.f) return make_float2(0.f, 0.f);
-    const Stats st = pixel_stats(up, c, t, -1);
-    return make_float2(wt * (st.m + logf(st.s) - st.picked), wt);
+  __device__ __forceinline__ float weight(long long t, int c) const {
+    return (t >= 0 && t < c) ? w[t] : 0.f;
   }
-  template <typename T>
-  __device__ __forceinline__ bool grad(const bacs_taps::Taps<T>& up, int c,
-                                       long long t, long long, float wg,
-                                       PixelGrad& pg) const {
-    const float wp = ((t >= 0 && t < c) ? w[t] : 0.f) * wg;
-    if (wp == 0.f) return false;
-    const Stats st = pixel_stats(up, c, t, -1);
-    pg = PixelGrad{st.m, wp / st.s, 0.f, 0.f, 0.f, wp, t, 0};
-    return true;
+  __device__ __forceinline__ int groups_old() const { return 0; }
+  __device__ __forceinline__ bool counts(long long t, int c) const {
+    return weight(t, c) != 0.f;
+  }
+  __device__ __forceinline__ float2 value(const Stats& st, long long t, long long) const {
+    const float wt = w[t];  // counts() held t in [0, c)
+    return make_float2(wt * (st.m + __logf(st.s) - st.picked), wt);
+  }
+  __device__ __forceinline__ PixelGrad grad(const Stats& st, long long t, long long,
+                                            float g) const {
+    const float wp = w[t] * g;
+    return PixelGrad{__fdividef(wp, st.s), 0.f, 0.f, 0.f, wp, t, 0};
   }
 };
 
 // K3: the BACS seen-weighted terms; max_seen [n, H, W] f32, indexed by the
-// pixel's flat index in the batch.
+// pixel's flat index in the batch, read once per background pixel.
 struct BacsTerm {
+  static constexpr int kGradMinBlocks = 4;
+  static constexpr bool kGroups = true;
   const float* max_seen;
   int old;
   int ukd;
   float gamma, threshold;
 
-  __device__ __forceinline__ float focal(long long t, long long q) const {
-    if (t != 0) return 1.f;
+  __device__ __forceinline__ float focal(long long q) const {
     const float ms = max_seen[q];
-    return powf(1.f - (ms > threshold ? 1.f : ms), gamma);
+    return __powf(1.f - (ms > threshold ? 1.f : ms), gamma);
   }
-  template <typename T>
-  __device__ __forceinline__ float2 value(const bacs_taps::Taps<T>& up, int c,
-                                          long long t, long long q) const {
+  __device__ __forceinline__ int groups_old() const { return old; }
+  __device__ __forceinline__ bool counts(long long, int) const { return true; }
+  __device__ __forceinline__ float2 value(const Stats& st, long long t, long long q) const {
     constexpr float eps = 1e-30f;
-    const Stats st = pixel_stats(up, c, t, old);
-    const float lse = st.m + logf(st.s);
-    const float l1 = t == 0 ? focal(t, q) * (lse - st.x0)
-                            : lse - (st.m + logf(st.s_fg + eps));
+    const float lse = st.m + __logf(st.s);
+    const float l1 = t == 0 ? focal(q) * (lse - st.x0)
+                            : lse - (st.m + __logf(st.s_fg + eps));
     float l2 = lse - st.picked;
-    if (t < old) l2 = ukd ? lse - (st.m + logf(st.s_old + eps)) : 0.f;
+    if (t < old) l2 = ukd ? lse - (st.m + __logf(st.s_old + eps)) : 0.f;
     return make_float2(l1 + l2, 1.f);
   }
-  template <typename T>
-  __device__ __forceinline__ bool grad(const bacs_taps::Taps<T>& up, int c,
-                                       long long t, long long q, float wg,
-                                       PixelGrad& pg) const {
+  __device__ __forceinline__ PixelGrad grad(const Stats& st, long long t, long long q,
+                                            float g) const {
     constexpr float eps = 1e-30f;
-    const Stats st = pixel_stats(up, c, t, old);
-    pg = PixelGrad{st.m, 0.f, 0.f, 0.f, 0.f, 0.f, t, old};
-    const float inv_s = 1.f / st.s;
+    PixelGrad pg{0.f, 0.f, 0.f, 0.f, 0.f, t, old};
+    const float inv_s = __fdividef(1.f, st.s);
     if (t == 0) {  // term 1: fm (p - e0)
-      const float fm = focal(t, q) * wg;
+      const float fm = focal(q) * g;
       pg.a += fm * inv_s;
       pg.d0 += fm;
     } else {  // term 1: p - s_fg
-      pg.a += wg * inv_s;
-      pg.a_fg -= wg / (st.s_fg + eps);
+      pg.a += g * inv_s;
+      pg.a_fg -= __fdividef(g, st.s_fg + eps);
     }
     if (t >= old) {  // term 2: p - onehot
-      pg.a += wg * inv_s;
-      pg.dt += wg;
+      pg.a += g * inv_s;
+      pg.dt += g;
     } else if (ukd) {  // term 2: p - s_old
-      pg.a += wg * inv_s;
-      pg.a_old -= wg / (st.s_old + eps);
+      pg.a += g * inv_s;
+      pg.a_old -= __fdividef(g, st.s_old + eps);
     }
-    return true;
+    return pg;
   }
 };
 
 // K6: MiB's unbiased CE; labels < old score the old classes' mass.
 struct UceTerm {
+  static constexpr int kGradMinBlocks = 3;
+  static constexpr bool kGroups = true;
   int old;
 
-  template <typename T>
-  __device__ __forceinline__ float2 value(const bacs_taps::Taps<T>& up, int c,
-                                          long long t, long long) const {
+  __device__ __forceinline__ int groups_old() const { return old; }
+  __device__ __forceinline__ bool counts(long long, int) const { return true; }
+  __device__ __forceinline__ float2 value(const Stats& st, long long t, long long) const {
     constexpr float eps = 1e-30f;
-    const Stats st = pixel_stats(up, c, t, old);
-    const float lse = st.m + logf(st.s);
-    const float l = t < old ? lse - (st.m + logf(st.s_old + eps)) : lse - st.picked;
+    const float lse = st.m + __logf(st.s);
+    const float l = t < old ? lse - (st.m + __logf(st.s_old + eps)) : lse - st.picked;
     return make_float2(l, 1.f);
   }
-  template <typename T>
-  __device__ __forceinline__ bool grad(const bacs_taps::Taps<T>& up, int c,
-                                       long long t, long long, float wg,
-                                       PixelGrad& pg) const {
+  __device__ __forceinline__ PixelGrad grad(const Stats& st, long long t, long long,
+                                            float g) const {
     constexpr float eps = 1e-30f;
-    const Stats st = pixel_stats(up, c, t, old);
-    pg = PixelGrad{st.m, wg / st.s, 0.f, 0.f, 0.f, 0.f, t, old};
+    PixelGrad pg{__fdividef(g, st.s), 0.f, 0.f, 0.f, 0.f, t, old};
     if (t < old) {  // p - s_old
-      pg.a_old = -wg / (st.s_old + eps);
+      pg.a_old = -__fdividef(g, st.s_old + eps);
     } else {  // p - onehot
-      pg.dt = wg;
+      pg.dt = g;
     }
-    return true;
+    return pg;
   }
 };
 
-template <typename T, typename L, typename Term>
-__global__ void partials_kernel(const T* __restrict__ sem,
-                                const L* __restrict__ labels, int h, int w,
-                                int c, int H, int W, int ignore_index,
-                                Term term, float2* __restrict__ partials) {
-  const int n = blockIdx.y;
-  const long long hw = (long long)H * W;
+// Forward: one block per (band of output rows, image); per-block sums to
+// partials[n, band].  A tile is the whole output row where its stage fits
+// (launch_sums), so one stage and two barriers per row.
+template <typename T, typename L, typename Term, int KC>
+__global__ void __launch_bounds__(kThreads, kSumsMinBlocks)
+sums_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h, int w,
+            int c, int H, int W, int ignore_index, Term term, Plan plan,
+            float2* __restrict__ partials) {
+  extern __shared__ float stage[];  // [span, ldc]
+  const int n = blockIdx.y, b = blockIdx.x;
+  const int ldc = c | 1;
   const T* img = sem + (size_t)n * h * w * c;
-  const L* lab = labels + (size_t)n * hw;
+  const int old = term.groups_old();
+  const int oy_end = min(H, (b + 1) * plan.band);
+  float a = 0.f, bs = 0.f;
+  for (int oy = b * plan.band; oy < oy_end; ++oy) {
+    const long long row = ((long long)n * H + oy) * W;
+    for (int ox0 = 0; ox0 < W; ox0 += plan.tile) {
+      const int ox1 = min(W, ox0 + plan.tile);
+      const int xs0 = plan.xlo[ox0];
+      __syncthreads();  // the previous tile is read
+      stage_row(img, w, c, ldc, plan.ylo[oy], plan.yhi[oy], plan.ywt[oy], xs0,
+                plan.xhi[ox1 - 1] - xs0 + 1, stage);
+      __syncthreads();
+      for (int ox = ox0 + threadIdx.x; ox < ox1; ox += kThreads) {
+        const long long t = (long long)labels[row + ox];
+        if (t == ignore_index || !term.counts(t, c)) continue;
+        const float wx = plan.xwt[ox];
+        const Pixel px{stage + (plan.xlo[ox] - xs0) * ldc,
+                       stage + (plan.xhi[ox] - xs0) * ldc, 1.f - wx, wx};
+        float e[KC];
+        const Stats st = pixel_stats<Term::kGroups>(px, c, t, old, e);
+        const float2 v = term.value(st, t, row + ox);
+        a += v.x;
+        bs += v.y;
+      }
+    }
+  }
+  const float2 r = block_sum2(a, bs);
+  if (threadIdx.x == 0) partials[(size_t)n * gridDim.x + b] = r;
+}
+
+// Each image's sums over its bands, in band order.
+template <typename Term>
+__global__ void sums_reduce_kernel(const float2* __restrict__ partials, int blocks,
+                                   float* __restrict__ a_out, float* __restrict__ b_out) {
+  const int n = blockIdx.x;
   float a = 0.f, b = 0.f;
-  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < hw;
-       p += (long long)gridDim.x * kThreads) {
-    const long long t = (long long)lab[p];
-    if (t == ignore_index) continue;
-    const bacs_taps::Taps<T> up(img, h, w, c, H, W, (int)(p / W), (int)(p % W));
-    const float2 v = term.value(up, c, t, n * hw + p);
+  for (int i = threadIdx.x; i < blocks; i += kThreads) {
+    const float2 v = partials[(size_t)n * blocks + i];
     a += v.x;
     b += v.y;
   }
   const float2 r = block_sum2(a, b);
-  if (threadIdx.x == 0) partials[(size_t)n * gridDim.x + blockIdx.x] = r;
+  if (threadIdx.x == 0) {
+    a_out[n] = r.x;
+    b_out[n] = r.y;
+  }
 }
+
+// The floats of shared memory the gradient kernel takes: the gradient
+// tile times each pixel's two W weights, [tile, KC + 1] x 2 (an odd
+// pitch: no bank conflicts), the stage [span, ldc], and where acc_shared
+// the band's accumulator [rows, w, c].  The wrapper's plan
+// (ops/upsample_ce.py:launch_plan) counts the same at KC = 32.
+template <int KC>
+size_t grad_smem_floats(const Plan& p, int w, int c, bool acc_shared) {
+  size_t f = (size_t)p.tile * 2 * (KC + 1) + (size_t)p.span * (c | 1);
+  if (acc_shared) f += (size_t)p.rows * w * c;
+  return f;
+}
+
+// Backward: one block per (band of output rows, image); the band's share
+// of dsem, over the source rows it touches, to its slab of partials
+// [n, bands, rows, w, c].
+template <typename T, typename L, typename Term, int KC>
+__global__ void __launch_bounds__(kThreads, Term::kGradMinBlocks)
+grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h, int w,
+                  int c, int H, int W, int ignore_index, Term term,
+                  const float* __restrict__ g, int g_stride, Plan plan, int acc_shared,
+                  float* __restrict__ partials) {
+  extern __shared__ float smem[];
+  const int n = blockIdx.y, b = blockIdx.x;
+  const int ldc = c | 1;
+  constexpr int kLdd = KC + 1;
+  float* dlo = smem;                        // [tile, kLdd]: (1 - wx) g d/dup
+  float* dhi = dlo + plan.tile * kLdd;      // [tile, kLdd]: wx g d/dup
+  float* stage = dhi + plan.tile * kLdd;    // [span, ldc]
+  const size_t slab_len = (size_t)plan.rows * w * c;
+  float* slab = partials + ((size_t)n * gridDim.x + b) * slab_len;
+  float* acc = acc_shared ? stage + plan.span * ldc : slab;
+  for (size_t i = threadIdx.x; i < slab_len; i += kThreads) acc[i] = 0.f;
+  const T* img = sem + (size_t)n * h * w * c;
+  const float gv = g[(size_t)n * g_stride];  // stride 0: one scalar
+  const int old = term.groups_old();
+  const int yb = plan.band_y0[b];
+  const int oy_end = min(H, (b + 1) * plan.band);
+  for (int oy = b * plan.band; oy < oy_end; ++oy) {
+    const long long row = ((long long)n * H + oy) * W;
+    const int y0 = plan.ylo[oy], y1 = plan.yhi[oy];
+    const float wy = plan.ywt[oy];
+    // the H weights of the row's two source rows: interp_matrix's entries
+    // (one entry, (1 - wy) + wy, at the clamped edge)
+    const float wy_a = y0 == y1 ? (1.f - wy) + wy : 1.f - wy;
+    float* acc_a = acc + (size_t)(y0 - yb) * w * c;
+    float* acc_b = acc + (size_t)(y1 - yb) * w * c;
+    for (int ox0 = 0; ox0 < W; ox0 += plan.tile) {
+      const int ox1 = min(W, ox0 + plan.tile);
+      const int xs0 = plan.xlo[ox0];
+      const int nx = plan.xhi[ox1 - 1] - xs0 + 1;
+      // the previous tile's reduction ended in a barrier
+      stage_row(img, w, c, ldc, y0, y1, wy, xs0, nx, stage);
+      __syncthreads();
+      const int p = threadIdx.x, ox = ox0 + p;
+      Pixel px{stage, stage, 0.f, 0.f};
+      float wa = 0.f, wb = 0.f;
+      PixelGrad pg{0.f, 0.f, 0.f, 0.f, 0.f, -1, 0};
+      Stats st{};
+      float e[KC];
+      bool live = false;
+      if (ox < ox1) {
+        const float wx = plan.xwt[ox];
+        px = Pixel{stage + (plan.xlo[ox] - xs0) * ldc, stage + (plan.xhi[ox] - xs0) * ldc,
+                   1.f - wx, wx};
+        wa = 1.f - wx;
+        wb = wx;
+        const long long t = (long long)labels[row + ox];
+        if (t != ignore_index && term.counts(t, c)) {
+          st = pixel_stats<Term::kGroups>(px, c, t, old, e);
+          pg = term.grad(st, t, row + ox, gv);
+          live = true;
+        }
+      }
+      for (int c0 = 0; c0 < c; c0 += KC) {
+        const int cc = min(KC, c - c0);
+        if (ox < ox1) {
+          if (live && c > KC) {  // this chunk's exponentials again
+            float v[KC];
+            px.chunk(c0, c, v);
+            const float mb = st.m * kLog2e;
+#pragma unroll
+            for (int k = 0; k < KC; ++k) e[k] = ex2(fmaf(v[k], kLog2e, -mb));
+          }
+#pragma unroll
+          for (int k = 0; k < KC; ++k) {
+            if (k < cc) {
+              const float d = live ? pg(c0 + k, e[k]) : 0.f;
+              dlo[p * kLdd + k] = wa * d;
+              dhi[p * kLdd + k] = wb * d;
+            }
+          }
+        }
+        __syncthreads();
+        // the transposed interpolation of the tile: per (source column,
+        // channel), the sum over its output columns in this tile, then
+        // into the band's two source rows; item i = xi cc + k, stepped by
+        // kThreads without a division per item
+        int xi = threadIdx.x / cc, k = threadIdx.x - xi * cc;
+        const int dxi = kThreads / cc, dk = kThreads - dxi * cc;
+        for (; xi < nx; xi += dxi, k += dk) {
+          if (k >= cc) {
+            k -= cc;
+            ++xi;
+            if (xi >= nx) break;
+          }
+          const int x = xs0 + xi;
+          float s = 0.f;
+          const int la = max(plan.xlo_first[x], ox0) - ox0;
+          const int lb = min(plan.xlo_last[x], ox1 - 1) - ox0;
+#pragma unroll 4
+          for (int q = la; q <= lb; ++q) s += dlo[q * kLdd + k];
+          const int ha = max(plan.xhi_first[x], ox0) - ox0;
+          const int hb = min(plan.xhi_last[x], ox1 - 1) - ox0;
+#pragma unroll 4
+          for (int q = ha; q <= hb; ++q) s += dhi[q * kLdd + k];
+          const size_t off = (size_t)x * c + c0 + k;
+          acc_a[off] += wy_a * s;
+          if (y1 != y0) acc_b[off] += wy * s;
+        }
+        __syncthreads();
+      }
+    }
+  }
+  if (acc_shared) {
+    for (size_t i = threadIdx.x; i < slab_len; i += kThreads) slab[i] = acc[i];
+  }
+}
+
+// dsem[n, y] = the sum, in band order, of the slabs of the bands that
+// touch source row y (grid = (w c / kThreads, h, n)).
+template <typename T, typename Term>
+__global__ void band_sum_kernel(const float* __restrict__ partials, int h, int w, int c,
+                                Plan plan, T* __restrict__ dsem) {
+  const int wc = w * c;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= wc) return;
+  const int y = blockIdx.y, n = blockIdx.z;
+  const size_t slab_len = (size_t)plan.rows * wc;
+  float s = 0.f;
+  for (int b = plan.band_first[y]; b <= plan.band_last[y]; ++b) {
+    s += partials[((size_t)n * plan.nb + b) * slab_len + (size_t)(y - plan.band_y0[b]) * wc + i];
+  }
+  bacs_taps::store(dsem + ((size_t)n * h + y) * wc + i, s);
+}
+
+// The arguments every entry point shares.
+struct Problem {
+  const void* sem;
+  int sem_is_bf16;
+  const void* labels;
+  int labels_are_i64;
+  int n, h, w, c, H, W, ignore_index;
+  Plan plan;
+};
+
+Problem make_problem(const void* sem, int sem_is_bf16, const void* labels,
+                     int labels_are_i64, int n, int h, int w, int c, int H, int W,
+                     int ignore_index, const void* tables, int band, int tile, int span,
+                     int rows) {
+  return Problem{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
+                 ignore_index, make_plan(tables, h, w, H, W, band, tile, span, rows)};
+}
+
+// Asks for `bytes` of dynamic shared memory where that is above the 48 KB
+// default.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <typename T, typename L, typename Term, int KC>
+int launch_sums(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
+                cudaStream_t st) {
+  Plan pl = pr.plan;
+  if ((size_t)pr.w * (pr.c | 1) * sizeof(float) <= 48 * 1024) {  // whole rows
+    pl.tile = pr.W;
+    pl.span = pr.w;
+  }
+  const size_t smem = (size_t)pl.span * (pr.c | 1) * sizeof(float);
+  if (pl.tile < 1 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(sums_kernel<T, L, Term, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  sums_kernel<T, L, Term, KC><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
+      (const T*)pr.sem, (const L*)pr.labels, pr.h, pr.w, pr.c, pr.H, pr.W,
+      pr.ignore_index, term, pl, (float2*)partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sums_reduce_kernel<Term><<<pr.n, kThreads, 0, st>>>((const float2*)partials, pl.nb,
+                                                      (float*)a_out, (float*)b_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename L, typename Term, int KC>
+int launch_grad(const Problem& pr, Term term, const void* g, int g_stride, void* partials,
+                void* dsem, cudaStream_t st) {
+  const Plan& pl = pr.plan;
+  const bool acc_shared =
+      grad_smem_floats<KC>(pl, pr.w, pr.c, true) * sizeof(float) <= kSmemMax;
+  const size_t smem = grad_smem_floats<KC>(pl, pr.w, pr.c, acc_shared) * sizeof(float);
+  if (pl.tile < 1 || pl.tile > kThreads || smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(grad_bands_kernel<T, L, Term, KC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_bands_kernel<T, L, Term, KC><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
+      (const T*)pr.sem, (const L*)pr.labels, pr.h, pr.w, pr.c, pr.H, pr.W,
+      pr.ignore_index, term, (const float*)g, g_stride, pl, (int)acc_shared,
+      (float*)partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int wc = pr.w * pr.c;
+  band_sum_kernel<T, Term><<<dim3((wc + kThreads - 1) / kThreads, pr.h, pr.n), kThreads, 0,
+                             st>>>((const float*)partials, pr.h, pr.w, pr.c, pl, (T*)dsem);
+  return (int)cudaGetLastError();
+}
+
+template <typename Term, int KC>
+int sums_at(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
+            cudaStream_t st) {
+  if (pr.sem_is_bf16) {
+    return pr.labels_are_i64
+        ? launch_sums<__nv_bfloat16, int64_t, Term, KC>(pr, term, partials, a_out, b_out, st)
+        : launch_sums<__nv_bfloat16, int32_t, Term, KC>(pr, term, partials, a_out, b_out, st);
+  }
+  return pr.labels_are_i64
+      ? launch_sums<float, int64_t, Term, KC>(pr, term, partials, a_out, b_out, st)
+      : launch_sums<float, int32_t, Term, KC>(pr, term, partials, a_out, b_out, st);
+}
+
+template <typename Term, int KC>
+int grad_at(const Problem& pr, Term term, const void* g, int g_stride, void* partials,
+            void* dsem, cudaStream_t st) {
+  if (pr.sem_is_bf16) {
+    return pr.labels_are_i64
+        ? launch_grad<__nv_bfloat16, int64_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st)
+        : launch_grad<__nv_bfloat16, int32_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st);
+  }
+  return pr.labels_are_i64
+      ? launch_grad<float, int64_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st)
+      : launch_grad<float, int32_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st);
+}
+
+// The chunk width KC of the register arrays, by the channel count: 16, 24
+// (the main path's 17 and 21 channels) or 32 (chunks of 32 past it).
+template <typename Term>
+int sums(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
+         void* stream) {
+  if ((long long)pr.n * pr.H * pr.W == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pr.c <= 16) return sums_at<Term, 16>(pr, term, partials, a_out, b_out, st);
+  if (pr.c <= 24) return sums_at<Term, 24>(pr, term, partials, a_out, b_out, st);
+  return sums_at<Term, 32>(pr, term, partials, a_out, b_out, st);
+}
+
+// g_stride 0: g is one scalar; 1: g holds one value per image (K8).
+template <typename Term>
+int grad(const Problem& pr, Term term, const void* g, void* partials, void* dsem,
+         void* stream, int g_stride = 0) {
+  if ((long long)pr.n * pr.h * pr.w * pr.c == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pr.c <= 16) return grad_at<Term, 16>(pr, term, g, g_stride, partials, dsem, st);
+  if (pr.c <= 24) return grad_at<Term, 24>(pr, term, g, g_stride, partials, dsem, st);
+  return grad_at<Term, 32>(pr, term, g, g_stride, partials, dsem, st);
+}
+
+// ---- K7: the unbiased KD of a student/teacher pair, no labels, on the
+// design of the first port: one thread per output pixel (forward) or per
+// (n, output row, source column) (backward, then `grad_rows_kernel`), the
+// taps of bilinear_taps.cuh.
 
 __global__ void reduce_kernel(const float2* __restrict__ partials, int blocks,
                               float* __restrict__ a_out,
@@ -344,50 +778,6 @@ __global__ void reduce_kernel(const float2* __restrict__ partials, int blocks,
   if (threadIdx.x == 0) {
     a_out[n] = r.x;
     b_out[n] = r.y;
-  }
-}
-
-template <typename T, typename L, typename Term>
-__global__ void grad_cols_kernel(const T* __restrict__ sem,
-                                 const L* __restrict__ labels, int n_img,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, Term term,
-                                 const float* __restrict__ g, int g_stride,
-                                 float* __restrict__ cols) {
-  const long long total = (long long)n_img * H * w;
-  const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (q >= total) return;
-  const int x = (int)(q % w);
-  const int oy = (int)((q / w) % H);
-  const int n = (int)(q / ((long long)H * w));
-  const T* img = sem + (size_t)n * h * w * c;
-  const long long row = ((long long)n * H + oy) * W;
-  const L* lab = labels + row;
-  const float gv = g[(long long)n * g_stride];  // stride 0: one scalar
-  int first, last;
-  bacs_taps::support(x, W, w, first, last);
-  float* out = cols + (size_t)q * c;
-  for (int c0 = 0; c0 < c; c0 += kChunk) {
-    float acc[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) acc[k] = 0.f;
-    for (int ox = first; ox <= last; ++ox) {
-      const float wx = bacs_taps::tap_weight(ox, W, w, x);
-      const long long t = (long long)lab[ox];
-      if (wx == 0.f || t == ignore_index) continue;
-      const bacs_taps::Taps<T> up(img, h, w, c, H, W, oy, ox);
-      PixelGrad pg;
-      if (!term.grad(up, c, t, row + ox, wx * gv, pg)) continue;
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const int ch = c0 + k;
-        if (ch < c) acc[k] += pg(ch, up(ch));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (c0 + k < c) out[c0 + k] = acc[k];
-    }
   }
 }
 
@@ -416,75 +806,6 @@ unsigned blocks_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
-// The arguments every entry point shares.
-struct Problem {
-  const void* sem;
-  int sem_is_bf16;
-  const void* labels;
-  int labels_are_i64;
-  int n, h, w, c, H, W, ignore_index;
-};
-
-template <typename T, typename L, typename Term>
-int launch_sums(const Problem& pr, Term term, void* partials, int blocks,
-                void* a_out, void* b_out, cudaStream_t st) {
-  partials_kernel<T, L, Term><<<dim3(blocks, pr.n), kThreads, 0, st>>>(
-      (const T*)pr.sem, (const L*)pr.labels, pr.h, pr.w, pr.c, pr.H, pr.W,
-      pr.ignore_index, term, (float2*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_kernel<<<pr.n, kThreads, 0, st>>>((const float2*)partials, blocks,
-                                           (float*)a_out, (float*)b_out);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename L, typename Term>
-int launch_grad(const Problem& pr, Term term, const void* g, int g_stride,
-                void* cols, void* dsem, cudaStream_t st) {
-  grad_cols_kernel<T, L, Term>
-      <<<blocks_for((long long)pr.n * pr.H * pr.w), kThreads, 0, st>>>(
-          (const T*)pr.sem, (const L*)pr.labels, pr.n, pr.h, pr.w, pr.c, pr.H,
-          pr.W, pr.ignore_index, term, (const float*)g, g_stride, (float*)cols);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  grad_rows_kernel<T>
-      <<<blocks_for((long long)pr.n * pr.h * pr.w * pr.c), kThreads, 0, st>>>(
-          (const float*)cols, pr.n, pr.h, pr.w, pr.c, pr.H, (T*)dsem);
-  return (int)cudaGetLastError();
-}
-
-template <typename Term>
-int sums(const Problem& pr, Term term, void* partials, int blocks, void* a_out,
-         void* b_out, void* stream) {
-  if ((long long)pr.n * pr.H * pr.W == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (pr.sem_is_bf16) {
-    return pr.labels_are_i64
-        ? launch_sums<__nv_bfloat16, int64_t>(pr, term, partials, blocks, a_out, b_out, st)
-        : launch_sums<__nv_bfloat16, int32_t>(pr, term, partials, blocks, a_out, b_out, st);
-  }
-  return pr.labels_are_i64
-      ? launch_sums<float, int64_t>(pr, term, partials, blocks, a_out, b_out, st)
-      : launch_sums<float, int32_t>(pr, term, partials, blocks, a_out, b_out, st);
-}
-
-// g_stride 0: g is one scalar; 1: g holds one value per image (K8).
-template <typename Term>
-int grad(const Problem& pr, Term term, const void* g, void* cols, void* dsem,
-         void* stream, int g_stride = 0) {
-  if ((long long)pr.n * pr.h * pr.w * pr.c == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (pr.sem_is_bf16) {
-    return pr.labels_are_i64
-        ? launch_grad<__nv_bfloat16, int64_t>(pr, term, g, g_stride, cols, dsem, st)
-        : launch_grad<__nv_bfloat16, int32_t>(pr, term, g, g_stride, cols, dsem, st);
-  }
-  return pr.labels_are_i64
-      ? launch_grad<float, int64_t>(pr, term, g, g_stride, cols, dsem, st)
-      : launch_grad<float, int32_t>(pr, term, g, g_stride, cols, dsem, st);
-}
-
-// ---- K7: the unbiased KD of a student/teacher pair, no labels.
 
 // One output pixel's K7 statistics: the teacher's running max mo and
 // exp-sum so of alpha u; the student's running max m, exp-sum s, exp-sum
@@ -635,125 +956,113 @@ int launch_ukd_grad(const void* sem, const void* sem_old, int n, int h, int w,
 }  // namespace
 
 // Common arguments: sem [n, h, w, c] contiguous, f32 (sem_is_bf16 == 0) or
-// bf16; labels [n, H, W] contiguous int32 (labels_are_i64 == 0) or int64.
-// Sums: partials f32 scratch of [n, blocks, 2]; a_out, b_out f32 [n].
-// Gradients: g f32 device scalar; cols f32 scratch of [n, H, w, c]; dsem
-// [n, h, w, c] in sem's type.  Each makes two launches and returns the
-// first nonzero cudaGetLastError().
+// bf16; labels [n, H, W] contiguous int32 (labels_are_i64 == 0) or int64;
+// tables, band, tile, span, rows: the launch plan of
+// ops/upsample_ce.py:launch_plan (the int32 tap tables on the device, see
+// Plan).  Sums: partials f32 scratch of [n, bands, 2]; a_out, b_out f32
+// [n].  Gradients: g f32 device scalar; partials f32 scratch of [n,
+// bands, rows, w, c]; dsem [n, h, w, c] in sem's type.  Each makes two
+// launches and returns the first nonzero cudaGetLastError() (or
+// cudaErrorInvalidValue for a plan whose shared memory does not fit).
+#define PROBLEM                                                                  \
+  make_problem(sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,      \
+               ignore_index, tables, band, tile, span, rows)
 
 // K1 forward: a_out = per-image NLL sums, b_out = valid counts.
-extern "C" int upsample_ce_sums(const void* sem, int sem_is_bf16,
-                                const void* labels, int labels_are_i64, int n,
-                                int h, int w, int c, int H, int W,
-                                int ignore_index, void* partials, int blocks,
+extern "C" int upsample_ce_sums(const void* sem, int sem_is_bf16, const void* labels,
+                                int labels_are_i64, int n, int h, int w, int c, int H,
+                                int W, int ignore_index, const void* tables, int band,
+                                int tile, int span, int rows, void* partials,
                                 void* loss_out, void* count_out, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return sums(pr, CeTerm{}, partials, blocks, loss_out, count_out, stream);
+  return sums(PROBLEM, CeTerm{}, partials, loss_out, count_out, stream);
 }
 
 // K1 backward.
-extern "C" int upsample_ce_grad(const void* sem, int sem_is_bf16,
-                                const void* labels, int labels_are_i64, int n,
-                                int h, int w, int c, int H, int W,
-                                int ignore_index, const void* g, void* cols,
-                                void* dsem, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return grad(pr, CeTerm{}, g, cols, dsem, stream);
+extern "C" int upsample_ce_grad(const void* sem, int sem_is_bf16, const void* labels,
+                                int labels_are_i64, int n, int h, int w, int c, int H,
+                                int W, int ignore_index, const void* g,
+                                const void* tables, int band, int tile, int span,
+                                int rows, void* partials, void* dsem, void* stream) {
+  return grad(PROBLEM, CeTerm{}, g, partials, dsem, stream);
 }
 
 // K8: K1 backward with g f32 [n], one cotangent per image.
 extern "C" int upsample_ce_grad_per_image(const void* sem, int sem_is_bf16,
-                                          const void* labels, int labels_are_i64,
-                                          int n, int h, int w, int c, int H, int W,
+                                          const void* labels, int labels_are_i64, int n,
+                                          int h, int w, int c, int H, int W,
                                           int ignore_index, const void* g,
-                                          void* cols, void* dsem, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return grad(pr, CeTerm{}, g, cols, dsem, stream, 1);
+                                          const void* tables, int band, int tile,
+                                          int span, int rows, void* partials,
+                                          void* dsem, void* stream) {
+  return grad(PROBLEM, CeTerm{}, g, partials, dsem, stream, 1);
 }
 
 // K4 forward, weights f32 [c]: a_out = per-image sums of w[t] NLL, b_out =
 // per-image sums of w[t].
-extern "C" int upsample_wce_sums(const void* sem, int sem_is_bf16,
-                                 const void* labels, int labels_are_i64, int n,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, const void* weights,
-                                 void* partials, int blocks, void* loss_out,
+extern "C" int upsample_wce_sums(const void* sem, int sem_is_bf16, const void* labels,
+                                 int labels_are_i64, int n, int h, int w, int c, int H,
+                                 int W, int ignore_index, const void* weights,
+                                 const void* tables, int band, int tile, int span,
+                                 int rows, void* partials, void* loss_out,
                                  void* wsum_out, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return sums(pr, WceTerm{(const float*)weights}, partials, blocks, loss_out,
-              wsum_out, stream);
+  return sums(PROBLEM, WceTerm{(const float*)weights}, partials, loss_out, wsum_out,
+              stream);
 }
 
 // K4 backward.
-extern "C" int upsample_wce_grad(const void* sem, int sem_is_bf16,
-                                 const void* labels, int labels_are_i64, int n,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, const void* weights,
-                                 const void* g, void* cols, void* dsem,
+extern "C" int upsample_wce_grad(const void* sem, int sem_is_bf16, const void* labels,
+                                 int labels_are_i64, int n, int h, int w, int c, int H,
+                                 int W, int ignore_index, const void* weights,
+                                 const void* g, const void* tables, int band, int tile,
+                                 int span, int rows, void* partials, void* dsem,
                                  void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return grad(pr, WceTerm{(const float*)weights}, g, cols, dsem, stream);
+  return grad(PROBLEM, WceTerm{(const float*)weights}, g, partials, dsem, stream);
 }
 
 // K3 forward, max_seen f32 [n, H, W]: a_out = per-image sums of the BACS
 // terms, b_out = valid counts.
-extern "C" int upsample_bacs_sum(const void* sem, int sem_is_bf16,
-                                 const void* labels, int labels_are_i64, int n,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, const void* max_seen,
-                                 int old_classes, int ukd, float gamma,
-                                 float threshold, void* partials, int blocks,
-                                 void* loss_out, void* count_out,
-                                 void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
+extern "C" int upsample_bacs_sum(const void* sem, int sem_is_bf16, const void* labels,
+                                 int labels_are_i64, int n, int h, int w, int c, int H,
+                                 int W, int ignore_index, const void* max_seen,
+                                 int old_classes, int ukd, float gamma, float threshold,
+                                 const void* tables, int band, int tile, int span,
+                                 int rows, void* partials, void* loss_out,
+                                 void* count_out, void* stream) {
   const BacsTerm term{(const float*)max_seen, old_classes, ukd, gamma, threshold};
-  return sums(pr, term, partials, blocks, loss_out, count_out, stream);
+  return sums(PROBLEM, term, partials, loss_out, count_out, stream);
 }
 
 // K3 backward.
-extern "C" int upsample_bacs_grad(const void* sem, int sem_is_bf16,
-                                  const void* labels, int labels_are_i64,
-                                  int n, int h, int w, int c, int H, int W,
-                                  int ignore_index, const void* max_seen,
+extern "C" int upsample_bacs_grad(const void* sem, int sem_is_bf16, const void* labels,
+                                  int labels_are_i64, int n, int h, int w, int c, int H,
+                                  int W, int ignore_index, const void* max_seen,
                                   int old_classes, int ukd, float gamma,
-                                  float threshold, const void* g, void* cols,
-                                  void* dsem, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
+                                  float threshold, const void* g, const void* tables,
+                                  int band, int tile, int span, int rows,
+                                  void* partials, void* dsem, void* stream) {
   const BacsTerm term{(const float*)max_seen, old_classes, ukd, gamma, threshold};
-  return grad(pr, term, g, cols, dsem, stream);
+  return grad(PROBLEM, term, g, partials, dsem, stream);
 }
 
 // K6 forward: a_out = per-image sums of the unbiased CE, b_out = valid
 // counts.
-extern "C" int upsample_uce_sums(const void* sem, int sem_is_bf16,
-                                 const void* labels, int labels_are_i64, int n,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, int old_classes,
-                                 void* partials, int blocks, void* loss_out,
+extern "C" int upsample_uce_sums(const void* sem, int sem_is_bf16, const void* labels,
+                                 int labels_are_i64, int n, int h, int w, int c, int H,
+                                 int W, int ignore_index, int old_classes,
+                                 const void* tables, int band, int tile, int span,
+                                 int rows, void* partials, void* loss_out,
                                  void* count_out, void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return sums(pr, UceTerm{old_classes}, partials, blocks, loss_out, count_out,
-              stream);
+  return sums(PROBLEM, UceTerm{old_classes}, partials, loss_out, count_out, stream);
 }
 
 // K6 backward.
-extern "C" int upsample_uce_grad(const void* sem, int sem_is_bf16,
-                                 const void* labels, int labels_are_i64, int n,
-                                 int h, int w, int c, int H, int W,
-                                 int ignore_index, int old_classes,
-                                 const void* g, void* cols, void* dsem,
+extern "C" int upsample_uce_grad(const void* sem, int sem_is_bf16, const void* labels,
+                                 int labels_are_i64, int n, int h, int w, int c, int H,
+                                 int W, int ignore_index, int old_classes,
+                                 const void* g, const void* tables, int band, int tile,
+                                 int span, int rows, void* partials, void* dsem,
                                  void* stream) {
-  const Problem pr{sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-                   ignore_index};
-  return grad(pr, UceTerm{old_classes}, g, cols, dsem, stream);
+  return grad(PROBLEM, UceTerm{old_classes}, g, partials, dsem, stream);
 }
 
 // K7 forward: sem [n, h, w, c] and sem_old [n, h, w, c_old], both f32 or

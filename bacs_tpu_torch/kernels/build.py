@@ -44,51 +44,39 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FAMILY = [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I]
+_PLAN = [_P, _I, _I, _I, _I]
 # C signature of every entry point in csrc/, declared before first use
 SIGNATURES = {
     # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
     "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # the upsample+loss family (K1, K3, K4, K6, K8): the problem
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, partials, blocks, loss_out, count_out, stream)
-    "upsample_ce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                         _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, g, cols, dsem, stream)
-    "upsample_ce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                         _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, weights, partials, blocks, loss_out, wsum_out, stream)
-    "upsample_wce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _I, _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, weights, g, cols, dsem, stream)
-    "upsample_wce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, max_seen, old_classes, ukd, gamma, threshold, partials,
-    #  blocks, loss_out, count_out, stream)
-    "upsample_bacs_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                          _I, _F, _F, _P, _I, _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, max_seen, old_classes, ukd, gamma, threshold, g, cols,
-    #  dsem, stream)
-    "upsample_bacs_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                           _I, _F, _F, _P, _P, _P, _P],
+    # ignore_index), the term's arguments, then the launch plan (tables,
+    # band, tile, span, rows) and the outputs
+    # (problem, plan, partials, loss_out, count_out, stream)
+    "upsample_ce_sums": _FAMILY + _PLAN + [_P, _P, _P, _P],
+    # (problem, g, plan, partials, dsem, stream)
+    "upsample_ce_grad": _FAMILY + [_P] + _PLAN + [_P, _P, _P],
+    # (problem, weights, plan, partials, loss_out, wsum_out, stream)
+    "upsample_wce_sums": _FAMILY + [_P] + _PLAN + [_P, _P, _P, _P],
+    # (problem, weights, g, plan, partials, dsem, stream)
+    "upsample_wce_grad": _FAMILY + [_P, _P] + _PLAN + [_P, _P, _P],
+    # (problem, max_seen, old_classes, ukd, gamma, threshold, plan,
+    #  partials, loss_out, count_out, stream)
+    "upsample_bacs_sum": _FAMILY + [_P, _I, _I, _F, _F] + _PLAN + [_P, _P, _P, _P],
+    # (problem, max_seen, old_classes, ukd, gamma, threshold, g, plan,
+    #  partials, dsem, stream)
+    "upsample_bacs_grad": _FAMILY + [_P, _I, _I, _F, _F, _P] + _PLAN + [_P, _P, _P],
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     #  num_classes, conf, stream)
     "upsample_confusion": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, g [n], cols, dsem, stream)
-    "upsample_ce_grad_per_image": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                                   _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, old_classes, partials, blocks, loss_out, count_out, stream)
-    "upsample_uce_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                          _P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  ignore_index, old_classes, g, cols, dsem, stream)
-    "upsample_uce_grad": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _P, _P],
+    # (problem, g [n], plan, partials, dsem, stream)
+    "upsample_ce_grad_per_image": _FAMILY + [_P] + _PLAN + [_P, _P, _P],
+    # (problem, old_classes, plan, partials, loss_out, count_out, stream)
+    "upsample_uce_sums": _FAMILY + [_I] + _PLAN + [_P, _P, _P, _P],
+    # (problem, old_classes, g, plan, partials, dsem, stream)
+    "upsample_uce_grad": _FAMILY + [_I, _P] + _PLAN + [_P, _P, _P],
     # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha, partials,
     #  blocks, t_out, b_out, stream)
     "upsample_ukd_sum": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,

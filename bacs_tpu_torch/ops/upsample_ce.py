@@ -59,13 +59,18 @@ backward); autograd hands the backward the mean's scale as a device
 scalar.  The plain versions upsample with the ``interp_matrix`` einsums in
 f32 (``upsample_tiles.py``).  Labels other than ``ignore_index`` are
 expected in [0, C); one outside picks no logit, as the TPU kernels'
-one-hot.  Bounds and tolerances are in the kernels' source note.
+one-hot.  Bounds and tolerances are in the kernels' source note.  The
+kernels of K1, K3, K4, K6 and K8 read their bilinear taps and their bands
+of output rows from int32 tables built here with ``interp_matrix``'s
+arithmetic (:func:`launch_plan`, cached per shape on the device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from bacs_tpu_torch.kernels import build
@@ -74,7 +79,12 @@ from bacs_tpu_torch.ops.losses import (
     weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
-BLOCKS_PER_IMAGE = 256  # forward partial sums per image (one 256-thread block each)
+BLOCKS_PER_IMAGE = 256  # K7's and K9's partial sums per image (one 256-thread block each)
+# the launch plan of the K1/K3/K4/K6/K8 kernels (csrc/upsample_ce.cu)
+TILE = 256  # output pixels per tile, one a thread
+CHUNK = 32  # the widest chunk of channels the kernels hold in registers (KC)
+TARGET_BLOCKS = 1024  # bands x images: about 8 blocks for each of the H100's 132 SMs
+SMEM_MAX = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def upsample_plain(sem: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -159,12 +169,105 @@ def _check_max_seen(max_seen, labels):
                          f"{tuple(max_seen.shape)} on {max_seen.device}")
 
 
+# ---------------------------------------------------------------- launch plan
+
+
+def tap_tables(out_dim: int, in_dim: int) -> dict:
+    """The taps of ``interp_matrix(out_dim, in_dim)`` as tables, with its
+    arithmetic: per output index ``lo``, ``hi`` (int32) and ``wt`` (f32),
+    the entry being ``1 - wt`` at lo plus ``wt`` at hi; per source index the
+    output indices whose lo (``lo_first``..``lo_last``) or hi
+    (``hi_first``..``hi_last``) it is, with a nonzero weight (first > last
+    where there are none).  Output indices are in order of their source
+    coordinate, so each range is contiguous."""
+    coords = (np.arange(out_dim) + 0.5) * (in_dim / out_dim) - 0.5
+    coords = np.clip(coords, 0, in_dim - 1)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.clip(lo + 1, 0, in_dim - 1)
+    wt = (coords - lo).astype(np.float32)
+    out = {"lo": lo.astype(np.int32), "hi": hi.astype(np.int32), "wt": wt}
+    for name, src, weight in (("lo", lo, np.float32(1.0) - wt), ("hi", hi, wt)):
+        first = np.full(in_dim, out_dim, np.int32)
+        last = np.full(in_dim, -1, np.int32)
+        o = np.flatnonzero(weight != 0)
+        np.minimum.at(first, src[o], o.astype(np.int32))
+        np.maximum.at(last, src[o], o.astype(np.int32))
+        out[f"{name}_first"], out[f"{name}_last"] = first, last
+    return out
+
+
+def band_plan(ty: dict, in_dim: int, band: int) -> dict:
+    """The bands of ``band`` output rows a gradient launch takes: per band
+    ``y0`` (the first source row it touches) and ``rows`` (how many); per
+    source row the bands that touch it (``first``..``last``, first > last
+    where none); ``max_rows``, the largest band's slab."""
+    out_dim = len(ty["lo"])
+    starts = np.arange(0, out_dim, band)
+    ends = np.minimum(starts + band, out_dim) - 1
+    y0 = ty["lo"][starts]
+    rows = ty["hi"][ends] - y0 + 1
+    first = np.zeros(in_dim, np.int32)
+    last = np.full(in_dim, -1, np.int32)
+    for b in range(len(starts) - 1, -1, -1):
+        first[y0[b]:y0[b] + rows[b]] = b
+    for b in range(len(starts)):
+        last[y0[b]:y0[b] + rows[b]] = b
+    return {"y0": y0.astype(np.int32), "rows": rows.astype(np.int32), "first": first,
+            "last": last, "max_rows": int(rows.max())}
+
+
+def tile_span(tx: dict, tile: int) -> int:
+    """The most source columns a tile of ``tile`` output columns reads."""
+    starts = np.arange(0, len(tx["lo"]), tile)
+    ends = np.minimum(starts + tile, len(tx["lo"])) - 1
+    return int((tx["hi"][ends] - tx["lo"][starts] + 1).max())
+
+
+def grad_smem_bytes(tile: int, span: int, c: int) -> int:
+    """Shared memory of the gradient kernel without its accumulator, at the
+    widest chunk (``grad_smem_floats`` in csrc/upsample_ce.cu): the gradient
+    tile times its two W weights, ``tile`` x 2 (CHUNK + 1) floats, and the
+    stage, ``span`` x (c | 1)."""
+    return 4 * (tile * 2 * (CHUNK + 1) + span * (c | 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_numpy(n, h, w, c, H, W):
+    tx, ty = tap_tables(W, w), tap_tables(H, h)
+    band = max(1, min(H, -(-n * H // TARGET_BLOCKS)))
+    tile = TILE
+    while tile > 1 and grad_smem_bytes(tile, tile_span(tx, tile), c) > SMEM_MAX:
+        tile //= 2
+    span = tile_span(tx, tile)
+    if grad_smem_bytes(tile, span, c) > SMEM_MAX:
+        raise ValueError(f"{c} channels do not fit the kernel's shared memory")
+    bands = band_plan(ty, h, band)
+    tables = np.concatenate([
+        tx["lo"], tx["hi"], tx["wt"].view(np.int32), tx["lo_first"], tx["lo_last"],
+        tx["hi_first"], tx["hi_last"], ty["lo"], ty["hi"], ty["wt"].view(np.int32),
+        bands["y0"], bands["first"], bands["last"]])
+    return tables, (band, tile, span, bands["max_rows"]), len(bands["y0"])
+
+
+_device_tables = {}
+
+
+def launch_plan(n, h, w, c, H, W, device):
+    """(int32 tap tables on ``device``, (band, tile, span, rows), bands):
+    the layout ``Plan`` in csrc/upsample_ce.cu reads, cached per shape."""
+    tables, args, nb = _plan_numpy(n, h, w, c, H, W)
+    key = (n, h, w, c, H, W, str(device))
+    if key not in _device_tables:
+        _device_tables[key] = torch.from_numpy(tables).to(device)
+    return _device_tables[key], args, nb
+
+
 def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
     """One forward entry point of ``csrc/upsample_ce.cu``: per-image
     ([n] first sums, [n] second sums), f32."""
     n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
-    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
-    partials = torch.empty((n, blocks, 2), dtype=torch.float32, device=sem.device)
+    tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device)
+    partials = torch.empty((n, nb, 2), dtype=torch.float32, device=sem.device)
     a = torch.empty((n,), dtype=torch.float32, device=sem.device)
     b = torch.empty((n,), dtype=torch.float32, device=sem.device)
     lib = build.load_library()
@@ -172,8 +275,8 @@ def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
         code = getattr(lib, entry)(
             sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
             int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
-            *extra, partials.data_ptr(), blocks, a.data_ptr(), b.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            *extra, tables.data_ptr(), *args, partials.data_ptr(), a.data_ptr(),
+            b.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, entry)
     return a, b
@@ -185,15 +288,16 @@ def _launch_grad(entry, sem, labels, out_hw, g, ignore_index, extra=(),
     dtype; ``g`` holds ``g_numel`` f32 values (1, or one per image)."""
     n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
     _check_g(g, sem, g_numel)
-    cols = torch.empty((n, H, w, c), dtype=torch.float32, device=sem.device)
+    tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device)
+    partials = torch.empty((n, nb, args[3], w, c), dtype=torch.float32, device=sem.device)
     dsem = torch.empty_like(sem)
     lib = build.load_library()
     with torch.cuda.device(sem.device):
         code = getattr(lib, entry)(
             sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
             int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
-            *extra, g.data_ptr(), cols.data_ptr(), dsem.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            *extra, g.data_ptr(), tables.data_ptr(), *args, partials.data_ptr(),
+            dsem.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, entry)
     return dsem

@@ -3,13 +3,15 @@
 and continual-trainer paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --family-times [--package-root DIR]
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
 (Triton's cache also under ``build/``), then:
 
 1. prints the environment, the card's ``nvidia-smi`` name and power limit,
-   and the build time;
+   the build time and the registers and spills of the upsample+loss
+   family's kernels (``nvcc -Xptxas -v``);
 2. holds the eval-ABN kernel (K5, Triton) against its plain PyTorch version
    at the ResNet-101 serving forward's shapes at batch 16;
 3. holds the upsample+argmax+confidence kernel (K10, CUDA) against its plain
@@ -109,9 +111,18 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    prints the seconds of each task's parts, ``Trainer.throughput``, the
    checkpoints' sizes and times, and the last task's device idle share;
 t. times K1-K4, K6-K9 and K12 at the main path's shapes beside their plain
-   versions (K12 also beside the unfused ABN + max-pool pair), and computes
-   every kernel's bound from its inputs (bytes, f32 operations and
-   special-function operations).
+   versions and their times before the redesign of the upsample+loss
+   family (K12 also beside the unfused ABN
+   + max-pool pair, K1 and K4 beside the unfused ``F.interpolate`` +
+   ``F.cross_entropy`` pair), computes every kernel's bound from its inputs
+   (bytes, f32 operations and special-function operations), and holds two
+   launches of each kernel of the upsample+loss family (K1, K3, K4, K6
+   forward and backward, K8) bit-equal.
+
+``--family-times`` only builds and times that family at the main path's
+shapes (one JSON line); with ``--package-root`` the port of another
+checkout, so that two versions (e.g. the parent commit unpacked under
+``build/``) are timed in one call, in turns.
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
@@ -124,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import itertools
 import json
 import os
@@ -1323,7 +1335,9 @@ def mib_plop_steps_512(cfg, params, stats, seed, dev, reset_counts, counts) -> d
                                       f"bf16 {name} steps (batch {MIB_PLOP_BATCH}, {CROP}^2)")
         for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
             log(f"[p] {name} step by kernel kind: {ms:.3f} ms ({ms / busy:.1%}) {part}")
-        log(f"[p] {name}: device busy {busy:.3f} ms per step; median step wall {med:.3f} "
+        earlier = EARLIER_BUSY_MS[f"{'MiB' if name.endswith('MiB') else 'PLOP'} step (phase [19])"]
+        log(f"[p] {name}: device busy {busy:.3f} ms per step (before: {earlier}); median step "
+            f"wall {med:.3f} "
             f"ms: device idle share {1 - busy / med:.3f}")
 
         conf_mat = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
@@ -1407,9 +1421,193 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
                        ("k7b", "K7 backward"), ("k8", "K8"), ("k9", "K9")):
         shape = tuple((old if key == "k9" else sem).shape)
         log(f"[t] {label} {shape}->{CROP}^2 bf16, int32 labels: kernel {times[key][0]:.4f} "
-            f"ms, plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+            "ms" + (f" (before: {EARLIER_KERNEL_MS[key]})" if key in EARLIER_KERNEL_MS else "")
+            + f", plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
             f"({bounds[key][1]})")
     return times, bounds
+
+
+# ---------------------------------------------------------------- the upsample+loss family
+
+# the device busy ms per step measured before the upsample+loss family's
+# redesign (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
+EARLIER_BUSY_MS = {"CE step (phase [9])": "97.8-99.0",
+                   "BACS step (phase [14])": "361.6-362.6",
+                   "MiB step (phase [19])": "78.8-79.2",
+                   "PLOP step (phase [19])": "103.8-104.6"}
+# the family's kernel ms measured before its redesign (PERF.md section 6,
+# the same card), printed beside this run's
+EARLIER_KERNEL_MS = {"k1f": "0.1872 / 0.1889", "k1b": "0.7412 / 0.7441",
+                     "k3f": "0.1914 / 0.1896 / 0.1900", "k3b": "0.7571 / 0.7505 / 0.7528",
+                     "k4f": "0.1183 / 0.1166 / 0.1171", "k4b": "0.4846 / 0.4802 / 0.4811",
+                     "k6f": "0.1389 / 0.1362", "k6b": "0.5439 / 0.5415",
+                     "k8": "0.4484 / 0.4464 / 0.4647"}
+# the kernels of the forward-sums and backward-gather templates and their
+# main-path shapes: K1 at the CE step, K3 at the BACS main batch, K4 at its
+# dark++ replay batch, K6 and K8 at the MiB and PLOP steps
+FAMILY_SHAPES = {"k1": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
+                 "k3": (BATCH, CROP // 16, CROP // 16, 17),
+                 "k4": (12, CROP // 16, CROP // 16, 17),
+                 "k6": (12, CROP // 16, CROP // 16, 17),
+                 "k8": (12, CROP // 16, CROP // 16, 17)}
+# the new kernels' symbols, for the build report
+FAMILY_SYMBOLS = ("sums_kernel", "sums_reduce_kernel", "grad_bands_kernel",
+                  "band_sum_kernel")
+
+
+def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
+    """{key: call} of K1, K3, K4, K6 (forward and backward) and K8 at
+    ``shapes`` (default: the main path's), bf16, int32 labels with ~5 %
+    ignored (a third background for K3 and K6), K3's max_seen uniform,
+    K4's dark++ weights, K8's g one random value per image; each call
+    returns the kernel's output tensors.  Uses only the wrappers' public
+    signatures, which the first port's kernels share."""
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
+        uce_sums, wce_dsem, wce_sums)
+
+    shapes = shapes or FAMILY_SHAPES
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    ins = {}
+    for key, shape in shapes.items():
+        n, c = shape[0], shape[-1]
+        sem = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+        lab = seeded_labels(n, out_hw, c, dev, seed)
+        if key in ("k3", "k6"):
+            bg = torch.rand(lab.shape, generator=g, device=dev) < 0.3
+            lab = torch.where(bg & (lab != 255), torch.zeros_like(lab), lab)
+        ins[key] = (sem, lab, c)
+    hw = tuple(out_hw)
+    sem1, lab1, _ = ins["k1"]
+    sem3, lab3, c3 = ins["k3"]
+    sem4, lab4, c4 = ins["k4"]
+    sem6, lab6, c6 = ins["k6"]
+    sem8, lab8, _ = ins["k8"]
+    ms = torch.rand(lab3.shape, generator=g, device=dev)
+    w4 = beta_weights(c4, dev)
+    g1 = torch.tensor(1.0 / lab1.numel(), device=dev)
+    g3 = torch.tensor(1.0 / lab3.numel(), device=dev)
+    g4 = torch.tensor(1.0 / lab4.numel(), device=dev)
+    g6 = torch.tensor(1.0 / lab6.numel(), device=dev)
+    g8 = (torch.rand(sem8.shape[0], generator=g, device=dev) / lab8.numel()).contiguous()
+    return {
+        "k1f": lambda: ce_sums_per_image(sem1, lab1, hw),
+        "k1b": lambda: ce_dsem(sem1, lab1, hw, g1),
+        "k3f": lambda: bacs_sum(sem3, lab3, ms, hw, c3 - 1),
+        "k3b": lambda: bacs_dsem(sem3, lab3, ms, hw, g3, c3 - 1),
+        "k4f": lambda: wce_sums(sem4, lab4, w4, hw),
+        "k4b": lambda: wce_dsem(sem4, lab4, w4, hw, g4),
+        "k6f": lambda: uce_sums(sem6, lab6, hw, c6 - 1),
+        "k6b": lambda: uce_dsem(sem6, lab6, hw, g6, c6 - 1),
+        "k8": lambda: ce_dsem_per_image(sem8, lab8, hw, g8),
+    }
+
+
+def check_repeatable(calls: dict) -> None:
+    """Each call twice on the same inputs: bit-equal outputs (no float
+    atomics, sums in a fixed order)."""
+    for key, fn in calls.items():
+        a, b = fn(), fn()
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"{key} differs between launches"
+
+
+def library_pair_ms(sem, labels, out_hw, weight=None) -> tuple:
+    """(forward ms, backward ms) of the unfused PyTorch pair that computes
+    K1 (or K4 with ``weight``): ``F.interpolate(bilinear,
+    align_corners=False)`` of the NCHW view of sem, then
+    ``F.cross_entropy(reduction="sum", ignore_index=255)``, host-launched
+    CUDA events; backward = forward + autograd backward - forward.  A
+    yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    x = sem.permute(0, 3, 1, 2).detach().requires_grad_()
+    lab = labels.long()
+    weight = None if weight is None else weight.to(x.dtype)  # cross_entropy's rule
+
+    def loss():
+        up = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+        return F.cross_entropy(up, lab, weight=weight, ignore_index=255, reduction="sum")
+
+    with torch.no_grad():
+        fwd = time_ms(loss, iters=10)
+    both = time_ms(lambda: loss().backward(), iters=10)
+    return fwd, both - fwd
+
+
+def ptxas_report(log_text: str) -> list:
+    """[(kernel, registers, spill stores, spill loads)] of the family's new
+    kernels from ``nvcc -Xptxas -v`` output, names demangled where
+    ``c++filt`` is on the path."""
+    import re
+    import shutil
+
+    rows, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            spills = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and any(s in name for s in FAMILY_SYMBOLS):
+            rows.append([name, int(m.group(1)), *(spills or (None, None))])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, d in zip(rows, out):
+                r[0] = d.replace("(anonymous namespace)::", "")
+    return [tuple(r) for r in rows]
+
+
+def build_and_report(build) -> None:
+    """Build the CUDA kernels (``nvcc -Xptxas -v``) and load them; print
+    each file's compile time and the registers and spills of the family's
+    new kernels at the main path's types (bf16 logits, int32 labels)."""
+    build_log = io.StringIO()
+    with contextlib.redirect_stdout(build_log):  # each file's ptxas report and time
+        build.build(verbose=True)
+    build.load_library()
+    for line in build_log.getvalue().splitlines():
+        if line.startswith("nvcc "):
+            log(f"[1] {line}")
+    report = ptxas_report(build_log.getvalue())
+    main_path = [r for r in report if "__nv_bfloat16" in r[0] and "long" not in r[0]
+                 and "sums_reduce" not in r[0]]
+    for name, regs, spill_st, spill_ld in main_path or report:
+        log(f"[1] ptxas: {name}: {regs} registers, spill stores {spill_st} B, "
+            f"spill loads {spill_ld} B")
+    if not report:
+        log("[1] ptxas: no report (the library was built before this run)")
+
+
+def family_times_main(args) -> int:
+    """``--family-times``: build, then time the family's kernels at the main
+    path's shapes and print them as one JSON line (with ``--package-root``
+    the port of another checkout, e.g. the parent commit, so that two
+    versions are timed in one call)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    build_and_report(build)
+    times = {k: device_ms(fn) for k, fn in family_calls(dev, args.seed).items()}
+    print(json.dumps({"family_ms": times, "package": os.path.dirname(build.PKG_DIR),
+                      "device": torch.cuda.get_device_name(0), "smi": nvidia_smi()}),
+          flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------- fused stem (K12)
@@ -1798,7 +1996,13 @@ def report_cli(run: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--family-times", action="store_true",
+                    help="only build and time the upsample+loss family's kernels")
+    ap.add_argument("--package-root", default=None,
+                    help="with --family-times: the checkout whose port to time")
     args = ap.parse_args()
+    if args.family_times:
+        return family_times_main(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -1818,8 +2022,7 @@ def main() -> int:
         f"x{torch.cuda.device_count()}")
     log(f"[1] nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.load_library()
+    build_and_report(build)
     t_nvcc = time.perf_counter() - t0
     for dt in (torch.float32, torch.bfloat16):  # first Triton compiles
         check_abn((4, 8, 8, 64), 0.01, dt, dev)
@@ -2038,7 +2241,8 @@ def main() -> int:
     assert train_counts["k5"] == train_counts["k2"] == 0
     train_busy = profile_steps(lambda: train_step(state, train_batches[0]),
                                f"bf16 train steps (batch {BATCH}, {CROP}^2)")
-    log(f"[p] train: device busy {train_busy:.3f} ms per step; median step wall "
+    log(f"[p] train: device busy {train_busy:.3f} ms per step (before: "
+        f"{EARLIER_BUSY_MS['CE step (phase [9])']}); median step wall "
         f"{med:.3f} ms: device idle share {1 - train_busy / med:.3f}")
 
     # 10. bf16 eval step at 512^2, batch 16, launches counted
@@ -2165,7 +2369,8 @@ def main() -> int:
                                        f"bf16 BACS steps (batch {BATCH}, {CROP}^2)")
     for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
         log(f"[p] BACS step by kernel kind: {ms:.3f} ms ({ms / bacs_busy:.1%}) {part}")
-    log(f"[p] BACS: device busy {bacs_busy:.3f} ms per step; median step wall "
+    log(f"[p] BACS: device busy {bacs_busy:.3f} ms per step (before: "
+        f"{EARLIER_BUSY_MS['BACS step (phase [14])']}); median step wall "
         f"{bacs_med:.3f} ms: device idle share {1 - bacs_busy / bacs_med:.3f}")
     # the teacher distillation alone, forward and backward, at the step's
     # shapes: its wall time by events and its memory (its device time is
@@ -2298,14 +2503,27 @@ def main() -> int:
     })
     bounds.update({k: upsample_bound(k, sem3, hw, lab3, ms) for k in ("k3f", "k3b")})
     bounds.update({k: upsample_bound(k, sem4, hw, lab4, w4) for k in ("k4f", "k4b")})
+    # the unfused library pair (interpolate + cross_entropy) beside K1 and K4
+    library = {}
+    library["k1f"], library["k1b"] = library_pair_ms(sem, labels, hw)
+    library["k4f"], library["k4b"] = library_pair_ms(sem4, lab4, hw, weight=w4)
     for key, name, shape in (
             ("k1f", "K1 forward", sem.shape), ("k1b", "K1 backward", sem.shape),
             ("k2", "K2", sem.shape), ("k3f", "K3 forward", sem3.shape),
             ("k3b", "K3 backward", sem3.shape), ("k4f", "K4 forward", sem4.shape),
             ("k4b", "K4 backward", sem4.shape)):
         log(f"[t] {name} {tuple(shape)}->{CROP}^2 bf16, int32 labels: kernel "
-            f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, bound "
-            f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+            f"{times[key][0]:.4f} ms"
+            + (f" (before: {EARLIER_KERNEL_MS[key]})" if key in EARLIER_KERNEL_MS else "")
+            + f", plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
+            f"({bounds[key][1]})"
+            + (f", library pair F.interpolate + F.cross_entropy {library[key]:.4f} ms "
+               "(host-launched, CUDA events)" if key in library else ""))
+    # two launches of each kernel of the family on the same inputs are
+    # bit-equal, at the main path's shapes
+    check_repeatable(family_calls(dev, args.seed))
+    log("[t] K1, K3, K4, K6 forward and backward and K8: two launches bit-equal at "
+        "the main path's shapes")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
     mp_times, mp_bounds = mib_plop_kernel_times(dev, args.seed)
@@ -2327,8 +2545,16 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 # no single PyTorch call computes any of these functions
-                # (an interpolate and a cross-entropy are two calls)
+                # (an interpolate and a cross-entropy are two calls: K1's
+                # and K4's rows carry that pair, as K12's its unfused pair)
                 "library_ms": None, **extra}
+
+    def with_pair(row, key):
+        return {**row, "library_ms": library[key],
+                "library_is": "the unfused pair F.interpolate(bilinear, align_corners="
+                              "False) + F.cross_entropy(reduction='sum', ignore_index=255"
+                              + (", weight=w" if key.startswith("k4") else "")
+                              + "), host-launched CUDA events"}
 
     print(json.dumps({"kernels": [
         entry("abn_apply (K5)", "triton", "bacs_tpu_torch/ops/abn_core.py",
@@ -2352,14 +2578,16 @@ def main() -> int:
               "bacs_tpu_torch/csrc/upsample_argmax.cu",
               "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
               k10_ms, k10_plain_ms, k10_bound),
-        entry("upsample_ce_sums (K1 forward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:787",
-              train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"]
-              + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"],
-              k1f_err, *times["k1f"], bounds["k1f"]),
-        entry("upsample_ce_grad (K1 backward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:125",
-              train_counts["k1b"], k1b_err, *times["k1b"], bounds["k1b"]),
+        with_pair(entry("upsample_ce_sums (K1 forward)", "cuda",
+                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu/ops/upsample_ce.py:787",
+                        train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"]
+                        + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"],
+                        k1f_err, *times["k1f"], bounds["k1f"]), "k1f"),
+        with_pair(entry("upsample_ce_grad (K1 backward)", "cuda",
+                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu/ops/upsample_ce.py:125", train_counts["k1b"], k1b_err,
+                        *times["k1b"], bounds["k1b"]), "k1b"),
         entry("upsample_confusion (K2)", "cuda",
               "bacs_tpu_torch/csrc/upsample_confusion.cu",
               "bacs_tpu/ops/upsample_confusion.py:88",
@@ -2371,12 +2599,14 @@ def main() -> int:
         entry("upsample_bacs_grad (K3 backward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
               bacs_counts["k3b"], k3b_err, *times["k3b"], bounds["k3b"]),
-        entry("upsample_wce_sums (K4 forward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:233",
-              bacs_counts["k4f"], k4f_err, *times["k4f"], bounds["k4f"]),
-        entry("upsample_wce_grad (K4 backward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:243",
-              bacs_counts["k4b"], k4b_err, *times["k4b"], bounds["k4b"]),
+        with_pair(entry("upsample_wce_sums (K4 forward)", "cuda",
+                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu/ops/upsample_ce.py:233", bacs_counts["k4f"], k4f_err,
+                        *times["k4f"], bounds["k4f"]), "k4f"),
+        with_pair(entry("upsample_wce_grad (K4 backward)", "cuda",
+                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu/ops/upsample_ce.py:243", bacs_counts["k4b"], k4b_err,
+                        *times["k4b"], bounds["k4b"]), "k4b"),
         *(entry(name, "cuda", source, replaces, run[key], mib_plop_errs[key],
                 *mp_times[key], mp_bounds[key])
           for name, source, replaces, run, key in (

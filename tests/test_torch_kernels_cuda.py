@@ -4,7 +4,8 @@ Every test needs a CUDA device and skips with a reason where torch sees
 none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
 those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16, 17 and 21), at
-small shapes and at the serving and training shapes.
+small shapes and at the serving and training shapes, and the repeatability
+of the upsample+loss family (two launches bit-equal).
 """
 
 import pytest
@@ -12,7 +13,8 @@ import torch
 
 from chip_smoke import (
     check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
-    check_pseudo, check_stem, check_uce, check_ukd, check_wce, stem_raises)
+    check_pseudo, check_repeatable, check_stem, check_uce, check_ukd, check_wce,
+    family_calls, stem_raises)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +132,39 @@ def test_upsample_ce_per_image_kernel_matches_plain(cuda, shape, out_hw, dtype):
 def test_upsample_pseudo_kernel_matches_plain(cuda, shape, out_hw, dtype):
     """K9 under the margin rule of ``chip_smoke.check_pseudo``."""
     check_pseudo(shape, out_hw, dtype, cuda)
+
+
+# shapes of the forward-sums and backward-gather templates (K1, K3, K4, K6,
+# K8) beyond the cases above: a downscale, a band of several output rows
+# per source row at an odd scale, and channel counts past one and past four
+# register chunks of 32
+FAMILY_CASES = [((2, 8, 8, 21), (5, 7)), ((2, 6, 6, 33), (40, 37)),
+                ((1, 5, 3, 151), (37, 20)), ((3, 9, 7, 40), (9, 7))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", FAMILY_CASES)
+def test_upsample_loss_family_other_shapes_match_plain(cuda, shape, out_hw, dtype):
+    """K1, K3 (ukd on and off), K4, K6 and K8 against their plain
+    versions."""
+    check_ce(shape, out_hw, dtype, cuda)
+    check_bacs(shape, out_hw, dtype, cuda, ukd=True)
+    check_bacs(shape, out_hw, dtype, cuda, ukd=False)
+    check_wce(shape, out_hw, dtype, cuda)
+    check_uce(shape, out_hw, dtype, cuda)
+    check_ce_per_image(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("where", ["main", "small"])
+def test_upsample_loss_family_launches_are_bit_equal(cuda, where):
+    """Two launches of each forward and backward of K1, K3, K4, K6 and of
+    K8 on the same inputs give bit-equal outputs (no float atomics), at the
+    main path's shapes and at small odd ones."""
+    shapes = None if where == "main" else {
+        "k1": (2, 5, 7, 21), "k3": (2, 5, 7, 17), "k4": (3, 6, 5, 17),
+        "k6": (2, 7, 5, 40), "k8": (2, 5, 7, 17)}
+    out_hw = (512, 512) if where == "main" else (37, 51)
+    check_repeatable(family_calls(cuda, shapes=shapes, out_hw=out_hw))
 
 
 def test_mib_plop_kernels_count_launches_and_reject_bad_inputs(cuda):
