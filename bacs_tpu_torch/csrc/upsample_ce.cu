@@ -55,7 +55,7 @@
 // K8, one value per image.  The [N, H, W, C] full-resolution logits never
 // exist.
 //
-// Design (K1, K3, K4, K6, K8).  The taps come from tables the wrapper
+// Design (K1, K3, K4, K6, K7, K8).  The taps come from tables the wrapper
 // builds on the host with the arithmetic of `interp_matrix`
 // (ops/upsample_ce.py:tap_tables): per output row and column its source
 // pair lo, hi and weight wt, and per source column the output columns
@@ -95,9 +95,23 @@
 // sums and dsem, and K8 with every g equal is K1 bit for bit.  The TPU
 // kernels' row blocks, -1e30 channel padding, hoisted W-interp einsum,
 // `W % 128` gate and fixed ignore label 255 are TPU tiling and are not
-// carried over; every shape and ignore label is taken.  K7 keeps its own
-// pair kernels (below), on the one-thread-per-pixel design of the first
-// port and `bilinear_taps.cuh`.
+// carried over; every shape and ignore label is taken.
+// K7 runs the same two templates with a teacher stage (`UkdTerm`, kPair):
+// each output row's H-lerped source columns of the student (c floats) and
+// the teacher (c_old floats) are staged side by side, (c + c_old) | 1
+// floats a column (`stage_ld`, and launch_plan sizes the stage so); no
+// labels, every pixel counts.  Each output pixel computes its teacher
+// softmax (max mo, exp-sum so, q0) and its student statistics (m, s, s_G
+// over G = {0} u [c_old, c), sz = sum q_i z_i) once (`pair_stats`), the
+// teacher in chunks of 16 channels where c_old <= 16 (KT, so the main
+// path's 16 teacher channels take no padding), its exponentials kept in
+// registers for sz and the gradient.  The forward reduces per band as the
+// other sums; the backward writes g (q0 s_G [i in G] + q [1 <= i < c_old]
+// - p) / c_old times the two W weights into the tile and reduces it as
+// the other gradients.  Variants measured (PERF.md section 6): q
+// taken again from the stage instead of registers, 12 % slower forward
+// and 3 % slower backward; the backward at 2 blocks an SM (123 registers,
+// no spills) 10 % slower than at 3 (80, with spills).
 //
 // Bound on the H100 at the training shapes (sem [16, 32, 32, 21] bf16 for
 // K1, [16, 32, 32, 17] for K3, [12, 32, 32, 17] for K4, K6, K7 (its teacher
@@ -108,7 +122,9 @@
 // SFU's exponentials, ~0.01-0.02 ms), not by device memory; the backward
 // adds per pixel and channel a gradient term, two stores to shared memory
 // and two adds of the transposed interpolation.  Measured times, and the
-// variants that show where the time goes, are in PERF.md.
+// variants that show where the time goes, are in PERF.md.  K7 at its main
+// shape: forward 0.114-0.116 ms, backward 0.229-0.232 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W (the first port's pair kernels: 0.2998 and 1.2424).
 //
 // Tolerance against the plain versions (bacs_tpu_torch/ops/upsample_ce.py):
 // sums in another order than the einsums, `ex2.approx`; value rtol 2e-3 and
@@ -125,7 +141,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;          // K7: channels accumulated in registers (backward)
 // Blocks per SM the family's kernels are built for (the register cap):
 // the forwards 4; the backwards 3 (about 80 registers, no spills), K3's 4
 // (its three normalisers; measured faster so, the others slower).
@@ -250,6 +265,8 @@ struct Pixel {
 // channel 0.
 struct Stats {
   float m, s, s_fg, s_old, picked, x0;
+  float q0, so, sz, mo;  // K7's teacher: exp(alpha u_0 - mo), its exp-sum, sum q_i z_i
+                         // times so, its max of alpha u
 };
 
 // Folds one chunk of KC logits into st: its max first, one rescale of the
@@ -295,6 +312,72 @@ __device__ __forceinline__ Stats pixel_stats(const Pixel& px, int c, long long t
   return st;
 }
 
+// K7's statistics of one pixel of a student/teacher pair (the student in
+// chunks of KC channels, the teacher in chunks of KT), the teacher's
+// c_old logits staged after the student's c: the teacher's max mo of alpha
+// u and exp-sum so (kept in st.so, its exponentials of the first chunk in
+// et), then the student's max m, exp-sum s, exp-sum s_G over G = {0} u
+// [c_old, c) (in st.s_fg) and sz = sum_{1 <= i < c_old} exp(alpha u_i - mo)
+// z_i; e holds the student's last chunk's exponentials.
+template <int KC, int KT>
+__device__ __forceinline__ Stats pair_stats(const Pixel& px, int c, int old, float alpha,
+                                            float (&e)[KC], float (&et)[KT]) {
+  Stats st{-INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -INFINITY};
+  float mo = -INFINITY;
+  for (int c0 = 0; c0 < old; c0 += KT) {
+    float v[KT];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) v[k] = c0 + k < old ? px(c + c0 + k) * alpha : -INFINITY;
+    float cm = v[0];
+#pragma unroll
+    for (int k = 1; k < KT; ++k) cm = fmaxf(cm, v[k]);
+    const float m = fmaxf(mo, cm);
+    const float mb = m * kLog2e;
+    float so = st.so * ex2(mo * kLog2e - mb);
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      et[k] = ex2(fmaf(v[k], kLog2e, -mb));
+      so += et[k];
+    }
+    mo = m;
+    st.so = so;
+  }
+  const float mob = mo * kLog2e;
+  // the teacher's exponentials kept in registers where its channels fit one
+  // chunk (measured faster than taking them again from the stage), else
+  // taken again per channel
+  const bool keep = old <= KT;
+  st.q0 = keep ? et[0] : ex2(fmaf(px(c) * alpha, kLog2e, -mob));
+  for (int c0 = 0; c0 < c; c0 += KC) {
+    float v[KC];
+    px.chunk(c0, c, v);
+    float cm = v[0];
+#pragma unroll
+    for (int k = 1; k < KC; ++k) cm = fmaxf(cm, v[k]);
+    const float m = fmaxf(st.m, cm);
+    const float mb = m * kLog2e;
+    const float r = ex2(st.m * kLog2e - mb);  // 0 at the first chunk (st.m = -inf)
+    float s = st.s * r, s_g = st.s_fg * r, sz = st.sz;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int ch = c0 + k;
+      e[k] = ex2(fmaf(v[k], kLog2e, -mb));
+      s += e[k];
+      s_g += ch == 0 || ch >= old ? e[k] : 0.f;
+      if (ch >= 1 && ch < old) {
+        const float q = keep ? et[k < KT ? k : 0] : ex2(fmaf(px(c + ch) * alpha, kLog2e, -mob));
+        sz = fmaf(q, v[k], sz);
+      }
+    }
+    st.m = m;
+    st.s = s;
+    st.s_fg = s_g;
+    st.sz = sz;
+  }
+  st.mo = mo;
+  return st;
+}
+
 // The gradient of one output pixel, d/dup[ch] times g, from its channel's
 // exponential e = exp(up[ch] - m):
 //   e * (a + [ch >= 1] a_fg + [ch < old] a_old) - [ch == 0] d0 - [ch == t] dt.
@@ -323,6 +406,7 @@ struct PixelGrad {
 struct CeTerm {
   static constexpr int kGradMinBlocks = 3;
   static constexpr bool kGroups = false;
+  static constexpr bool kPair = false;
   __device__ __forceinline__ int groups_old() const { return 0; }
   __device__ __forceinline__ bool counts(long long, int) const { return true; }
   __device__ __forceinline__ float2 value(const Stats& st, long long, long long) const {
@@ -338,6 +422,7 @@ struct CeTerm {
 struct WceTerm {
   static constexpr int kGradMinBlocks = 3;
   static constexpr bool kGroups = false;
+  static constexpr bool kPair = false;
   const float* w;
 
   __device__ __forceinline__ float weight(long long t, int c) const {
@@ -363,6 +448,7 @@ struct WceTerm {
 struct BacsTerm {
   static constexpr int kGradMinBlocks = 4;
   static constexpr bool kGroups = true;
+  static constexpr bool kPair = false;
   const float* max_seen;
   int old;
   int ukd;
@@ -411,6 +497,7 @@ struct BacsTerm {
 struct UceTerm {
   static constexpr int kGradMinBlocks = 3;
   static constexpr bool kGroups = true;
+  static constexpr bool kPair = false;
   int old;
 
   __device__ __forceinline__ int groups_old() const { return old; }
@@ -434,17 +521,94 @@ struct UceTerm {
   }
 };
 
+// K7: MiB's unbiased KD of a student/teacher pair; no labels, every pixel
+// counts.  The teacher [n, h, w, old] is staged after the student's
+// channels; the gradient is g (q0 s_G [ch in G] + q [1 <= ch < old] - p) /
+// old, here e (a_g [ch in G] - a) + a_q [1 <= ch < old] exp(alpha u - mo)
+// (a = g / (old s), a_g = g q0 / (old (s_G + eps)), a_q = g / (old so)).
+struct UkdTerm {
+  static constexpr int kGradMinBlocks = 3;
+  static constexpr bool kGroups = false;
+  static constexpr bool kPair = true;
+  const void* sem_old;
+  int old;
+  float alpha;
+
+  __device__ __forceinline__ int groups_old() const { return old; }
+  __device__ __forceinline__ bool counts(long long, int) const { return true; }
+  __device__ __forceinline__ float2 value(const Stats& st, long long, long long) const {
+    constexpr float eps = 1e-30f;
+    const float inv_so = __fdividef(1.f, st.so);
+    const float lse = st.m + __logf(st.s), lse_g = st.m + __logf(st.s_fg + eps);
+    const float t = st.q0 * inv_so * lse_g + st.sz * inv_so - lse;
+    return make_float2(__fdividef(t, (float)old), 1.f);
+  }
+  __device__ __forceinline__ PixelGrad grad(const Stats& st, long long, long long,
+                                            float g) const {
+    constexpr float eps = 1e-30f;
+    const float go = __fdividef(g, (float)old);
+    const float a_q = __fdividef(go, st.so);
+    return PixelGrad{__fdividef(go, st.s), __fdividef(a_q * st.q0, st.s_fg + eps), a_q,
+                     0.f, 0.f, -1, old};
+  }
+  // the gradient of channel ch from its exponential e and the teacher's q
+  // = exp(alpha u_ch - mo), with pg from grad()
+  static __device__ __forceinline__ float pair_grad(const PixelGrad& pg, int ch, float e,
+                                                    float q) {
+    const float coef = ch == 0 || ch >= pg.old ? pg.a_fg - pg.a : -pg.a;
+    return ch >= 1 && ch < pg.old ? fmaf(coef, e, pg.a_old * q) : coef * e;
+  }
+};
+
+// The floats a staged source column holds: the student's c channels, and
+// K7's teacher's after them; odd, so that threads reading neighbouring
+// columns meet no bank conflict.
+template <typename Term>
+__host__ __device__ __forceinline__ int stage_ld(const Term& term, int c) {
+  if constexpr (Term::kPair) {
+    return (c + term.old) | 1;
+  } else {
+    return c | 1;
+  }
+}
+
+// Stages output row (y0, y1, wy)'s source columns [xs0, xs0 + nx) of image
+// n: the student's, then K7's teacher's at channel offset c.
+template <typename T, typename Term>
+__device__ __forceinline__ void stage_pixels(const T* __restrict__ img, const Term& term, int n,
+                                             int h, int w, int c, int ldc, int y0, int y1,
+                                             float wy, int xs0, int nx,
+                                             float* __restrict__ stage) {
+  stage_row(img, w, c, ldc, y0, y1, wy, xs0, nx, stage);
+  if constexpr (Term::kPair) {
+    const T* old_img = (const T*)term.sem_old + (size_t)n * h * w * term.old;
+    stage_row(old_img, w, term.old, ldc, y0, y1, wy, xs0, nx, stage + c);
+  }
+}
+
+// A pixel's statistics: K7's pair, or the labelled terms' softmax.
+template <typename Term, int KC, int KT>
+__device__ __forceinline__ Stats term_stats(const Term& term, const Pixel& px, int c,
+                                            long long t, int old, float (&e)[KC],
+                                            float (&et)[KT]) {
+  if constexpr (Term::kPair) {
+    return pair_stats<KC, KT>(px, c, old, term.alpha, e, et);
+  } else {
+    return pixel_stats<Term::kGroups>(px, c, t, old, e);
+  }
+}
+
 // Forward: one block per (band of output rows, image); per-block sums to
 // partials[n, band].  A tile is the whole output row where its stage fits
 // (launch_sums), so one stage and two barriers per row.
-template <typename T, typename L, typename Term, int KC>
+template <typename T, typename L, typename Term, int KC, int KT>
 __global__ void __launch_bounds__(kThreads, kSumsMinBlocks)
 sums_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h, int w,
             int c, int H, int W, int ignore_index, Term term, Plan plan,
             float2* __restrict__ partials) {
   extern __shared__ float stage[];  // [span, ldc]
   const int n = blockIdx.y, b = blockIdx.x;
-  const int ldc = c | 1;
+  const int ldc = stage_ld(term, c);
   const T* img = sem + (size_t)n * h * w * c;
   const int old = term.groups_old();
   const int oy_end = min(H, (b + 1) * plan.band);
@@ -455,17 +619,20 @@ sums_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h, int 
       const int ox1 = min(W, ox0 + plan.tile);
       const int xs0 = plan.xlo[ox0];
       __syncthreads();  // the previous tile is read
-      stage_row(img, w, c, ldc, plan.ylo[oy], plan.yhi[oy], plan.ywt[oy], xs0,
-                plan.xhi[ox1 - 1] - xs0 + 1, stage);
+      stage_pixels(img, term, n, h, w, c, ldc, plan.ylo[oy], plan.yhi[oy], plan.ywt[oy],
+                   xs0, plan.xhi[ox1 - 1] - xs0 + 1, stage);
       __syncthreads();
       for (int ox = ox0 + threadIdx.x; ox < ox1; ox += kThreads) {
-        const long long t = (long long)labels[row + ox];
-        if (t == ignore_index || !term.counts(t, c)) continue;
+        long long t = -1;  // K7 has no labels
+        if constexpr (!Term::kPair) {
+          t = (long long)labels[row + ox];
+          if (t == ignore_index || !term.counts(t, c)) continue;
+        }
         const float wx = plan.xwt[ox];
         const Pixel px{stage + (plan.xlo[ox] - xs0) * ldc,
                        stage + (plan.xhi[ox] - xs0) * ldc, 1.f - wx, wx};
-        float e[KC];
-        const Stats st = pixel_stats<Term::kGroups>(px, c, t, old, e);
+        float e[KC], et[KT];
+        const Stats st = term_stats<Term, KC, KT>(term, px, c, t, old, e, et);
         const float2 v = term.value(st, t, row + ox);
         a += v.x;
         bs += v.y;
@@ -497,11 +664,11 @@ __global__ void sums_reduce_kernel(const float2* __restrict__ partials, int bloc
 // The floats of shared memory the gradient kernel takes: the gradient
 // tile times each pixel's two W weights, [tile, KC + 1] x 2 (an odd
 // pitch: no bank conflicts), the stage [span, ldc], and where acc_shared
-// the band's accumulator [rows, w, c].  The wrapper's plan
+// the band's accumulator [rows, w, c] (ldc: stage_ld).  The wrapper's plan
 // (ops/upsample_ce.py:launch_plan) counts the same at KC = 32.
 template <int KC>
-size_t grad_smem_floats(const Plan& p, int w, int c, bool acc_shared) {
-  size_t f = (size_t)p.tile * 2 * (KC + 1) + (size_t)p.span * (c | 1);
+size_t grad_smem_floats(const Plan& p, int w, int c, int ldc, bool acc_shared) {
+  size_t f = (size_t)p.tile * 2 * (KC + 1) + (size_t)p.span * ldc;
   if (acc_shared) f += (size_t)p.rows * w * c;
   return f;
 }
@@ -509,7 +676,7 @@ size_t grad_smem_floats(const Plan& p, int w, int c, bool acc_shared) {
 // Backward: one block per (band of output rows, image); the band's share
 // of dsem, over the source rows it touches, to its slab of partials
 // [n, bands, rows, w, c].
-template <typename T, typename L, typename Term, int KC>
+template <typename T, typename L, typename Term, int KC, int KT>
 __global__ void __launch_bounds__(kThreads, Term::kGradMinBlocks)
 grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h, int w,
                   int c, int H, int W, int ignore_index, Term term,
@@ -517,7 +684,7 @@ grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h
                   float* __restrict__ partials) {
   extern __shared__ float smem[];
   const int n = blockIdx.y, b = blockIdx.x;
-  const int ldc = c | 1;
+  const int ldc = stage_ld(term, c);
   constexpr int kLdd = KC + 1;
   float* dlo = smem;                        // [tile, kLdd]: (1 - wx) g d/dup
   float* dhi = dlo + plan.tile * kLdd;      // [tile, kLdd]: wx g d/dup
@@ -545,14 +712,14 @@ grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h
       const int xs0 = plan.xlo[ox0];
       const int nx = plan.xhi[ox1 - 1] - xs0 + 1;
       // the previous tile's reduction ended in a barrier
-      stage_row(img, w, c, ldc, y0, y1, wy, xs0, nx, stage);
+      stage_pixels(img, term, n, h, w, c, ldc, y0, y1, wy, xs0, nx, stage);
       __syncthreads();
       const int p = threadIdx.x, ox = ox0 + p;
       Pixel px{stage, stage, 0.f, 0.f};
       float wa = 0.f, wb = 0.f;
       PixelGrad pg{0.f, 0.f, 0.f, 0.f, 0.f, -1, 0};
       Stats st{};
-      float e[KC];
+      float e[KC], et[KT];
       bool live = false;
       if (ox < ox1) {
         const float wx = plan.xwt[ox];
@@ -560,9 +727,10 @@ grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h
                    1.f - wx, wx};
         wa = 1.f - wx;
         wb = wx;
-        const long long t = (long long)labels[row + ox];
-        if (t != ignore_index && term.counts(t, c)) {
-          st = pixel_stats<Term::kGroups>(px, c, t, old, e);
+        long long t = -1;  // K7 has no labels: every pixel is live
+        if constexpr (!Term::kPair) t = (long long)labels[row + ox];
+        if (Term::kPair || (t != ignore_index && term.counts(t, c))) {
+          st = term_stats<Term, KC, KT>(term, px, c, t, old, e, et);
           pg = term.grad(st, t, row + ox, gv);
           live = true;
         }
@@ -580,7 +748,19 @@ grad_bands_kernel(const T* __restrict__ sem, const L* __restrict__ labels, int h
 #pragma unroll
           for (int k = 0; k < KC; ++k) {
             if (k < cc) {
-              const float d = live ? pg(c0 + k, e[k]) : 0.f;
+              float d;
+              if constexpr (Term::kPair) {  // the teacher's exp(alpha u - mo)
+                const int ch = c0 + k;
+                float q = 0.f;
+                if (live && ch >= 1 && ch < old) {
+                  q = old <= KT
+                          ? et[k < KT ? k : 0]
+                          : ex2(fmaf(px(c + ch) * term.alpha, kLog2e, -st.mo * kLog2e));
+                }
+                d = live ? Term::pair_grad(pg, ch, e[k], q) : 0.f;
+              } else {
+                d = live ? pg(c0 + k, e[k]) : 0.f;
+              }
               dlo[p * kLdd + k] = wa * d;
               dhi[p * kLdd + k] = wb * d;
             }
@@ -666,19 +846,20 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, typename L, typename Term, int KC>
+template <typename T, typename L, typename Term, int KC, int KT>
 int launch_sums(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
                 cudaStream_t st) {
   Plan pl = pr.plan;
-  if ((size_t)pr.w * (pr.c | 1) * sizeof(float) <= 48 * 1024) {  // whole rows
+  const int ldc = stage_ld(term, pr.c);
+  if ((size_t)pr.w * ldc * sizeof(float) <= 48 * 1024) {  // whole rows
     pl.tile = pr.W;
     pl.span = pr.w;
   }
-  const size_t smem = (size_t)pl.span * (pr.c | 1) * sizeof(float);
+  const size_t smem = (size_t)pl.span * ldc * sizeof(float);
   if (pl.tile < 1 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(sums_kernel<T, L, Term, KC>, smem);
+  cudaError_t err = allow_smem(sums_kernel<T, L, Term, KC, KT>, smem);
   if (err != cudaSuccess) return (int)err;
-  sums_kernel<T, L, Term, KC><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
+  sums_kernel<T, L, Term, KC, KT><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
       (const T*)pr.sem, (const L*)pr.labels, pr.h, pr.w, pr.c, pr.H, pr.W,
       pr.ignore_index, term, pl, (float2*)partials);
   err = cudaGetLastError();
@@ -688,17 +869,19 @@ int launch_sums(const Problem& pr, Term term, void* partials, void* a_out, void*
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename L, typename Term, int KC>
+template <typename T, typename L, typename Term, int KC, int KT>
 int launch_grad(const Problem& pr, Term term, const void* g, int g_stride, void* partials,
                 void* dsem, cudaStream_t st) {
   const Plan& pl = pr.plan;
+  const int ldc = stage_ld(term, pr.c);
   const bool acc_shared =
-      grad_smem_floats<KC>(pl, pr.w, pr.c, true) * sizeof(float) <= kSmemMax;
-  const size_t smem = grad_smem_floats<KC>(pl, pr.w, pr.c, acc_shared) * sizeof(float);
+      grad_smem_floats<KC>(pl, pr.w, pr.c, ldc, true) * sizeof(float) <= kSmemMax;
+  const size_t smem =
+      grad_smem_floats<KC>(pl, pr.w, pr.c, ldc, acc_shared) * sizeof(float);
   if (pl.tile < 1 || pl.tile > kThreads || smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(grad_bands_kernel<T, L, Term, KC>, smem);
+  cudaError_t err = allow_smem(grad_bands_kernel<T, L, Term, KC, KT>, smem);
   if (err != cudaSuccess) return (int)err;
-  grad_bands_kernel<T, L, Term, KC><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
+  grad_bands_kernel<T, L, Term, KC, KT><<<dim3(pl.nb, pr.n), kThreads, smem, st>>>(
       (const T*)pr.sem, (const L*)pr.labels, pr.h, pr.w, pr.c, pr.H, pr.W,
       pr.ignore_index, term, (const float*)g, g_stride, pl, (int)acc_shared,
       (float*)partials);
@@ -710,30 +893,40 @@ int launch_grad(const Problem& pr, Term term, const void* g, int g_stride, void*
   return (int)cudaGetLastError();
 }
 
-template <typename Term, int KC>
+template <typename Term, int KC, int KT = KC>
 int sums_at(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
             cudaStream_t st) {
+  if constexpr (Term::kPair) {  // no labels
+    return pr.sem_is_bf16
+        ? launch_sums<__nv_bfloat16, int32_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st)
+        : launch_sums<float, int32_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st);
+  }
   if (pr.sem_is_bf16) {
     return pr.labels_are_i64
-        ? launch_sums<__nv_bfloat16, int64_t, Term, KC>(pr, term, partials, a_out, b_out, st)
-        : launch_sums<__nv_bfloat16, int32_t, Term, KC>(pr, term, partials, a_out, b_out, st);
+        ? launch_sums<__nv_bfloat16, int64_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st)
+        : launch_sums<__nv_bfloat16, int32_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st);
   }
   return pr.labels_are_i64
-      ? launch_sums<float, int64_t, Term, KC>(pr, term, partials, a_out, b_out, st)
-      : launch_sums<float, int32_t, Term, KC>(pr, term, partials, a_out, b_out, st);
+      ? launch_sums<float, int64_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st)
+      : launch_sums<float, int32_t, Term, KC, KT>(pr, term, partials, a_out, b_out, st);
 }
 
-template <typename Term, int KC>
+template <typename Term, int KC, int KT = KC>
 int grad_at(const Problem& pr, Term term, const void* g, int g_stride, void* partials,
             void* dsem, cudaStream_t st) {
+  if constexpr (Term::kPair) {  // no labels
+    return pr.sem_is_bf16
+        ? launch_grad<__nv_bfloat16, int32_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st)
+        : launch_grad<float, int32_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st);
+  }
   if (pr.sem_is_bf16) {
     return pr.labels_are_i64
-        ? launch_grad<__nv_bfloat16, int64_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st)
-        : launch_grad<__nv_bfloat16, int32_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st);
+        ? launch_grad<__nv_bfloat16, int64_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st)
+        : launch_grad<__nv_bfloat16, int32_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st);
   }
   return pr.labels_are_i64
-      ? launch_grad<float, int64_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st)
-      : launch_grad<float, int32_t, Term, KC>(pr, term, g, g_stride, partials, dsem, st);
+      ? launch_grad<float, int64_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st)
+      : launch_grad<float, int32_t, Term, KC, KT>(pr, term, g, g_stride, partials, dsem, st);
 }
 
 // The chunk width KC of the register arrays, by the channel count: 16, 24
@@ -743,6 +936,13 @@ int sums(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
          void* stream) {
   if ((long long)pr.n * pr.H * pr.W == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (Term::kPair) {  // K7's teacher in chunks of 16 where it fits one
+    if (term.old <= 16) {
+      if (pr.c <= 16) return sums_at<Term, 16, 16>(pr, term, partials, a_out, b_out, st);
+      if (pr.c <= 24) return sums_at<Term, 24, 16>(pr, term, partials, a_out, b_out, st);
+      return sums_at<Term, 32, 16>(pr, term, partials, a_out, b_out, st);
+    }
+  }
   if (pr.c <= 16) return sums_at<Term, 16>(pr, term, partials, a_out, b_out, st);
   if (pr.c <= 24) return sums_at<Term, 24>(pr, term, partials, a_out, b_out, st);
   return sums_at<Term, 32>(pr, term, partials, a_out, b_out, st);
@@ -754,203 +954,16 @@ int grad(const Problem& pr, Term term, const void* g, void* partials, void* dsem
          void* stream, int g_stride = 0) {
   if ((long long)pr.n * pr.h * pr.w * pr.c == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (Term::kPair) {  // K7's teacher in chunks of 16 where it fits one
+    if (term.old <= 16) {
+      if (pr.c <= 16) return grad_at<Term, 16, 16>(pr, term, g, g_stride, partials, dsem, st);
+      if (pr.c <= 24) return grad_at<Term, 24, 16>(pr, term, g, g_stride, partials, dsem, st);
+      return grad_at<Term, 32, 16>(pr, term, g, g_stride, partials, dsem, st);
+    }
+  }
   if (pr.c <= 16) return grad_at<Term, 16>(pr, term, g, g_stride, partials, dsem, st);
   if (pr.c <= 24) return grad_at<Term, 24>(pr, term, g, g_stride, partials, dsem, st);
   return grad_at<Term, 32>(pr, term, g, g_stride, partials, dsem, st);
-}
-
-// ---- K7: the unbiased KD of a student/teacher pair, no labels, on the
-// design of the first port: one thread per output pixel (forward) or per
-// (n, output row, source column) (backward, then `grad_rows_kernel`), the
-// taps of bilinear_taps.cuh.
-
-__global__ void reduce_kernel(const float2* __restrict__ partials, int blocks,
-                              float* __restrict__ a_out,
-                              float* __restrict__ b_out) {
-  const int n = blockIdx.x;
-  float a = 0.f, b = 0.f;
-  for (int i = threadIdx.x; i < blocks; i += kThreads) {
-    const float2 v = partials[(size_t)n * blocks + i];
-    a += v.x;
-    b += v.y;
-  }
-  const float2 r = block_sum2(a, b);
-  if (threadIdx.x == 0) {
-    a_out[n] = r.x;
-    b_out[n] = r.y;
-  }
-}
-
-template <typename T>
-__global__ void grad_rows_kernel(const float* __restrict__ cols, int n_img,
-                                 int h, int w, int c, int H,
-                                 T* __restrict__ dsem) {
-  const long long total = (long long)n_img * h * w * c;
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const int ch = (int)(e % c);
-  const int x = (int)((e / c) % w);
-  const int y = (int)((e / ((long long)c * w)) % h);
-  const int n = (int)(e / ((long long)c * w * h));
-  int first, last;
-  bacs_taps::support(y, H, h, first, last);
-  float acc = 0.f;
-  for (int oy = first; oy <= last; ++oy) {
-    const float wy = bacs_taps::tap_weight(oy, H, h, y);
-    if (wy != 0.f) acc += wy * cols[(((size_t)n * H + oy) * w + x) * c + ch];
-  }
-  bacs_taps::store(dsem + e, acc);
-}
-
-unsigned blocks_for(long long total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
-}
-
-
-// One output pixel's K7 statistics: the teacher's running max mo and
-// exp-sum so of alpha u; the student's running max m, exp-sum s, exp-sum
-// sg over G and sz = sum_{1 <= i < c_old} exp(alpha u_i - mo) z_i.
-struct UkdStats {
-  float mo, so, m, s, sg, sz;
-};
-
-template <typename T>
-__device__ __forceinline__ UkdStats ukd_stats(const bacs_taps::Taps<T>& up, int c,
-                                              const bacs_taps::Taps<T>& upo,
-                                              int c_old, float alpha) {
-  UkdStats r{-INFINITY, 0.f, -INFINITY, 0.f, 0.f, 0.f};
-  for (int ch = 0; ch < c_old; ++ch) {
-    const float v = alpha * upo(ch);
-    if (v > r.mo) {
-      r.so = r.so * expf(r.mo - v) + 1.f;
-      r.mo = v;
-    } else {
-      r.so += expf(v - r.mo);
-    }
-  }
-  for (int ch = 0; ch < c; ++ch) {
-    const float v = up(ch);
-    const bool in_g = ch == 0 || ch >= c_old;
-    if (v > r.m) {
-      const float sc = expf(r.m - v);
-      r.s = r.s * sc + 1.f;
-      r.sg = r.sg * sc + (in_g ? 1.f : 0.f);
-      r.m = v;
-    } else {
-      const float e = expf(v - r.m);
-      r.s += e;
-      if (in_g) r.sg += e;
-    }
-    if (!in_g) r.sz += expf(alpha * upo(ch) - r.mo) * v;  // the teacher's
-  }                                                        // channels only
-  return r;
-}
-
-template <typename T>
-__global__ void ukd_partials_kernel(const T* __restrict__ sem,
-                                    const T* __restrict__ sem_old, int h, int w,
-                                    int c, int c_old, int H, int W, float alpha,
-                                    float2* __restrict__ partials) {
-  constexpr float eps = 1e-30f;
-  const int n = blockIdx.y;
-  const long long hw = (long long)H * W;
-  const T* img = sem + (size_t)n * h * w * c;
-  const T* img_old = sem_old + (size_t)n * h * w * c_old;
-  float a = 0.f;
-  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < hw;
-       p += (long long)gridDim.x * kThreads) {
-    const int oy = (int)(p / W), ox = (int)(p % W);
-    const bacs_taps::Taps<T> up(img, h, w, c, H, W, oy, ox);
-    const bacs_taps::Taps<T> upo(img_old, h, w, c_old, H, W, oy, ox);
-    const UkdStats r = ukd_stats(up, c, upo, c_old, alpha);
-    const float q0 = expf(alpha * upo(0) - r.mo) / r.so;
-    const float lse_g = r.m + logf(r.sg + eps);
-    a += (q0 * lse_g + r.sz / r.so - (r.m + logf(r.s))) / (float)c_old;
-  }
-  const float2 sum = block_sum2(a, 0.f);
-  if (threadIdx.x == 0) partials[(size_t)n * gridDim.x + blockIdx.x] = sum;
-}
-
-// Pass 1 of the K7 gradient, as grad_cols_kernel: one thread per (n,
-// output row, source column), the student's gradient only.
-template <typename T>
-__global__ void ukd_grad_cols_kernel(const T* __restrict__ sem,
-                                     const T* __restrict__ sem_old, int n_img,
-                                     int h, int w, int c, int c_old, int H, int W,
-                                     float alpha, const float* __restrict__ g,
-                                     float* __restrict__ cols) {
-  constexpr float eps = 1e-30f;
-  const long long total = (long long)n_img * H * w;
-  const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (q >= total) return;
-  const int x = (int)(q % w);
-  const int oy = (int)((q / w) % H);
-  const int n = (int)(q / ((long long)H * w));
-  const T* img = sem + (size_t)n * h * w * c;
-  const T* img_old = sem_old + (size_t)n * h * w * c_old;
-  const float gv = *g / (float)c_old;
-  int first, last;
-  bacs_taps::support(x, W, w, first, last);
-  float* out = cols + (size_t)q * c;
-  for (int c0 = 0; c0 < c; c0 += kChunk) {
-    float acc[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) acc[k] = 0.f;
-    for (int ox = first; ox <= last; ++ox) {
-      const float wx = bacs_taps::tap_weight(ox, W, w, x);
-      if (wx == 0.f) continue;
-      const bacs_taps::Taps<T> up(img, h, w, c, H, W, oy, ox);
-      const bacs_taps::Taps<T> upo(img_old, h, w, c_old, H, W, oy, ox);
-      const UkdStats r = ukd_stats(up, c, upo, c_old, alpha);
-      const float wg = wx * gv;
-      const float inv_so = 1.f / r.so;
-      // e(ch) (q0 / (sg + eps) [ch in G] - 1 / s) + q_ch [1 <= ch < c_old]
-      const float a_g = wg * expf(alpha * upo(0) - r.mo) * inv_so / (r.sg + eps);
-      const float a_all = wg / r.s;
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const int ch = c0 + k;
-        if (ch >= c) continue;
-        const bool in_g = ch == 0 || ch >= c_old;
-        const float e = expf(up(ch) - r.m);
-        float d = e * ((in_g ? a_g : 0.f) - a_all);
-        if (!in_g) d += wg * expf(alpha * upo(ch) - r.mo) * inv_so;
-        acc[k] += d;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (c0 + k < c) out[c0 + k] = acc[k];
-    }
-  }
-}
-
-template <typename T>
-int launch_ukd_sum(const void* sem, const void* sem_old, int n, int h, int w,
-                   int c, int c_old, int H, int W, float alpha, void* partials,
-                   int blocks, void* t_out, void* b_out, cudaStream_t st) {
-  ukd_partials_kernel<T><<<dim3(blocks, n), kThreads, 0, st>>>(
-      (const T*)sem, (const T*)sem_old, h, w, c, c_old, H, W, alpha,
-      (float2*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_kernel<<<n, kThreads, 0, st>>>((const float2*)partials, blocks,
-                                        (float*)t_out, (float*)b_out);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_ukd_grad(const void* sem, const void* sem_old, int n, int h, int w,
-                    int c, int c_old, int H, int W, float alpha, const void* g,
-                    void* cols, void* dsem, cudaStream_t st) {
-  ukd_grad_cols_kernel<T><<<blocks_for((long long)n * H * w), kThreads, 0, st>>>(
-      (const T*)sem, (const T*)sem_old, n, h, w, c, c_old, H, W, alpha,
-      (const float*)g, (float*)cols);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  grad_rows_kernel<T><<<blocks_for((long long)n * h * w * c), kThreads, 0, st>>>(
-      (const float*)cols, n, h, w, c, H, (T*)dsem);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1065,34 +1078,27 @@ extern "C" int upsample_uce_grad(const void* sem, int sem_is_bf16, const void* l
   return grad(PROBLEM, UceTerm{old_classes}, g, partials, dsem, stream);
 }
 
-// K7 forward: sem [n, h, w, c] and sem_old [n, h, w, c_old], both f32 or
-// both bf16; t_out = per-image sums of T, b_out f32 [n] scratch (zeros).
-extern "C" int upsample_ukd_sum(const void* sem, const void* sem_old,
-                                int sem_is_bf16, int n, int h, int w, int c,
-                                int c_old, int H, int W, float alpha,
-                                void* partials, int blocks, void* t_out,
-                                void* b_out, void* stream) {
-  if ((long long)n * H * W == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  return sem_is_bf16
-      ? launch_ukd_sum<__nv_bfloat16>(sem, sem_old, n, h, w, c, c_old, H, W, alpha,
-                                      partials, blocks, t_out, b_out, st)
-      : launch_ukd_sum<float>(sem, sem_old, n, h, w, c, c_old, H, W, alpha,
-                              partials, blocks, t_out, b_out, st);
+// K7 forward: sem [n, h, w, c] and sem_old [n, h, w, c_old], both
+// contiguous, both f32 or both bf16, 1 <= c_old < c; no labels; the plan of
+// launch_plan with the stage counting c + c_old channels: t_out = per-image
+// sums of T, b_out = per-image pixel counts.
+extern "C" int upsample_ukd_sum(const void* sem, const void* sem_old, int sem_is_bf16, int n,
+                                int h, int w, int c, int c_old, int H, int W, float alpha,
+                                const void* tables, int band, int tile, int span, int rows,
+                                void* partials, void* t_out, void* b_out, void* stream) {
+  const Problem pr = make_problem(sem, sem_is_bf16, nullptr, 0, n, h, w, c, H, W, -1, tables,
+                                  band, tile, span, rows);
+  return sums(pr, UkdTerm{sem_old, c_old, alpha}, partials, t_out, b_out, stream);
 }
 
-// K7 backward: the student's dsem times the scalar g; cols f32 scratch of
-// [n, H, w, c].
-extern "C" int upsample_ukd_grad(const void* sem, const void* sem_old,
-                                 int sem_is_bf16, int n, int h, int w, int c,
-                                 int c_old, int H, int W, float alpha,
-                                 const void* g, void* cols, void* dsem,
+// K7 backward: the student's dsem times the scalar g (the teacher takes
+// none).
+extern "C" int upsample_ukd_grad(const void* sem, const void* sem_old, int sem_is_bf16, int n,
+                                 int h, int w, int c, int c_old, int H, int W, float alpha,
+                                 const void* g, const void* tables, int band, int tile,
+                                 int span, int rows, void* partials, void* dsem,
                                  void* stream) {
-  if ((long long)n * h * w * c == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  return sem_is_bf16
-      ? launch_ukd_grad<__nv_bfloat16>(sem, sem_old, n, h, w, c, c_old, H, W, alpha,
-                                       g, cols, dsem, st)
-      : launch_ukd_grad<float>(sem, sem_old, n, h, w, c, c_old, H, W, alpha, g,
-                               cols, dsem, st);
+  const Problem pr = make_problem(sem, sem_is_bf16, nullptr, 0, n, h, w, c, H, W, -1, tables,
+                                  band, tile, span, rows);
+  return grad(pr, UkdTerm{sem_old, c_old, alpha}, g, partials, dsem, stream);
 }

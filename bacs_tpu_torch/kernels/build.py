@@ -46,11 +46,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _FAMILY = [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I]
 _PLAN = [_P, _I, _I, _I, _I]
+_PAIR = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F]
 # C signature of every entry point in csrc/, declared before first use
 SIGNATURES = {
     # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
     "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # the upsample+loss family (K1, K3, K4, K6, K8): the problem
+    # the upsample+loss family (K1, K3, K4, K6, K7, K8): the problem
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     # ignore_index), the term's arguments, then the launch plan (tables,
     # band, tile, span, rows) and the outputs
@@ -77,14 +78,11 @@ SIGNATURES = {
     "upsample_uce_sums": _FAMILY + [_I] + _PLAN + [_P, _P, _P, _P],
     # (problem, old_classes, g, plan, partials, dsem, stream)
     "upsample_uce_grad": _FAMILY + [_I, _P] + _PLAN + [_P, _P, _P],
-    # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha, partials,
-    #  blocks, t_out, b_out, stream)
-    "upsample_ukd_sum": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P,
-                         _P, _P],
-    # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha, g, cols,
-    #  dsem, stream)
-    "upsample_ukd_grad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
-                          _P],
+    # K7, no labels: (pair, plan, partials, t_out, count_out, stream), pair =
+    # (sem, sem_old, sem_is_bf16, n, h, w, c, c_old, H, W, alpha)
+    "upsample_ukd_sum": _PAIR + _PLAN + [_P, _P, _P, _P],
+    # (pair, g, plan, partials, dsem, stream)
+    "upsample_ukd_grad": _PAIR + [_P] + _PLAN + [_P, _P, _P],
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     #  thresholds, max_entropy, ent_scale, ignore_index, blocks, out, counts,
     #  stream)
@@ -92,8 +90,8 @@ SIGNATURES = {
                              _I, _I, _P, _P, _P],
     # (c, is_bf16, vec [2, C], slope, n, H, W, C, p, stream)
     "stem_pool_fwd": [_P, _I, _P, _F, _I, _I, _I, _I, _P, _P],
-    # (c, dap, is_bf16, vec [7, C], slope, n, H, W, C, codes, dc, stream)
-    "stem_pool_grad": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _P, _P, _P],
+    # (c, dap, is_bf16, vec [7, C], slope, n, H, W, C, dc, stream)
+    "stem_pool_grad": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -134,13 +134,11 @@ def stem_pool_grad(c: torch.Tensor, dap: torch.Tensor, vec: torch.Tensor,
     _check("stem_pool_grad", c, vec, 7, dap)
     n, h, w, ch = c.shape
     dc = torch.empty_like(c)
-    codes = torch.empty(dap.shape, dtype=torch.uint8, device=c.device)  # the kernel's scratch
     lib = build.load_library()
     with torch.cuda.device(c.device):
         code = lib.stem_pool_grad(
             c.data_ptr(), dap.data_ptr(), int(c.dtype == torch.bfloat16), vec.data_ptr(),
-            float(slope), n, h, w, ch, codes.data_ptr(), dc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            float(slope), n, h, w, ch, dc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(code, "stem_pool_grad")
     stem_pool_grad.launches += 1
     return dc

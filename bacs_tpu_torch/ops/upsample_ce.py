@@ -60,9 +60,10 @@ scalar.  The plain versions upsample with the ``interp_matrix`` einsums in
 f32 (``upsample_tiles.py``).  Labels other than ``ignore_index`` are
 expected in [0, C); one outside picks no logit, as the TPU kernels'
 one-hot.  Bounds and tolerances are in the kernels' source note.  The
-kernels of K1, K3, K4, K6 and K8 read their bilinear taps and their bands
-of output rows from int32 tables built here with ``interp_matrix``'s
-arithmetic (:func:`launch_plan`, cached per shape on the device).
+kernels of K1, K3, K4, K6, K7 and K8 read their bilinear taps and their
+bands of output rows from int32 tables built here with ``interp_matrix``'s
+arithmetic (:func:`launch_plan`, cached per shape on the device; K7's
+stage holds the teacher's channels beside the student's).
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ from bacs_tpu_torch.ops.losses import (
     weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
-BLOCKS_PER_IMAGE = 256  # K7's and K9's partial sums per image (one 256-thread block each)
-# the launch plan of the K1/K3/K4/K6/K8 kernels (csrc/upsample_ce.cu)
+BLOCKS_PER_IMAGE = 256  # K9's partial sums per image (one 256-thread block each)
+# the launch plan of the K1/K3/K4/K6/K7/K8 kernels (csrc/upsample_ce.cu)
 TILE = 256  # output pixels per tile, one a thread
 CHUNK = 32  # the widest chunk of channels the kernels hold in registers (KC)
 TARGET_BLOCKS = 1024  # bands x images: about 8 blocks for each of the H100's 132 SMs
@@ -227,20 +228,22 @@ def grad_smem_bytes(tile: int, span: int, c: int) -> int:
     """Shared memory of the gradient kernel without its accumulator, at the
     widest chunk (``grad_smem_floats`` in csrc/upsample_ce.cu): the gradient
     tile times its two W weights, ``tile`` x 2 (CHUNK + 1) floats, and the
-    stage, ``span`` x (c | 1)."""
+    stage, ``span`` x (c | 1), ``c`` the channels staged per source column
+    (K7: the student's and the teacher's)."""
     return 4 * (tile * 2 * (CHUNK + 1) + span * (c | 1))
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_numpy(n, h, w, c, H, W):
+def _plan_numpy(n, h, w, c, H, W, c_old=0):
     tx, ty = tap_tables(W, w), tap_tables(H, h)
     band = max(1, min(H, -(-n * H // TARGET_BLOCKS)))
+    staged = c + c_old
     tile = TILE
-    while tile > 1 and grad_smem_bytes(tile, tile_span(tx, tile), c) > SMEM_MAX:
+    while tile > 1 and grad_smem_bytes(tile, tile_span(tx, tile), staged) > SMEM_MAX:
         tile //= 2
     span = tile_span(tx, tile)
-    if grad_smem_bytes(tile, span, c) > SMEM_MAX:
-        raise ValueError(f"{c} channels do not fit the kernel's shared memory")
+    if grad_smem_bytes(tile, span, staged) > SMEM_MAX:
+        raise ValueError(f"{staged} channels do not fit the kernel's shared memory")
     bands = band_plan(ty, h, band)
     tables = np.concatenate([
         tx["lo"], tx["hi"], tx["wt"].view(np.int32), tx["lo_first"], tx["lo_last"],
@@ -252,11 +255,12 @@ def _plan_numpy(n, h, w, c, H, W):
 _device_tables = {}
 
 
-def launch_plan(n, h, w, c, H, W, device):
+def launch_plan(n, h, w, c, H, W, device, c_old=0):
     """(int32 tap tables on ``device``, (band, tile, span, rows), bands):
-    the layout ``Plan`` in csrc/upsample_ce.cu reads, cached per shape."""
-    tables, args, nb = _plan_numpy(n, h, w, c, H, W)
-    key = (n, h, w, c, H, W, str(device))
+    the layout ``Plan`` in csrc/upsample_ce.cu reads, cached per shape;
+    ``c_old``, K7's teacher channels, staged beside the student's c."""
+    tables, args, nb = _plan_numpy(n, h, w, c, H, W, c_old)
+    key = (n, h, w, c, H, W, c_old, str(device))
     if key not in _device_tables:
         _device_tables[key] = torch.from_numpy(tables).to(device)
     return _device_tables[key], args, nb
@@ -746,16 +750,16 @@ def ukd_sum(sem, sem_old, out_hw, alpha=1.0):
     if sem.device.type == "cpu":
         return ukd_sum_plain(sem, sem_old, out_hw, alpha)
     n, h, w, c, c_old, H, W = _check_pair(sem, sem_old, out_hw)
-    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
-    partials = torch.empty((n, blocks, 2), dtype=torch.float32, device=sem.device)
+    tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device, c_old)
+    partials = torch.empty((n, nb, 2), dtype=torch.float32, device=sem.device)
     t = torch.empty((n,), dtype=torch.float32, device=sem.device)
-    scratch = torch.empty((n,), dtype=torch.float32, device=sem.device)
+    count = torch.empty((n,), dtype=torch.float32, device=sem.device)
     lib = build.load_library()
     with torch.cuda.device(sem.device):
         code = lib.upsample_ukd_sum(
             sem.data_ptr(), sem_old.data_ptr(), int(sem.dtype == torch.bfloat16), n, h,
-            w, c, c_old, H, W, float(alpha), partials.data_ptr(), blocks, t.data_ptr(),
-            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            w, c, c_old, H, W, float(alpha), tables.data_ptr(), *args, partials.data_ptr(),
+            t.data_ptr(), count.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(code, "upsample_ukd_sum")
     ukd_sum.launches += 1
     return t.sum()
@@ -769,14 +773,15 @@ def ukd_dsem(sem, sem_old, out_hw, g, alpha=1.0):
         return ukd_dsem_plain(sem, sem_old, out_hw, g, alpha)
     n, h, w, c, c_old, H, W = _check_pair(sem, sem_old, out_hw)
     _check_g(g, sem)
-    cols = torch.empty((n, H, w, c), dtype=torch.float32, device=sem.device)
+    tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device, c_old)
+    partials = torch.empty((n, nb, args[3], w, c), dtype=torch.float32, device=sem.device)
     dsem = torch.empty_like(sem)
     lib = build.load_library()
     with torch.cuda.device(sem.device):
         code = lib.upsample_ukd_grad(
             sem.data_ptr(), sem_old.data_ptr(), int(sem.dtype == torch.bfloat16), n, h,
-            w, c, c_old, H, W, float(alpha), g.data_ptr(), cols.data_ptr(),
-            dsem.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            w, c, c_old, H, W, float(alpha), g.data_ptr(), tables.data_ptr(), *args,
+            partials.data_ptr(), dsem.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(code, "upsample_ukd_grad")
     ukd_dsem.launches += 1
     return dsem

@@ -11,7 +11,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 
 1. prints the environment, the card's ``nvidia-smi`` name and power limit,
    the build time and the registers and spills of the upsample+loss
-   family's kernels (``nvcc -Xptxas -v``);
+   family's kernels and K12's (``nvcc -Xptxas -v``);
 2. holds the eval-ABN kernel (K5, Triton) against its plain PyTorch version
    at the ResNet-101 serving forward's shapes at batch 16;
 3. holds the upsample+argmax+confidence kernel (K10, CUDA) against its plain
@@ -111,18 +111,19 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    prints the seconds of each task's parts, ``Trainer.throughput``, the
    checkpoints' sizes and times, and the last task's device idle share;
 t. times K1-K4, K6-K9 and K12 at the main path's shapes beside their plain
-   versions and their times before the redesign of the upsample+loss
-   family (K12 also beside the unfused ABN
-   + max-pool pair, K1 and K4 beside the unfused ``F.interpolate`` +
-   ``F.cross_entropy`` pair), computes every kernel's bound from its inputs
-   (bytes, f32 operations and special-function operations), and holds two
-   launches of each kernel of the upsample+loss family (K1, K3, K4, K6
-   forward and backward, K8) bit-equal.
+   versions and their times before each one's redesign (K12 also beside
+   the unfused ABN + max-pool pair, K1 and K4 beside the unfused
+   ``F.interpolate`` + ``F.cross_entropy`` pair), computes every kernel's
+   bound from its inputs (bytes, f32 operations and special-function
+   operations), and holds two launches of each kernel of the
+   upsample+loss family (K1, K3, K4, K6, K7 forward and backward, K8) and
+   of K12 bit-equal.
 
-``--family-times`` only builds and times that family at the main path's
-shapes (one JSON line); with ``--package-root`` the port of another
-checkout, so that two versions (e.g. the parent commit unpacked under
-``build/``) are timed in one call, in turns.
+``--family-times`` only builds and times the redesigned kernels (K1, K3,
+K4, K6, K7, K8 and K12) at the main path's shapes (one JSON line); with
+``--package-root`` the port of another checkout, so that two versions
+(e.g. the parent commit unpacked under ``build/``) are timed in one call,
+in turns.
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
@@ -416,17 +417,17 @@ def check_uce(shape, out_hw, dtype, device, seed=0):
     return _rel_errors(loss, ref_loss, dsem, ref_dsem, dtype, "K6")
 
 
-def check_ukd(shape, out_hw, dtype, device, alpha=1.0, seed=0):
+def check_ukd(shape, out_hw, dtype, device, alpha=1.0, seed=0, c_old=None):
     """K7 forward and backward against their plain versions: a student of
-    C channels and a teacher of C - 1; returns the errors as ``check_ce``.
-    The gradient's scale is MiB's -1 / (N H W)."""
+    C channels and a teacher of ``c_old`` (default C - 1); returns the
+    errors as ``check_ce``.  The gradient's scale is MiB's -1 / (N H W)."""
     from bacs_tpu_torch.ops.upsample_ce import (
         ukd_dsem, ukd_dsem_plain, ukd_sum, ukd_sum_plain)
 
     g = torch.Generator(device=device).manual_seed(seed)
     sem = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
-    sem_old = (torch.randn((*shape[:3], shape[-1] - 1), generator=g, device=device)
-               * 3).to(dtype)
+    c_old = shape[-1] - 1 if c_old is None else c_old
+    sem_old = (torch.randn((*shape[:3], c_old), generator=g, device=device) * 3).to(dtype)
     total = ukd_sum(sem, sem_old, out_hw, alpha)
     ref_total = ukd_sum_plain(sem, sem_old, out_hw, alpha)
     scale = torch.tensor(-1.0 / (shape[0] * out_hw[0] * out_hw[1]), device=device)
@@ -945,7 +946,7 @@ TRAIN_ABN_PER_BACS_STEP = 3 * ABN_PER_FORWARD
 KERNEL_KINDS = (
     ("K12 (fused stem: ABN + leaky + max-pool, forward and backward)", ("stem_pool",)),
     ("K6 (MiB unbiased upsample+CE, forward and backward)", ("UceTerm",)),
-    ("K7 (MiB unbiased KD of the upsampled pair, forward and backward)", ("ukd_",)),
+    ("K7 (MiB unbiased KD of the upsampled pair, forward and backward)", ("UkdTerm",)),
     ("K9 (PLOP pseudo-labels)", ("pseudo_kernel",)),
     ("K3 (BACS upsample+CE, forward and backward)", ("BacsTerm",)),
     ("K4 (class-weighted upsample+CE)", ("WceTerm",)),
@@ -1429,48 +1430,63 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
 
 # ---------------------------------------------------------------- the upsample+loss family
 
-# the device busy ms per step measured before the upsample+loss family's
+# the device busy ms per step measured in the runs before K7's and K12's
 # redesign (PERF.md section 5; NVIDIA H100 80GB HBM3, 700 W), printed
 # beside this run's
-EARLIER_BUSY_MS = {"CE step (phase [9])": "97.8-99.0",
-                   "BACS step (phase [14])": "361.6-362.6",
-                   "MiB step (phase [19])": "78.8-79.2",
-                   "PLOP step (phase [19])": "103.8-104.6"}
-# the family's kernel ms measured before its redesign (PERF.md section 6,
-# the same card), printed beside this run's
+EARLIER_BUSY_MS = {"CE step (phase [9])": "97.308-98.330",
+                   "BACS step (phase [14])": "360.897-361.694",
+                   "MiB step (phase [19])": "78.366-78.579",
+                   "PLOP step (phase [19])": "103.729-104.212",
+                   "fused stem on against off (phase [23])": "-0.28 to -2.16"}
+# the kernel ms measured before each one's redesign (PERF.md section 6, the
+# same card): K1-K8's before the family's templates, K7's and K12's on the
+# first port's one-thread-per-element design; printed beside this run's
 EARLIER_KERNEL_MS = {"k1f": "0.1872 / 0.1889", "k1b": "0.7412 / 0.7441",
                      "k3f": "0.1914 / 0.1896 / 0.1900", "k3b": "0.7571 / 0.7505 / 0.7528",
                      "k4f": "0.1183 / 0.1166 / 0.1171", "k4b": "0.4846 / 0.4802 / 0.4811",
                      "k6f": "0.1389 / 0.1362", "k6b": "0.5439 / 0.5415",
-                     "k8": "0.4484 / 0.4464 / 0.4647"}
+                     "k7f": "0.2998 / 0.2986 / 0.2982", "k7b": "1.2424 / 1.2543 / 1.2415",
+                     "k8": "0.4484 / 0.4464 / 0.4647",
+                     "k12f": "0.1898 / 0.1897 / 0.1888", "k12b": "0.6373 / 0.6370 / 0.6368"}
 # the kernels of the forward-sums and backward-gather templates and their
 # main-path shapes: K1 at the CE step, K3 at the BACS main batch, K4 at its
-# dark++ replay batch, K6 and K8 at the MiB and PLOP steps
+# dark++ replay batch, K6, K7 (the student; its teacher one channel fewer)
+# and K8 at the MiB and PLOP steps; and the fused stem's K12 at the CLI's
+# batch (its conv output c)
 FAMILY_SHAPES = {"k1": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
                  "k3": (BATCH, CROP // 16, CROP // 16, 17),
                  "k4": (12, CROP // 16, CROP // 16, 17),
                  "k6": (12, CROP // 16, CROP // 16, 17),
-                 "k8": (12, CROP // 16, CROP // 16, 17)}
-# the new kernels' symbols, for the build report
+                 "k7": (12, CROP // 16, CROP // 16, 17),
+                 "k8": (12, CROP // 16, CROP // 16, 17),
+                 "k12": (12, CROP // 2, CROP // 2, 64)}
+# the symbols of the kernels whose registers and spills the build report
+# prints (K7 is the templates' UkdTerm instance)
 FAMILY_SYMBOLS = ("sums_kernel", "sums_reduce_kernel", "grad_bands_kernel",
-                  "band_sum_kernel")
+                  "band_sum_kernel", "stem_pool_fwd_kernel", "stem_pool_grad_kernel")
 
 
 def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
-    """{key: call} of K1, K3, K4, K6 (forward and backward) and K8 at
+    """{key: call} of K1, K3, K4, K6, K7, K12 (forward and backward) and K8 at
     ``shapes`` (default: the main path's), bf16, int32 labels with ~5 %
     ignored (a third background for K3 and K6), K3's max_seen uniform,
-    K4's dark++ weights, K8's g one random value per image; each call
-    returns the kernel's output tensors.  Uses only the wrappers' public
-    signatures, which the first port's kernels share."""
+    K4's dark++ weights, K7's teacher of one channel fewer and MiB's
+    scale, K8's g one random value per image, K12 on the stem's inputs of
+    ``stem_inputs`` (``out_hw`` does not apply); each call returns the
+    kernel's output tensors.  Uses only the wrappers' public signatures,
+    which the first port's kernels share."""
+    from bacs_tpu_torch.ops.stem_pool import (
+        backward_vectors, forward_vectors, stem_pool_fwd, stem_pool_grad)
     from bacs_tpu_torch.ops.upsample_ce import (
         bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
-        uce_sums, wce_dsem, wce_sums)
+        uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
 
     shapes = shapes or FAMILY_SHAPES
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     ins = {}
     for key, shape in shapes.items():
+        if key == "k12":
+            continue
         n, c = shape[0], shape[-1]
         sem = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
         lab = seeded_labels(n, out_hw, c, dev, seed)
@@ -1484,6 +1500,16 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
     sem4, lab4, c4 = ins["k4"]
     sem6, lab6, c6 = ins["k6"]
     sem8, lab8, _ = ins["k8"]
+    sem7 = ins["k7"][0]
+    old7 = (torch.randn((*sem7.shape[:3], sem7.shape[-1] - 1), generator=g, device=dev)
+            * 3).to(torch.bfloat16)
+    g7 = torch.tensor(-1.0 / (sem7.shape[0] * hw[0] * hw[1]), device=dev)
+    c12, scale12, bias12, dp12 = stem_inputs(shapes["k12"], torch.bfloat16, dev, seed + 12)
+    with torch.no_grad():
+        mean12, _, inv12, vec12 = forward_vectors(c12, scale12, bias12)
+        p12 = stem_pool_fwd(c12, vec12, 0.01)
+        dap12, vec7_12, _, _ = backward_vectors(c12, p12, dp12, scale12, bias12, mean12,
+                                                inv12, vec12, 0.01)
     ms = torch.rand(lab3.shape, generator=g, device=dev)
     w4 = beta_weights(c4, dev)
     g1 = torch.tensor(1.0 / lab1.numel(), device=dev)
@@ -1500,7 +1526,11 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
         "k4b": lambda: wce_dsem(sem4, lab4, w4, hw, g4),
         "k6f": lambda: uce_sums(sem6, lab6, hw, c6 - 1),
         "k6b": lambda: uce_dsem(sem6, lab6, hw, g6, c6 - 1),
+        "k7f": lambda: ukd_sum(sem7, old7, hw),
+        "k7b": lambda: ukd_dsem(sem7, old7, hw, g7),
         "k8": lambda: ce_dsem_per_image(sem8, lab8, hw, g8),
+        "k12f": lambda: stem_pool_fwd(c12, vec12, 0.01),
+        "k12b": lambda: stem_pool_grad(c12, dap12, vec7_12, 0.01),
     }
 
 
@@ -1850,7 +1880,8 @@ def stem_kernel_times(dev, shape=STEM_MAIN) -> dict:
     for key, label in (("k12f", "forward"), ("k12b", "backward")):
         bnd = stem_bound(c, key)
         kernel, plain, pair, whole = out[key]
-        log(f"[t] K12 {label} {tuple(shape)} bf16: kernel {kernel:.4f} ms, plain "
+        log(f"[t] K12 {label} {tuple(shape)} bf16: kernel {kernel:.4f} ms (before: "
+            f"{EARLIER_KERNEL_MS[key]}), plain "
             f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); the whole fused ABN + pool "
             f"{label} {whole:.4f} ms against the unfused pair fused_abn (K5 apply) + "
             f"max_pool2d {pair:.4f} ms (host-launched, CUDA events)")
@@ -2443,7 +2474,8 @@ def main() -> int:
     # 23. the bf16 512^2 CE step with the fused stem on against off
     stem_steps = stem_step_compare(cfg, params, stats, dev, args.seed, reset_counts, counts)
     log(f"[23] fused stem on against off: wall {stem_steps['on']['med'] - stem_steps['off']['med']:+.3f} "
-        f"ms, busy {stem_steps['on']['busy'] - stem_steps['off']['busy']:+.3f} ms, peak "
+        f"ms, busy {stem_steps['on']['busy'] - stem_steps['off']['busy']:+.3f} ms (before: "
+        f"{EARLIER_BUSY_MS['fused stem on against off (phase [23])']}), peak "
         f"{(stem_steps['on']['peak'] - stem_steps['off']['peak']) / 2**30:+.3f} GiB per step; "
         f"phase [9]'s median with it off was {med:.3f} ms")
 
@@ -2522,8 +2554,8 @@ def main() -> int:
     # two launches of each kernel of the family on the same inputs are
     # bit-equal, at the main path's shapes
     check_repeatable(family_calls(dev, args.seed))
-    log("[t] K1, K3, K4, K6 forward and backward and K8: two launches bit-equal at "
-        "the main path's shapes")
+    log("[t] K1, K3, K4, K6, K7, K12 forward and backward and K8: two launches "
+        "bit-equal at the main path's shapes")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
     mp_times, mp_bounds = mib_plop_kernel_times(dev, args.seed)

@@ -119,6 +119,24 @@ def test_upsample_ukd_kernels_match_plain(cuda, shape, out_hw, dtype, alpha):
     check_ukd(shape, out_hw, dtype, cuda, alpha=alpha)
 
 
+# K7 on its redesigned template: the main shape, a downscale, a band that
+# is not a multiple of the output height (512 rows in bands of 6 at batch
+# 12), a teacher of one channel, students past one register chunk of 32
+# (33, and 40 with a teacher of 39 past it too)
+UKD_CASES = [((12, 32, 32, 17), 16, (512, 512)), ((2, 8, 8, 17), 16, (5, 7)),
+             ((3, 9, 7, 17), 16, (100, 37)), ((2, 5, 7, 6), 1, (37, 51)),
+             ((2, 6, 6, 33), 32, (40, 37)), ((2, 8, 8, 40), 39, (128, 128))]
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.7])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,c_old,out_hw", UKD_CASES)
+def test_ukd_pair_template_matches_plain(cuda, shape, c_old, out_hw, dtype, alpha):
+    """K7 against its plain version (f32: value and gradient rtol 1e-4;
+    bf16: value rtol 2e-3, gradient rtol 5e-2 of the largest gradient)."""
+    check_ukd(shape, out_hw, dtype, cuda, alpha=alpha, c_old=c_old)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,out_hw", MIB_PLOP_CASES)
 def test_upsample_ce_per_image_kernel_matches_plain(cuda, shape, out_hw, dtype):
@@ -157,12 +175,13 @@ def test_upsample_loss_family_other_shapes_match_plain(cuda, shape, out_hw, dtyp
 
 @pytest.mark.parametrize("where", ["main", "small"])
 def test_upsample_loss_family_launches_are_bit_equal(cuda, where):
-    """Two launches of each forward and backward of K1, K3, K4, K6 and of
-    K8 on the same inputs give bit-equal outputs (no float atomics), at the
-    main path's shapes and at small odd ones."""
+    """Two launches of each forward and backward of K1, K3, K4, K6, K7, K12
+    and of K8 on the same inputs give bit-equal outputs (no float atomics),
+    at the main path's shapes and at small odd ones."""
     shapes = None if where == "main" else {
         "k1": (2, 5, 7, 21), "k3": (2, 5, 7, 17), "k4": (3, 6, 5, 17),
-        "k6": (2, 7, 5, 40), "k8": (2, 5, 7, 17)}
+        "k6": (2, 7, 5, 40), "k7": (2, 5, 7, 17), "k8": (2, 5, 7, 17),
+        "k12": (3, 6, 2, 5)}
     out_hw = (512, 512) if where == "main" else (37, 51)
     check_repeatable(family_calls(cuda, shapes=shapes, out_hw=out_hw))
 
@@ -397,7 +416,11 @@ def test_train_and_eval_steps_on_the_card_match_the_cpu(cuda):
     assert moved <= 0.001 * int((labels != 255).sum())
 
 
-STEM_SHAPES = [(2, 8, 12, 8), (3, 6, 2, 5), (2, 10, 2, 64), (12, 256, 256, 64)]
+STEM_SHAPES = [(2, 8, 12, 8), (3, 6, 2, 5), (2, 10, 2, 64), (12, 256, 256, 64),
+               # the redesign's tiles: a pooled height that is no multiple of
+               # the band, pooled widths past one tile of columns (32 at C =
+               # 64, 51 at C = 5), and the narrow path at C = 5 and 24
+               (3, 22, 140, 64), (2, 18, 230, 5), (1, 30, 70, 24), (16, 256, 256, 64)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

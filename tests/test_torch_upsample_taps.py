@@ -121,3 +121,24 @@ def test_launch_plan_layout_and_shared_memory(shape, out_hw):
     assert 1 <= tile <= 256 and span == tile_span(tx, tile)
     assert grad_smem_bytes(tile, span, c) <= SMEM_MAX
     assert n * nb >= min(TARGET_BLOCKS, n * H) // 2
+
+
+@pytest.mark.parametrize("shape,c_old,out_hw", [
+    ((12, 32, 32, 17), 16, (512, 512)), ((2, 8, 8, 40), 39, (128, 128)),
+    ((2, 5, 7, 6), 1, (37, 51)), ((1, 64, 1024, 151), 150, (16, 200))])
+def test_launch_plan_stages_the_pair(shape, c_old, out_hw):
+    """K7 stages the teacher's c_old channels beside the student's c: the
+    plan's tile is the largest whose gradient shared memory fits with
+    c + c_old floats a staged column, and a plan for the student alone may
+    take a larger tile, never a smaller one."""
+    n, h, w, c = shape
+    H, W = out_hw
+    _, (band, tile, span, rows), nb = _plan_numpy(n, h, w, c, H, W, c_old)
+    _, (_, tile_alone, _, _), _ = _plan_numpy(n, h, w, c, H, W)
+    tx = tap_tables(W, w)
+    assert span == tile_span(tx, tile)
+    assert grad_smem_bytes(tile, span, c + c_old) <= SMEM_MAX
+    if tile < 256:  # the next larger tile would not fit
+        assert grad_smem_bytes(2 * tile, tile_span(tx, 2 * tile), c + c_old) > SMEM_MAX
+    assert tile <= tile_alone
+    assert grad_smem_bytes(tile, span, c + c_old) >= grad_smem_bytes(tile, span, c)
