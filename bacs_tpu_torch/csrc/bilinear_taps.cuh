@@ -1,4 +1,5 @@
-// Bilinear taps shared by the upsample kernels (K1-K4, K10).
+// Bilinear taps computed per output pixel (K2; the other upsample kernels
+// read host-built tables, upsample_stage.cuh).
 //
 // The half-pixel (align_corners=False) source coordinates of
 // `interp_matrix` (bacs_tpu_torch/ops/upsample_tiles.py), clamped to the
@@ -16,9 +17,6 @@ namespace bacs_taps {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 // Source index pair and weight of output row/column `o`, exactly as
 // interp_matrix computes them (in double, weight rounded to f32).
 __device__ __forceinline__ void src_coord(int o, int out_dim, int in_dim,
@@ -29,24 +27,6 @@ __device__ __forceinline__ void src_coord(int o, int out_dim, int in_dim,
   lo = (int)floor(c);
   hi = min(lo + 1, in_dim - 1);
   wt = (float)(c - (double)lo);
-}
-
-// The weight interp_matrix puts at [o, src]: 0 unless src is a tap of o.
-__device__ __forceinline__ float tap_weight(int o, int out_dim, int in_dim, int src) {
-  int lo, hi;
-  float wt;
-  src_coord(o, out_dim, in_dim, lo, hi, wt);
-  return (lo == src ? 1.f - wt : 0.f) + (hi == src ? wt : 0.f);
-}
-
-// The output indices [first, last] whose taps may include source `src`:
-// a conservative window around the inverse of the coordinate map, which
-// callers filter with tap_weight.
-__device__ __forceinline__ void support(int src, int out_dim, int in_dim,
-                                        int& first, int& last) {
-  double r = (double)out_dim / (double)in_dim;
-  first = max((int)floor((src - 1 + 0.5) * r - 0.5) - 1, 0);
-  last = min((int)ceil((src + 1 + 0.5) * r - 0.5) + 1, out_dim - 1);
 }
 
 // The four taps of output pixel (oy, ox) of an [h, w, c] image, as base

@@ -71,7 +71,8 @@
 // template parameter, so no work for padding past 24 at the main path's 17
 // and 21 channels), takes the chunk's max first (branch-free) and then its
 // exponentials (`ex2.approx` after one FFMA), once per channel, with a
-// rescale per chunk past the first.
+// rescale per chunk past the first.  The plan, the stage and the chunked
+// statistics are in upsample_stage.cuh, shared with K9 and K10.
 //   Forward (`sums_kernel`): the functor turns the statistics into the
 //     pixel's two sums; a block sum in a fixed order goes to an [N, bands,
 //     2] scratch, and a second launch sums each image's partials in a
@@ -136,32 +137,16 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bilinear_taps.cuh"
+#include "upsample_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 // Blocks per SM the family's kernels are built for (the register cap):
 // the forwards 4; the backwards 3 (about 80 registers, no spills), K3's 4
 // (its three normalisers; measured faster so, the others slower).
 constexpr int kSumsMinBlocks = 4;
-constexpr size_t kSmemMax = 232448; // shared memory a block may use on Hopper
 
-using bacs_taps::to_f32;
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (MUFU.EX2; 0 for -inf).  exp(v - m) is
-// ex2(v log2(e) - m log2(e)), one FFMA and one MUFU.
-__device__ __forceinline__ float ex2(float x) {
-#ifdef __CUDA_ARCH__
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return exp2f(x);
-#endif
-}
+using namespace upsample_stage;
 
 // Sum of (a, b) over the block in a fixed order: warp shuffles, then
 // thread 0 over the warp sums.  Every thread of the block must call it;
@@ -182,134 +167,6 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
     }
   }
   return r;
-}
-
-// The host-built tap tables (ops/upsample_ce.py:launch_plan), one int32
-// buffer in this order: the W axis (lo, hi, wt [W]; lo_first, lo_last,
-// hi_first, hi_last [w]: the output columns whose lo / hi is the source
-// column, with a nonzero weight, first > last where none), the H axis (lo,
-// hi, wt [H]), the bands (band_y0 [bands]: the first source row a band
-// touches; band_first, band_last [h]: the bands that touch a source row).
-struct Plan {
-  const int *xlo, *xhi, *xlo_first, *xlo_last, *xhi_first, *xhi_last;
-  const int *ylo, *yhi, *band_y0, *band_first, *band_last;
-  const float *xwt, *ywt;
-  int band;   // output rows per band
-  int tile;   // output pixels per tile (<= kThreads, one a thread)
-  int span;   // the most source columns a tile reads
-  int rows;   // the most source rows a band touches
-  int nb;     // bands
-};
-
-Plan make_plan(const void* tables, int h, int w, int H, int W, int band, int tile,
-               int span, int rows) {
-  Plan p;
-  const int* q = (const int*)tables;
-  p.xlo = q; q += W;
-  p.xhi = q; q += W;
-  p.xwt = (const float*)q; q += W;
-  p.xlo_first = q; q += w;
-  p.xlo_last = q; q += w;
-  p.xhi_first = q; q += w;
-  p.xhi_last = q; q += w;
-  p.ylo = q; q += H;
-  p.yhi = q; q += H;
-  p.ywt = (const float*)q; q += H;
-  p.nb = (H + band - 1) / band;
-  p.band_y0 = q; q += p.nb;
-  p.band_first = q; q += h;
-  p.band_last = q;
-  p.band = band;
-  p.tile = tile;
-  p.span = span;
-  p.rows = rows;
-  return p;
-}
-
-// Stages the source columns [xs0, xs0 + nx) of output row (y0, y1, wy),
-// lerped along H in f32: stage[xi * ldc + ch].  Every thread calls it.
-template <typename T>
-__device__ __forceinline__ void stage_row(const T* __restrict__ img, int w, int c,
-                                          int ldc, int y0, int y1, float wy, int xs0,
-                                          int nx, float* __restrict__ stage) {
-  const T* r0 = img + ((size_t)y0 * w + xs0) * c;
-  const T* r1 = img + ((size_t)y1 * w + xs0) * c;
-  const float wy0 = 1.f - wy;
-  const int total = nx * c;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int xi = i / c;
-    stage[xi * ldc + (i - xi * c)] = wy0 * to_f32(r0[i]) + wy * to_f32(r1[i]);
-  }
-}
-
-// One output pixel's view of the stage: its two source columns and their
-// W weights.
-struct Pixel {
-  const float *ra, *rb;
-  float wa, wb;
-
-  __device__ __forceinline__ float operator()(int ch) const {
-    return wa * ra[ch] + wb * rb[ch];
-  }
-  // the logits of channels [c0, c0 + KC), -inf past c
-  template <int KC>
-  __device__ __forceinline__ void chunk(int c0, int c, float (&v)[KC]) const {
-#pragma unroll
-    for (int k = 0; k < KC; ++k) v[k] = c0 + k < c ? (*this)(c0 + k) : -INFINITY;
-  }
-};
-
-// A pixel's softmax statistics: max m, exp-sum s relative to m, and where
-// the term asks (kGroups) the exp-sums over channels >= 1 (s_fg) and < old
-// (s_old); the logit of label t (0 where t is outside [0, c)) and of
-// channel 0.
-struct Stats {
-  float m, s, s_fg, s_old, picked, x0;
-  float q0, so, sz, mo;  // K7's teacher: exp(alpha u_0 - mo), its exp-sum, sum q_i z_i
-                         // times so, its max of alpha u
-};
-
-// Folds one chunk of KC logits into st: its max first, one rescale of the
-// sums, then the chunk's exponentials e (relative to the new max; 0 past c).
-template <bool kGroups, int KC>
-__device__ __forceinline__ void fold_chunk(const float (&v)[KC], int c0, int old,
-                                           Stats& st, float (&e)[KC]) {
-  float cm = v[0];
-#pragma unroll
-  for (int k = 1; k < KC; ++k) cm = fmaxf(cm, v[k]);
-  const float m = fmaxf(st.m, cm);
-  const float mb = m * kLog2e;
-  const float r = ex2(st.m * kLog2e - mb);  // 0 at the first chunk (st.m = -inf)
-  float s = st.s * r, s_fg = st.s_fg * r, s_old = st.s_old * r;
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    e[k] = ex2(fmaf(v[k], kLog2e, -mb));
-    s += e[k];
-    if (kGroups) {
-      s_fg += c0 + k >= 1 ? e[k] : 0.f;
-      s_old += c0 + k < old ? e[k] : 0.f;
-    }
-  }
-  st.m = m;
-  st.s = s;
-  st.s_fg = s_fg;
-  st.s_old = s_old;
-}
-
-// The statistics of one pixel over all c channels; e holds the last
-// chunk's exponentials (all of them where c <= KC).
-template <bool kGroups, int KC>
-__device__ __forceinline__ Stats pixel_stats(const Pixel& px, int c, long long t,
-                                             int old, float (&e)[KC]) {
-  Stats st{-INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < c; c0 += KC) {
-    float v[KC];
-    px.chunk(c0, c, v);
-    fold_chunk<kGroups>(v, c0, old, st, e);
-  }
-  st.picked = (t >= 0 && t < c) ? px((int)t) : 0.f;
-  st.x0 = px(0);
-  return st;
 }
 
 // K7's statistics of one pixel of a student/teacher pair (the student in
@@ -816,7 +673,7 @@ __global__ void band_sum_kernel(const float* __restrict__ partials, int h, int w
   for (int b = plan.band_first[y]; b <= plan.band_last[y]; ++b) {
     s += partials[((size_t)n * plan.nb + b) * slab_len + (size_t)(y - plan.band_y0[b]) * wc + i];
   }
-  bacs_taps::store(dsem + ((size_t)n * h + y) * wc + i, s);
+  store(dsem + ((size_t)n * h + y) * wc + i, s);
 }
 
 // The arguments every entry point shares.
@@ -837,24 +694,11 @@ Problem make_problem(const void* sem, int sem_is_bf16, const void* labels,
                  ignore_index, make_plan(tables, h, w, H, W, band, tile, span, rows)};
 }
 
-// Asks for `bytes` of dynamic shared memory where that is above the 48 KB
-// default.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename T, typename L, typename Term, int KC, int KT>
 int launch_sums(const Problem& pr, Term term, void* partials, void* a_out, void* b_out,
                 cudaStream_t st) {
-  Plan pl = pr.plan;
   const int ldc = stage_ld(term, pr.c);
-  if ((size_t)pr.w * ldc * sizeof(float) <= 48 * 1024) {  // whole rows
-    pl.tile = pr.W;
-    pl.span = pr.w;
-  }
+  const Plan pl = whole_rows(pr.plan, pr.w, pr.W, ldc);
   const size_t smem = (size_t)pl.span * ldc * sizeof(float);
   if (pl.tile < 1 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(sums_kernel<T, L, Term, KC, KT>, smem);

@@ -49,8 +49,9 @@ _PLAN = [_P, _I, _I, _I, _I]
 _PAIR = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F]
 # C signature of every entry point in csrc/, declared before first use
 SIGNATURES = {
-    # (sem, sem_is_bf16, n, h, w, c, H, W, preds, conf, stream)
-    "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (sem, sem_is_bf16, n, h, w, c, H, W, the launch plan (tables, band,
+    #  tile, span, rows), preds, conf, stream)
+    "upsample_argmax_conf": [_P, _I, _I, _I, _I, _I, _I, _I] + _PLAN + [_P, _P, _P],
     # the upsample+loss family (K1, K3, K4, K6, K7, K8): the problem
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
     # ignore_index), the term's arguments, then the launch plan (tables,
@@ -83,11 +84,8 @@ SIGNATURES = {
     "upsample_ukd_sum": _PAIR + _PLAN + [_P, _P, _P, _P],
     # (pair, g, plan, partials, dsem, stream)
     "upsample_ukd_grad": _PAIR + [_P] + _PLAN + [_P, _P, _P],
-    # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  thresholds, max_entropy, ent_scale, ignore_index, blocks, out, counts,
-    #  stream)
-    "upsample_plop_pseudo": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
-                             _I, _I, _P, _P, _P],
+    # (problem, thresholds, max_entropy, ent_scale, plan, out, counts, stream)
+    "upsample_plop_pseudo": _FAMILY + [_P, _P, _F] + _PLAN + [_P, _P, _P],
     # (c, is_bf16, vec [2, C], slope, n, H, W, C, p, stream)
     "stem_pool_fwd": [_P, _I, _P, _F, _I, _I, _I, _I, _P, _P],
     # (c, dap, is_bf16, vec [7, C], slope, n, H, W, C, dc, stream)

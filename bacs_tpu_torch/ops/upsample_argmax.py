@@ -12,7 +12,9 @@ logits, so the [N, H, W, C] full-resolution logits never exist.
   launches the hand-written kernel ``csrc/upsample_argmax.cu`` (replacing the
   TPU kernel ``_argmax_conf_pallas``, ``bacs_tpu/ops/upsample_argmax.py:88``)
   or raises; for a CPU tensor it runs the plain version.  Its ``launches``
-  attribute counts kernel launches.
+  attribute counts kernel launches.  The kernel reads its bilinear taps
+  and bands of output rows from the tables of
+  ``ops/upsample_ce.py:launch_plan`` (shared with K1 at the same shape).
 
 Tolerance of the kernel against the plain version: preds equal wherever the
 top-2 margin exceeds 1e-4, confidence within 1e-3 (f16 rounding).  The bound
@@ -26,6 +28,7 @@ from typing import Tuple
 import torch
 
 from bacs_tpu_torch.kernels import build
+from bacs_tpu_torch.ops.upsample_ce import launch_plan
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
 
@@ -66,13 +69,14 @@ def _argmax_conf_cuda(
     H, W = (int(d) for d in out_hw)
     if not 1 <= c <= 256 or H < 1 or W < 1 or h < 1 or w < 1:
         raise ValueError(f"unsupported shape {tuple(sem.shape)} -> {(H, W)}")
+    tables, args, _ = launch_plan(n, h, w, c, H, W, sem.device)
     preds = torch.empty((n, H, W), dtype=torch.uint8, device=sem.device)
     conf = torch.empty((n, H, W), dtype=torch.float16, device=sem.device)
     lib = build.load_library()
     with torch.cuda.device(sem.device):
         code = lib.upsample_argmax_conf(
             sem.data_ptr(), int(sem.dtype == torch.bfloat16), n, h, w, c, H, W,
-            preds.data_ptr(), conf.data_ptr(),
+            tables.data_ptr(), *args, preds.data_ptr(), conf.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, "upsample_argmax_conf")

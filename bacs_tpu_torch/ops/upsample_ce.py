@@ -60,10 +60,11 @@ scalar.  The plain versions upsample with the ``interp_matrix`` einsums in
 f32 (``upsample_tiles.py``).  Labels other than ``ignore_index`` are
 expected in [0, C); one outside picks no logit, as the TPU kernels'
 one-hot.  Bounds and tolerances are in the kernels' source note.  The
-kernels of K1, K3, K4, K6, K7 and K8 read their bilinear taps and their
-bands of output rows from int32 tables built here with ``interp_matrix``'s
-arithmetic (:func:`launch_plan`, cached per shape on the device; K7's
-stage holds the teacher's channels beside the student's).
+kernels of K1, K3, K4, K6, K7 and K8 (and K9 and K10, in their own
+modules) read their bilinear taps and their bands of output rows from int32
+tables built here with ``interp_matrix``'s arithmetic (:func:`launch_plan`,
+cached per shape on the device; K7's stage holds the teacher's channels
+beside the student's).
 """
 
 from __future__ import annotations
@@ -80,8 +81,8 @@ from bacs_tpu_torch.ops.losses import (
     weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
-BLOCKS_PER_IMAGE = 256  # K9's partial sums per image (one 256-thread block each)
-# the launch plan of the K1/K3/K4/K6/K7/K8 kernels (csrc/upsample_ce.cu)
+# the launch plan of the staged kernels (csrc/upsample_stage.cuh: K1, K3, K4,
+# K6-K8 in csrc/upsample_ce.cu, K9 and K10)
 TILE = 256  # output pixels per tile, one a thread
 CHUNK = 32  # the widest chunk of channels the kernels hold in registers (KC)
 TARGET_BLOCKS = 1024  # bands x images: about 8 blocks for each of the H100's 132 SMs
@@ -257,8 +258,9 @@ _device_tables = {}
 
 def launch_plan(n, h, w, c, H, W, device, c_old=0):
     """(int32 tap tables on ``device``, (band, tile, span, rows), bands):
-    the layout ``Plan`` in csrc/upsample_ce.cu reads, cached per shape;
-    ``c_old``, K7's teacher channels, staged beside the student's c."""
+    the layout ``Plan`` in csrc/upsample_stage.cuh reads (K1, K3, K4,
+    K6-K10), cached per shape; ``c_old``, K7's teacher channels, staged
+    beside the student's c."""
     tables, args, nb = _plan_numpy(n, h, w, c, H, W, c_old)
     key = (n, h, w, c, H, W, c_old, str(device))
     if key not in _device_tables:

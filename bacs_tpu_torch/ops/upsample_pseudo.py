@@ -13,7 +13,9 @@ version for a CPU tensor: :func:`upsample_plain` + :func:`pseudo_labels`,
 the softmax, argmax and ``losses.pixel_entropy`` of ``_plop_pseudo_jnp``
 (``:837-853``), which PLOP's composed path runs on full-resolution logits.  The
 three full-resolution f32 tensors of the plain version never exist on the
-card.  Forward only: the teacher is detached.
+card; the kernel reads its bilinear taps and bands of output rows from the
+tables of ``ops/upsample_ce.py:launch_plan``.  Forward only: the teacher is
+detached.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from bacs_tpu_torch.kernels import build
 from bacs_tpu_torch.ops.losses import pixel_entropy
-from bacs_tpu_torch.ops.upsample_ce import BLOCKS_PER_IMAGE, check_inputs, upsample_plain
+from bacs_tpu_torch.ops.upsample_ce import check_inputs, launch_plan, upsample_plain
 
 
 def pseudo_labels(old_logits, labels, thresholds, max_entropy, ignore_index=255):
@@ -69,17 +71,17 @@ def plop_pseudo_labels(sem_old, labels, thresholds, out_hw, max_entropy,
     me = torch.as_tensor(max_entropy, dtype=torch.float32, device=sem_old.device)
     if me.numel() != 1:
         raise ValueError(f"max_entropy must be one value, got {tuple(me.shape)}")
-    blocks = min(-(-H * W // 256), BLOCKS_PER_IMAGE)
+    tables, args, _ = launch_plan(n, h, w, c, H, W, sem_old.device)
     out = torch.empty((n, H, W), dtype=torch.int32, device=sem_old.device)
     counts = torch.zeros((n, 2), dtype=torch.int32, device=sem_old.device)
     lib = build.load_library()
     with torch.cuda.device(sem_old.device):
         code = lib.upsample_plop_pseudo(
             sem_old.data_ptr(), int(sem_old.dtype == torch.bfloat16), labels.data_ptr(),
-            int(labels.dtype == torch.int64), n, h, w, c, H, W, thresholds.data_ptr(),
-            me.contiguous().data_ptr(), -1.0 / (c * math.log(c + 1e-8)), int(ignore_index),
-            blocks, out.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            int(labels.dtype == torch.int64), n, h, w, c, H, W, int(ignore_index),
+            thresholds.data_ptr(), me.contiguous().data_ptr(),
+            -1.0 / (c * math.log(c + 1e-8)), tables.data_ptr(), *args, out.data_ptr(),
+            counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(code, "upsample_plop_pseudo")
     plop_pseudo_labels.launches += 1
     counts = counts.float()

@@ -4,6 +4,7 @@ and continual-trainer paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --family-times [--package-root DIR]
+    python3 chip_smoke.py --bacs-busy [--package-root DIR]
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -15,7 +16,9 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 2. holds the eval-ABN kernel (K5, Triton) against its plain PyTorch version
    at the ResNet-101 serving forward's shapes at batch 16;
 3. holds the upsample+argmax+confidence kernel (K10, CUDA) against its plain
-   version;
+   version, at the serving shapes and at channel counts at and across its
+   register chunks (16, 17, 24, 25, 33), with exact ties (inputs on a few
+   levels, scale 16) where the two must pick the same first channel;
 4. runs the full DeepLabV3-ResNet-101 Predictor at 512^2, batch 1, in f32 on
    the card (kernels) and on the CPU (plain versions) and compares them;
 5. serves bf16 batches through ``Predictor.predict_many`` (16 x 8) and
@@ -74,7 +77,9 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    channels) -> 512^2 and odd shapes, bf16 and f32, KD alpha 1 and 0.7;
 17. holds PLOP's kernels, K1's backward with a per-image cotangent (K8; and
    K1's scalar case bit for bit) and the pseudo-labels (K9; labels equal
-   wherever no threshold or top-2 tie lies within 1e-5), the same way;
+   wherever no threshold or top-2 tie lies within 1e-5), the same way, K9
+   also at channel counts across its register chunks, with int64 labels,
+   another ignore index and an image whose labels are all new;
 18. runs one f32 task-1 MiB and PLOP step (RN101 4 x 128^2, after the
    MultiHead imprinting; PLOP's thresholds set clear of every pixel's
    entropy) on the CPU and on the card (TF32 off) and compares them as
@@ -110,20 +115,20 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    every train step (1 pass at task 0, 3 later) and a finite final mIoU;
    prints the seconds of each task's parts, ``Trainer.throughput``, the
    checkpoints' sizes and times, and the last task's device idle share;
-t. times K1-K4, K6-K9 and K12 at the main path's shapes beside their plain
+t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
    ``F.interpolate`` + ``F.cross_entropy`` pair), computes every kernel's
    bound from its inputs (bytes, f32 operations and special-function
-   operations), and holds two launches of each kernel of the
-   upsample+loss family (K1, K3, K4, K6, K7 forward and backward, K8) and
-   of K12 bit-equal.
+   operations), and holds two launches of each staged kernel (K1, K3, K4,
+   K6, K7 forward and backward, K8, K9, K10) and of K12 bit-equal.
 
 ``--family-times`` only builds and times the redesigned kernels (K1, K3,
-K4, K6, K7, K8 and K12) at the main path's shapes (one JSON line); with
-``--package-root`` the port of another checkout, so that two versions
-(e.g. the parent commit unpacked under ``build/``) are timed in one call,
-in turns.
+K4, K6-K10 and K12) at the main path's shapes (one JSON line), and
+``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
+set-up); with ``--package-root`` the port of another checkout, so that
+two versions (e.g. the parent commit unpacked under ``build/``) are timed
+in one call, in turns.
 
 Weights are random, made from ``--seed``.  A failed check raises, so the
 script exits nonzero and prints no result.  The last three lines are a
@@ -156,6 +161,9 @@ K5_SHAPES = [(16, 256, 256, 64), (16, 128, 128, 256), (16, 64, 64, 512),
              (16, 32, 32, 1024), (16, 32, 32, 2048), (16, 1, 1, 256)]
 K10_CASES = [((16, 32, 32, 21), (512, 512)), ((1, 32, 32, 21), (512, 512)),
              ((2, 33, 47, 21), (261, 373)), ((2, 8, 8, 150), (128, 128))]
+# K9 and K10 at channel counts at and across the register chunks of
+# csrc/upsample_stage.cuh (16, 24, then 32 a chunk)
+CHUNK_CHANNELS = (16, 17, 24, 25, 33)
 # K4 at the dark++ replay batch, K3 at the main batch (17 classes at task 1)
 WEIGHTED_CASES = [((12, 32, 32, 17), (512, 512)), ((16, 32, 32, 17), (512, 512)),
                   ((2, 33, 47, 17), (261, 373)), ((2, 5, 7, 6), (37, 51))]
@@ -252,14 +260,22 @@ def check_abn(shape, slope, dtype, device, seed=0) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def check_argmax(shape, out_hw, dtype, device, seed=0) -> float:
-    """K10 against its plain version; returns the max abs confidence error."""
+def check_argmax(shape, out_hw, dtype, device, seed=0, levels=False) -> float:
+    """K10 against its plain version; returns the max abs confidence error.
+    With ``levels`` the logits are integers in [-3, 3], so most pixels tie
+    within a register chunk and across chunks; where the interpolation
+    weights are exact in f32 (power-of-two scales) the two upsample alike
+    and their preds must be equal at every pixel, ties included (the first
+    channel that reaches the max)."""
     from bacs_tpu_torch.ops.upsample_argmax import (
         argmax_conf_from, upsampled_argmax_conf)
     from bacs_tpu_torch.ops.upsample_tiles import kmats
 
     g = torch.Generator(device=device).manual_seed(seed)
-    sem = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
+    if levels:
+        sem = torch.randint(-3, 4, shape, generator=g, device=device).to(dtype)
+    else:
+        sem = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
     preds, conf = upsampled_argmax_conf(sem, out_hw)
     kh, kw = (torch.from_numpy(k).to(device) for k in kmats(shape, out_hw))
     up = torch.einsum("Hh,nhwc->nHwc", kh, sem.float())
@@ -273,6 +289,8 @@ def check_argmax(shape, out_hw, dtype, device, seed=0) -> float:
     same = preds == ref_p
     assert bool(same[decisive].all()), "preds differ at a decisive pixel"
     assert float(same.float().mean()) >= 0.9999
+    if levels:
+        assert bool(same.all()), "preds differ at a tie"
     err = float((conf.float() - ref_c.float()).abs().max())
     assert err <= 1e-3, f"confidence error {err}"
     return err
@@ -463,12 +481,14 @@ def check_ce_per_image(shape, out_hw, dtype, device, seed=0):
     return dict(grad_abs=grad_abs, grad_rel=grad_rel)
 
 
-def check_pseudo(shape, out_hw, dtype, device, seed=0):
+def check_pseudo(shape, out_hw, dtype, device, seed=0, labels_dtype=torch.int32,
+                 ignore_index=255, new_image=False):
     """K9 against its plain version: a teacher of C_old = C channels,
-    labels in [0, C] (C the new class) with ignored ones, each class's
+    labels in [0, C] (C the new class) with ignored ones (255), each class's
     threshold the mean of two random pixels' entropies (not the entropy of
     a pixel, which the clamped upsample repeats at the borders),
-    max_entropy log(C + 1).  A
+    max_entropy log(C + 1); ``ignore_index`` the label of a dropped pixel,
+    ``new_image`` the first image's labels all C.  A
     pixel within 1e-5 of its threshold, or whose top two logits are within
     1e-5, may take the other branch: the labels agree at every other pixel,
     and such flips stay under 1e-4 of the pixels; den is equal, num within
@@ -483,13 +503,16 @@ def check_pseudo(shape, out_hw, dtype, device, seed=0):
     labels = seeded_labels(n, out_hw, c + 1, device, seed)
     bg = torch.rand(labels.shape, generator=g, device=device) < 0.3
     labels = torch.where(bg & (labels != 255), torch.zeros_like(labels), labels)
+    if new_image:
+        labels[0] = c
+    labels = labels.to(labels_dtype)
     me = torch.tensor(float(np.log(c + 1)), device=device)
     up = upsample_plain(sem, out_hw)
     ent = (pixel_entropy(torch.softmax(up, dim=-1)) / me).flatten()
     pick = torch.randint(0, ent.numel(), (2, max(c, N_CLASSES)), generator=g, device=device)
     thr = ent[pick].mean(dim=0)
-    new, num, den = plop_pseudo_labels(sem, labels, thr, out_hw, me)
-    ref, ref_num, ref_den = pseudo_labels_plain(sem, labels, thr, out_hw, me)
+    new, num, den = plop_pseudo_labels(sem, labels, thr, out_hw, me, ignore_index)
+    ref, ref_num, ref_den = pseudo_labels_plain(sem, labels, thr, out_hw, me, ignore_index)
     top2 = up.topk(min(2, c), dim=-1).values
     pred = up.argmax(dim=-1)
     decisive = ((ent.reshape(pred.shape) - thr[pred]).abs() > 1e-5) & (
@@ -502,6 +525,8 @@ def check_pseudo(shape, out_hw, dtype, device, seed=0):
     assert flips <= 1e-4 * labels.numel(), f"K9: {flips} pixels flipped"
     assert torch.equal(den, ref_den), "K9 den differs"
     assert float((num - ref_num).abs().max()) <= flips, "K9 num differs beyond the flips"
+    if new_image:
+        assert float(num[0]) == float(den[0]) == 0 and torch.equal(new[0], labels[0].int())
     if labels.numel() >= 4096:
         assert 0 < float(num.sum()) < float(den.sum()), "no mix of kept and ignored pixels"
     return flips
@@ -947,7 +972,8 @@ KERNEL_KINDS = (
     ("K12 (fused stem: ABN + leaky + max-pool, forward and backward)", ("stem_pool",)),
     ("K6 (MiB unbiased upsample+CE, forward and backward)", ("UceTerm",)),
     ("K7 (MiB unbiased KD of the upsampled pair, forward and backward)", ("UkdTerm",)),
-    ("K9 (PLOP pseudo-labels)", ("pseudo_kernel",)),
+    ("K9 (PLOP pseudo-labels)", ("PseudoTerm",)),
+    ("K10 (serving upsample + argmax + confidence)", ("ArgmaxConfTerm",)),
     ("K3 (BACS upsample+CE, forward and backward)", ("BacsTerm",)),
     ("K4 (class-weighted upsample+CE)", ("WceTerm",)),
     ("K1 (upsample+CE) and K8 (its per-image backward)", ("CeTerm",)),
@@ -970,6 +996,57 @@ def bacs_steps(task_id, device, **method_kw):
     ctx = ModelContext(TaskInfo(task_id=task_id, **BACS_TASK))
     method = create_method("loss.BACSLoss", **{**BACS_METHOD, **method_kw})
     return ctx, method, make_steps(ctx, method, N_CLASSES, device=device)
+
+
+def bacs_after_task0(cfg, seed, dev):
+    """[14]'s set-up at 512^2 in bf16: the BACS state with the detector and
+    the prototypes at task 0, then its ``end_task`` over FILL_BATCHES
+    synthetic batches of 16 (the sweep, the snapshot and the 300-slot
+    buffer's fill); returns (state, method, seconds of ``end_task``, the
+    batches' generator)."""
+    params_d, stats_d = seeded_variables(cfg, seed, use_bg_detector=True)
+    dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
+    state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        prototypes=torch.zeros((N_TASKS, dim), device=dev),
+                        proto_counts=torch.zeros(N_TASKS, device=dev))
+    ctx0, method, _ = bacs_steps(0, dev)
+    state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP // 16, CROP // 16),
+                                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    fill = [synthetic_batch(BATCH, CROP, gen, dev, n_classes=16)
+            for _ in range(FILL_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = method.end_task(state, ctx0, fill)
+    torch.cuda.synchronize()
+    return state, method, time.perf_counter() - t0, gen
+
+
+def bacs_busy_main(args) -> int:
+    """``--bacs-busy``: build, then [14]'s set-up and two warm-up task-1
+    BACS steps, and print the step's device busy ms (the profiler's device
+    time of two steps on one batch, per step, three times) as one JSON line
+    (with ``--package-root`` the port of another checkout, so that the
+    parent and the change are timed in one call)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    build.load_library()
+    state, _, _, gen = bacs_after_task0(network_cfg(), args.seed, dev)
+    _, _, (bacs_train, _, _) = bacs_steps(1, dev)
+    for _ in range(WARMUP_STEPS):
+        state, _ = bacs_train(state, synthetic_batch(BATCH, CROP, gen, dev, 17))
+    batch = synthetic_batch(BATCH, CROP, gen, dev, 17)
+    busy = [busy_ms(lambda: bacs_train(state, batch)) for _ in range(3)]
+    print(json.dumps({"bacs_busy_ms": busy, "package": os.path.dirname(build.PKG_DIR),
+                      "smi": nvidia_smi()}), flush=True)
+    return 0
 
 
 @contextlib.contextmanager
@@ -1189,6 +1266,14 @@ def mib_plop_kernel_checks(dev) -> dict:
                 f"{e['grad_abs']:.3g} (rel {e['grad_rel']:.3g}), K1's scalar case bit for "
                 f"bit; K9 {teacher}: ok, {flips} pixels flipped (all within 1e-5 of a "
                 "threshold or a tie)")
+    for c in CHUNK_CHANNELS:
+        errs["k9"] = max(errs["k9"], check_pseudo((2, 8, 8, c), (128, 128), torch.bfloat16,
+                                                  dev))
+    errs["k9"] = max(errs["k9"], check_pseudo(
+        (2, 5, 7, 16), (37, 51), torch.float32, dev, labels_dtype=torch.int64,
+        ignore_index=-100, new_image=True))
+    log(f"[17] K9 at {CHUNK_CHANNELS} channels, and with int64 labels, ignore index -100 "
+        "and an image of new-class labels only: ok")
     return errs
 
 
@@ -1439,47 +1524,55 @@ EARLIER_BUSY_MS = {"CE step (phase [9])": "97.308-98.330",
                    "PLOP step (phase [19])": "103.729-104.212",
                    "fused stem on against off (phase [23])": "-0.28 to -2.16"}
 # the kernel ms measured before each one's redesign (PERF.md section 6, the
-# same card): K1-K8's before the family's templates, K7's and K12's on the
-# first port's one-thread-per-element design; printed beside this run's
+# same card): K1-K8's before the family's templates, K7's, K9's, K10's and
+# K12's on the first port's one-thread-per-element design (K9 and K10: the
+# last two full runs before their redesign); printed beside this run's
 EARLIER_KERNEL_MS = {"k1f": "0.1872 / 0.1889", "k1b": "0.7412 / 0.7441",
+                     "k10": "0.1780 / 0.1795", "k9": "0.2188 / 0.2228",
                      "k3f": "0.1914 / 0.1896 / 0.1900", "k3b": "0.7571 / 0.7505 / 0.7528",
                      "k4f": "0.1183 / 0.1166 / 0.1171", "k4b": "0.4846 / 0.4802 / 0.4811",
                      "k6f": "0.1389 / 0.1362", "k6b": "0.5439 / 0.5415",
                      "k7f": "0.2998 / 0.2986 / 0.2982", "k7b": "1.2424 / 1.2543 / 1.2415",
                      "k8": "0.4484 / 0.4464 / 0.4647",
                      "k12f": "0.1898 / 0.1897 / 0.1888", "k12b": "0.6373 / 0.6370 / 0.6368"}
-# the kernels of the forward-sums and backward-gather templates and their
-# main-path shapes: K1 at the CE step, K3 at the BACS main batch, K4 at its
-# dark++ replay batch, K6, K7 (the student; its teacher one channel fewer)
-# and K8 at the MiB and PLOP steps; and the fused stem's K12 at the CLI's
-# batch (its conv output c)
+# the kernels of the staged templates and their main-path shapes: K1 at the
+# CE step, K3 at the BACS main batch, K4 at its dark++ replay batch, K6, K7
+# (the student; its teacher one channel fewer) and K8 at the MiB and PLOP
+# steps, K9 at PLOP's teacher, K10 at the served batch; and the fused stem's
+# K12 at the CLI's batch (its conv output c)
 FAMILY_SHAPES = {"k1": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
                  "k3": (BATCH, CROP // 16, CROP // 16, 17),
                  "k4": (12, CROP // 16, CROP // 16, 17),
                  "k6": (12, CROP // 16, CROP // 16, 17),
                  "k7": (12, CROP // 16, CROP // 16, 17),
                  "k8": (12, CROP // 16, CROP // 16, 17),
+                 "k9": (12, CROP // 16, CROP // 16, OLD_CLASSES),
+                 "k10": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
                  "k12": (12, CROP // 2, CROP // 2, 64)}
 # the symbols of the kernels whose registers and spills the build report
 # prints (K7 is the templates' UkdTerm instance)
 FAMILY_SYMBOLS = ("sums_kernel", "sums_reduce_kernel", "grad_bands_kernel",
-                  "band_sum_kernel", "stem_pool_fwd_kernel", "stem_pool_grad_kernel")
+                  "band_sum_kernel", "pixel_kernel", "stem_pool_fwd_kernel",
+                  "stem_pool_grad_kernel")
 
 
 def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
-    """{key: call} of K1, K3, K4, K6, K7, K12 (forward and backward) and K8 at
-    ``shapes`` (default: the main path's), bf16, int32 labels with ~5 %
-    ignored (a third background for K3 and K6), K3's max_seen uniform,
-    K4's dark++ weights, K7's teacher of one channel fewer and MiB's
-    scale, K8's g one random value per image, K12 on the stem's inputs of
-    ``stem_inputs`` (``out_hw`` does not apply); each call returns the
-    kernel's output tensors.  Uses only the wrappers' public signatures,
-    which the first port's kernels share."""
+    """{key: call} of K1, K3, K4, K6, K7, K12 (forward and backward), K8, K9
+    and K10 at ``shapes`` (default: the main path's), bf16, int32 labels
+    with ~5 % ignored (a third background for K3 and K6; K9's in [0, C],
+    C the new class), K3's max_seen uniform, K4's dark++ weights, K7's
+    teacher of one channel fewer and MiB's scale, K8's g one random value
+    per image, K9's thresholds 0.5 and max entropy log(C + 1), K12 on the
+    stem's inputs of ``stem_inputs`` (``out_hw`` does not apply); each call
+    returns the kernel's output tensors.  Uses only the wrappers' public
+    signatures, which the first port's kernels share."""
     from bacs_tpu_torch.ops.stem_pool import (
         backward_vectors, forward_vectors, stem_pool_fwd, stem_pool_grad)
+    from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
     from bacs_tpu_torch.ops.upsample_ce import (
         bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
         uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
+    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
 
     shapes = shapes or FAMILY_SHAPES
     g = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -1489,7 +1582,7 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
             continue
         n, c = shape[0], shape[-1]
         sem = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
-        lab = seeded_labels(n, out_hw, c, dev, seed)
+        lab = seeded_labels(n, out_hw, c + 1 if key == "k9" else c, dev, seed)
         if key in ("k3", "k6"):
             bg = torch.rand(lab.shape, generator=g, device=dev) < 0.3
             lab = torch.where(bg & (lab != 255), torch.zeros_like(lab), lab)
@@ -1517,6 +1610,10 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
     g4 = torch.tensor(1.0 / lab4.numel(), device=dev)
     g6 = torch.tensor(1.0 / lab6.numel(), device=dev)
     g8 = (torch.rand(sem8.shape[0], generator=g, device=dev) / lab8.numel()).contiguous()
+    sem9, lab9, c9 = ins["k9"]
+    thr9 = torch.full((max(N_CLASSES, c9),), 0.5, device=dev)
+    me9 = torch.tensor(float(np.log(c9 + 1)), device=dev)
+    sem10 = ins["k10"][0]
     return {
         "k1f": lambda: ce_sums_per_image(sem1, lab1, hw),
         "k1b": lambda: ce_dsem(sem1, lab1, hw, g1),
@@ -1529,6 +1626,8 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
         "k7f": lambda: ukd_sum(sem7, old7, hw),
         "k7b": lambda: ukd_dsem(sem7, old7, hw, g7),
         "k8": lambda: ce_dsem_per_image(sem8, lab8, hw, g8),
+        "k9": lambda: plop_pseudo_labels(sem9, lab9, thr9, hw, me9),
+        "k10": lambda: upsampled_argmax_conf(sem10, hw),
         "k12f": lambda: stem_pool_fwd(c12, vec12, 0.01),
         "k12b": lambda: stem_pool_grad(c12, dap12, vec7_12, 0.01),
     }
@@ -2029,11 +2128,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--family-times", action="store_true",
                     help="only build and time the upsample+loss family's kernels")
+    ap.add_argument("--bacs-busy", action="store_true",
+                    help="only build and time the task-1 BACS step's device busy time")
     ap.add_argument("--package-root", default=None,
-                    help="with --family-times: the checkout whose port to time")
+                    help="with --family-times or --bacs-busy: the checkout whose port "
+                         "to time")
     args = ap.parse_args()
     if args.family_times:
         return family_times_main(args)
+    if args.bacs_busy:
+        return bacs_busy_main(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -2078,6 +2182,12 @@ def main() -> int:
             k10_err = max(k10_err, e)
             log(f"[3] K10 {shape}->{out_hw} {str(dt)[6:]}: ok, conf max abs "
                 f"err {e:.3g}")
+    for c in CHUNK_CHANNELS:
+        for levels in (False, True):
+            e = check_argmax((2, 8, 8, c), (128, 128), torch.bfloat16, dev, levels=levels)
+            k10_err = max(k10_err, e)
+        log(f"[3] K10 (2, 8, 8, {c})->(128, 128) bfloat16: ok, preds equal at every "
+            f"exact tie of integer logits, conf max abs err {e:.3g}")
 
     # 4. end-to-end f32, card (kernels) against CPU (plain versions)
     cfg = network_cfg()
@@ -2178,8 +2288,10 @@ def main() -> int:
     kh, kw = (torch.from_numpy(k).to(dev) for k in kmats(sem.shape, (CROP, CROP)))
     k10_plain_ms = device_ms(lambda: argmax_conf_from(torch.einsum(
         "Ww,nHwc->nHWc", kw, torch.einsum("Hh,nhwc->nHwc", kh, sem.float()))))
-    log(f"[t] K10 {tuple(sem.shape)}->{CROP}^2 bf16: kernel {k10_ms:.4f} ms, "
-        f"plain {k10_plain_ms:.4f} ms, kernel host-launched {k10_host_ms:.4f} ms")
+    k10_bound = upsample_bound("k10", sem, (CROP, CROP))
+    log(f"[t] K10 {tuple(sem.shape)}->{CROP}^2 bf16: kernel {k10_ms:.4f} ms (before: "
+        f"{EARLIER_KERNEL_MS['k10']}), plain {k10_plain_ms:.4f} ms, kernel host-launched "
+        f"{k10_host_ms:.4f} ms, bound {k10_bound[0]:.4f} ms ({k10_bound[1]})")
     log(f"[t] K5 per batch-{BATCH} forward ({ABN_PER_FORWARD} layers): kernel "
         f"{k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, kernel host-launched "
         f"{k5_host_ms:.4f} ms")
@@ -2193,7 +2305,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     # bf16 in and out, one read and one write; a subtract, an FMA and a select
     k5_bound = bound(2 * 2 * k5_elems, 3 * k5_elems)
-    k10_bound = upsample_bound("k10", sem, (CROP, CROP))
 
     # 6. and 7. K1 forward and backward, K2, against their plain versions
     k1f_err = k1b_err = 0.0
@@ -2337,23 +2448,7 @@ def main() -> int:
     # task-1 steps with the launches counted
     from bacs_tpu_torch.methods.bacs import DISTILL_CHUNK
 
-    params_d, stats_d = seeded_variables(cfg, args.seed, use_bg_detector=True)
-    dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
-    state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
-                        generator=torch.Generator(dev).manual_seed(args.seed),
-                        prototypes=torch.zeros((N_TASKS, dim), device=dev),
-                        proto_counts=torch.zeros(N_TASKS, device=dev))
-    ctx0, method, _ = bacs_steps(0, dev)
-    state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP // 16, CROP // 16),
-                                      device=dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    fill = [synthetic_batch(BATCH, CROP, gen, dev, n_classes=16)
-            for _ in range(FILL_BATCHES)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = method.end_task(state, ctx0, fill)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter() - t0
+    state, method, t_end, gen = bacs_after_task0(cfg, args.seed, dev)
     buf = state.buffer
     n_valid = int(buf.valid.sum())
     log(f"[14] end_task of task 0 over {FILL_BATCHES} batches of {BATCH} at {CROP}^2: "
@@ -2363,7 +2458,6 @@ def main() -> int:
     assert n_valid == BACS_METHOD["buffer_size"] == buf.size
     assert buf.num_seen == FILL_BATCHES * BATCH
     assert float(state.proto_counts[0]) > 0 and state.prev_model is not None
-    del fill
     ctx1, _, (bacs_train, bacs_eval, _) = bacs_steps(1, dev)
     losses = []
     for _ in range(WARMUP_STEPS):
@@ -2554,8 +2648,8 @@ def main() -> int:
     # two launches of each kernel of the family on the same inputs are
     # bit-equal, at the main path's shapes
     check_repeatable(family_calls(dev, args.seed))
-    log("[t] K1, K3, K4, K6, K7, K12 forward and backward and K8: two launches "
-        "bit-equal at the main path's shapes")
+    log("[t] K1, K3, K4, K6, K7, K12 forward and backward, K8, K9 and K10: two "
+        "launches bit-equal at the main path's shapes")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
     mp_times, mp_bounds = mib_plop_kernel_times(dev, args.seed)

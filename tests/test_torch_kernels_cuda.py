@@ -50,6 +50,42 @@ def test_upsample_argmax_kernel_matches_plain(cuda, shape, out_hw, dtype):
     check_argmax(shape, out_hw, dtype, cuda)
 
 
+# K10 and K9 (csrc/upsample_stage.cuh:pixel_kernel) at channel counts at and
+# across the register chunks (16, 24, then 32 a chunk), batch 1 at the
+# serving shape, and an odd band
+PIXEL_CASES = [((2, 8, 8, c), (128, 128)) for c in (16, 17, 24, 25, 33, 150)] + [
+    ((1, 32, 32, 21), (512, 512)), ((2, 33, 47, 21), (261, 373))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", PIXEL_CASES)
+def test_pixel_template_argmax_matches_plain(cuda, shape, out_hw, dtype):
+    """K10 under ``check_argmax``'s rule; at the power-of-two scales also on
+    integer logits, whose ties the two must break alike (the first channel
+    that reaches the max, within a chunk and across chunks)."""
+    check_argmax(shape, out_hw, dtype, cuda)
+    if out_hw == (128, 128):
+        check_argmax(shape, out_hw, dtype, cuda, levels=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", [((n, h, w, 16 if c == 21 else c), hw)
+                                          for (n, h, w, c), hw in PIXEL_CASES])
+def test_pixel_template_pseudo_matches_plain(cuda, shape, out_hw, dtype):
+    """K9 under the margin rule of ``chip_smoke.check_pseudo``."""
+    check_pseudo(shape, out_hw, dtype, cuda)
+
+
+@pytest.mark.parametrize("labels_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("ignore_index", [255, -100])
+def test_pseudo_labels_dtypes_ignore_index_and_new_class_image(cuda, labels_dtype,
+                                                               ignore_index):
+    """K9 with int64 labels, an ignore index other than 255, and a first
+    image whose labels are all the new class (no softmax, num = den = 0)."""
+    check_pseudo((3, 8, 8, 16), (128, 128), torch.bfloat16, cuda, labels_dtype=labels_dtype,
+                 ignore_index=ignore_index, new_image=True)
+
+
 UPSAMPLE_CASES = [((16, 32, 32, 21), (512, 512)), ((2, 33, 47, 21), (261, 373)),
                   ((2, 5, 7, 6), (37, 51)), ((2, 8, 8, 150), (128, 128)),
                   ((2, 16, 16, 4), (16, 16)), ((1, 4, 4, 3), (7, 5))]
@@ -176,12 +212,12 @@ def test_upsample_loss_family_other_shapes_match_plain(cuda, shape, out_hw, dtyp
 @pytest.mark.parametrize("where", ["main", "small"])
 def test_upsample_loss_family_launches_are_bit_equal(cuda, where):
     """Two launches of each forward and backward of K1, K3, K4, K6, K7, K12
-    and of K8 on the same inputs give bit-equal outputs (no float atomics),
-    at the main path's shapes and at small odd ones."""
+    and of K8, K9 and K10 on the same inputs give bit-equal outputs (no
+    float atomics), at the main path's shapes and at small odd ones."""
     shapes = None if where == "main" else {
         "k1": (2, 5, 7, 21), "k3": (2, 5, 7, 17), "k4": (3, 6, 5, 17),
         "k6": (2, 7, 5, 40), "k7": (2, 5, 7, 17), "k8": (2, 5, 7, 17),
-        "k12": (3, 6, 2, 5)}
+        "k9": (2, 5, 7, 33), "k10": (2, 7, 5, 25), "k12": (3, 6, 2, 5)}
     out_hw = (512, 512) if where == "main" else (37, 51)
     check_repeatable(family_calls(cuda, shapes=shapes, out_hw=out_hw))
 

@@ -142,3 +142,32 @@ def test_launch_plan_stages_the_pair(shape, c_old, out_hw):
         assert grad_smem_bytes(2 * tile, tile_span(tx, 2 * tile), c + c_old) > SMEM_MAX
     assert tile <= tile_alone
     assert grad_smem_bytes(tile, span, c + c_old) >= grad_smem_bytes(tile, span, c)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    # K10: the serving batch, batch 1, an odd band, 150 channels, and the
+    # channel counts at and across its register chunks
+    ((16, 32, 32, 21), (512, 512)), ((1, 32, 32, 21), (512, 512)),
+    ((2, 33, 47, 21), (261, 373)), ((2, 8, 8, 150), (128, 128)),
+    ((2, 8, 8, 25), (128, 128)), ((2, 8, 8, 33), (128, 128)),
+    # K9: PLOP's teacher at the step's batch, an odd band, 150 channels
+    ((12, 32, 32, 16), (512, 512)), ((2, 33, 47, 16), (261, 373)),
+    ((2, 8, 8, 150), (128, 128)), ((1, 64, 1024, 256), (16, 200))])
+def test_launch_plan_fits_the_pixel_kernels(shape, out_hw):
+    """K9 and K10 (``pixel_kernel`` of csrc/upsample_stage.cuh) stage the
+    whole row where its w columns of (c | 1) floats fit 48 KB, else the
+    plan's tiles: either stage fits a block's shared memory, the tiles
+    cover every output column with the source columns they read, and the
+    bands give about TARGET_BLOCKS blocks."""
+    n, h, w, c = shape
+    H, W = out_hw
+    _, (band, tile, span, _), nb = _plan_numpy(n, h, w, c, H, W)
+    ldc = c | 1
+    if 4 * w * ldc <= 48 * 1024:
+        tile, span = W, w
+    assert 1 <= tile and 4 * span * ldc <= SMEM_MAX
+    tx = tap_tables(W, w)
+    for ox0 in range(0, W, tile):
+        ox1 = min(W, ox0 + tile)
+        assert tx["hi"][ox1 - 1] - tx["lo"][ox0] + 1 <= span
+    assert nb == -(-H // band) and n * nb >= min(TARGET_BLOCKS, n * H) // 2
