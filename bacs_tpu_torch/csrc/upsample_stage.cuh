@@ -1,7 +1,9 @@
-// The staged layout of the upsample kernels (K1, K3, K4, K6-K10): the
+// The staged layout of the upsample kernels (K1-K4, K6-K10): the
 // host-built launch plan, the stage of one output row's H-lerped source
-// columns in shared memory, a pixel's view of it, the chunked softmax
-// statistics, and the per-pixel template `pixel_kernel` (K9, K10).
+// columns in shared memory (of two rows at once, `stage_two_rows`), a
+// pixel's view of it, the chunked softmax statistics, the argmax-only scan
+// (`argmax_scan2`, K2's), and the per-pixel template `pixel_kernel` (K9,
+// K10).
 //
 // A block takes one image and a band of output rows (grid = (bands, N),
 // bands from ops/upsample_ce.py:launch_plan).  For each output row it
@@ -14,7 +16,8 @@
 // past the first (`fold_chunk`).  The forward-sums and backward-gather
 // templates of the loss family are in upsample_ce.cu; `pixel_kernel` below
 // writes per-pixel outputs through a functor (ArgmaxConfTerm in
-// upsample_argmax.cu, PseudoTerm in upsample_pseudo.cu).
+// upsample_argmax.cu, PseudoTerm in upsample_pseudo.cu); K2's kernel, which
+// needs the argmax alone, is in upsample_confusion.cu.
 
 #pragma once
 
@@ -148,6 +151,30 @@ __device__ __forceinline__ void stage_row(const T* __restrict__ img, int w, int 
   }
 }
 
+// stage_row for two output rows in one pass (stage_a, stage_b), the
+// source rows read once where the two rows share them (ya == yb).
+template <typename T>
+__device__ __forceinline__ void stage_two_rows(const T* __restrict__ img, int w, int c,
+                                               int ldc, int2 ya, float wa, int2 yb, float wb,
+                                               int xs0, int nx, float* __restrict__ stage_a,
+                                               float* __restrict__ stage_b) {
+  const T* a0 = img + ((size_t)ya.x * w + xs0) * c;
+  const T* a1 = img + ((size_t)ya.y * w + xs0) * c;
+  const T* b0 = img + ((size_t)yb.x * w + xs0) * c;
+  const T* b1 = img + ((size_t)yb.y * w + xs0) * c;
+  const bool same = ya.x == yb.x && ya.y == yb.y;
+  const float wa0 = 1.f - wa, wb0 = 1.f - wb;
+  const int total = nx * c;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int xi = i / c;
+    const int o = xi * ldc + (i - xi * c);
+    const float r0 = to_f32(a0[i]), r1 = to_f32(a1[i]);
+    const float q0 = same ? r0 : to_f32(b0[i]), q1 = same ? r1 : to_f32(b1[i]);
+    stage_a[o] = wa0 * r0 + wa * r1;
+    stage_b[o] = wb0 * q0 + wb * q1;
+  }
+}
+
 // One output pixel's view of the stage: its two source columns and their
 // W weights.
 struct Pixel {
@@ -250,6 +277,73 @@ __device__ __forceinline__ ArgStats argmax_stats(const Pixel& px, int c, float (
     fold_chunk<false>(v, c0, 0, st, e);
   }
   return ArgStats{st.m, st.s, arg};
+}
+
+// A pixel's view of a stage whose columns hold ldc floats, ldc a multiple
+// of KC and 16-byte aligned, the channels past c NaN (no compare selects
+// them): its chunks of KC logits by 16-byte shared loads.
+struct PixelVec {
+  const float4 *ra, *rb;
+  float wa, wb;
+
+  template <int KC>
+  __device__ __forceinline__ void chunk(int c0, float (&v)[KC]) const {
+    static_assert(KC % 4 == 0, "whole 16-byte loads");
+#pragma unroll
+    for (int q = 0; q < KC / 4; ++q) {
+      const float4 a = ra[c0 / 4 + q], b = rb[c0 / 4 + q];
+      v[4 * q] = wa * a.x + wb * b.x;
+      v[4 * q + 1] = wa * a.y + wb * b.y;
+      v[4 * q + 2] = wa * a.z + wb * b.z;
+      v[4 * q + 3] = wa * a.w + wb * b.w;
+    }
+  }
+};
+
+// The argmax of a chunk of KC logits, as a tree: (its max, the first k
+// that reaches it), a later half taking over only on a strict >.
+template <int KC>
+__device__ __forceinline__ void chunk_argmax(const float (&v)[KC], float& cm, int& a) {
+  float mv[KC];
+  int mi[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    mv[k] = v[k];
+    mi[k] = k;
+  }
+#pragma unroll
+  for (int s = 1; s < KC; s *= 2) {
+#pragma unroll
+    for (int k = 0; k + s < KC; k += 2 * s) {
+      mi[k] = mv[k + s] > mv[k] ? mi[k + s] : mi[k];
+      mv[k] = fmaxf(mv[k], mv[k + s]);
+    }
+  }
+  cm = mv[0];
+  a = mi[0];
+}
+
+// The argmax alone of two pixels over all c channels, their chunks of KC
+// interleaved (two independent chains): within a chunk its max and the
+// first k that reaches it (`chunk_argmax`), across chunks a later one
+// taking over only on a strict >, as argmax_stats has it; no exponential.
+template <int KC>
+__device__ __forceinline__ void argmax_scan2(const PixelVec& pa, const PixelVec& pb, int c,
+                                             int& aa, int& ab) {
+  float ma = -INFINITY, mb = -INFINITY;
+  aa = ab = 0;
+  for (int c0 = 0; c0 < c; c0 += KC) {
+    float va[KC], vb[KC], ca, cb;
+    int ka, kb;
+    pa.chunk(c0, va);
+    pb.chunk(c0, vb);
+    chunk_argmax(va, ca, ka);
+    chunk_argmax(vb, cb, kb);
+    aa = ca > ma ? c0 + ka : aa;
+    ab = cb > mb ? c0 + kb : ab;
+    ma = fmaxf(ma, ca);
+    mb = fmaxf(mb, cb);
+  }
 }
 
 // Per-pixel outputs of the bilinear-upsampled logits: one block per (band

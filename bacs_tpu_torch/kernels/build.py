@@ -71,8 +71,8 @@ SIGNATURES = {
     #  partials, dsem, stream)
     "upsample_bacs_grad": _FAMILY + [_P, _I, _I, _F, _F, _P] + _PLAN + [_P, _P, _P],
     # (sem, sem_is_bf16, labels, labels_are_i64, n, h, w, c, H, W,
-    #  num_classes, conf, stream)
-    "upsample_confusion": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    #  num_classes, plan, conf, stream)
+    "upsample_confusion": _FAMILY + _PLAN + [_P, _P],
     # (problem, g [n], plan, partials, dsem, stream)
     "upsample_ce_grad_per_image": _FAMILY + [_P] + _PLAN + [_P, _P, _P],
     # (problem, old_classes, plan, partials, loss_out, count_out, stream)

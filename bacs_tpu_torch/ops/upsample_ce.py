@@ -60,7 +60,7 @@ scalar.  The plain versions upsample with the ``interp_matrix`` einsums in
 f32 (``upsample_tiles.py``).  Labels other than ``ignore_index`` are
 expected in [0, C); one outside picks no logit, as the TPU kernels'
 one-hot.  Bounds and tolerances are in the kernels' source note.  The
-kernels of K1, K3, K4, K6, K7 and K8 (and K9 and K10, in their own
+kernels of K1, K3, K4, K6, K7 and K8 (and K2, K9 and K10, in their own
 modules) read their bilinear taps and their bands of output rows from int32
 tables built here with ``interp_matrix``'s arithmetic (:func:`launch_plan`,
 cached per shape on the device; K7's stage holds the teacher's channels
@@ -258,7 +258,7 @@ _device_tables = {}
 
 def launch_plan(n, h, w, c, H, W, device, c_old=0):
     """(int32 tap tables on ``device``, (band, tile, span, rows), bands):
-    the layout ``Plan`` in csrc/upsample_stage.cuh reads (K1, K3, K4,
+    the layout ``Plan`` in csrc/upsample_stage.cuh reads (K1-K4,
     K6-K10), cached per shape; ``c_old``, K7's teacher channels, staged
     beside the student's c."""
     tables, args, nb = _plan_numpy(n, h, w, c, H, W, c_old)

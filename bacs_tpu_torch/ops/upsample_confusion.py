@@ -11,6 +11,9 @@ full-resolution logits nor the prediction map is stored.
   ``csrc/upsample_confusion.cu`` (replacing ``_conf_pallas``,
   ``bacs_tpu/ops/upsample_confusion.py:88``) or raises; a CPU tensor runs
   the plain version.  Its ``launches`` attribute counts kernel launches.
+  The kernel reads its bilinear taps and bands of output rows from the
+  tables of ``ops/upsample_ce.py:launch_plan`` (shared with K1 at the same
+  shape).
 
 Rows are targets and columns predictions; labels outside
 [0, num_classes) are dropped and predictions clipped into range.  Bound
@@ -25,11 +28,12 @@ import torch
 
 from bacs_tpu_torch.kernels import build
 from bacs_tpu_torch.ops.confusion import confusion_matrix
-from bacs_tpu_torch.ops.upsample_ce import check_inputs, upsample_plain
+from bacs_tpu_torch.ops.upsample_ce import check_inputs, launch_plan, upsample_plain
 
 
-# the kernel keeps a num_classes^2 int histogram per block in shared
-# memory, which on the H100 may take up to 227 KB
+# the most classes the wrapper takes; the kernel keeps a num_classes^2 int
+# histogram per block in shared memory where it fits beside the stage (about
+# 225 classes), else it counts in the output
 MAX_CLASSES = 241
 
 
@@ -44,6 +48,7 @@ def _confusion_cuda(sem, labels, out_hw, num_classes):
     if not 1 <= num_classes <= MAX_CLASSES:
         raise ValueError(f"the CUDA kernel takes 1 to {MAX_CLASSES} classes, "
                          f"got {num_classes}")
+    tables, args, _ = launch_plan(n, h, w, c, H, W, sem.device)
     conf = torch.zeros((num_classes, num_classes), dtype=torch.int32,
                        device=sem.device)
     lib = build.load_library()
@@ -51,7 +56,8 @@ def _confusion_cuda(sem, labels, out_hw, num_classes):
         code = lib.upsample_confusion(
             sem.data_ptr(), int(sem.dtype == torch.bfloat16), labels.data_ptr(),
             int(labels.dtype == torch.int64), n, h, w, c, H, W, int(num_classes),
-            conf.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            tables.data_ptr(), *args, conf.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(code, "upsample_confusion")
     upsampled_confusion.launches += 1

@@ -46,7 +46,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    two steps (device time by kernel, busy and idle share);
 10. runs bf16 eval steps at 512^2, batch 16: asserts 107 eval-ABN (K5),
    1 K1 forward and 1 K2 launch per step and that the confusion matrix
-   counts every valid pixel, and times the step;
+   counts every valid pixel, and times the step (wall and device busy);
 11. holds the class-weighted upsample+CE kernels (K4 forward and backward,
    CUDA) against their plain versions at the dark++ replay shape
    [12,32,32,17] -> 512^2 with its weights (0 for background and the new
@@ -70,7 +70,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    network forwards and backwards, the previous model, the teacher
    distillation, the detector, K3/K4, SGD);
 15. one eval step at task 1: 107 K5, 1 K1 forward and 1 K2 per step, every
-   valid pixel counted;
+   valid pixel counted, and its device busy time;
 16. holds MiB's kernels, the unbiased upsample+CE (K6) and the unbiased KD
    of an upsampled student/teacher pair (K7), forward and backward,
    against their plain versions at the step's [12,32,32,17] (teacher 16
@@ -118,13 +118,19 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
-   ``F.interpolate`` + ``F.cross_entropy`` pair), computes every kernel's
-   bound from its inputs (bytes, f32 operations and special-function
-   operations), and holds two launches of each staged kernel (K1, K3, K4,
-   K6, K7 forward and backward, K8, K9, K10) and of K12 bit-equal.
+   ``F.interpolate`` + ``F.cross_entropy`` pair, K2 beside the unfused
+   ``F.interpolate`` + ``argmax`` + ``torch.bincount`` trio and also on
+   logits whose argmax follows the label blocks, so that most warps of 32
+   kept pixels fill one bin), computes every kernel's bound from its
+   inputs (bytes, f32 operations and special-function operations), and
+   holds two launches of each staged kernel (K1, K3, K4, K6, K7 forward
+   and backward, K2, K8, K9, K10) and of K12 bit-equal.
 
-``--family-times`` only builds and times the redesigned kernels (K1, K3,
-K4, K6-K10 and K12) at the main path's shapes (one JSON line), and
+Every profiled window logs the card's SM clock over it (``[clock]``,
+``nvidia-smi`` sampling), beside the busy time it gives.
+
+``--family-times`` only builds and times the redesigned kernels (K1-K4,
+K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
 set-up); with ``--package-root`` the port of another checkout, so that
 two versions (e.g. the parent commit unpacked under ``build/``) are timed
@@ -153,6 +159,7 @@ import numpy as np
 import torch
 
 N_CLASSES = 21  # conf/bacs/dataset/voc.yaml
+ADE_CLASSES = 150  # ADE20K's classes
 N_TASKS = 6  # VOC 15-1 with background: 16 classes, then 5 tasks of 1
 CROP = 512
 BATCH = 16
@@ -185,11 +192,42 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def sm_clock(label: str):
+    """Logs the card's SM clock over the block: ``nvidia-smi`` samples
+    ``clocks.sm`` every 100 ms while it runs (median and range), beside
+    ``clocks.max.sm``; a block shorter than the first sample reads the
+    clock once after it.  A busy time is read against the clock the card
+    ran at: cards of one kind and power limit differ in it between calls."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        try:
+            out = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        rows = [[int(v) for v in line.split(",")] for line in out.splitlines()
+                if line.replace(",", "").replace(" ", "").isdigit()]
+        if rows:
+            mhz = sorted(r[0] for r in rows)
+            log(f"[clock] {label}: SM clock median {mhz[len(mhz) // 2]} MHz (min {mhz[0]}, "
+                f"max {mhz[-1]}; {len(mhz)} samples, 100 ms apart) of max {rows[0][1]} MHz")
+        else:
+            log(f"[clock] {label}: SM clock, max SM clock just after: "
+                f"{nvidia_smi('clocks.sm,clocks.max.sm')}")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -532,24 +570,41 @@ def check_pseudo(shape, out_hw, dtype, device, seed=0, labels_dtype=torch.int32,
     return flips
 
 
-def check_confusion(shape, out_hw, dtype, device, seed=0) -> int:
+def check_confusion(shape, out_hw, dtype, device, seed=0, num_classes=None,
+                    labels_dtype=torch.int32, one_bin=False) -> int:
     """K2 against its plain version; returns the pixels counted differently,
-    each of which must have a top-2 margin <= 1e-4."""
+    each of which must have a top-2 margin <= 1e-4.  The labels are in [0,
+    num_classes) (default: the channel count) with ~5 % 255 and ~2 % each
+    -1 and num_classes, all dropped; with ``one_bin`` every label is 3 and
+    class 3 leads every logit by 10, so every pixel lands in one bin."""
     from bacs_tpu_torch.ops.upsample_ce import upsample_plain
     from bacs_tpu_torch.ops.upsample_confusion import (
         confusion_plain, upsampled_confusion)
 
     g = torch.Generator(device=device).manual_seed(seed)
     n, c = shape[0], shape[-1]
-    sem = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
-    labels = seeded_labels(n, out_hw, c, device, seed)
-    conf = upsampled_confusion(sem, labels, out_hw, c)
-    ref = confusion_plain(sem, labels, out_hw, c)
+    nc = num_classes or c
+    sem = torch.randn(shape, generator=g, device=device)
+    if one_bin:
+        sem = sem * 0.1 + 10 * torch.nn.functional.one_hot(torch.full(shape[:-1], 3,
+                                                                      device=device), c)
+        labels = torch.full((n, *out_hw), 3, dtype=torch.int32, device=device)
+    else:
+        sem = sem * 4
+        labels = seeded_labels(n, out_hw, nc, device, seed)
+        drop = torch.rand(labels.shape, generator=g, device=device)
+        labels = torch.where(drop < 0.02, -1, torch.where(drop > 0.98, nc, labels))
+    sem, labels = sem.to(dtype), labels.to(labels_dtype)
+    conf = upsampled_confusion(sem, labels, out_hw, nc)
+    ref = confusion_plain(sem, labels, out_hw, nc)
     top2 = upsample_plain(sem, out_hw).topk(min(2, c), dim=-1).values
     close = int(((top2[..., 0] - top2[..., -1]) <= 1e-4).sum()) if c > 1 else 0
     torch.cuda.synchronize()
-    assert conf.dtype == torch.int32 and conf.shape == (c, c)
-    assert int(conf.sum()) == int((labels != 255).sum()), "pixels lost"
+    assert conf.dtype == torch.int32 and conf.shape == (nc, nc)
+    valid = int(((labels >= 0) & (labels < nc)).sum())
+    assert int(conf.sum()) == valid, "pixels lost"
+    if one_bin:
+        assert int(conf[3, 3]) == labels.numel(), "the one bin lost pixels"
     moved = int((conf - ref).abs().sum()) // 2
     assert moved <= close, f"K2 moved {moved} pixels, {close} near ties"
     return moved
@@ -674,7 +729,8 @@ def profile(predictor, images_u8) -> float:
 
     predictor.predict(images_u8)
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with sm_clock("profiled window of 2 served batches"), tprofile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             predictor.predict(images_u8)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
@@ -848,10 +904,11 @@ def device_kernels(fn, steps: int = 2, warm: bool = True) -> tuple:
     if warm:
         fn()
         torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
+    with sm_clock(f"profiled window of {steps} call(s)"):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], prof
 
 
@@ -1045,7 +1102,8 @@ def bacs_busy_main(args) -> int:
     batch = synthetic_batch(BATCH, CROP, gen, dev, 17)
     busy = [busy_ms(lambda: bacs_train(state, batch)) for _ in range(3)]
     print(json.dumps({"bacs_busy_ms": busy, "package": os.path.dirname(build.PKG_DIR),
-                      "smi": nvidia_smi()}), flush=True)
+                      "smi": nvidia_smi(),
+                      "sm_clock": nvidia_smi("clocks.sm,clocks.max.sm")}), flush=True)
     return 0
 
 
@@ -1524,10 +1582,12 @@ EARLIER_BUSY_MS = {"CE step (phase [9])": "97.308-98.330",
                    "PLOP step (phase [19])": "103.729-104.212",
                    "fused stem on against off (phase [23])": "-0.28 to -2.16"}
 # the kernel ms measured before each one's redesign (PERF.md section 6, the
-# same card): K1-K8's before the family's templates, K7's, K9's, K10's and
-# K12's on the first port's one-thread-per-element design (K9 and K10: the
-# last two full runs before their redesign); printed beside this run's
+# same card): K1-K8's before the family's templates, K2's, K7's, K9's, K10's
+# and K12's on the first port's one-thread-per-element design (K2, K9 and
+# K10: the last two full runs before their redesign); printed beside this
+# run's
 EARLIER_KERNEL_MS = {"k1f": "0.1872 / 0.1889", "k1b": "0.7412 / 0.7441",
+                     "k2": "0.1173 / 0.1169",
                      "k10": "0.1780 / 0.1795", "k9": "0.2188 / 0.2228",
                      "k3f": "0.1914 / 0.1896 / 0.1900", "k3b": "0.7571 / 0.7505 / 0.7528",
                      "k4f": "0.1183 / 0.1166 / 0.1171", "k4b": "0.4846 / 0.4802 / 0.4811",
@@ -1536,11 +1596,12 @@ EARLIER_KERNEL_MS = {"k1f": "0.1872 / 0.1889", "k1b": "0.7412 / 0.7441",
                      "k8": "0.4484 / 0.4464 / 0.4647",
                      "k12f": "0.1898 / 0.1897 / 0.1888", "k12b": "0.6373 / 0.6370 / 0.6368"}
 # the kernels of the staged templates and their main-path shapes: K1 at the
-# CE step, K3 at the BACS main batch, K4 at its dark++ replay batch, K6, K7
-# (the student; its teacher one channel fewer) and K8 at the MiB and PLOP
-# steps, K9 at PLOP's teacher, K10 at the served batch; and the fused stem's
-# K12 at the CLI's batch (its conv output c)
+# CE step, K2 at its eval step, K3 at the BACS main batch, K4 at its dark++
+# replay batch, K6, K7 (the student; its teacher one channel fewer) and K8
+# at the MiB and PLOP steps, K9 at PLOP's teacher, K10 at the served batch;
+# and the fused stem's K12 at the CLI's batch (its conv output c)
 FAMILY_SHAPES = {"k1": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
+                 "k2": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
                  "k3": (BATCH, CROP // 16, CROP // 16, 17),
                  "k4": (12, CROP // 16, CROP // 16, 17),
                  "k6": (12, CROP // 16, CROP // 16, 17),
@@ -1552,13 +1613,16 @@ FAMILY_SHAPES = {"k1": (BATCH, CROP // 16, CROP // 16, N_CLASSES),
 # the symbols of the kernels whose registers and spills the build report
 # prints (K7 is the templates' UkdTerm instance)
 FAMILY_SYMBOLS = ("sums_kernel", "sums_reduce_kernel", "grad_bands_kernel",
-                  "band_sum_kernel", "pixel_kernel", "stem_pool_fwd_kernel",
-                  "stem_pool_grad_kernel")
+                  "band_sum_kernel", "pixel_kernel", "conf_kernel",
+                  "stem_pool_fwd_kernel", "stem_pool_grad_kernel")
 
 
 def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
-    """{key: call} of K1, K3, K4, K6, K7, K12 (forward and backward), K8, K9
-    and K10 at ``shapes`` (default: the main path's), bf16, int32 labels
+    """{key: call} of K1, K3, K4, K6, K7, K12 (forward and backward), K2,
+    K8, K9 and K10 at ``shapes`` (default: the main path's; K2 also as
+    ``k2t``, at the main path's only, on ``synthetic_batch``'s labels and
+    ``trained_like_logits``, and as ``k2a`` at ADE's 150 classes), bf16,
+    int32 labels
     with ~5 % ignored (a third background for K3 and K6; K9's in [0, C],
     C the new class), K3's max_seen uniform, K4's dark++ weights, K7's
     teacher of one channel fewer and MiB's scale, K8's g one random value
@@ -1572,6 +1636,7 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
     from bacs_tpu_torch.ops.upsample_ce import (
         bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
         uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
     from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
 
     shapes = shapes or FAMILY_SHAPES
@@ -1614,6 +1679,16 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
     thr9 = torch.full((max(N_CLASSES, c9),), 0.5, device=dev)
     me9 = torch.tensor(float(np.log(c9 + 1)), device=dev)
     sem10 = ins["k10"][0]
+    sem2, lab2, c2 = ins["k2"]
+    extra = {}
+    if shapes is FAMILY_SHAPES:
+        lab2t = synthetic_batch(shapes["k2"][0], out_hw[0], g, dev, c2)["label"]
+        sem2t = trained_like_logits(lab2t, c2, g)
+        extra["k2t"] = lambda: upsampled_confusion(sem2t, lab2t, hw, c2)
+        sem2a = (torch.randn((*shapes["k2"][:3], ADE_CLASSES), generator=g, device=dev)
+                 * 3).to(torch.bfloat16)
+        lab2a = seeded_labels(shapes["k2"][0], out_hw, ADE_CLASSES, dev, seed)
+        extra["k2a"] = lambda: upsampled_confusion(sem2a, lab2a, hw, ADE_CLASSES)
     return {
         "k1f": lambda: ce_sums_per_image(sem1, lab1, hw),
         "k1b": lambda: ce_dsem(sem1, lab1, hw, g1),
@@ -1628,8 +1703,10 @@ def family_calls(dev, seed=0, shapes=None, out_hw=(CROP, CROP)) -> dict:
         "k8": lambda: ce_dsem_per_image(sem8, lab8, hw, g8),
         "k9": lambda: plop_pseudo_labels(sem9, lab9, thr9, hw, me9),
         "k10": lambda: upsampled_argmax_conf(sem10, hw),
+        "k2": lambda: upsampled_confusion(sem2, lab2, hw, c2),
         "k12f": lambda: stem_pool_fwd(c12, vec12, 0.01),
         "k12b": lambda: stem_pool_grad(c12, dap12, vec7_12, 0.01),
+        **extra,
     }
 
 
@@ -1664,6 +1741,56 @@ def library_pair_ms(sem, labels, out_hw, weight=None) -> tuple:
         fwd = time_ms(loss, iters=10)
     both = time_ms(lambda: loss().backward(), iters=10)
     return fwd, both - fwd
+
+
+def library_trio_ms(sem, labels, out_hw, num_classes) -> float:
+    """ms of the unfused PyTorch trio that computes K2: ``F.interpolate``
+    (bilinear, align_corners=False) of the NCHW view of sem, ``argmax`` over
+    the channels, then ``torch.bincount`` of t * nc + pred over the pixels
+    whose label is in [0, nc) (the others in a bin past the matrix);
+    host-launched CUDA events.  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    x = sem.permute(0, 3, 1, 2)
+    nc = num_classes
+
+    def trio():
+        pred = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                             align_corners=False).argmax(1).clamp(max=nc - 1)
+        t = labels.long()
+        idx = torch.where((t >= 0) & (t < nc), t * nc + pred, nc * nc)
+        return torch.bincount(idx.flatten(), minlength=nc * nc + 1)[:nc * nc]
+
+    with torch.no_grad():
+        return time_ms(trio, iters=10)
+
+
+def trained_like_logits(labels, c, gen, margin=6.0):
+    """bf16 logits [n, H / 16, W / 16, c] whose argmax follows the labels'
+    blocks, as a trained network's does: unit noise plus ``margin`` on the
+    class of the label at each cell's centre (0 where that is dropped).  On
+    ``synthetic_batch``'s labels most warps of 32 neighbouring pixels that
+    are all kept then fill one bin of the confusion matrix."""
+    n, H, W = labels.shape
+    centre = labels[:, 8::16, 8::16].long()
+    centre = torch.where((centre >= 0) & (centre < c), centre, 0)
+    sem = torch.randn((n, H // 16, W // 16, c), generator=gen, device=labels.device)
+    sem += margin * torch.nn.functional.one_hot(centre, c)
+    return sem.to(torch.bfloat16)
+
+
+def one_bin_warps(sem, labels, out_hw, num_classes) -> float:
+    """The share of warps of K2's tile loop (32 neighbouring pixels of an
+    output row, whole rows; W a multiple of 32) whose 32 pixels are all
+    kept and fill one bin: the warps whose 32 increments meet on one
+    shared-memory address."""
+    from bacs_tpu_torch.ops.upsample_ce import upsample_plain
+
+    nc = num_classes
+    pred = upsample_plain(sem, out_hw).argmax(-1).clamp(max=nc - 1)
+    t = labels.long()
+    key = torch.where((t >= 0) & (t < nc), t * nc + pred, -1).reshape(-1, 32)
+    return float(((key == key[:, :1]) & (key >= 0)).all(-1).float().mean())
 
 
 def ptxas_report(log_text: str) -> list:
@@ -1732,10 +1859,11 @@ def family_times_main(args) -> int:
 
     dev = torch.device("cuda", 0)
     build_and_report(build)
-    times = {k: device_ms(fn) for k, fn in family_calls(dev, args.seed).items()}
+    with sm_clock("the family's timings"):
+        times = {k: device_ms(fn) for k, fn in family_calls(dev, args.seed).items()}
     print(json.dumps({"family_ms": times, "package": os.path.dirname(build.PKG_DIR),
-                      "device": torch.cuda.get_device_name(0), "smi": nvidia_smi()}),
-          flush=True)
+                      "device": torch.cuda.get_device_name(0), "smi": nvidia_smi(),
+                      "sm_clock": nvidia_smi("clocks.sm,clocks.max.sm")}), flush=True)
     return 0
 
 
@@ -2412,6 +2540,10 @@ def main() -> int:
     assert eval_counts["k5"] == ABN_PER_FORWARD * EVAL_STEPS
     assert eval_counts["k1f"] == eval_counts["k2"] == EVAL_STEPS
     assert eval_counts["k1b"] == eval_counts["train_abn"] == 0
+    eval_busy = busy_ms(lambda: eval_step(state, conf_mat.clone(), train_batches[0]))
+    log(f"[p] eval: device busy {eval_busy:.3f} ms per step; median step wall "
+        f"{np.median(eval_ms):.3f} ms: device idle share "
+        f"{1 - eval_busy / np.median(eval_ms):.3f}")
 
     del state, train_batches
     torch.cuda.empty_cache()
@@ -2535,6 +2667,9 @@ def main() -> int:
     assert bacs_eval_counts["k1f"] == bacs_eval_counts["k2"] == EVAL_STEPS
     assert sum(bacs_eval_counts[k] for k in ("k1b", "k3f", "k3b", "k4f", "k4b",
                                              "train_abn")) == 0
+    log(f"[p] task-1 eval: device busy "
+        f"{busy_ms(lambda: bacs_eval(state, conf_mat.clone(), bacs_batches[0])):.3f} ms "
+        f"per step")
     del state
     torch.cuda.empty_cache()
 
@@ -2603,6 +2738,16 @@ def main() -> int:
                time_ms(lambda: confusion_plain(sem, labels, hw, N_CLASSES), iters=5)),
     }
     bounds = {k: upsample_bound(k, sem, hw, labels) for k in ("k1f", "k1b", "k2")}
+    # K2 also on logits whose argmax follows the labels' blocks (most warps
+    # fill one bin), beside the unfused library trio
+    sem2 = trained_like_logits(labels, N_CLASSES, torch.Generator(device=dev).manual_seed(
+        args.seed + 9))
+    k2_trained = (device_ms(lambda: upsampled_confusion(sem2, labels, hw, N_CLASSES)),
+                  upsample_bound("k2", sem2, hw, labels))
+    k2_trio = library_trio_ms(sem, labels, hw, N_CLASSES)
+    for name, s2 in (("random", sem), ("trained-like", sem2)):
+        log(f"[t] K2 inputs {name}: {one_bin_warps(s2, labels, hw, N_CLASSES):.1%} of its "
+            f"warps hold 32 kept pixels of one bin")
     # K3 at the main batch's shape, K4 at the replay batch's, on the labels
     # of the BACS step (17 classes) and its old-class weights
     from bacs_tpu_torch.ops.upsample_ce import (
@@ -2644,11 +2789,16 @@ def main() -> int:
             + f", plain {times[key][1]:.4f} ms, bound {bounds[key][0]:.4f} ms "
             f"({bounds[key][1]})"
             + (f", library pair F.interpolate + F.cross_entropy {library[key]:.4f} ms "
-               "(host-launched, CUDA events)" if key in library else ""))
+               "(host-launched, CUDA events)" if key in library else "")
+            + (f", library trio F.interpolate + argmax + torch.bincount {k2_trio:.4f} ms "
+               "(host-launched, CUDA events)" if key == "k2" else ""))
+    log(f"[t] K2 on trained-like logits {tuple(sem2.shape)}->{CROP}^2 bf16 (the argmax "
+        f"follows the label blocks), int32 labels: kernel {k2_trained[0]:.4f} ms, bound "
+        f"{k2_trained[1][0]:.4f} ms ({k2_trained[1][1]})")
     # two launches of each kernel of the family on the same inputs are
     # bit-equal, at the main path's shapes
     check_repeatable(family_calls(dev, args.seed))
-    log("[t] K1, K3, K4, K6, K7, K12 forward and backward, K8, K9 and K10: two "
+    log("[t] K1, K3, K4, K6, K7, K12 forward and backward, K2, K8, K9 and K10: two "
         "launches bit-equal at the main path's shapes")
     log(f"[t] bounds: K5 {k5_bound[0]:.4f} ms per forward ({k5_bound[1]}), K10 "
         f"{k10_bound[0]:.4f} ms ({k10_bound[1]})")
@@ -2718,7 +2868,11 @@ def main() -> int:
               "bacs_tpu_torch/csrc/upsample_confusion.cu",
               "bacs_tpu/ops/upsample_confusion.py:88",
               eval_counts["k2"] + bacs_eval_counts["k2"] + mib["eval"]["k2"]
-              + plop["eval"]["k2"], k2_moved, *times["k2"], bounds["k2"]),
+              + plop["eval"]["k2"], k2_moved, *times["k2"], bounds["k2"],
+              trained_like_ms=k2_trained[0], trained_like_bound_ms=k2_trained[1][0],
+              library_trio_ms=k2_trio,
+              library_trio_is="F.interpolate(bilinear, align_corners=False) + argmax + "
+                              "torch.bincount, three calls, host-launched CUDA events"),
         entry("upsample_bacs_sum (K3 forward)", "cuda",
               "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
               bacs_counts["k3f"], k3f_err, *times["k3f"], bounds["k3f"]),

@@ -98,10 +98,47 @@ def test_upsample_ce_kernels_match_plain(cuda, shape, out_hw, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize(  # 241 classes: the most whose histogram fits
+@pytest.mark.parametrize(  # 241 classes: the most the wrapper takes
     "shape,out_hw", UPSAMPLE_CASES + [((1, 4, 4, 241), (32, 32))])
 def test_upsample_confusion_kernel_matches_plain(cuda, shape, out_hw, dtype):
     check_confusion(shape, out_hw, dtype, cuda)
+
+
+# K2's staged kernel: ADE's 150 classes (the histogram in shared memory
+# beside the stage, fewer blocks an SM), Cityscapes' 19 at 512 x 1024, 241
+# classes (the bins in the output: histogram and stage do not fit
+# together), fewer and more channels than classes (predictions clipped)
+CONF_CASES = [((2, 32, 32, 150), (512, 512), 150), ((2, 32, 64, 19), (512, 1024), 19),
+              ((2, 8, 8, 241), (128, 128), 241), ((2, 8, 8, 21), (128, 128), 25),
+              ((2, 8, 8, 30), (128, 128), 21), ((1, 32, 32, 21), (512, 512), 21)]
+
+
+@pytest.mark.parametrize("labels_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw,nc", CONF_CASES)
+def test_confusion_template_matches_plain(cuda, shape, out_hw, nc, dtype, labels_dtype):
+    check_confusion(shape, out_hw, dtype, cuda, num_classes=nc, labels_dtype=labels_dtype)
+
+
+@pytest.mark.parametrize("labels_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", [((16, 32, 32, 21), (512, 512)),
+                                          ((2, 33, 47, 21), (261, 373))])
+def test_confusion_of_one_bin_counts_every_pixel(cuda, shape, out_hw, dtype, labels_dtype):
+    """Every label and every prediction class 3: each warp's pixels in one
+    bin, whose count must be every pixel."""
+    check_confusion(shape, out_hw, dtype, cuda, labels_dtype=labels_dtype, one_bin=True)
+
+
+@pytest.mark.parametrize("shape,out_hw,nc", CONF_CASES[:3])
+def test_confusion_launches_are_bit_equal(cuda, shape, out_hw, nc):
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+
+    sem = torch.randn(shape, device=cuda).to(torch.bfloat16)
+    labels = torch.randint(0, nc, (shape[0], *out_hw), device=cuda, dtype=torch.int32)
+    a = upsampled_confusion(sem, labels, out_hw, nc)
+    b = upsampled_confusion(sem, labels, out_hw, nc)
+    assert torch.equal(a, b) and int(a.sum()) == labels.numel()
 
 
 WEIGHTED_CASES = [((12, 32, 32, 17), (512, 512)), ((16, 32, 32, 17), (512, 512)),
@@ -212,12 +249,13 @@ def test_upsample_loss_family_other_shapes_match_plain(cuda, shape, out_hw, dtyp
 @pytest.mark.parametrize("where", ["main", "small"])
 def test_upsample_loss_family_launches_are_bit_equal(cuda, where):
     """Two launches of each forward and backward of K1, K3, K4, K6, K7, K12
-    and of K8, K9 and K10 on the same inputs give bit-equal outputs (no
+    and of K2, K8, K9 and K10 on the same inputs give bit-equal outputs (no
     float atomics), at the main path's shapes and at small odd ones."""
     shapes = None if where == "main" else {
         "k1": (2, 5, 7, 21), "k3": (2, 5, 7, 17), "k4": (3, 6, 5, 17),
         "k6": (2, 7, 5, 40), "k7": (2, 5, 7, 17), "k8": (2, 5, 7, 17),
-        "k9": (2, 5, 7, 33), "k10": (2, 7, 5, 25), "k12": (3, 6, 2, 5)}
+        "k9": (2, 5, 7, 33), "k10": (2, 7, 5, 25), "k2": (2, 5, 7, 21),
+        "k12": (3, 6, 2, 5)}
     out_hw = (512, 512) if where == "main" else (37, 51)
     check_repeatable(family_calls(cuda, shapes=shapes, out_hw=out_hw))
 

@@ -1,9 +1,10 @@
-"""CPU models of the per-pixel template's two kernels, held to the JAX package.
+"""CPU models of the per-pixel template's three kernels, held to the JAX package.
 
 K10 (serving argmax + confidence) and K9 (PLOP's pseudo-labels) run
-``pixel_kernel`` of ``bacs_tpu_torch/csrc/upsample_stage.cuh`` on the card
-only (``tests/test_torch_kernels_cuda.py``); these tests check, on the CPU,
-the two facts their designs rest on:
+``pixel_kernel`` of ``bacs_tpu_torch/csrc/upsample_stage.cuh``, and K2
+(the eval step's confusion matrix) its own kernel on the same staged
+layout, on the card only (``tests/test_torch_kernels_cuda.py``); these
+tests check, on the CPU, the facts their designs rest on:
 
 - The chunked scan.  A pixel's channels are W-lerped from the stage in
   chunks of KC; each chunk's max is taken first, its argmax is the first k
@@ -17,6 +18,10 @@ the two facts their designs rest on:
   the sum of p log(p + 1e-8) with the logarithm in base 2 times ln 2,
   gives the labels, num and den of JAX's ``upsampled_plop_pseudo_labels``
   (``_plop_pseudo_jnp``), at thresholds set clear of every pixel's entropy.
+- K2's argmax-only scan (the same tie rule, no exponentials, the
+  channels padded with NaN to whole chunks) and its integer bins (one
+  count per kept pixel at t * nc + min(pred, nc - 1)) give the matrix of
+  JAX's ``upsampled_confusion`` (its jnp path on the CPU) exactly.
 """
 
 import math
@@ -28,6 +33,7 @@ import torch
 import jax.numpy as jnp
 
 from bacs_tpu.ops.upsample_argmax import upsampled_argmax_conf as jax_argmax_conf
+from bacs_tpu.ops.upsample_confusion import upsampled_confusion as jax_confusion
 from bacs_tpu.ops.upsample_ce import _kmats
 from bacs_tpu.ops.upsample_ce import upsampled_plop_pseudo_labels as jax_pseudo
 from bacs_tpu_torch.ops.losses import pixel_entropy
@@ -175,3 +181,79 @@ def test_one_pass_pseudo_labels_match_jax(c, kc, ignore_index):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     num, den = got[1], got[2]
     assert 0 < float(num.sum()) < float(den.sum())  # kept and dropped pixels both
+
+
+def argmax_scan(up: torch.Tensor, kc: int) -> torch.Tensor:
+    """The argmax of f32 logits [..., c] as ``argmax_scan2`` takes it: the
+    channels padded with NaN to a multiple of kc (the stage's padding),
+    within a chunk a tree (a later half wins only on a strict >, the value
+    by fmaxf, which passes over NaN), across chunks a later one taking over
+    only on a strict >; no exponentials."""
+    c = up.shape[-1]
+    pad = torch.full((*up.shape[:-1], -c % kc), math.nan)
+    x = torch.cat([up, pad], -1)
+    m = torch.full(up.shape[:-1], -math.inf)
+    arg = torch.zeros(up.shape[:-1], dtype=torch.long)
+    for c0 in range(0, c, kc):
+        mv = list(x[..., c0:c0 + kc].unbind(-1))
+        mi = [torch.full(up.shape[:-1], k) for k in range(kc)]
+        s = 1
+        while s < kc:
+            for k in range(0, kc - s, 2 * s):
+                gt = mv[k + s] > mv[k]
+                mi[k] = torch.where(gt, mi[k + s], mi[k])
+                mv[k] = torch.fmax(mv[k], mv[k + s])
+            s *= 2
+        arg = torch.where(mv[0] > m, c0 + mi[0], arg)
+        m = torch.fmax(m, mv[0])
+    return arg
+
+
+def pixel_histogram(preds: np.ndarray, labels: np.ndarray, nc: int) -> np.ndarray:
+    """The int32 [nc, nc] matrix of ``conf_kernel``'s bins: one count per
+    pixel whose label t is in [0, nc), at t * nc + min(pred, nc - 1)."""
+    t = labels.astype(np.int64).ravel()
+    keep = (t >= 0) & (t < nc)
+    key = t[keep] * nc + np.minimum(preds.ravel()[keep], nc - 1)
+    return np.bincount(key, minlength=nc * nc).reshape(nc, nc).astype(np.int32)
+
+
+KC = 8  # the chunk of upsample_confusion.cu's scan
+
+
+# (sem shape, output size, classes); scale 4 (weights in eighths): exact
+# upsampled integer logits.  Chunks of 8 (the kernel's) and of 32 (c = 40
+# crosses it); c < nc and c > nc; output widths of 36 and 20, not
+# multiples of a warp
+CONF_CASES = [((2, 4, 4, 21), (16, 16), 21), ((2, 4, 9, 40), (16, 36), 40),
+              ((2, 4, 5, 17), (16, 20), 25), ((1, 5, 9, 30), (20, 36), 21),
+              ((2, 4, 4, 16), (16, 16), 16), ((1, 3, 5, 150), (12, 20), 150)]
+
+
+@pytest.mark.parametrize("labels_dtype", [np.int32, np.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("levels", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("shape,out_hw,nc", CONF_CASES)
+@pytest.mark.parametrize("kc", [KC, 32])
+def test_confusion_scan_and_bins_match_jax(kc, shape, out_hw, nc, levels, labels_dtype):
+    c = shape[-1]
+    sem = seeded_logits(shape, 5 * c + nc, levels)
+    rs = np.random.RandomState(c + nc)
+    labels = rs.randint(0, nc, (shape[0], *out_hw)).astype(labels_dtype)
+    drop = rs.rand(*labels.shape)
+    labels[drop < 0.15] = 255
+    labels[(drop >= 0.15) & (drop < 0.2)] = -1
+    labels[(drop >= 0.2) & (drop < 0.25)] = nc
+    up = staged_upsample(torch.from_numpy(sem), out_hw)
+    preds = argmax_scan(up, kc).numpy()
+    got = pixel_histogram(preds, labels, nc)
+    ref = np.asarray(jax_confusion(jnp.asarray(sem), jnp.asarray(labels), out_hw, nc))
+    np.testing.assert_array_equal(got, ref)
+    valid = (labels >= 0) & (labels < nc)
+    assert got.sum() == valid.sum()
+    if c > nc:  # predictions past nc were clipped into the last column
+        assert (preds >= nc).any() and got[:, -1].sum() >= ((preds >= nc) & valid).sum()
+    if levels:  # ties the scan must break as JAX does: within a chunk, and across
+        top = up == up.amax(-1, keepdim=True)
+        assert bool((top[..., :kc].sum(-1) > 1).any())
+        if c > kc:
+            assert bool((top[..., :kc].any(-1) & top[..., kc:].any(-1)).any())
