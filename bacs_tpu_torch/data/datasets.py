@@ -368,6 +368,7 @@ class DeviceCache:
         self.device = torch.device(device)
         self._imgs = None
         self._lbls = None
+        self._host_lbls = None
 
     def __len__(self):
         return len(self.source)
@@ -376,8 +377,9 @@ class DeviceCache:
         if self._imgs is not None:
             return
         pairs = [self.source.load(i) for i in range(len(self.source))]
+        self._host_lbls = np.stack([p[1] for p in pairs])
         self._imgs = torch.from_numpy(np.stack([p[0] for p in pairs])).to(self.device)
-        self._lbls = torch.from_numpy(np.stack([p[1] for p in pairs])).to(self.device)
+        self._lbls = torch.from_numpy(self._host_lbls).to(self.device)
 
     def load_batch(self, indices) -> Tuple[torch.Tensor, torch.Tensor]:
         """(images [n, s, s, 3], labels [n, s, s]) uint8 on the card."""
@@ -390,7 +392,11 @@ class DeviceCache:
         return img[0].cpu().numpy(), lbl[0].cpu().numpy()
 
     def load_label(self, i: int) -> np.ndarray:
-        return self.source.load_label(i)
+        """The label from the decoded set (a synthetic source's label costs
+        a whole image's generation, so the scenario's label scan decodes
+        the set once here)."""
+        self._ensure()
+        return self._host_lbls[i]
 
 
 def make_voc_source(root: str, split: str, size: int) -> FolderSource:

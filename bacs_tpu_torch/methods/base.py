@@ -12,11 +12,11 @@ class-weighted CE through ``_fused_gate`` (``:255-274``) to K1 or K4, the
 BACS seen-probability-weighted CE through the same gate to K3, the
 prototype folds (``update_task_prototypes``, ``:129-163``, detached), the
 frozen previous model's forward (``forward_prev``, under ``no_grad``) and
-the seen detector's focal term; MiB's unbiased KD through the same gate to
-K7 (``ukd_with_upsample``, ``:355-384``), MiB's and PLOP's plain CE over
-all pixels to K1's sums (``ce_over_all_pixels``); and ``begin_task`` (a no-op but
-for PLOP), ``end_task`` and ``_sweep_prototypes`` (``:539-587``).  The
-continual loop that calls the task hooks is ROADMAP.md queue 1 item 8.  The
+the seen detector's focal term; the unbiased CE of MiB and SDR through the
+same gate to K6 (``uce_with_upsample``, ``:326``), their unbiased KD to K7
+(``ukd_with_upsample``, ``:355-384``), MiB's and PLOP's plain CE over all
+pixels to K1's sums (``ce_over_all_pixels``); and ``begin_task`` (a no-op
+but for PLOP), ``end_task`` and ``_sweep_prototypes`` (``:539-587``).  The
 JAX context's ``axis_name`` and ``spatial_mesh`` serve multi-device steps
 (ROADMAP.md queue 1 item 10) and are not ported.
 
@@ -38,11 +38,11 @@ from torch import nn
 from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.ops.interpolate import resize_nearest
 from bacs_tpu_torch.ops.losses import (
-    binary_focal_loss, cross_entropy, unbiased_knowledge_distillation,
-    weighted_cross_entropy)
+    binary_focal_loss, cross_entropy, unbiased_cross_entropy,
+    unbiased_knowledge_distillation, weighted_cross_entropy)
 from bacs_tpu_torch.ops.upsample_ce import (
     upsampled_bacs_weighted_ce, upsampled_ce_sums, upsampled_cross_entropy,
-    upsampled_unbiased_kd, upsampled_weighted_cross_entropy)
+    upsampled_uce_sums, upsampled_unbiased_kd, upsampled_weighted_cross_entropy)
 from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
 
 
@@ -151,6 +151,7 @@ class Method:
 
     needs_prev_model = False
     needs_buffer = False
+    needs_class_prototypes = False
 
     def __init__(
         self,
@@ -236,6 +237,26 @@ class Method:
         return cross_entropy(out.logits[..., : ctx.n_cur], labels, self.ignore_index,
                              reduction="none").mean()
 
+    def uce_with_upsample(self, ctx: ModelContext, out: NetOutput, labels: torch.Tensor,
+                          over_all_pixels: bool = False) -> torch.Tensor:
+        """MiB's unbiased CE against ``ctx.task.old_classes`` through
+        ``_fused_gate``: K6 on the pre-upsample logits, or the composed loss
+        on the full-resolution ones.  The sum over the valid pixels divided
+        by their count (SDR's reduction, ``bacs_tpu/methods/base.py:326``),
+        or with ``over_all_pixels`` by N H W (MiB's)."""
+        sem = out.sem_logits[..., : ctx.n_cur]
+        old = ctx.task.old_classes
+        if self._fused_gate(ctx, sem, labels):
+            total, count = upsampled_uce_sums(sem.contiguous(), labels,
+                                              tuple(labels.shape[1:3]), old, self.ignore_index)
+        else:
+            nll = unbiased_cross_entropy(out.logits[..., : ctx.n_cur], labels, old,
+                                         self.ignore_index, reduction="none")
+            total, count = nll.sum(), (labels != self.ignore_index).sum().float()
+        if over_all_pixels:
+            return total / labels.numel()
+        return total / torch.clamp(count, min=1.0)
+
     def ukd_with_upsample(self, ctx: ModelContext, out: NetOutput, old_out: NetOutput,
                           labels: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
         """MiB's unbiased KD against the frozen previous model (its old
@@ -297,6 +318,9 @@ class Method:
 
         seen_prob = None
         if use_weighted_ce and train:
+            if getattr(model, "seen_fg_network", None) is None:
+                raise ValueError("the seen-weighted CE (bg_weighted_ce) needs the seen "
+                                 "detector: training.bg_detector=true")
             with torch.no_grad():
                 seen_prob = model.seen_probs(out.penultimate, cur[0], task.task_id + 1)
             if self._fused_gate(ctx, sem, labels):
@@ -321,7 +345,8 @@ class Method:
         # by max(0, 1 - exp(epoch - max_epochs))
         if train and self.use_bg_detector and (same_task or not is_replay):
             ready = (cur[1][: task.task_id + 1] > 0).all().float()
-            t_num = task.task_id if task_num == -1 else task_num
+            # a replayed task (ER's partition) is a device integer
+            t_num = task.task_id if isinstance(task_num, int) and task_num == -1 else task_num
             seen_logits = model.seen_map_task(out.penultimate, cur[0], t_num,
                                               stop_grads=not task.first_task)
             fg_target = torch.where(labels == self.ignore_index, self.ignore_index,

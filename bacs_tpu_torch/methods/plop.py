@@ -20,8 +20,11 @@ Port of ``bacs_tpu/methods/plop.py``:
   Above label resolution the composed losses run on the full-resolution
   logits (``ops/upsample_pseudo.pseudo_labels``, K9's plain core).
 
-``bg_weighted_ce`` is set by no shipped PLOP config and raises (ROADMAP.md
-queue 1 item 11).
+With ``bg_weighted_ce`` (BACS's seen-weighted CE inside PLOP; it needs
+the seen detector) ``begin_task`` computes no thresholds and a training
+step takes ``compute_base_loss``'s CE: seen-weighted (K3) with a previous
+model, plain (K1) without; the local POD then covers the attentions only,
+not the logits (``bacs_tpu/methods/plop.py:102-112``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux
+from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux, proto_updates
 from bacs_tpu_torch.ops.losses import cross_entropy, features_distillation, pixel_entropy
 from bacs_tpu_torch.ops.upsample_ce import upsampled_ce_sums_per_image
 from bacs_tpu_torch.ops.upsample_pseudo import pseudo_labels, upsampled_plop_pseudo_labels
@@ -44,11 +47,8 @@ class PlopMethod(Method):
     needs_prev_model = True
 
     def __init__(self, name: str = "Plop", bg_weighted_ce: bool = False, **kwargs):
-        if bg_weighted_ce:
-            raise NotImplementedError(
-                "PLOP with bg_weighted_ce is ROADMAP.md queue 1 item 11 (set by no "
-                "shipped PLOP config)")
         super().__init__(name=name, **kwargs)
+        self.bg_weighted_ce = bg_weighted_ce
 
     # ------------------------------------------------------------------
 
@@ -57,7 +57,7 @@ class PlopMethod(Method):
         previous model's predictions on ``data`` (batches of device
         tensors), one host read at the end."""
         task = ctx.task
-        if task.task_id == 0:
+        if task.task_id == 0 or self.bg_weighted_ce:
             return state
         hist = self.entropy_histogram(state, ctx, data)
         device = next(state.model.parameters()).device
@@ -93,24 +93,37 @@ class PlopMethod(Method):
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
-        out = ctx.forward(state.model, image, train, generator)
-        if state.prev_model is not None and train:
-            old_out = ctx.forward_prev(state, image)
-            loss = self._pseudo_ce(ctx, state, out, old_out, mask)
+        distill = state.prev_model is not None and train
+        old_out = None
+        if self.bg_weighted_ce:
+            base = self.compute_base_loss(ctx, state, image, mask, train, generator,
+                                          use_weighted_ce=distill, need_old_out=distill)
+            out, old_out, loss = base.out, base.old_out, base.loss
+            updates = proto_updates(base)
+        else:
+            out = ctx.forward(state.model, image, train, generator)
+            if distill:
+                old_out = ctx.forward_prev(state, image)
+                loss = self._pseudo_ce(ctx, state, out, old_out, mask)
+            else:
+                loss = self.ce_over_all_pixels(ctx, out, mask)
+            updates = self.prototype_updates(ctx, state, out.penultimate, mask, train)
+        if old_out is not None:
+            atts_old, atts_new = old_out.attentions, out.attentions
+            if not self.bg_weighted_ce:  # the logits join the POD
+                atts_old += (old_out.sem_logits[..., : task.old_classes],)
+                atts_new += (out.sem_logits[..., : ctx.n_cur],)
             loss = loss + features_distillation(
-                old_out.attentions + (old_out.sem_logits[..., : task.old_classes],),
-                out.attentions + (out.sem_logits[..., : ctx.n_cur],),
+                atts_old, atts_new,
                 index_new_class=task.old_classes,
                 nb_current_classes=task.nb_current_classes,
                 nb_new_classes=task.nb_new_classes,
                 pod_factor=0.01, last_layer_factor=0.0005, spp_scales=(1, 2, 4))
-        else:
-            loss = self.ce_over_all_pixels(ctx, out, mask)
         return loss, StepAux(
             sem_logits=out.sem_logits[..., : ctx.n_cur],
             output=out,
             n_cur=ctx.n_cur,
-            state_updates=self.prototype_updates(ctx, state, out.penultimate, mask, train),
+            state_updates=updates,
         )
 
     def _pseudo_ce(self, ctx: ModelContext, state, out, old_out, mask) -> torch.Tensor:

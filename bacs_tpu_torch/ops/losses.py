@@ -6,9 +6,9 @@ and half of the K1 and K4 plain versions, ``ops/upsample_ce.py``),
 :func:`weighted_cross_entropy` (the BACS main loss, half of K3's plain
 version), MiB's :func:`unbiased_cross_entropy` and
 :func:`unbiased_knowledge_distillation` (half of the K6 and K7 plain
-versions), and PLOP's :func:`pixel_entropy` (half of K9's),
-:func:`local_pod` and :func:`features_distillation`.  The iCaRL loss comes
-with its method (ROADMAP.md queue 1 item 11).
+versions), PLOP's :func:`pixel_entropy` (half of K9's),
+:func:`local_pod` and :func:`features_distillation`, and iCaRL's
+:func:`icarl_criterion`.
 """
 
 from __future__ import annotations
@@ -168,6 +168,37 @@ def unbiased_knowledge_distillation(
     q = torch.softmax(old_logits.float() * alpha, dim=-1)
     loss = (q[..., 0] * outputs_bkg + (q[..., 1:] * outputs_no_bkg).sum(-1)) / c_old
     return -loss.mean()
+
+
+def icarl_criterion(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    old_outputs: torch.Tensor,
+    bkg: bool = False,
+    ignore_index: int = 255,
+) -> torch.Tensor:
+    """iCaRL's BCE with logits against one-hot targets whose old channels
+    are the previous model's sigmoid ``old_outputs`` [..., C_old]
+    (``bacs_tpu/ops/losses.py:227-260``): per pixel the sum over channels,
+    then the mean over ALL pixels (an ignored pixel's one-hot row is zero
+    and still counts).  ``bkg`` keeps channel 0's one-hot target.  The
+    stable form max(x, 0) - x t + log(1 + exp(-|x|)), with JAX's
+    derivatives at x = 0 (``jax_abs``; ``torch.maximum`` splits the tie as
+    ``jnp.maximum`` does)."""
+    c = logits.shape[-1]
+    c_old = old_outputs.shape[-1]
+    valid = labels != ignore_index
+    one_hot = ((torch.arange(c, device=labels.device) == labels.unsqueeze(-1))
+               & valid.unsqueeze(-1)).float()
+    old = old_outputs.float()
+    if bkg:
+        targets = torch.cat([one_hot[..., :1], old[..., 1:c_old], one_hot[..., c_old:]], -1)
+    else:
+        targets = torch.cat([old, one_hot[..., c_old:]], -1)
+    x = logits.float()
+    bce = (torch.maximum(x, torch.zeros_like(x)) - x * targets
+           + torch.log1p(torch.exp(-jax_abs(x))))
+    return bce.sum(dim=-1).mean()
 
 
 def pixel_entropy(probs: torch.Tensor) -> torch.Tensor:

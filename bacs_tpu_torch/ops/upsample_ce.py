@@ -96,6 +96,26 @@ def upsample_plain(sem: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum("Ww,nHwc->nHWc", kw, up)
 
 
+def upsampled_argmax_nearest(sem: torch.Tensor, out_hw: Tuple[int, int],
+                             down_hw: Tuple[int, int]) -> torch.Tensor:
+    """``resize_nearest(argmax(upsample(sem, out_hw)), down_hw)`` without the
+    full-resolution tensor (``bacs_tpu/ops/upsample_ce.py:623-649``): nearest
+    picks the output rows and columns floor(i * out / down), so only those
+    rows of the two interpolation matrices are applied, in f32.  SDR's
+    prototype distillation reads the teacher's downsampled argmax this way.
+    JAX computes it as two einsums outside any Pallas kernel, and so does
+    this, on the tensor's device."""
+    kh, kw = kmats(sem.shape, out_hw)
+    ys = np.clip(np.floor(np.arange(down_hw[0]) * (out_hw[0] / down_hw[0])).astype(np.int64),
+                 0, out_hw[0] - 1)
+    xs = np.clip(np.floor(np.arange(down_hw[1]) * (out_hw[1] / down_hw[1])).astype(np.int64),
+                 0, out_hw[1] - 1)
+    kh, kw = (torch.from_numpy(np.ascontiguousarray(k)).to(sem.device)
+              for k in (kh[ys], kw[xs]))
+    up = torch.einsum("Hh,nhwc->nHwc", kh, sem.float())
+    return torch.einsum("Ww,nHwc->nHWc", kw, up).argmax(dim=-1)
+
+
 def _picked(up: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
     """(the label's logit, 0 where the label is invalid or out of range;
     the one-hot of the label, zero there too)."""

@@ -16,8 +16,9 @@ task id, the class count when the logits were stored, and a valid flag.
   JAX scan does per item.  ``uniforms`` injects the two [n] uniform streams
   (reservoir, eviction), so both packages make the same decisions.
 - :func:`sample` draws a replay batch uniformly without replacement
-  (Gumbel top-k over the valid slots) every train step, on the device and
-  without a host read; ``keys`` injects the Gumbel keys.
+  (Gumbel top-k over the valid slots, or over one task's) every train
+  step, on the device and without a host read; ``keys`` injects the Gumbel
+  keys.
 """
 
 from __future__ import annotations
@@ -184,16 +185,22 @@ def sample(
     batch_size: int,
     generator: Optional[torch.Generator] = None,
     keys: Optional[torch.Tensor] = None,
+    task_id: Optional[torch.Tensor | int] = None,
 ) -> dict:
-    """A replay batch, uniform without replacement over the valid slots:
-    the top ``batch_size`` of Gumbel keys (``keys``, or drawn from
-    ``generator``) with invalid slots at -inf.  No host read."""
+    """A replay batch, uniform without replacement over the valid slots
+    (with ``task_id``, a device or Python integer, over the valid slots of
+    that task; ``bacs_tpu/train/buffer.py:231-256``): the top
+    ``batch_size`` of Gumbel keys (``keys``, or drawn from ``generator``)
+    with the other slots at -inf.  No host read."""
     dev = buf.images.device
     if keys is None:
         tiny = torch.finfo(torch.float32).tiny
         u = torch.rand(buf.size, generator=generator, device=dev).clamp_(min=tiny)
         keys = -torch.log(-torch.log(u))
-    keys = torch.where(buf.valid, keys.to(dev), -torch.inf)
+    eligible = buf.valid
+    if task_id is not None:
+        eligible = eligible & (buf.task_ids == task_id)
+    keys = torch.where(eligible, keys.to(dev), -torch.inf)
     idx = torch.topk(keys, batch_size).indices
     return {
         "images": _decode_image(buf.images[idx]),

@@ -247,6 +247,10 @@ class Trainer:
             proto_counts=torch.zeros((self.n_tasks,), device=self.device),
             buffer=buffer,
         )
+        if self.method.needs_class_prototypes:  # SDR (bacs_tpu/train/loop.py:295-304)
+            c = self.datamodule.num_classes
+            state.class_prototypes = torch.zeros((c, pen_dim), device=self.device)
+            state.class_proto_counts = torch.zeros((c,), device=self.device)
         n_params = sum(p.numel() for p in model.parameters())
         self.logger.info(f"model parameters: {n_params / 1e6:.2f} M")
         return state

@@ -8,8 +8,7 @@ objects, the continual-learning tensors and the counters.  The JAX state's
 ``rng`` key becomes ``generator``, a ``torch.Generator`` on the state's
 device that the train step hands to the method (dropout, replay draws);
 the frozen previous model is a module (``prev_params`` and
-``prev_batch_stats`` in JAX).  SDR's class prototypes come with their
-method (ROADMAP.md queue 1 item 11).
+``prev_batch_stats`` in JAX).
 """
 
 from __future__ import annotations
@@ -37,6 +36,11 @@ class TrainState:
     # [n_tasks], f32 (reference: loss/prototypes.py:53-90)
     prototypes: Optional[torch.Tensor] = None
     proto_counts: Optional[torch.Tensor] = None
+    # SDR's per-class prototypes [num_classes, D] and their feature counts
+    # [num_classes], f32, for methods with ``needs_class_prototypes``
+    # (reference: loss/sdr.py:79-118)
+    class_prototypes: Optional[torch.Tensor] = None
+    class_proto_counts: Optional[torch.Tensor] = None
     # the frozen previous-task model, in eval mode, outside the optimizer
     prev_model: Optional[nn.Module] = None
     buffer: Optional[BufferState] = None

@@ -4,7 +4,7 @@ Port of ``bacs_tpu/utils/checkpoint.py`` with ``torch.save`` in place of
 orbax.  A checkpoint holds everything a resumed run needs to continue as
 if uninterrupted: the network's parameters and statistics, the optimizer's
 moments and the schedule's position, the counters, the state's generator,
-the per-task prototypes, the frozen previous model, the replay buffer and
+the per-task prototypes, SDR's per-class prototypes, the frozen previous model, the replay buffer and
 PLOP's thresholds.  The layout and the resume choice are the JAX
 package's: ``<ckpt_dir>/step_<task>/<slot>``, mid-task saves alternating
 between the slots ``last0`` and ``last1`` and ``final`` after a task's
@@ -30,7 +30,8 @@ import torch
 from bacs_tpu_torch.train.buffer import BufferState
 from bacs_tpu_torch.train.state import TrainState, frozen_copy
 
-_TENSORS = ("prototypes", "proto_counts", "plop_thresholds", "plop_max_entropy")
+_TENSORS = ("prototypes", "proto_counts", "class_prototypes", "class_proto_counts",
+            "plop_thresholds", "plop_max_entropy")
 
 
 def _ckpt_root(ckpt_dir: str) -> str:
@@ -113,7 +114,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             raise ValueError(f"{path} holds a replay buffer the run has no place for")
         state.buffer = BufferState(**saved["buffer"])
     for k in _TENSORS:
-        setattr(state, k, saved[k])
+        setattr(state, k, saved.get(k))
     return state
 
 

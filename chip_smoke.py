@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (CE, BACS, MiB and PLOP), eval
-and continual-trainer paths on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving, training (CE, BACS, MiB, PLOP, ER, SDR
+and iCaRL), eval, continual-trainer and protocol-runner paths on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --family-times [--package-root DIR]
@@ -115,6 +116,25 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    every train step (1 pass at task 0, 3 later) and a finite final mIoU;
    prints the seconds of each task's parts, ``Trainer.throughput``, the
    checkpoints' sizes and times, and the last task's device idle share;
+25. runs one f32 task-1 step of ER, SDR and iCaRL (RN101 4 x 128^2, after
+   task 0's ``end_task`` and the imprinting; ER's replay draws injected)
+   on the CPU and on the card (TF32 off), with identity and leaky
+   activations, and compares them as phase 13 does, with SDR's class
+   prototypes and ER's buffer importances;
+26. at 512^2 in bf16, batch 12 (``conf/experiments/loss/{er,sdr,icarl}.yaml``,
+   ``cont_15_1.yaml``), per method: task 0's ``end_task`` (ER's buffer
+   population, timed), the imprinting, the task-1 eval steps (107 K5 and 1
+   K2 each, with K1's forward for ER and K6's for SDR; finite losses), then
+   2 warm-up and 6 timed task-1 steps with the counters reset just before,
+   asserting per step the launches the code implies (ER: 1 K1 and 1 K4
+   each way and 214 train-ABN; SDR: 1 K6 and 1 K7 each way, 107 train-ABN
+   and 107 K5; iCaRL: 107 train-ABN and 107 K5, no upsample kernel), a
+   finite loss, the median wall, the peak memory and a two-step profile by
+   kernel kind;
+27. the 15-1 flagship protocol through ``bacs_tpu_torch.protocol_compare``
+   in-process for ER, SDR and iCaRL, cut to one epoch a task and 96 / 64
+   images: the records' keys, one Avg-IoU per task, finite mIoUs and a
+   finite loss at every train step;
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -1571,6 +1591,307 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
     return times, bounds
 
 
+# ---------------------------------------------------------------- ER, SDR and iCaRL
+
+# conf/experiments/loss/{er,sdr,icarl}.yaml with training/cont_15_1.yaml: VOC
+# 15-1, batch 12; ER keeps 50 slots a task and replays 12
+MORE_METHODS = {"loss.ExperienceReplay": dict(buffer_size=50, replay_minibatch_size=12),
+                "loss.SDR": {}, "loss.IcarlLoss": {}}
+MORE_STEPS, ER_FILL_BATCHES = 6, 6
+# the launches per task-1 train step the code implies, written before the
+# first run: ER the main CE (K1 each way) and the replay's class-weighted CE
+# (K4 each way) over two train forwards, no previous model; SDR the unbiased
+# CE (K6) and KD (K7) each way, one train forward and the previous model
+# (K5); iCaRL its BCE and CE on the full-resolution logits, no upsample
+# kernel.  Every other counter stays 0.
+MORE_STEP_LAUNCHES = {
+    "loss.ExperienceReplay": dict(k1f=1, k1b=1, k4f=1, k4b=1, train_abn=2 * ABN_PER_FORWARD),
+    "loss.SDR": dict(k6f=1, k6b=1, k7f=1, k7b=1, train_abn=ABN_PER_FORWARD,
+                     k5=ABN_PER_FORWARD),
+    "loss.IcarlLoss": dict(train_abn=ABN_PER_FORWARD, k5=ABN_PER_FORWARD),
+}
+# per task-1 eval step: the eval forward (K5) and the confusion (K2), the
+# loss K1's forward (ER), K6's (SDR) or composed (iCaRL)
+MORE_EVAL_LAUNCHES = {
+    "loss.ExperienceReplay": dict(k5=ABN_PER_FORWARD, k1f=1, k2=1),
+    "loss.SDR": dict(k5=ABN_PER_FORWARD, k6f=1, k2=1),
+    "loss.IcarlLoss": dict(k5=ABN_PER_FORWARD, k2=1),
+}
+
+
+def more_steps(name, task_id, device, **method_kw):
+    """(ctx, method, (train_step, eval_step, put_batch)) of ER, SDR or iCaRL
+    on the VOC 15-1 tasks at ``task_id``."""
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.train.step import make_steps
+
+    ctx = ModelContext(TaskInfo(task_id=task_id, **BACS_TASK))
+    method = create_method(name, **{**MORE_METHODS[name], **method_kw})
+    return ctx, method, make_steps(ctx, method, N_CLASSES, device=device)
+
+
+@contextlib.contextmanager
+def injected_er_draws(keys, crop_params):
+    """ER's replay draws fixed, whatever the device: the buffer sample takes
+    the Gumbel ``keys`` (within the replayed task's slots), the replay crop
+    and flip take ``crop_params``."""
+    import bacs_tpu_torch.methods.er as er_mod
+    from bacs_tpu_torch.data.transforms import apply_crop_params
+
+    saved = (er_mod.buffer_lib.sample, er_mod.replay_augment)
+    sample = saved[0]
+    er_mod.buffer_lib.sample = lambda buf, n, gen=None, task_id=None: sample(
+        buf, n, keys=keys.to(buf.valid.device), task_id=task_id)
+    er_mod.replay_augment = lambda im, lab, gen=None: apply_crop_params(
+        im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
+    try:
+        yield
+    finally:
+        er_mod.buffer_lib.sample, er_mod.replay_augment = saved
+
+
+def more_state(cfg, params, stats, dtype, device, name, ctx0, method, smooth=False,
+               seed=0, image_hw=(CROP, CROP)):
+    """A task-0 state of ER, SDR or iCaRL: ER's buffer, SDR's class
+    prototypes (zero) on ``device``."""
+    state = train_state(cfg, params, stats, dtype, device, smooth=smooth,
+                        generator=torch.Generator(device).manual_seed(seed))
+    if name == "loss.ExperienceReplay":
+        state.buffer = method.init_buffer(ctx0.task, image_hw,
+                                          tuple(d // 16 for d in image_hw), device=device)
+    if name == "loss.SDR":
+        with torch.no_grad():
+            dim = state.model.eval()(torch.zeros((1, 32, 32, 3), device=device)
+                                     ).penultimate.shape[-1]
+        state.class_prototypes = torch.zeros((N_CLASSES, dim), device=device)
+        state.class_proto_counts = torch.zeros(N_CLASSES, device=device)
+    return state
+
+
+def more_step_card_vs_cpu(cfg, seed, dev):
+    """[25] One f32 task-1 step of ER, SDR and iCaRL, RN101 4 x 128^2, on the
+    CPU and on the card (TF32 off), with identity and with the configured
+    leaky activations: task 0's ``end_task`` over three batches (ER's
+    buffer, 8 slots a task, takes the first two, no reservoir draw; SDR
+    and iCaRL snapshot the previous model), the imprinting, then the step,
+    ER's replay draws injected (``injected_er_draws``, replay 4).  Held as
+    phase [13] holds the BACS step, with SDR's class prototypes and ER's
+    buffer importances."""
+    from bacs_tpu_torch.train.learner import multihead_init
+
+    crop, n, slots, replay = 128, 4, 8, 4
+    variables = {a: seeded_variables(cfg, seed, smooth=a == "identity")
+                 for a in ("identity", "leaky")}
+    gen = torch.Generator().manual_seed(seed)
+    batch = synthetic_batch(n, crop, gen, "cpu", n_classes=OLD_CLASSES + 1)
+    fill = [synthetic_batch(n, crop, gen, "cpu", n_classes=OLD_CLASSES) for _ in range(3)]
+    keys = -torch.log(-torch.log(torch.rand(slots * N_TASKS, generator=gen)))
+    crop_params = dict(i=torch.tensor([3.5, 0.0, 40.25, 0.0]),
+                       j=torch.tensor([0.0, 17.0, 2.5, 0.0]),
+                       ch=torch.tensor([80.0, 128.0, 61.0, 128.0]),
+                       cw=torch.tensor([105.0, 66.0, 120.0, 128.0]),
+                       flip=torch.tensor([True, False, False, True]))
+    er_kw = dict(buffer_size=slots, replay_minibatch_size=replay)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in MORE_METHODS:
+        kw = er_kw if name == "loss.ExperienceReplay" else {}
+        for activation, (params, stats) in variables.items():
+            runs, extras = [], []
+            for device in (torch.device("cpu"), dev):
+                ctx0, method, _ = more_steps(name, 0, device, **kw)
+                state = more_state(cfg, params, stats, torch.float32, device, name, ctx0,
+                                   method, smooth=activation == "identity", seed=seed,
+                                   image_hw=(crop, crop))
+                state = method.end_task(state, ctx0, [
+                    {k: v.to(device) for k, v in b.items()} for b in fill])
+                ctx1, _, (train_step, _, put_batch) = more_steps(name, 1, device, **kw)
+                multihead_init(state, ctx1.task)
+                p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+                with injected_er_draws(keys, crop_params):
+                    state, metrics = train_step(state, put_batch(batch))
+                runs.append((float(metrics["loss"]), *grads_and_stats(state.model)))
+                extras.append(state.buffer.importance.cpu() if state.buffer is not None
+                              else state.class_prototypes.cpu()
+                              if state.class_prototypes is not None else None)
+                del state
+            extra = ""
+            if extras[0] is not None:
+                ref, got = extras
+                if name == "loss.ExperienceReplay":
+                    assert torch.equal(torch.isfinite(ref), torch.isfinite(got))
+                    ok = torch.isfinite(ref)
+                    assert int(ok.sum()) == slots, int(ok.sum())
+                    ref, got = ref[ok], got[ok]
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                assert rel <= 1e-4, (name, rel)
+                extra = (f"; {'buffer importances' if name.endswith('Replay') else 'class prototypes'}"
+                         f" max rel err {rel:.3g}")
+            hold_step(f"[25] f32 {name} step card vs CPU, RN101 {n} x {crop}^2, task 1",
+                      activation, runs[1], runs[0], p0, extra)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def more_steps_512(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
+    """[26] per method at 512^2 in bf16, batch 12: task 0's ``end_task``
+    (ER's buffer population over ER_FILL_BATCHES batches, timed; SDR and
+    iCaRL snapshot the previous model), the imprinting, the task-1 eval
+    steps (``MORE_EVAL_LAUNCHES``, finite losses), then 2 warm-up and
+    MORE_STEPS timed task-1 steps with the counters reset just before, the
+    launches asserted per step (``MORE_STEP_LAUNCHES``), a finite loss, a
+    profile by kernel kind, the busy time and the peak memory.  Returns,
+    per method, the launch counts of the timed steps and of the eval steps
+    and the numbers logged."""
+    from bacs_tpu_torch.train.learner import multihead_init
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    n_cls = OLD_CLASSES + 1
+    results = {}
+    for name in MORE_METHODS:
+        ctx0, method, _ = more_steps(name, 0, dev)
+        state = more_state(cfg, params, stats, torch.bfloat16, dev, name, ctx0, method,
+                           seed=seed)
+        fill = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, OLD_CLASSES)
+                for _ in range(ER_FILL_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = method.end_task(state, ctx0, fill)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter() - t0
+        note = ""
+        if state.buffer is not None:
+            buf = state.buffer
+            n_valid = int(buf.valid.sum())
+            note = (f"; buffer {n_valid} valid of {buf.size} (task 0's partition "
+                    f"{method.buffer_size}), num_seen {buf.num_seen}")
+            assert n_valid == method.buffer_size and bool(buf.valid[:n_valid].all())
+            assert buf.num_seen == MIB_PLOP_BATCH * -(-method.buffer_size // MIB_PLOP_BATCH)
+        else:
+            assert state.prev_model is not None
+        log(f"[26] {name} end_task of task 0 over up to {ER_FILL_BATCHES} batches of "
+            f"{MIB_PLOP_BATCH} at {CROP}^2: {t_end:.3f} s{note}")
+        del fill
+        ctx1, _, (train_step, eval_step, _) = more_steps(name, 1, dev)
+        multihead_init(state, ctx1.task)
+        # the task-1 eval steps at the boundary, before the train steps: a
+        # few bf16 train steps of this random network can grow its
+        # eval-mode outputs past the finite range (the first card run of
+        # this phase: ER's eval loss after its steps)
+        batches = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, n_cls)
+                   for _ in range(MORE_STEPS)]
+        conf_mat = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+        eval_step(state, conf_mat.clone(), batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        eval_losses = []
+        for b in batches[:EVAL_STEPS]:
+            conf_mat, loss = eval_step(state, conf_mat, b)
+            eval_losses.append(float(loss))
+        ev = counts()
+        valid = sum(int((b["label"] != 255).sum()) for b in batches[:EVAL_STEPS])
+        eval_busy = busy_ms(lambda: eval_step(state, conf_mat.clone(), batches[0]))
+        log(f"[26] bf16 {name} eval step at task 1, batch {MIB_PLOP_BATCH}: launches {ev} "
+            f"over {EVAL_STEPS} steps; losses {[round(v, 4) for v in eval_losses]}; "
+            f"confusion counts {int(conf_mat.sum())} of {valid} valid pixels; device busy "
+            f"{eval_busy:.3f} ms per step")
+        assert all(np.isfinite(eval_losses)), eval_losses
+        assert int(conf_mat.sum()) == valid
+        want = MORE_EVAL_LAUNCHES[name]
+        assert ev == {k: want.get(k, 0) * EVAL_STEPS for k in ev}, (name, ev)
+        losses = []
+        for _ in range(WARMUP_STEPS):
+            state, metrics = train_step(state, synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev,
+                                                               n_cls))
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_ms = []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, b)
+            losses.append(float(metrics["loss"]))  # a host read: synchronises
+            step_ms.append(1000 * (time.perf_counter() - t0))
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(step_ms))
+        log(f"[26] bf16 {name} step (task 1), batch {MIB_PLOP_BATCH}, {CROP}^2: median "
+            f"{med:.3f} ms ({MIB_PLOP_BATCH * 1000 / med:.2f} img/s; min {min(step_ms):.3f}, "
+            f"max {max(step_ms):.3f} ms over {MORE_STEPS} steps); peak memory "
+            f"{peak / 2**30:.3f} GiB; launches {got} over {MORE_STEPS} steps")
+        log(f"[26] {name} loss: {' '.join(f'{v:.4f}' for v in losses)}")
+        assert all(np.isfinite(losses)), losses
+        want = MORE_STEP_LAUNCHES[name]
+        assert got == {k: want.get(k, 0) * MORE_STEPS for k in got}, (name, got)
+        busy, parts = profile_by_kind(lambda: train_step(state, batches[0]),
+                                      f"bf16 {name} steps (batch {MIB_PLOP_BATCH}, {CROP}^2)")
+        for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+            log(f"[p] {name} step by kernel kind: {ms:.3f} ms ({ms / busy:.1%}) {part}")
+        log(f"[p] {name}: device busy {busy:.3f} ms per step; median step wall {med:.3f} ms: "
+            f"device idle share {1 - busy / med:.3f}; peak {peak / 2**30:.3f} GiB")
+
+        results[name] = dict(steps=got, eval=ev, busy=busy, med=med, peak=peak, t_end=t_end,
+                             eval_busy=eval_busy)
+        del state, batches
+        torch.cuda.empty_cache()
+    return results
+
+
+# [27] the flagship protocol through the port's runner, cut in depth: one
+# epoch a task, 96 train and 64 validation images (every task's train and
+# validation subsets non-empty: 95/16-23 and 63/10-16 images), crop 256,
+# DeepLabV3-RN50, f32 as the protocol runs it
+RUNNER_ARGS = ["--protocol", "15-1-flagship", "--methods", "er,sdr,icarl", "--epochs", "1",
+               "--override", "dataset.dataset.n_train=96",
+               "--override", "dataset.dataset.n_val=64"]
+
+
+def runner_protocol(seed: int) -> dict:
+    """[27] ``bacs_tpu_torch.protocol_compare.main`` in-process on the card
+    for ER, SDR and iCaRL: every leg's JSON record has the runner's keys,
+    one Avg-IoU per task (6) and finite mIoUs, and every train step a
+    finite loss.  Returns the records, the losses per leg and the wall."""
+    from unittest import mock
+
+    from bacs_tpu_torch import protocol_compare
+    from bacs_tpu_torch.train import loop
+
+    losses = []
+    make_steps = loop.make_steps
+
+    def recording_steps(ctx, *a, **k):
+        train_step, eval_step, put_batch = make_steps(ctx, *a, **k)
+
+        def step(state, batch):
+            state, out = train_step(state, batch)
+            losses.append((ctx.task.task_id, float(out["loss"])))
+            return state, out
+        return step, eval_step, put_batch
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "make_steps", recording_steps), \
+            contextlib.redirect_stdout(out):
+        results = protocol_compare.main(RUNNER_ARGS + ["--seed", str(42 + seed)])
+    wall = time.perf_counter() - t0
+    keys = {"method", "final_miou", "oldest_task_miou", "task0_miou",
+            "avg_iou_per_dataset", "seconds"}
+    records = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    assert records == results and [r["method"] for r in records] == ["er", "sdr", "icarl"]
+    for r in records:
+        assert set(r) == keys, r
+        assert len(r["avg_iou_per_dataset"]) == N_TASKS, r
+        assert all(np.isfinite(r[k]) and 0 <= r[k] <= 1
+                   for k in ("final_miou", "oldest_task_miou", "task0_miou")), r
+    assert losses and all(np.isfinite(v) for _, v in losses), losses
+    per_task = [sum(1 for t, _ in losses if t == k) for k in range(N_TASKS)]
+    assert per_task[0] >= 3 * 5 and all(c >= 3 for c in per_task[1:]), per_task
+    return dict(records=records, losses=losses, per_task=per_task, wall=wall)
+
+
 # ---------------------------------------------------------------- the upsample+loss family
 
 # the device busy ms per step measured in the runs before K7's and K12's
@@ -2716,6 +3037,29 @@ def main() -> int:
     t_cli = time.perf_counter() - t_cli
     report_cli(cli)
     assert cli_counts["k12f"] == cli["launches"]["k12f"] and cli_counts["k12b"] > 0
+    torch.cuda.empty_cache()
+
+    # 25. one f32 ER, SDR and iCaRL step card against CPU; 26. the three at
+    # 512^2 with the launches counted, and their eval steps
+    t_more = time.perf_counter()
+    more_step_card_vs_cpu(cfg, args.seed, dev)
+    torch.cuda.empty_cache()
+    more = more_steps_512(cfg, params, stats, args.seed, dev, reset_counts, counts)
+    er_run, sdr_run, icarl_run = (more[k] for k in MORE_METHODS)
+
+    # 27. the flagship protocol through the port's runner, cut in depth
+    reset_counts()
+    runner = runner_protocol(args.seed)
+    runner_counts = counts()
+    for r in runner["records"]:
+        log(f"[27] {json.dumps(r)}")
+    log(f"[27] bacs_tpu_torch.protocol_compare {' '.join(RUNNER_ARGS)} (cut from 12 epochs "
+        f"and 1536 / 192 images): {runner['wall']:.1f} s for the three legs (the kernels "
+        f"built); train steps per task over the legs {runner['per_task']}, every loss finite; "
+        f"launches {runner_counts}")
+    assert runner_counts["k4f"] > 0 and runner_counts["k6f"] > 0 and runner_counts["k7b"] > 0
+    t_more = time.perf_counter() - t_more
+    torch.cuda.empty_cache()
 
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
@@ -2814,7 +3158,7 @@ def main() -> int:
         f"(losses, prototype folds, replay draws, augmentation, autocontrast)")
 
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
-        f"{t_cli:.1f} s")
+        f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -2837,8 +3181,9 @@ def main() -> int:
               "bacs_tpu/ops/abn_pallas.py:45",
               k5_launches + eval_counts["k5"] + train_counts["train_abn"]
               + bacs_counts["k5"] + bacs_counts["train_abn"] + bacs_eval_counts["k5"]
-              + sum(r[p][k] for r in (mib, plop) for p, k in (
-                  ("steps", "k5"), ("steps", "train_abn"), ("eval", "k5"))),
+              + sum(r[p][k] for r in (mib, plop, er_run, sdr_run, icarl_run) for p, k in (
+                  ("steps", "k5"), ("steps", "train_abn"), ("eval", "k5")))
+              + runner_counts["k5"] + runner_counts["train_abn"],
               k5_err, k5_ms, k5_plain_ms, k5_bound,
               launches_by_path={"serve": k5_launches, "eval_step": eval_counts["k5"],
                                 "train_step_abn": train_counts["train_abn"],
@@ -2849,7 +3194,14 @@ def main() -> int:
                                 "mib_step_abn": mib["steps"]["train_abn"],
                                 "plop_step_prev_model": plop["steps"]["k5"],
                                 "plop_step_abn": plop["steps"]["train_abn"],
-                                "mib_plop_eval_steps": mib["eval"]["k5"] + plop["eval"]["k5"]}),
+                                "mib_plop_eval_steps": mib["eval"]["k5"] + plop["eval"]["k5"],
+                                "er_sdr_icarl_steps": sum(
+                                    r["steps"][k] for r in (er_run, sdr_run, icarl_run)
+                                    for k in ("k5", "train_abn")),
+                                "er_sdr_icarl_eval_steps": sum(
+                                    r["eval"]["k5"] for r in (er_run, sdr_run, icarl_run)),
+                                "protocol_runner": runner_counts["k5"]
+                                + runner_counts["train_abn"]}),
         entry("upsample_argmax_conf (K10)", "cuda",
               "bacs_tpu_torch/csrc/upsample_argmax.cu",
               "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
@@ -2858,17 +3210,23 @@ def main() -> int:
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
                         "bacs_tpu/ops/upsample_ce.py:787",
                         train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"]
-                        + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"],
+                        + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"]
+                        + er_run["steps"]["k1f"] + er_run["eval"]["k1f"]
+                        + runner_counts["k1f"],
                         k1f_err, *times["k1f"], bounds["k1f"]), "k1f"),
         with_pair(entry("upsample_ce_grad (K1 backward)", "cuda",
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
-                        "bacs_tpu/ops/upsample_ce.py:125", train_counts["k1b"], k1b_err,
+                        "bacs_tpu/ops/upsample_ce.py:125",
+                        train_counts["k1b"] + er_run["steps"]["k1b"] + runner_counts["k1b"],
+                        k1b_err,
                         *times["k1b"], bounds["k1b"]), "k1b"),
         entry("upsample_confusion (K2)", "cuda",
               "bacs_tpu_torch/csrc/upsample_confusion.cu",
               "bacs_tpu/ops/upsample_confusion.py:88",
               eval_counts["k2"] + bacs_eval_counts["k2"] + mib["eval"]["k2"]
-              + plop["eval"]["k2"], k2_moved, *times["k2"], bounds["k2"],
+              + plop["eval"]["k2"] + sum(r["eval"]["k2"] for r in (er_run, sdr_run, icarl_run))
+              + runner_counts["k2"],
+              k2_moved, *times["k2"], bounds["k2"],
               trained_like_ms=k2_trained[0], trained_like_bound_ms=k2_trained[1][0],
               library_trio_ms=k2_trio,
               library_trio_is="F.interpolate(bilinear, align_corners=False) + argmax + "
@@ -2881,14 +3239,29 @@ def main() -> int:
               bacs_counts["k3b"], k3b_err, *times["k3b"], bounds["k3b"]),
         with_pair(entry("upsample_wce_sums (K4 forward)", "cuda",
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
-                        "bacs_tpu/ops/upsample_ce.py:233", bacs_counts["k4f"], k4f_err,
-                        *times["k4f"], bounds["k4f"]), "k4f"),
+                        "bacs_tpu/ops/upsample_ce.py:233",
+                        bacs_counts["k4f"] + er_run["steps"]["k4f"] + runner_counts["k4f"],
+                        k4f_err,
+                        *times["k4f"], bounds["k4f"],
+                        launches_by_path={"bacs_step": bacs_counts["k4f"],
+                                          "er_step_replay": er_run["steps"]["k4f"],
+                                          "protocol_runner": runner_counts["k4f"]}), "k4f"),
         with_pair(entry("upsample_wce_grad (K4 backward)", "cuda",
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
-                        "bacs_tpu/ops/upsample_ce.py:243", bacs_counts["k4b"], k4b_err,
-                        *times["k4b"], bounds["k4b"]), "k4b"),
-        *(entry(name, "cuda", source, replaces, run[key], mib_plop_errs[key],
-                *mp_times[key], mp_bounds[key])
+                        "bacs_tpu/ops/upsample_ce.py:243",
+                        bacs_counts["k4b"] + er_run["steps"]["k4b"] + runner_counts["k4b"],
+                        k4b_err,
+                        *times["k4b"], bounds["k4b"],
+                        launches_by_path={"bacs_step": bacs_counts["k4b"],
+                                          "er_step_replay": er_run["steps"]["k4b"],
+                                          "protocol_runner": runner_counts["k4b"]}), "k4b"),
+        *(entry(name, "cuda", source, replaces,
+                run[key] + sdr_run["steps"][key] + sdr_run["eval"][key] + runner_counts[key],
+                mib_plop_errs[key], *mp_times[key], mp_bounds[key],
+                launches_by_path={"mib_or_plop_step": run[key],
+                                  "sdr_step": sdr_run["steps"][key],
+                                  "sdr_eval_step": sdr_run["eval"][key],
+                                  "protocol_runner": runner_counts[key]})
           for name, source, replaces, run, key in (
               ("upsample_uce_sums (K6 forward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
                "bacs_tpu/ops/upsample_ce.py:543", mib["steps"], "k6f"),

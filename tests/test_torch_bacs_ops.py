@@ -514,9 +514,13 @@ def test_bacs_options_not_ported_raise():
     create_method("loss.BACSLoss", pseudo_label=True, bg_weighted_ce=True)
     with pytest.raises(ValueError, match="transplant_mode"):
         create_method("bacs", transplant_mode="nonsense")
+    # BACS extends ER and overrides its step and end_task; ER itself is
+    # ported (tests/test_torch_more_methods_step.py)
+    from bacs_tpu_torch.methods.er import ExperienceReplayMethod
+
     m = create_method("bacs", use_bg_detector=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        super(type(m), m).compute_loss(None, None, None, True)
+    assert isinstance(m, ExperienceReplayMethod)
+    for hook in ("compute_loss", "end_task"):
+        assert getattr(type(m), hook) is not getattr(ExperienceReplayMethod, hook), hook
     for name in ("er", "loss.ExperienceReplay"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_method(name)
+        assert type(create_method(name)) is ExperienceReplayMethod

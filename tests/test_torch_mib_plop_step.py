@@ -330,9 +330,17 @@ def test_eval_step_at_task_1_matches_jax(method, monkeypatch):
 
 
 def test_bg_weighted_ce_raises():
+    """``bg_weighted_ce`` builds under every name (its steps are held to JAX
+    by ``tests/test_torch_more_methods_step.py``); a training step with it
+    on a network without the seen detector raises, naming the config key."""
+    batch, *_ = inputs()
+    data = {k: torch.from_numpy(v) for k, v in batch.items()}
+    ctx = ModelContext(TaskInfo(task_id=1, **TASK))
     for name in ("loss.MiB", "loss.PlopLoss", "plop", "mib"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-            create_method(name, bg_weighted_ce=True)
+        method = create_method(name, bg_weighted_ce=True)
+        assert method.bg_weighted_ce
+        with pytest.raises(ValueError, match="training.bg_detector"):
+            method.compute_loss(ctx, port_state("loss.MiB"), data, True)
     assert type(create_method("loss.MiB")).__name__ == "MiBMethod"
     assert type(create_method("ploploss")).__name__ == "PlopMethod"
 

@@ -287,12 +287,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optim.make_optimizer(OPTIMIZERS[0], [torch.nn.Parameter(torch.zeros(2))],
                              optim.poly_schedule(0.01, 10), accumulate_steps=2)
-    for name in ("sdr", "loss.IcarlLoss", "er"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_method(name)
+    # every method of the JAX registry is ported (held to JAX by
+    # tests/test_torch_more_methods_step.py), bg_weighted_ce included
+    for name in ("sdr", "loss.IcarlLoss", "er", "prototypes"):
+        create_method(name)
     for name in ("mib", "loss.PLOPLoss"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-            create_method(name, bg_weighted_ce=True)
+        assert create_method(name, bg_weighted_ce=True).bg_weighted_ce
     with pytest.raises(ValueError, match="unknown"):
         create_method("nonsense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
