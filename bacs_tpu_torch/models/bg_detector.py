@@ -8,10 +8,8 @@ one ``head_kernel`` [T, D, 1] and one ``head_bias`` [T, 1] parameter, under
 the Flax names.  The trunk takes and returns NCHW tensors (the backbone's),
 the heads NHWC ones (``NetOutput.penultimate``).
 
-The trunk's norm is Flax ``nn.BatchNorm(momentum=0.9)``, written out here
-because it differs from ``torch.nn.BatchNorm2d``: statistics in float32
-with var = E[x^2] - E[x]^2 (clipped at 0), and the running variance
-updated with that biased batch variance, running = 0.9 running + 0.1 batch.
+The trunk's norm is Flax ``nn.BatchNorm(momentum=0.9)``
+(``models/norm.py:BatchNorm``, shared with UNet).
 Dropout draws its mask from the generator the forward is given (the train
 step's), as ``F.dropout`` cannot take one.
 """
@@ -23,37 +21,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from bacs_tpu_torch.models.norm import BatchNorm
 from bacs_tpu_torch.models.resnet import conv
 from bacs_tpu_torch.ops.interpolate import resize_bilinear
 from bacs_tpu_torch.ops.losses import jax_abs
-
-
-class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5) over NCHW, in f32."""
-
-    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
-        else:
-            mean, var = self.running_mean, self.running_var
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class BgDetector(nn.Module):

@@ -9,8 +9,9 @@ unless it is read: ``NetOutput.logits`` is computed on first access, the
 train and eval steps read only ``sem_logits`` on the kernel path, and the
 Predictor calls :meth:`DeepLabV3.sem_logits`.  With ``use_bg_detector``
 the network carries the BACS background detector (``models/bg_detector.py``)
-and its penultimate output is the detector trunk's.  The atrous encoder is
-ROADMAP.md queue 1 item 12 and raises until it lands.
+and its penultimate output is the detector trunk's.  ``remat`` chooses the
+backbone stages recomputed in the backward (``models/resnet.py``).  The
+atrous encoder is ROADMAP.md queue 1 item 12 and raises until it lands.
 """
 
 from __future__ import annotations
@@ -78,13 +79,14 @@ class DeepLabV3(nn.Module):
         use_bg_detector: bool = False,
         atrous_encoder: bool = False,
         out_in_planes: int = 256,
+        remat=False,
     ):
         super().__init__()
         if atrous_encoder:
             raise NotImplementedError(
                 "the atrous encoder is ROADMAP.md queue 1 item 12"
             )
-        self.backbone = create_resnet(backbone_name, norm, output_stride)
+        self.backbone = create_resnet(backbone_name, norm, output_stride, remat)
         self.base_classifier = DeepLabHead(
             self.backbone.out_channels, out_in_planes,
             out_stride=output_stride, norm=norm,

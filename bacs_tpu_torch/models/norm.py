@@ -19,10 +19,18 @@ max-pool padded by 1, padding counting as -inf as in Flax.
   branch, which the JAX module takes for ReLU (``bn``) and the renorm/ABR
   variants (``norm.py:141-185``), and cross-GPU statistics are ROADMAP.md
   queue 1 items 2 and 10; they raise.
+
+Also Flax's plain ``nn.BatchNorm`` (:class:`BatchNorm`: UNet's and the
+background detector's norm), and :func:`recomputing`, under which no norm
+layer updates its running statistics: a block that
+``torch.utils.checkpoint`` recomputes in the backward (``network.remat``)
+must not update them a second time, as JAX's functional ``batch_stats``
+update once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -48,6 +56,59 @@ def activate(x: torch.Tensor, activation: str, param: float) -> torch.Tensor:
     """The block-output activation (after a residual add), plain PyTorch."""
     slope = activation_slope(activation, param)
     return x if slope == 1.0 else F.leaky_relu(x, slope)
+
+
+_recomputing = False
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The running statistics stay as they are within the block.  A global,
+    not a thread-local: the autograd engine recomputes a CUDA block in its
+    own thread."""
+    global _recomputing
+    before, _recomputing = _recomputing, True
+    try:
+        yield
+    finally:
+        _recomputing = before
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5) over NCHW, in f32.
+
+    It differs from ``torch.nn.BatchNorm2d``: statistics in float32 with
+    var = E[x^2] - E[x]^2 (clipped at 0), the running variance updated with
+    that biased batch variance, and Flax's momentum convention,
+    running = 0.9 running + 0.1 batch.  The output is float32 whatever
+    the input's dtype, as Flax promotes a bf16 input against its f32
+    parameters.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            if not _recomputing:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class ABN(nn.Module):
@@ -115,7 +176,9 @@ class ABN(nn.Module):
     @torch.no_grad()
     def _update_running(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
         """Torch-style momentum update, the variance Bessel-corrected over
-        the rows of the (unpooled) input."""
+        the rows of the (unpooled) input; none under :func:`recomputing`."""
+        if _recomputing:
+            return
         n = x.numel() // self.features
         m = self.momentum
         self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

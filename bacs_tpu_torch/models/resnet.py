@@ -5,17 +5,38 @@ Port of ``bacs_tpu/models/resnet.py`` (``conv``, ``Bottleneck``,
 module names (``conv1``, ``bn1``, ``mod2_block1``, ...), so a Flax variable
 path is a torch state_dict key (``utils/flax_weights.py``).  The last block
 of every stage also returns its pre-activation sum as an attention map.
-Rematerialization is a training option and is not ported.
+
+``remat`` (the config's ``network.remat``) recomputes the blocks of the
+chosen stages in the backward instead of keeping their activations, as
+JAX's ``nn.remat`` per block (``bacs_tpu/models/resnet.py:187-193``):
+``torch.utils.checkpoint`` per block, the recompute under
+``models/norm.py:recomputing`` so that the running statistics update once.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from bacs_tpu_torch.models.norm import ABN, activate
+from bacs_tpu_torch.models.norm import ABN, activate, recomputing
+
+
+def stage_remat(remat, stage: int) -> bool:
+    """Whether stage ``stage`` (1-indexed, 1 the highest resolution)
+    recomputes its blocks: ``remat`` is false, true (every stage) or a
+    tuple of stage ids (``bacs_tpu/models/resnet.py:28-36``)."""
+    if isinstance(remat, (tuple, list)):
+        return stage in tuple(remat)
+    return bool(remat)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), recomputing()
+
 
 RESNET_STRUCTURES = {
     "resnet18": ([2, 2, 2, 2], False),
@@ -134,6 +155,7 @@ class ResNet(nn.Module):
         bottleneck: bool = True,
         output_stride: int = 16,
         norm: Callable[..., nn.Module] = ABN,
+        remat=False,
     ):
         super().__init__()
         if output_stride == 16:
@@ -149,6 +171,7 @@ class ResNet(nn.Module):
         block_cls = Bottleneck if bottleneck else BasicBlock
         in_features = 64
         self.block_names: List[str] = []
+        self.remat_blocks = set()
         for mod_id, num in enumerate(structure):
             d = dilation[mod_id]
             for block_id in range(num):
@@ -159,6 +182,8 @@ class ResNet(nn.Module):
                     norm=norm, last=block_id == num - 1,
                 ))
                 self.block_names.append(name)
+                if stage_remat(remat, mod_id + 1):
+                    self.remat_blocks.add(name)
                 in_features = channels[-1]
             channels = tuple(c * 2 for c in channels)
 
@@ -167,7 +192,11 @@ class ResNet(nn.Module):
         attentions = []
         for name in self.block_names:
             block = getattr(self, name)
-            out = block(x)
+            if name in self.remat_blocks and self.training and torch.is_grad_enabled():
+                out = checkpoint(block, x, use_reentrant=False,
+                                 context_fn=_remat_contexts)
+            else:
+                out = block(x)
             if block.last:
                 x, att = out
                 attentions.append(att)
@@ -180,6 +209,7 @@ def create_resnet(
     name: str = "resnet101",
     norm: Callable[..., nn.Module] = ABN,
     output_stride: int = 16,
+    remat=False,
 ) -> ResNet:
     structure, bottleneck = RESNET_STRUCTURES[name]
-    return ResNet(structure, bottleneck, output_stride, norm)
+    return ResNet(structure, bottleneck, output_stride, norm, remat)

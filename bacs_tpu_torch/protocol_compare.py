@@ -10,9 +10,10 @@ and the same output: one JSON line per method (``final_miou``,
 ``oldest_task_miou``, ``task0_miou``, ``avg_iou_per_dataset``,
 ``seconds``), then a markdown table.  Each leg is the port's ``Trainer``
 on the card (``--device cuda``, the default; it raises where torch sees no
-card) unless asked for the CPU.  The protocols pinned to UNet ("3task",
-"15-1", "10-1", "15-5", "19-1" without ``--network deeplab``) raise as
-``models.create_network`` does: UNet is ROADMAP.md queue 1 item 12.
+card) unless asked for the CPU.  The protocols "3task", "15-1", "10-1",
+"15-5" and "19-1" train a UNet (``models/unet.py``) unless ``--network
+deeplab`` is given; its logits are at label resolution, so their legs
+launch no upsample kernel.
 """
 
 from __future__ import annotations

@@ -4,10 +4,13 @@ Port of ``bacs_tpu/serve.py`` (``Predictor``).  One request is a uint8
 [N, H, W, 3] batch; the Predictor normalizes it on the device, runs the
 eval-mode network to its pre-upsample logits, and turns those into a uint8
 mask and a confidence per pixel with the fused upsample+argmax kernel
-(``ops/upsample_argmax.py``).  Every ABN layer runs the eval-ABN kernel
-(``ops/abn_core.py``).  The wire formats are the JAX package's: confidence
-as f16, as uint8 steps of 1/255 or not at all, and masks as uint8 or
-bit-packed on the device (``ops/bitpack.py``).
+(``ops/upsample_argmax.py``; UNet's logits are at the input's resolution,
+and the kernel runs at scale 1).  Every ABN layer of a DeepLabV3 runs the
+eval-ABN kernel (``ops/abn_core.py``); UNet's batch norms are plain
+PyTorch, as JAX's ``nn.BatchNorm`` is no Pallas kernel.  The wire formats
+are the JAX package's: confidence as f16, as uint8 steps of 1/255 or not
+at all, and masks as uint8 or bit-packed on the device
+(``ops/bitpack.py``).
 
 ``device`` is explicit.  Asking for CUDA where there is none raises; the
 Predictor never falls back to the CPU.  Multi-GPU serving, ``export`` and
@@ -75,7 +78,8 @@ class Predictor:
             norm=str(network_cfg.get("norm", "iabn_sync")),
             dtype=dtype,
             **{k: v for k, v in network_cfg.items()
-               if k in ("backbone", "output_stride", "atrous_encoder")},
+               if k in ("backbone", "output_stride", "n_channels", "bilinear",
+                        "num_layers", "atrous_encoder")},
         )
         load_flax_variables(self.model, params, batch_stats)
         self.model.eval().to(self.device)

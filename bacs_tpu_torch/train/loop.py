@@ -21,8 +21,8 @@ multihost streams, ``training.spatial_partition`` (GSPMD),
 ``training.boundary_gc`` (XLA's executable cache),
 ``training.steps_per_dispatch`` (``make_multi_step``) and
 ``training.profile_dir`` (the ``jax.profiler`` trace).  These raise, naming
-their ROADMAP.md item: ``accumulate_gradients > 1`` and more than one card
-asked for where more than one is visible (queue 1 item 10); media,
+their ROADMAP.md item: more than one card asked for where more than one
+is visible (queue 1 item 10); media,
 prototype and drift logging and the OOD pass (item 14); a
 ``backbone_weights_path`` that exists (item 13).  Asking for more devices
 than are visible warns and runs on one, as the JAX loop does.
@@ -42,6 +42,7 @@ from bacs_tpu_torch.methods import create_method
 from bacs_tpu_torch.methods.base import ModelContext
 from bacs_tpu_torch.models import create_network
 from bacs_tpu_torch.models.resnet import Conv2d
+from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet
 from bacs_tpu_torch.train.learner import get_learner
 from bacs_tpu_torch.train.metrics import PerStepResult, detailed_iou_metrics
 from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary
@@ -55,32 +56,45 @@ from bacs_tpu_torch.utils.logging import Logger
 TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch", "profile_dir")
 
 
+def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+    """Flax's default kernel initialiser: a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
+                                       generator=g)
+
+
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Draw the network's weights as the JAX package initialises them, from
-    ``seed``: convolutions He-normal over the fan-out
-    (``bacs_tpu/models/resnet.py:59``), the classifier LeCun-normal
-    (truncated, Flax's default), the detector's head LeCun-normal; biases 0.
-    The numbers differ from JAX's (another generator)."""
+    ``seed``.  DeepLabV3's backbone and ASPP convolutions are He-normal over
+    the fan-out (``bacs_tpu/models/resnet.py:59``); every other convolution
+    keeps Flax's default, LeCun-normal truncated over the fan-in (kh kw in):
+    the classifier, the detector's trunk convolution, and every UNet
+    convolution and transpose convolution.  The detector's heads are
+    LeCun-normal over D x T; biases 0.  The numbers differ from JAX's
+    (another generator)."""
     g = torch.Generator().manual_seed(seed)
+    flax_default = isinstance(model, UNet)
     with torch.no_grad():
         for name, m in model.named_modules():
-            if not isinstance(m, Conv2d):
-                continue
-            out_c, in_c, kh, kw = m.weight.shape
-            if name == "classifier_head":
-                std = (1.0 / (in_c * kh * kw)) ** 0.5 / 0.87962566103423978
-                w = torch.nn.init.trunc_normal_(torch.empty(m.weight.shape), std=std,
-                                                a=-2 * std, b=2 * std, generator=g)
+            if isinstance(m, ConvTranspose2d):
+                in_c, _, kh, kw = m.weight.shape
+                w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
+            elif isinstance(m, Conv2d):
+                out_c, in_c, kh, kw = m.weight.shape
+                if flax_default or name in ("classifier_head", "seen_fg_network.base_conv"):
+                    w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
+                else:
+                    w = torch.randn(m.weight.shape, generator=g) * (2.0 / (out_c * kh * kw)) ** 0.5
             else:
-                w = torch.randn(m.weight.shape, generator=g) * (2.0 / (out_c * kh * kw)) ** 0.5
+                continue
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
         det = getattr(model, "seen_fg_network", None)
         if det is not None:
             t, d, _ = det.head_kernel.shape
-            det.head_kernel.copy_(torch.randn(det.head_kernel.shape, generator=g)
-                                  * (d * t) ** -0.5)
+            det.head_kernel.copy_(_lecun_normal(det.head_kernel.shape, d * t, g))
 
 
 class Trainer:
@@ -104,10 +118,8 @@ class Trainer:
         self.n_tasks = dm.n_tasks
         self.epochs = int(tcfg.get("epochs", 1))
         self.next_epochs = int(tcfg.get("next_epochs", self.epochs) or self.epochs)
+        # mini-steps per optimizer update (bacs_tpu/train/loop.py:232,444)
         self.accumulate = int(tcfg.get("accumulate_gradients", 1) or 1)
-        if self.accumulate > 1:
-            raise NotImplementedError(
-                "training.accumulate_gradients > 1 is ROADMAP.md queue 1 item 10")
         self.steps_per_class = tcfg.get("steps_per_class", None)
         self.mixed_precision = bool(tcfg.get("mixed_precision", False))
         self.use_bg_detector = bool(tcfg.get("bg_detector", False))
@@ -204,7 +216,9 @@ class Trainer:
         return model.to(self.device)
 
     def _max_iters(self, task: TaskInfo) -> int:
-        total = self.datamodule.steps_per_epoch() * self._epochs_for(task.task_id)
+        """The task's optimizer updates: the schedule's length."""
+        steps_epoch = -(-self.datamodule.steps_per_epoch() // self.accumulate)
+        total = steps_epoch * self._epochs_for(task.task_id)
         if self.steps_per_class:
             # ReCall-style budget (reference: trainer.py:322-327)
             total = min(total, int(self.steps_per_class) * task.nb_new_classes)
@@ -216,7 +230,8 @@ class Trainer:
         if task.task_id > 0 and self.lr_next is not None:
             base_lr = float(self.lr_next)  # (reference: model.py:101-108)
         schedule = make_schedule(self.config.get("scheduler"), base_lr, self._max_iters(task))
-        return make_optimizer(ocfg, model.parameters(), schedule, grad_clip_value=2.0)
+        return make_optimizer(ocfg, model.parameters(), schedule, grad_clip_value=2.0,
+                              accumulate_steps=self.accumulate)
 
     # ------------------------------------------------------------------
 
@@ -278,7 +293,7 @@ class Trainer:
                                                       device=self.device)
         t_train = time.perf_counter()
 
-        max_iters = self._max_iters(task)
+        max_iters = self._max_iters(task) * self.accumulate  # mini-steps
         step_count = 0
         steps_epoch = dm.steps_per_epoch()
         # mid-task resume restarts the SAME epoch and skips the batches the

@@ -11,7 +11,16 @@ PyTorch that is ``clip_grad_value_`` followed by a torch optimizer with
 update k uses ``schedule(k)``; so does ``LambdaLR``.
 
 Schedules are functions of the update count returning a Python float.
-Gradient accumulation (``optax.MultiSteps``) is ROADMAP.md queue 1 item 10.
+
+Gradient accumulation over k mini-steps (``training.accumulate_gradients``)
+is the JAX package's ``optax.MultiSteps(tx, every_k_schedule=k)``
+(``bacs_tpu/train/optim.py:154-155``): each mini-step folds its gradients
+into their running mean, acc += (g - acc) / (n + 1), and every k-th runs
+the chain above once on the mean, so the schedule counts the k-th
+mini-steps.  The mean lives in the optimizer's per-parameter state
+(``"grad_acc"``) and the mini-step count in its first parameter group
+(``"mini_step"``), as optax keeps both in ``opt_state``: the optimizer's
+``state_dict`` carries them into a checkpoint.
 """
 
 from __future__ import annotations
@@ -127,12 +136,9 @@ def make_optimizer(
     SGD (momentum, nesterov), Adam and AdamW, each with the config's
     weight decay (coupled for SGD and Adam, decoupled for AdamW, as the
     JAX chain).  ``grad_clip_value`` is kept in every parameter group and
-    applied by :func:`apply_updates`.
+    applied by :func:`apply_updates`, which also accumulates over
+    ``accumulate_steps`` mini-steps.
     """
-    if accumulate_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation is ROADMAP.md queue 1 item 10"
-        )
     target = str(optimizer_cfg.get("_target_", "torch.optim.SGD"))
     short = target.rsplit(".", 1)[-1].lower()
     wd = float(optimizer_cfg.get("weight_decay", 0.0))
@@ -155,26 +161,48 @@ def make_optimizer(
         raise ValueError(f"unknown optimizer {target!r}")
     for group in opt.param_groups:
         group["grad_clip_value"] = float(grad_clip_value or 0.0)
+    opt.param_groups[0].update(accumulate_steps=max(int(accumulate_steps), 1), mini_step=0)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
 
 def apply_updates(
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
-) -> None:
-    """One update from the parameters' ``.grad``: clip by value, step the
-    optimizer, advance the schedule.
+) -> bool:
+    """One mini-step from the parameters' ``.grad``; returns whether it
+    updated the parameters.
 
     A parameter that the loss did not reach (``.grad`` None, as the BACS
     detector trunk at task > 0) gets a zero gradient first: torch optimizers
     skip such a parameter, while the optax chain still decays it and moves
-    it by its momentum."""
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    it by its momentum.  With ``accumulate_steps`` k > 1 the gradients join
+    their running mean and only every k-th call goes on, with the mean in
+    ``.grad``.  Then: clip by value, step the optimizer, advance the
+    schedule."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    head = optimizer.param_groups[0]
+    k = head.get("accumulate_steps", 1)
+    if k > 1:
+        n = head["mini_step"]
+        with torch.no_grad():
+            for p in params:
+                state = optimizer.state[p]
+                if n == 0:
+                    state["grad_acc"] = p.grad.clone()
+                else:
+                    acc = state["grad_acc"]
+                    acc.add_((p.grad - acc) / (n + 1))
+        head["mini_step"] = (n + 1) % k
+        if n + 1 < k:
+            return False
+        for p in params:
+            p.grad = optimizer.state[p].pop("grad_acc")
     for group in optimizer.param_groups:
         if group["grad_clip_value"]:
             torch.nn.utils.clip_grad_value_(group["params"], group["grad_clip_value"])
     optimizer.step()
     scheduler.step()
+    return True

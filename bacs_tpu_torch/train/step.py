@@ -11,7 +11,11 @@ state object is returned.
   draws), its gradients, one optimizer update (clip, weight decay,
   SGD-nesterov at the scheduled rate), and the method's state updates
   (prototypes and their counts, the buffer).  The gradients stay in the
-  parameters' ``.grad`` until the next step.
+  parameters' ``.grad`` until the next step.  With gradient accumulation
+  over k mini-steps (``train/optim.py``) a call is one mini-step: its
+  gradients join their running mean and the update runs on every k-th
+  call, while the running statistics and the method's state update on
+  every call, as JAX's ``batch_stats`` do under ``optax.MultiSteps``.
 - ``eval_step(state, conf_mat, batch) -> (conf_mat, loss)``: the network
   in eval mode, no gradients; the batch's confusion matrix is added to
   ``conf_mat`` in place.  Below label resolution it comes from the

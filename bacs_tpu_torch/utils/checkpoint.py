@@ -3,7 +3,9 @@
 Port of ``bacs_tpu/utils/checkpoint.py`` with ``torch.save`` in place of
 orbax.  A checkpoint holds everything a resumed run needs to continue as
 if uninterrupted: the network's parameters and statistics, the optimizer's
-moments and the schedule's position, the counters, the state's generator,
+moments and the schedule's position (with gradient accumulation also the
+mean gradient of the mini-steps so far and their count, which the
+optimizer's ``state_dict`` holds, ``train/optim.py``), the counters, the state's generator,
 the per-task prototypes, SDR's per-class prototypes, the frozen previous model, the replay buffer and
 PLOP's thresholds.  The layout and the resume choice are the JAX
 package's: ``<ckpt_dir>/step_<task>/<slot>``, mid-task saves alternating

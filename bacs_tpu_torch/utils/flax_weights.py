@@ -33,6 +33,11 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
+def _is_transpose(mod) -> bool:
+    """A transpose convolution's module path (UNet's ``up_tconv<i>``)."""
+    return bool(mod) and mod[-1].startswith("up_tconv")
+
+
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator:
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -53,7 +58,10 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
             if name == "kernel":
                 if arr.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel")
-                arr = arr.transpose(3, 2, 0, 1)
+                if _is_transpose(mod):
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
             key = ".".join(mod + [names[name]])
             if key in sd:
                 raise KeyError(f"two Flax leaves map to {key}")
@@ -71,7 +79,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Di
         arr = t.detach().float().cpu().numpy()
         if name == "weight":
             tree, leaf = params, "kernel" if arr.ndim == 4 else "scale"
-            if arr.ndim == 4:
+            if arr.ndim == 4 and _is_transpose(mod):
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)
         elif name in ("bias", "head_kernel", "head_bias"):
             tree, leaf = params, name

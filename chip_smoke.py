@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (CE, BACS, MiB, PLOP, ER, SDR
-and iCaRL), eval, continual-trainer and protocol-runner paths on one NVIDIA
-GPU (H100).
+and iCaRL; DeepLabV3 and UNet; gradient accumulation and stage remat),
+eval, continual-trainer and protocol-runner paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --family-times [--package-root DIR]
@@ -135,6 +136,27 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    in-process for ER, SDR and iCaRL, cut to one epoch a task and 96 / 64
    images: the records' keys, one Avg-IoU per task, finite mIoUs and a
    finite loss at every train step;
+28. one f32 CE train step of UNet-4 at 4 x 128^2 on the card and on the
+   CPU (TF32 off), held as phase 8 holds the leaky step (ReLU kinks), the
+   running statistics to 1e-4, then the eval step on both;
+29. UNet-5 at the shipped width (``conf/experiments/network/unet.yaml``,
+   64-512 channels, bilinear), 512^2, bf16: CE train steps at batch 16 (a
+   falling loss, no kernel launched, wall, peak and a profile by kernel
+   kind), eval steps (busy time), serving through the Predictor (exactly
+   one K10, at scale 1, and no K5 per forward; img/s; K10 at
+   [16, 512, 512, 21] held to its plain version and timed beside it and
+   its bound) and a task-1 BACS step with the detector (batch 8, replay
+   2 x 4);
+30. gradient accumulation over 2 mini-steps: a pair of f32 RN101 mini-steps
+   at 4 x 128^2 card against CPU, held as phase 8; then bf16 CE at 512^2,
+   batch 8, one optimizer step per two mini-steps asserted, busy, peak;
+31. stage remat: RN101 bf16 CE at 512^2, batch 16, ``remat=false`` and
+   ``remat=true`` in turns (off, on, on, off): the first step's loss equal,
+   gradients within bf16 rounding, running statistics updated once; the
+   peak memory, busy time and train-ABN launches of each turn;
+32. the 3-task protocol (UNet-3) through ``bacs_tpu_torch.protocol_compare``
+   in-process for CE, MiB and BACS at one epoch a task: the records' keys,
+   3 tasks, finite mIoUs, no kernel launched;
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -659,7 +681,6 @@ def seeded_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
     """
     from bacs_tpu_torch.data.transforms import normalize_image
     from bacs_tpu_torch.models import create_network
-    from bacs_tpu_torch.models.bg_detector import BatchNorm
     from bacs_tpu_torch.models.norm import ABN
     from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
 
@@ -690,22 +711,29 @@ def seeded_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
             if isinstance(m, ABN):
                 m.activation, m.slope = "identity", 1.0
 
+    img = torch.randint(0, 256, (4, 128, 128, 3), generator=g, dtype=torch.uint8)
+    # with the detector the full forward, so that the trunk calibrates too
+    calibrate_norms(model, normalize_image(img), full=use_bg_detector)
+    return state_dict_to_flax(model.state_dict())
+
+
+def calibrate_norms(model, x, full=True) -> None:
+    """Set every norm's running mean and variance to those of its input in
+    one no-grad forward of ``x`` (``full``: ``model(x)``, else its
+    ``sem_logits``)."""
+    from bacs_tpu_torch.models.norm import ABN, BatchNorm
+
     def calibrate(m, inputs):
-        x = inputs[0].float()
-        m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False).clamp_min(1e-3))
+        y = inputs[0].float()
+        m.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        m.running_var.copy_(y.var(dim=(0, 2, 3), unbiased=False).clamp_min(1e-3))
 
     handles = [m.register_forward_pre_hook(calibrate) for m in model.modules()
                if isinstance(m, (ABN, BatchNorm))]
-    img = torch.randint(0, 256, (4, 128, 128, 3), generator=g, dtype=torch.uint8)
     with torch.no_grad():
-        if use_bg_detector:  # the full forward: the trunk too
-            model(normalize_image(img))
-        else:
-            model.sem_logits(normalize_image(img))
+        model(x) if full else model.sem_logits(x)
     for h in handles:
         h.remove()
-    return state_dict_to_flax(model.state_dict())
 
 
 def make_predictor(cfg, params, stats, dtype, device):
@@ -771,25 +799,31 @@ def load_yaml(path: str) -> dict:
         return yaml.safe_load(f)
 
 
+# the network config keys create_network reads
+NET_KEYS = ("norm", "backbone", "n_channels", "bilinear", "num_layers", "remat")
+
+
 def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=False,
-                **state_kw):
+                accumulate=1, **state_kw):
     """A train state: f32 master weights from the Flax trees, convs
-    computing in ``dtype``, nesterov SGD under the poly schedule.
-    ``smooth`` gives every ABN (and so every block output) the identity
-    activation in place of the configured leaky-ReLU; ``fused_stem`` the
-    stem's fused ABN + max-pool (K12).  Flax trees with a
-    ``seen_fg_network`` build the network with the background detector;
-    ``state_kw`` are further ``TrainState`` fields."""
+    computing in ``dtype``, nesterov SGD under the poly schedule, its
+    gradients averaged over ``accumulate`` mini-steps.  ``cfg`` is a
+    network config (DeepLabV3 or UNet, with ``remat``).  ``smooth`` gives
+    every ABN (and so every block output) the identity activation in place
+    of the configured leaky-ReLU; ``fused_stem`` the stem's fused ABN +
+    max-pool (K12).  Flax trees with a ``seen_fg_network`` build the
+    network with the background detector; ``state_kw`` are further
+    ``TrainState`` fields."""
     from bacs_tpu_torch.models import ABN, create_network
     from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
     from bacs_tpu_torch.train.state import TrainState
     from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 
-    model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
-                           backbone=cfg["backbone"], dtype=dtype,
+    model = create_network(cfg["_target_"], N_CLASSES, dtype=dtype,
                            param_dtype=torch.float32, n_tasks=N_TASKS,
                            use_bg_detector="seen_fg_network" in params,
-                           fused_stem=fused_stem)
+                           fused_stem=fused_stem,
+                           **{k: v for k, v in cfg.items() if k in NET_KEYS})
     load_flax_variables(model, params, stats)
     if smooth:
         for m in model.modules():
@@ -798,8 +832,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=Fals
     model.to(device)
     opt_cfg = load_yaml(OPTIMIZER_YAML)
     schedule = make_schedule(load_yaml(SCHEDULER_YAML), float(opt_cfg["lr"]), MAX_ITERS)
-    return TrainState(model, *make_optimizer(opt_cfg, model.parameters(), schedule),
-                      **state_kw)
+    return TrainState(model, *make_optimizer(opt_cfg, model.parameters(), schedule,
+                                             accumulate_steps=accumulate), **state_kw)
 
 
 def ce_steps(device):
@@ -999,7 +1033,8 @@ def upsample_bound(kernel: str, sem, out_hw, labels=None, extra=None):
         pix = int(valid.sum())
     if extra is not None:
         in_bytes += extra.numel() * extra.element_size()
-    lerps = 3 * c * (n * h * W + pix)
+    # at scale 1 (UNet's logits) the resize is the identity: no lerp
+    lerps = 0 if tuple(sem.shape[1:3]) == (H, W) else 3 * c * (n * h * W + pix)
     sfu = pix * (c + 1)
     if kernel == "k10":  # uint8 class and f16 confidence per pixel
         return bound(in_bytes + n * H * W * 3, lerps + 4 * c * pix, sfu)
@@ -1890,6 +1925,373 @@ def runner_protocol(seed: int) -> dict:
     per_task = [sum(1 for t, _ in losses if t == k) for k in range(N_TASKS)]
     assert per_task[0] >= 3 * 5 and all(c >= 3 for c in per_task[1:]), per_task
     return dict(records=records, losses=losses, per_task=per_task, wall=wall)
+
+
+# ---------------------------------------------------------------- UNet, accumulation, remat
+
+UNET_YAML = "conf/experiments/network/unet.yaml"
+UNET_BACS_BATCH, UNET_BACS_REPLAY, UNET_BACS_SLOTS = 8, 4, 16
+UNET_STEPS, UNET_WARMUP = 10, 2
+# [30]'s accumulated step: batch 8, two mini-steps an update
+ACC_BATCH, ACC_K, ACC_STEPS = 8, 2, 8
+# [31]'s remat turns: off, on, on, off; steps a turn after one warm-up
+REMAT_TURNS, REMAT_STEPS = (False, True, True, False), 4
+# [32] the 3-task protocol (UNet-3) through the port's runner, one epoch
+UNET_RUNNER_ARGS = ["--protocol", "3task", "--methods", "ce,mib,bacs", "--epochs", "1"]
+
+
+def unet_cfg(layers: int = 5) -> dict:
+    """The shipped UNet config (64-512 channels, bilinear) at ``layers``."""
+    return {**load_yaml(UNET_YAML), "num_layers": layers}
+
+
+def unet_variables(cfg: dict, seed: int, use_bg_detector: bool = False):
+    """Flax-layout (params, batch_stats) of a UNet drawn as the Trainer
+    draws it (``train.loop.init_weights``: LeCun normal over the fan-in,
+    biases 0), its running statistics calibrated by one small CPU forward
+    (each norm's to its input's), as ``seeded_variables`` does."""
+    from bacs_tpu_torch.data.transforms import normalize_image
+    from bacs_tpu_torch.models import create_network
+    from bacs_tpu_torch.train.loop import init_weights
+    from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
+
+    model = create_network(cfg["_target_"], N_CLASSES, n_tasks=N_TASKS,
+                           use_bg_detector=use_bg_detector,
+                           **{k: v for k, v in cfg.items() if k in NET_KEYS}).eval()
+    init_weights(model, seed)
+    img = torch.randint(0, 256, (2, 128, 128, 3), generator=torch.Generator().manual_seed(seed),
+                        dtype=torch.uint8)
+    calibrate_norms(model, normalize_image(img))
+    return state_dict_to_flax(model.state_dict())
+
+
+def unet_step_card_vs_cpu(seed, dev) -> None:
+    """[28] one f32 CE train step of UNet-4 at 4 x 128^2 on the card and on
+    the CPU (TF32 off), held by ``hold_step`` (ReLU: the norm rule of the
+    leaky steps, as a kink within rounding moves a channel's gradient
+    through its batch norm); then the eval step on both: loss rtol 1e-5,
+    the confusion matrices counting every valid pixel, at most 1e-3 of
+    them differently (argmax near-ties)."""
+    cfg = unet_cfg(4)
+    params, stats = unet_variables(cfg, seed)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = synthetic_batch(4, 128, torch.Generator().manual_seed(seed), "cpu")
+    runs, evals = [], []  # the card's, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        state = train_state(cfg, params, stats, torch.float32, device)
+        p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+        train_step, eval_step, put_batch = ce_steps(device)
+        batch = put_batch(small)
+        state, metrics = train_step(state, batch)
+        runs.append((float(metrics["loss"]), *grads_and_stats(state.model)))
+        cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=device)
+        cm, loss = eval_step(state, cm, batch)
+        evals.append((cm.cpu(), float(loss)))
+        del state
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    hold_step("[28] f32 UNet-4 CE step card vs CPU, 4 x 128^2", "ReLU", *runs, p0)
+    (cm_g, loss_g), (cm_c, loss_c) = evals
+    valid = int((small["label"] != 255).sum())
+    moved = int((cm_g - cm_c).abs().sum()) // 2
+    log(f"[28] eval step card vs CPU: loss {loss_g:.7f} vs {loss_c:.7f}; {moved} of {valid} "
+        "pixels counted differently")
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+    assert int(cm_g.sum()) == int(cm_c.sum()) == valid and moved <= 1e-3 * valid
+    torch.cuda.empty_cache()
+
+
+def unet_full_width(seed, dev, reset_counts, counts) -> dict:
+    """[29] UNet-5 at the shipped width (``conf/experiments/network/unet.yaml``),
+    512^2, bf16 convolutions on f32 master weights, on the class-coloured
+    synthetic batches: CE train steps at batch 16 (a falling loss, no
+    kernel launched: UNet's logits are at label resolution, so the CE is
+    composed and the norms are plain batch norms; wall, peak memory and a
+    profile by kernel kind), eval steps (no kernel launched; busy time),
+    serving through the Predictor (exactly one K10 at scale 1 and no K5 per
+    forward; img/s; K10 at [16, 512, 512, 21] held to its plain version and
+    timed beside it and its bound), and a task-1 BACS step with the
+    detector (batch 8, replay 2 x 4 from a 16-slot buffer filled by task
+    0's ``end_task``; a finite loss, launches counted)."""
+    from bacs_tpu_torch.ops.upsample_argmax import argmax_conf_from, upsampled_argmax_conf
+    from bacs_tpu_torch.serve import Predictor
+
+    out = {}
+    cfg = unet_cfg(5)
+    params, stats = unet_variables(cfg, seed)
+    state = train_state(cfg, params, stats, torch.bfloat16, dev)
+    train_step, eval_step, _ = ce_steps(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    batches = [synthetic_batch(BATCH, CROP, gen, dev) for _ in range(UNET_STEPS)]
+    losses = []
+    for b in batches[:UNET_WARMUP]:
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for b in batches[UNET_WARMUP:]:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append(1000 * (time.perf_counter() - t0))
+    out["train_counts"] = counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    log(f"[29] UNet-5 bf16 CE train step, batch {BATCH}, {CROP}^2: median {med:.3f} ms "
+        f"({BATCH * 1000 / med:.2f} img/s; min {min(step_ms):.3f}, max {max(step_ms):.3f} "
+        f"over {len(step_ms)} steps); peak memory {peak / 2**30:.3f} GiB; launches "
+        f"{out['train_counts']}")
+    log(f"[29] loss curve: {' '.join(f'{v:.4f}' for v in losses)}")
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall"
+    assert not any(out["train_counts"].values()), out["train_counts"]
+    busy, parts = profile_by_kind(lambda: train_step(state, batches[0]),
+                                  f"UNet-5 bf16 CE train steps (batch {BATCH}, {CROP}^2)")
+    for part, ms in parts.items():
+        log(f"[p] UNet-5 train step by kind: {ms:.3f} ms ({ms / busy:.1%}) {part}")
+    log(f"[p] UNet-5 train: device busy {busy:.3f} ms per step; median wall {med:.3f} ms: "
+        f"device idle share {1 - busy / med:.3f}")
+    out["train"] = dict(wall=med, busy=busy, peak=peak / 2**30)
+
+    cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+    eval_step(state, cm.clone(), batches[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    eval_ms = []
+    for b in batches[:EVAL_STEPS]:
+        t0 = time.perf_counter()
+        cm, loss = eval_step(state, cm, b)
+        assert np.isfinite(float(loss)), float(loss)
+        eval_ms.append(1000 * (time.perf_counter() - t0))
+    out["eval_counts"] = counts()
+    valid = sum(int((b["label"] != 255).sum()) for b in batches[:EVAL_STEPS])
+    assert int(cm.sum()) == valid and not any(out["eval_counts"].values())
+    eval_busy = busy_ms(lambda: eval_step(state, cm.clone(), batches[0]))
+    log(f"[29] UNet-5 eval step, batch {BATCH}: median wall {np.median(eval_ms):.3f} ms, "
+        f"device busy {eval_busy:.3f} ms; every valid pixel counted; no kernel launched")
+    out["eval"] = dict(wall=float(np.median(eval_ms)), busy=eval_busy)
+    del state
+    torch.cuda.empty_cache()
+
+    # serving: K10 at scale 1
+    pred = Predictor(cfg, N_CLASSES, params, stats, crop_size=CROP, dtype=torch.bfloat16,
+                     device=dev)
+    rs = np.random.RandomState(seed + 29)
+    served = [rs.randint(0, 256, (BATCH, CROP, CROP, 3)).astype(np.uint8) for _ in range(6)]
+    for _ in pred.predict_many(served[:2]):
+        pass
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = list(pred.predict_many(served))
+    t_many = time.perf_counter() - t0
+    out["serve_counts"] = counts()
+    assert out["serve_counts"]["k10"] == len(served) and out["serve_counts"]["k5"] == 0, \
+        out["serve_counts"]
+    for preds, conf in results:
+        assert preds.shape == (BATCH, CROP, CROP) and preds.max() < N_CLASSES
+        assert bool(np.isfinite(conf.astype(np.float32)).all())
+    x = torch.from_numpy(served[0]).to(dev)
+    with torch.inference_mode():
+        serve_busy = busy_ms(lambda: pred._infer(x))
+    log(f"[29] UNet-5 bf16 serving, predict_many {len(served)} x {BATCH}: "
+        f"{len(served) * BATCH / t_many:.2f} img/s, device busy {serve_busy:.3f} ms a batch; "
+        f"launches {out['serve_counts']}")
+    out["serve"] = dict(img_s=len(served) * BATCH / t_many, busy=serve_busy)
+    with torch.inference_mode():
+        from bacs_tpu_torch.data.transforms import normalize_image
+
+        sem = pred.model.sem_logits(normalize_image(x).to(torch.bfloat16)).contiguous()
+    del pred
+    torch.cuda.empty_cache()
+    shape, hw = tuple(sem.shape), (CROP, CROP)
+    err = check_argmax(shape, hw, torch.bfloat16, dev, seed=seed)
+    k10_x1 = (device_ms(lambda: upsampled_argmax_conf(sem, hw)),
+              device_ms(lambda: argmax_conf_from(sem.float())))
+    k10_x1_bound = upsample_bound("k10", sem, hw)
+    log(f"[29] K10 at scale 1 {shape}->{hw} bf16: held to its plain version (conf max abs "
+        f"err {err:.3g}); on the served logits kernel {k10_x1[0]:.4f} ms, plain "
+        f"{k10_x1[1]:.4f} ms, bound {k10_x1_bound[0]:.4f} ms ({k10_x1_bound[1]})")
+    out["k10_x1"] = dict(err=err, ms=k10_x1[0], plain_ms=k10_x1[1], bound=k10_x1_bound)
+
+    # a task-1 BACS step with the detector
+    params_d, stats_d = unet_variables(cfg, seed, use_bg_detector=True)
+    dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])
+    state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        prototypes=torch.zeros((N_TASKS, dim), device=dev),
+                        proto_counts=torch.zeros(N_TASKS, device=dev))
+    kw = dict(buffer_size=UNET_BACS_SLOTS, replay_minibatch_size=UNET_BACS_REPLAY)
+    ctx0, method, _ = bacs_steps(0, dev, **kw)
+    state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP, CROP), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    fill = [synthetic_batch(UNET_BACS_BATCH, CROP, gen, dev, n_classes=16) for _ in range(2)]
+    state = method.end_task(state, ctx0, fill)
+    assert int(state.buffer.valid.sum()) > 0
+    _, _, (train1, _, _) = bacs_steps(1, dev, **kw)
+    steps = [synthetic_batch(UNET_BACS_BATCH, CROP, gen, dev, n_classes=17) for _ in range(3)]
+    state, metrics = train1(state, steps[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bacs_losses, bacs_ms = [], []
+    for b in steps[1:]:
+        t0 = time.perf_counter()
+        state, metrics = train1(state, b)
+        bacs_losses.append(float(metrics["loss"]))
+        bacs_ms.append(1000 * (time.perf_counter() - t0))
+    out["bacs_counts"] = counts()
+    bacs_peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(bacs_losses)), bacs_losses
+    assert not any(out["bacs_counts"].values()), out["bacs_counts"]
+    bacs_busy = busy_ms(lambda: train1(state, steps[1]))
+    log(f"[29] UNet-5 task-1 BACS step (detector, batch {UNET_BACS_BATCH} + replay 2 x "
+        f"{UNET_BACS_REPLAY}): losses {' '.join(f'{v:.4f}' for v in bacs_losses)}; median "
+        f"wall {np.median(bacs_ms):.3f} ms, device busy {bacs_busy:.3f} ms, peak "
+        f"{bacs_peak / 2**30:.3f} GiB; launches {out['bacs_counts']} (every CE composed)")
+    out["bacs"] = dict(wall=float(np.median(bacs_ms)), busy=bacs_busy,
+                       peak=bacs_peak / 2**30)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def accumulate_checks(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
+    """[30] gradient accumulation (k = 2): a pair of f32 RN101 mini-steps at
+    4 x 128^2 on the card and on the CPU (TF32 off), held by ``hold_step``
+    with identity and leaky activations (the update runs on the mean
+    gradient of the pair); then bf16 CE at 512^2, batch 8, two mini-steps
+    an update: one optimizer step per two mini-steps (the schedule's
+    count), train-ABN and K1 per mini-step, busy time a mini-step, peak."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(seed + 30)
+    pair = [synthetic_batch(4, 128, g, "cpu") for _ in range(ACC_K)]
+    for activation in ("identity", "leaky"):
+        runs = []  # the card's, then the CPU's
+        for device in (dev, torch.device("cpu")):
+            state = train_state(cfg, params, stats, torch.float32, device,
+                                smooth=activation == "identity", accumulate=ACC_K)
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            train_step, _, put_batch = ce_steps(device)
+            losses = []
+            for b in pair:
+                state, metrics = train_step(state, put_batch(b))
+                losses.append(float(metrics["loss"]))
+            assert state.scheduler.last_epoch == 1 and state.step == ACC_K
+            runs.append((float(np.mean(losses)), *grads_and_stats(state.model)))
+            del state
+        hold_step(f"[30] f32 RN101 pair of mini-steps (k = {ACC_K}) card vs CPU, 4 x 128^2",
+                  activation, *runs, p0,
+                  "; the loss is the pair's mean, the gradient the pair's mean, clipped")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    state = train_state(cfg, params, stats, torch.bfloat16, dev, accumulate=ACC_K)
+    train_step, _, _ = ce_steps(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    batches = [synthetic_batch(ACC_BATCH, CROP, gen, dev) for _ in range(ACC_STEPS)]
+    for b in batches[:ACC_K]:
+        state, _ = train_step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    updates0, wall = state.scheduler.last_epoch, []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        assert np.isfinite(float(metrics["loss"]))
+        wall.append(1000 * (time.perf_counter() - t0))
+    acc_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    updates = state.scheduler.last_epoch - updates0
+    assert updates == ACC_STEPS // ACC_K, updates
+    assert acc_counts["train_abn"] == ABN_PER_FORWARD * ACC_STEPS
+    assert acc_counts["k1f"] == acc_counts["k1b"] == ACC_STEPS
+    busy = busy_ms(lambda: train_step(state, batches[0]), steps=ACC_K)
+    log(f"[30] bf16 RN101 CE, batch {ACC_BATCH} x {ACC_K} mini-steps, {CROP}^2: {updates} "
+        f"optimizer steps over {ACC_STEPS} mini-steps; median mini-step wall "
+        f"{np.median(wall):.3f} ms, device busy {busy:.3f} ms a mini-step; peak "
+        f"{peak / 2**30:.3f} GiB; launches {acc_counts}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(counts=acc_counts, busy=busy, wall=float(np.median(wall)), peak=peak / 2**30)
+
+
+def remat_compare(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
+    """[31] RN101 bf16 CE at 512^2, batch 16, ``remat=false`` against
+    ``remat=true`` in turns (off, on, on, off), each turn a fresh state
+    from the same weights on the same batches: the first step's loss
+    equal, its gradients within bf16 rounding (norm rule 1e-2: the
+    recompute may pick other cuDNN algorithms) and the running statistics
+    after it within 1e-3 of their largest (updated once, not twice); per
+    turn the peak memory, device busy time a step and train-ABN launches
+    (the recompute runs every block's ABN a second time: 103 more)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    batches = [synthetic_batch(BATCH, CROP, gen, dev) for _ in range(REMAT_STEPS + 1)]
+    turns, first = [], {}
+    for remat in REMAT_TURNS:
+        state = train_state({**cfg, "remat": remat}, params, stats, torch.bfloat16, dev)
+        train_step, _, _ = ce_steps(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, metrics = train_step(state, batches[0])
+        c = counts()
+        grads, _, stats_after = grads_and_stats(state.model)
+        first.setdefault(remat, (float(metrics["loss"]), grads, stats_after))
+        for b in batches[1:]:
+            state, metrics = train_step(state, b)
+            assert np.isfinite(float(metrics["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        busy = busy_ms(lambda: train_step(state, batches[0]))
+        turns.append(dict(remat=remat, peak=peak / 2**30, busy=busy, counts=c))
+        log(f"[31] remat={remat}: peak {peak / 2**30:.3f} GiB, device busy {busy:.3f} ms a "
+            f"step; launches of the first step {c}")
+        del state
+        torch.cuda.empty_cache()
+    (loss_off, g_off, s_off), (loss_on, g_on, s_on) = first[False], first[True]
+    grad_norm = norm_error(g_on, g_off)
+    stats_rel, worst = max_rel_error(s_on, s_off)
+    log(f"[31] remat against plain, first step: loss {loss_on:.6f} vs {loss_off:.6f}; "
+        f"gradients norm rel err {grad_norm:.3g}; running statistics max rel err "
+        f"{stats_rel:.3g} ({worst})")
+    assert abs(loss_on - loss_off) <= 1e-6 * abs(loss_off), (loss_on, loss_off)
+    assert grad_norm <= 1e-2 and stats_rel <= 1e-3, (grad_norm, stats_rel)
+    on = [t for t in turns if t["remat"]]
+    off = [t for t in turns if not t["remat"]]
+    assert all(t["counts"]["train_abn"] == ABN_PER_FORWARD for t in off)
+    # the recompute: every ABN but the stem's and the ASPP's three
+    assert all(t["counts"]["train_abn"] == 2 * ABN_PER_FORWARD - 4 for t in on)
+    return dict(turns=turns, grad_norm=grad_norm, stats_rel=stats_rel,
+                counts={k: sum(t["counts"][k] for t in turns) for k in turns[0]["counts"]})
+
+
+def unet_runner(seed: int) -> dict:
+    """[32] ``bacs_tpu_torch.protocol_compare.main`` in-process on the card for
+    the 3-task protocol (UNet-3, 32^2) with CE, MiB and BACS at one epoch a
+    task: the runner's keys, 3 tasks, finite mIoUs in [0, 1]."""
+    from bacs_tpu_torch import protocol_compare
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = protocol_compare.main(UNET_RUNNER_ARGS + ["--seed", str(42 + seed)])
+    wall = time.perf_counter() - t0
+    keys = {"method", "final_miou", "oldest_task_miou", "task0_miou",
+            "avg_iou_per_dataset", "seconds"}
+    records = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    assert records == results and [r["method"] for r in records] == ["ce", "mib", "bacs"]
+    for r in records:
+        assert set(r) == keys and len(r["avg_iou_per_dataset"]) == 3, r
+        assert all(np.isfinite(r[k]) and 0 <= r[k] <= 1
+                   for k in ("final_miou", "oldest_task_miou", "task0_miou")), r
+    return dict(records=records, wall=wall)
 
 
 # ---------------------------------------------------------------- the upsample+loss family
@@ -3061,6 +3463,26 @@ def main() -> int:
     t_more = time.perf_counter() - t_more
     torch.cuda.empty_cache()
 
+    # 28. UNet-4 f32 card against CPU; 29. UNet-5 at full width: steps,
+    # eval, serving (K10 at scale 1), a BACS step; 30. gradient
+    # accumulation; 31. stage remat; 32. the 3-task UNet protocol through
+    # the runner
+    t_unet = time.perf_counter()
+    unet_step_card_vs_cpu(args.seed, dev)
+    unet = unet_full_width(args.seed, dev, reset_counts, counts)
+    acc = accumulate_checks(cfg, params, stats, args.seed, dev, reset_counts, counts)
+    remat = remat_compare(cfg, params, stats, args.seed, dev, reset_counts, counts)
+    reset_counts()
+    unet_run = unet_runner(args.seed)
+    unet_runner_counts = counts()
+    for r in unet_run["records"]:
+        log(f"[32] {json.dumps(r)}")
+    log(f"[32] bacs_tpu_torch.protocol_compare {' '.join(UNET_RUNNER_ARGS)}: "
+        f"{unet_run['wall']:.1f} s for the three legs; launches {unet_runner_counts}")
+    assert not any(unet_runner_counts.values()), unet_runner_counts
+    t_unet = time.perf_counter() - t_unet
+    torch.cuda.empty_cache()
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -3158,7 +3580,7 @@ def main() -> int:
         f"(losses, prototype folds, replay draws, augmentation, autocontrast)")
 
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
-        f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s")
+        f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -3183,7 +3605,8 @@ def main() -> int:
               + bacs_counts["k5"] + bacs_counts["train_abn"] + bacs_eval_counts["k5"]
               + sum(r[p][k] for r in (mib, plop, er_run, sdr_run, icarl_run) for p, k in (
                   ("steps", "k5"), ("steps", "train_abn"), ("eval", "k5")))
-              + runner_counts["k5"] + runner_counts["train_abn"],
+              + runner_counts["k5"] + runner_counts["train_abn"]
+              + acc["counts"]["train_abn"] + remat["counts"]["train_abn"],
               k5_err, k5_ms, k5_plain_ms, k5_bound,
               launches_by_path={"serve": k5_launches, "eval_step": eval_counts["k5"],
                                 "train_step_abn": train_counts["train_abn"],
@@ -3201,23 +3624,34 @@ def main() -> int:
                                 "er_sdr_icarl_eval_steps": sum(
                                     r["eval"]["k5"] for r in (er_run, sdr_run, icarl_run)),
                                 "protocol_runner": runner_counts["k5"]
-                                + runner_counts["train_abn"]}),
+                                + runner_counts["train_abn"],
+                                "accumulated_step_abn": acc["counts"]["train_abn"],
+                                "remat_steps_abn": remat["counts"]["train_abn"]}),
         entry("upsample_argmax_conf (K10)", "cuda",
               "bacs_tpu_torch/csrc/upsample_argmax.cu",
-              "bacs_tpu/ops/upsample_argmax.py:88", k10_launches, k10_err,
-              k10_ms, k10_plain_ms, k10_bound),
+              "bacs_tpu/ops/upsample_argmax.py:88",
+              k10_launches + unet["serve_counts"]["k10"], max(k10_err, unet["k10_x1"]["err"]),
+              k10_ms, k10_plain_ms, k10_bound,
+              launches_by_path={"serve_deeplab": k10_launches,
+                                "serve_unet_scale_1": unet["serve_counts"]["k10"]},
+              scale_1_ms=unet["k10_x1"]["ms"], scale_1_plain_ms=unet["k10_x1"]["plain_ms"],
+              scale_1_bound_ms=unet["k10_x1"]["bound"][0],
+              scale_1_bound_by=unet["k10_x1"]["bound"][1],
+              scale_1_is="UNet-5's served logits [16, 512, 512, 21] bf16 -> 512^2"),
         with_pair(entry("upsample_ce_sums (K1 forward)", "cuda",
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
                         "bacs_tpu/ops/upsample_ce.py:787",
                         train_counts["k1f"] + eval_counts["k1f"] + bacs_eval_counts["k1f"]
                         + plop["steps"]["k1f"] + mib["eval"]["k1f"] + plop["eval"]["k1f"]
                         + er_run["steps"]["k1f"] + er_run["eval"]["k1f"]
-                        + runner_counts["k1f"],
+                        + runner_counts["k1f"] + acc["counts"]["k1f"]
+                        + remat["counts"]["k1f"],
                         k1f_err, *times["k1f"], bounds["k1f"]), "k1f"),
         with_pair(entry("upsample_ce_grad (K1 backward)", "cuda",
                         "bacs_tpu_torch/csrc/upsample_ce.cu",
                         "bacs_tpu/ops/upsample_ce.py:125",
-                        train_counts["k1b"] + er_run["steps"]["k1b"] + runner_counts["k1b"],
+                        train_counts["k1b"] + er_run["steps"]["k1b"] + runner_counts["k1b"]
+                        + acc["counts"]["k1b"] + remat["counts"]["k1b"],
                         k1b_err,
                         *times["k1b"], bounds["k1b"]), "k1b"),
         entry("upsample_confusion (K2)", "cuda",

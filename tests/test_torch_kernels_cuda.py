@@ -52,9 +52,11 @@ def test_upsample_argmax_kernel_matches_plain(cuda, shape, out_hw, dtype):
 
 # K10 and K9 (csrc/upsample_stage.cuh:pixel_kernel) at channel counts at and
 # across the register chunks (16, 24, then 32 a chunk), batch 1 at the
-# serving shape, and an odd band
+# serving shape, an odd band, and at scale 1 (UNet's logits: each band
+# stages as many source rows as it writes)
 PIXEL_CASES = [((2, 8, 8, c), (128, 128)) for c in (16, 17, 24, 25, 33, 150)] + [
-    ((1, 32, 32, 21), (512, 512)), ((2, 33, 47, 21), (261, 373))]
+    ((1, 32, 32, 21), (512, 512)), ((2, 33, 47, 21), (261, 373)),
+    ((2, 64, 64, 21), (64, 64)), ((1, 512, 512, 21), (512, 512))]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -64,7 +66,7 @@ def test_pixel_template_argmax_matches_plain(cuda, shape, out_hw, dtype):
     integer logits, whose ties the two must break alike (the first channel
     that reaches the max, within a chunk and across chunks)."""
     check_argmax(shape, out_hw, dtype, cuda)
-    if out_hw == (128, 128):
+    if out_hw == (128, 128) or out_hw == shape[1:3]:
         check_argmax(shape, out_hw, dtype, cuda, levels=True)
 
 

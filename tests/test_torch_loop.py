@@ -260,11 +260,14 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override, item", [
-    ("+training.accumulate_gradients=2", "item 10"),
+    ("+training.log_prototypes=true", "item 14"),
     ("+training.log_images=true", "item 14"),
-    ("network=unet", "item 12"),
+    ("+training.log_drift=true", "item 14"),
 ])
 def test_unported_options_raise(override, item):
+    """Options not ported raise, naming their ROADMAP item.  UNet and
+    ``accumulate_gradients`` train (``tests/test_torch_unet_loop.py``,
+    ``tests/test_torch_accumulate.py``)."""
     config = load_config(CONF, "config", BASE + [override])
     with pytest.raises(NotImplementedError, match=item):
         loop.Trainer(config, device="cpu").fit()

@@ -147,12 +147,23 @@ def test_tiny_cpu_leg(method, capsys):
     assert any(line.startswith(f"| {method} |") for line in lines)
 
 
-def test_unet_protocol_raises():
-    """A protocol on UNet raises where the network is built, naming the
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_pc.main(["--protocol", "3task", "--methods", "ce", "--epochs", "1",
-                      "--device", "cpu"])
+def test_unet_protocol_raises(capsys):
+    """The 3-task protocol on its own network, UNet-3 at crop 32, one epoch
+    a task, trains on the CPU (UNet is ported): one JSON line with the
+    runner's keys, finite mIoUs in [0, 1], one Avg-IoU per task."""
+    threads = torch.get_num_threads()  # one thread: tests/test_torch_accumulate.py
+    torch.set_num_threads(1)
+    try:
+        results = port_pc.main(["--protocol", "3task", "--methods", "ce", "--epochs", "1",
+                                "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    lines = capsys.readouterr().out.splitlines()
+    rec = json.loads(next(line for line in lines if line.startswith("{")))
+    assert set(rec) == KEYS and rec == results[0] and rec["method"] == "ce"
+    assert len(rec["avg_iou_per_dataset"]) == 3
+    for k in ("final_miou", "oldest_task_miou", "task0_miou"):
+        assert 0.0 <= rec[k] <= 1.0, (k, rec)
 
 
 def test_sdr_class_prototypes_survive_checkpoint_and_resume(tmp_path):

@@ -203,7 +203,8 @@ def test_abn_module_fused_stem_matches_flax(shape, monkeypatch):
 def test_create_network_gates():
     """``fused_stem`` reaches every ABN, as the JAX factory passes it, and
     only the stem pools; ``fused_abn=false`` (the non-fused train ABN)
-    and ``remat`` raise."""
+    raises; ``remat`` chooses the blocks recomputed in the backward
+    (held to the plain step by ``tests/test_torch_accumulate.py``)."""
     net = create_network("networks.DeepLabV3", 3, backbone="resnet18", fused_stem=True)
     abns = [m for m in net.modules() if isinstance(m, ABN)]
     assert all(m.fused_stem for m in abns) and sum(m.pool for m in abns) == 1
@@ -211,8 +212,9 @@ def test_create_network_gates():
         "networks.DeepLabV3", 3, backbone="resnet18").modules() if isinstance(m, ABN))
     with pytest.raises(NotImplementedError, match="item 2"):
         create_network("networks.DeepLabV3", 3, backbone="resnet18", fused_abn=False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        create_network("networks.DeepLabV3", 3, backbone="resnet18", remat=[3])
+    net = create_network("networks.DeepLabV3", 3, backbone="resnet18", remat=[3],
+                         fused_stem=True)
+    assert net.backbone.remat_blocks == {"mod4_block1", "mod4_block2"}
 
 
 # ---------------------------------------------------------------- train step

@@ -284,9 +284,12 @@ def test_make_schedule_matches_jax(cfg):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer(OPTIMIZERS[0], [torch.nn.Parameter(torch.zeros(2))],
-                             optim.poly_schedule(0.01, 10), accumulate_steps=2)
+    # gradient accumulation is ported (held to optax.MultiSteps by
+    # tests/test_torch_accumulate.py)
+    opt, _ = optim.make_optimizer(OPTIMIZERS[0], [torch.nn.Parameter(torch.zeros(2))],
+                                  optim.poly_schedule(0.01, 10), accumulate_steps=2)
+    assert opt.param_groups[0]["accumulate_steps"] == 2
+    assert opt.param_groups[0]["mini_step"] == 0
     # every method of the JAX registry is ported (held to JAX by
     # tests/test_torch_more_methods_step.py), bg_weighted_ce included
     for name in ("sdr", "loss.IcarlLoss", "er", "prototypes"):
