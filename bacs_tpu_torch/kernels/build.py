@@ -2,11 +2,13 @@
 
 Every ``bacs_tpu_torch/csrc/*.cu`` file is compiled on its own, all at once
 in parallel, and the objects are linked into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds).  One
-nvcc per source keeps the build at its slowest file's time rather than
-the sum of all, as each ported kernel adds a source and ``chip_smoke.py``
-builds them all inside a fixed time limit; ``build(verbose=True)`` prints
-each file's compile time:
+plain C interface (no PyTorch headers to compile).  One nvcc per source
+keeps the build at its slowest file's time rather than the sum of all, as
+each ported kernel adds a source and ``chip_smoke.py`` builds them all
+inside a fixed time limit; so a source that instantiates many templates
+is split (the upsample+loss family: one source per loss on
+``upsample_ce.cuh``).  ``build(verbose=True)`` prints each file's compile
+time:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -c -o <stem>.o bacs_tpu_torch/csrc/<stem>.cu  # each

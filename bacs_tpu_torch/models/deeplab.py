@@ -11,7 +11,8 @@ Predictor calls :meth:`DeepLabV3.sem_logits`.  With ``use_bg_detector``
 the network carries the BACS background detector (``models/bg_detector.py``)
 and its penultimate output is the detector trunk's.  ``remat`` chooses the
 backbone stages recomputed in the backward (``models/resnet.py``).  The
-atrous encoder is ROADMAP.md queue 1 item 12 and raises until it lands.
+atrous encoder needs the non-fused ``bn`` norm, ROADMAP.md queue 1 item 2,
+and raises until it lands.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ class DeepLabV3(nn.Module):
         super().__init__()
         if atrous_encoder:
             raise NotImplementedError(
-                "the atrous encoder is ROADMAP.md queue 1 item 12"
+                "the atrous encoder is ROADMAP.md queue 1 item 2 (the non-fused bn norm)"
             )
         self.backbone = create_resnet(backbone_name, norm, output_stride, remat)
         self.base_classifier = DeepLabHead(

@@ -4,8 +4,11 @@ Port of the fused losses of ``bacs_tpu/ops/upsample_ce.py`` that the CE,
 BACS, MiB and PLOP steps run.  Each loss is a function of
 bilinear_upsample(sem_logits) and the labels (K7: of two upsampled logit
 tensors); at 512^2, batch 16, VOC-21 the upsampled logits alone would be
-352 MB of f32.  Six kernels, all in ``csrc/upsample_ce.cu`` (PLOP's
-pseudo-labels, K9, are in ``ops/upsample_pseudo.py``):
+352 MB of f32.  Six kernels, on the templates of ``csrc/upsample_ce.cuh``,
+each loss's entry points a source of its own (``upsample_ce.cu``: K1 and
+K8; ``upsample_bacs.cu``: K3; ``upsample_wce.cu``: K4; ``upsample_uce.cu``:
+K6; ``upsample_ukd.cu``: K7), so that nvcc compiles them in parallel
+(PLOP's pseudo-labels, K9, are in ``ops/upsample_pseudo.py``):
 
 - K1, plain CE (the CE step; the eval loss).  :func:`ce_sums_per_image`
   (forward: per image, the NLL sum over valid pixels and the valid count;
@@ -82,7 +85,7 @@ from bacs_tpu_torch.ops.losses import (
 from bacs_tpu_torch.ops.upsample_tiles import kmats
 
 # the launch plan of the staged kernels (csrc/upsample_stage.cuh: K1, K3, K4,
-# K6-K8 in csrc/upsample_ce.cu, K9 and K10)
+# K6-K8 on csrc/upsample_ce.cuh, K9 and K10)
 TILE = 256  # output pixels per tile, one a thread
 CHUNK = 32  # the widest chunk of channels the kernels hold in registers (KC)
 TARGET_BLOCKS = 1024  # bands x images: about 8 blocks for each of the H100's 132 SMs
@@ -247,7 +250,7 @@ def tile_span(tx: dict, tile: int) -> int:
 
 def grad_smem_bytes(tile: int, span: int, c: int) -> int:
     """Shared memory of the gradient kernel without its accumulator, at the
-    widest chunk (``grad_smem_floats`` in csrc/upsample_ce.cu): the gradient
+    widest chunk (``grad_smem_floats`` in csrc/upsample_ce.cuh): the gradient
     tile times its two W weights, ``tile`` x 2 (CHUNK + 1) floats, and the
     stage, ``span`` x (c | 1), ``c`` the channels staged per source column
     (K7: the student's and the teacher's)."""
@@ -289,8 +292,8 @@ def launch_plan(n, h, w, c, H, W, device, c_old=0):
 
 
 def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
-    """One forward entry point of ``csrc/upsample_ce.cu``: per-image
-    ([n] first sums, [n] second sums), f32."""
+    """One forward entry point of the family (``csrc/upsample_ce.cuh``):
+    per-image ([n] first sums, [n] second sums), f32."""
     n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
     tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device)
     partials = torch.empty((n, nb, 2), dtype=torch.float32, device=sem.device)
@@ -310,8 +313,9 @@ def _launch_sums(entry, sem, labels, out_hw, ignore_index, extra=()):
 
 def _launch_grad(entry, sem, labels, out_hw, g, ignore_index, extra=(),
                  g_numel=1):
-    """One gradient entry point of ``csrc/upsample_ce.cu``: dsem in sem's
-    dtype; ``g`` holds ``g_numel`` f32 values (1, or one per image)."""
+    """One gradient entry point of the family (``csrc/upsample_ce.cuh``):
+    dsem in sem's dtype; ``g`` holds ``g_numel`` f32 values (1, or one per
+    image)."""
     n, h, w, c, H, W = check_inputs(sem, labels, out_hw)
     _check_g(g, sem, g_numel)
     tables, args, nb = launch_plan(n, h, w, c, H, W, sem.device)

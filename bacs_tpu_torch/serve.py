@@ -5,9 +5,11 @@ Port of ``bacs_tpu/serve.py`` (``Predictor``).  One request is a uint8
 eval-mode network to its pre-upsample logits, and turns those into a uint8
 mask and a confidence per pixel with the fused upsample+argmax kernel
 (``ops/upsample_argmax.py``; UNet's logits are at the input's resolution,
-and the kernel runs at scale 1).  Every ABN layer of a DeepLabV3 runs the
-eval-ABN kernel (``ops/abn_core.py``); UNet's batch norms are plain
-PyTorch, as JAX's ``nn.BatchNorm`` is no Pallas kernel.  The wire formats
+and the kernel runs at scale 1; TranSeg's are float32 whatever ``dtype``,
+as in JAX, and its first ``active_classes`` class tokens are in use).
+Every ABN layer of a DeepLabV3 or TranSeg backbone runs the eval-ABN
+kernel (``ops/abn_core.py``); UNet's batch norms are plain PyTorch, as
+JAX's ``nn.BatchNorm`` is no Pallas kernel.  The wire formats
 are the JAX package's: confidence as f16, as uint8 steps of 1/255 or not
 at all, and masks as uint8 or bit-packed on the device
 (``ops/bitpack.py``).
@@ -75,11 +77,13 @@ class Predictor:
         self.model = create_network(
             network_cfg.get("_target_", "networks.DeepLabV3"),
             num_classes=num_classes,
+            active_classes=self.active_classes,
             norm=str(network_cfg.get("norm", "iabn_sync")),
+            crop_size=crop_size,
             dtype=dtype,
             **{k: v for k, v in network_cfg.items()
                if k in ("backbone", "output_stride", "n_channels", "bilinear",
-                        "num_layers", "atrous_encoder")},
+                        "num_layers", "transformer", "atrous_encoder")},
         )
         load_flax_variables(self.model, params, batch_stats)
         self.model.eval().to(self.device)

@@ -10,11 +10,13 @@ as the JAX learner keeps ``opt_state``.
   background's, and their biases and the background's own become
   bg_bias - log(new classes + 1).
 - ``singlehead_init``: nothing to do.
-- ``transformer_init`` raises: the TranSeg head is ROADMAP.md queue 1
-  item 12.
+- ``transformer_init`` (TranSeg's class-token growth, reference
+  learner/transformerlearner.py:48-135): the new classes' tokens become
+  the background's token (``background``), the mean of the old tokens
+  (``mean``) or keep their allocation-time draws (``random``), and their
+  ``mask_norm`` entries are reset to 1 and 0.
 
-The loop that calls a learner at each task boundary is ROADMAP.md queue 1
-item 8.
+``train/loop.py`` calls the learner at each task boundary.
 """
 
 from __future__ import annotations
@@ -46,8 +48,27 @@ def singlehead_init(state, task: TaskInfo):
     return state
 
 
+@torch.no_grad()
 def transformer_init(state, task: TaskInfo, new_token_init: str = "random"):
-    raise NotImplementedError("the TranSeg head's learner is ROADMAP.md queue 1 item 12")
+    """TranSeg's class-token growth for the classes ``task`` introduces
+    (``bacs_tpu/train/learner.py:59-85``), in place."""
+    if task.task_id == 0:
+        return state
+    head = getattr(state.model, "base_classifier", None)
+    if not hasattr(head, "class_tokens"):
+        raise ValueError("transformer_init needs a TranSeg head (class tokens); "
+                         f"the model is a {type(state.model).__name__}")
+    tokens = head.class_tokens
+    lo, hi = task.old_classes, task.nb_current_classes
+    if new_token_init == "background":
+        tokens[lo:hi] = tokens[0:1]
+    elif new_token_init == "mean":
+        tokens[lo:hi] = tokens[:lo].mean(dim=0, keepdim=True)
+    # "random" (and any other value, as in JAX): the rows keep their
+    # truncated-normal allocation-time values
+    head.mask_norm_scale[lo:hi] = 1.0
+    head.mask_norm_bias[lo:hi] = 0.0
+    return state
 
 
 LEARNERS = {

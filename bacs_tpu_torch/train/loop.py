@@ -41,9 +41,11 @@ from bacs_tpu_torch.data.datamodule import create_datamodule
 from bacs_tpu_torch.methods import create_method
 from bacs_tpu_torch.methods.base import ModelContext
 from bacs_tpu_torch.models import create_network
+from bacs_tpu_torch.models.layers import Linear
 from bacs_tpu_torch.models.resnet import Conv2d
+from bacs_tpu_torch.models.transeg import TranSeg
 from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet
-from bacs_tpu_torch.train.learner import get_learner
+from bacs_tpu_torch.train.learner import get_learner, transformer_init
 from bacs_tpu_torch.train.metrics import PerStepResult, detailed_iou_metrics
 from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary
 from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
@@ -64,25 +66,41 @@ def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
                                        generator=g)
 
 
+# convolutions of DeepLabV3 and TranSeg that keep Flax's default initialiser
+FLAX_DEFAULT_CONVS = ("classifier_head", "seen_fg_network.base_conv",
+                      "base_classifier.feature_embedding")
+
+
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Draw the network's weights as the JAX package initialises them, from
-    ``seed``.  DeepLabV3's backbone and ASPP convolutions are He-normal over
-    the fan-out (``bacs_tpu/models/resnet.py:59``); every other convolution
-    keeps Flax's default, LeCun-normal truncated over the fan-in (kh kw in):
-    the classifier, the detector's trunk convolution, and every UNet
-    convolution and transpose convolution.  The detector's heads are
-    LeCun-normal over D x T; biases 0.  The numbers differ from JAX's
-    (another generator)."""
+    ``seed``.  The ResNet backbone's and the ASPP's convolutions are
+    He-normal over the fan-out (``bacs_tpu/models/resnet.py:59``); every
+    other convolution keeps Flax's default, LeCun-normal truncated over the
+    fan-in (kh kw in): the classifier, TranSeg's feature embedding, the
+    detector's trunk convolution, and every UNet convolution and transpose
+    convolution; so does every TranSeg ``Dense`` (``Linear``, over its
+    inputs).  The detector's heads are LeCun-normal over D x T; biases 0.
+    TranSeg's head draws as ``bacs_tpu/models/transeg.py`` declares it:
+    ``pos_embed`` normal(1), ``class_tokens`` 0.02 x a standard normal
+    truncated to [-2, 2], ``proj_*`` normal(D^-1/2), LayerNorms and
+    ``mask_norm`` 1 and 0.  The numbers differ from JAX's (another
+    generator)."""
     g = torch.Generator().manual_seed(seed)
     flax_default = isinstance(model, UNet)
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, ConvTranspose2d):
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                continue
+            if isinstance(m, Linear):
+                w = _lecun_normal(m.weight.shape, m.in_features, g)
+            elif isinstance(m, ConvTranspose2d):
                 in_c, _, kh, kw = m.weight.shape
                 w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
             elif isinstance(m, Conv2d):
                 out_c, in_c, kh, kw = m.weight.shape
-                if flax_default or name in ("classifier_head", "seen_fg_network.base_conv"):
+                if flax_default or name in FLAX_DEFAULT_CONVS:
                     w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
                 else:
                     w = torch.randn(m.weight.shape, generator=g) * (2.0 / (out_c * kh * kw)) ** 0.5
@@ -95,6 +113,17 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
         if det is not None:
             t, d, _ = det.head_kernel.shape
             det.head_kernel.copy_(_lecun_normal(det.head_kernel.shape, d * t, g))
+        if isinstance(model, TranSeg):
+            head = model.base_classifier
+            d = head.proj_patch.shape[0]
+            head.pos_embed.copy_(torch.randn(head.pos_embed.shape, generator=g))
+            head.class_tokens.copy_(torch.nn.init.trunc_normal_(
+                torch.empty(head.class_tokens.shape), std=0.02, a=-0.04, b=0.04,
+                generator=g))
+            for p in (head.proj_patch, head.proj_classes):
+                p.copy_(torch.randn(p.shape, generator=g) * d ** -0.5)
+            head.mask_norm_scale.fill_(1.0)
+            head.mask_norm_bias.zero_()
 
 
 class Trainer:
@@ -161,6 +190,8 @@ class Trainer:
         self.learner_init = get_learner(learner_cfg.get(
             "_target_",
             "learner.SingleHeadLearner" if self.continual else "learner.BaseLearner"))
+        # TranSeg's new class tokens (bacs_tpu/train/loop.py:139,381-384)
+        self.new_token_init = str(tcfg.get("new_token_init", "random"))
         self.per_step_metric = PerStepResult(self.continual)
         self.state: Optional[TrainState] = None
         self._timing = {"images": 0, "seconds": 0.0}
@@ -205,6 +236,7 @@ class Trainer:
         model = create_network(
             target, num_classes=self.datamodule.num_classes, n_tasks=self.n_tasks,
             use_bg_detector=self.use_bg_detector, norm=str(ncfg.get("norm", "iabn_sync")),
+            crop_size=self.datamodule.crop_size,
             dtype=torch.bfloat16 if self.mixed_precision else torch.float32,
             param_dtype=torch.float32,
             **{k: v for k, v in ncfg.items()
@@ -286,8 +318,12 @@ class Trainer:
             self._skip_surgery = False
         else:
             # head surgery for the new classes, fresh optimizer/schedule
-            self.state = self.learner_init(self.state, task)
+            if self.learner_init is transformer_init:
+                self.state = self.learner_init(self.state, task, self.new_token_init)
+            else:
+                self.state = self.learner_init(self.state, task)
             self.state.optimizer, self.state.scheduler = self._make_tx(task, self.state.model)
+        self._set_active_classes(task)
         self.state = self.method.begin_task(self.state, ctx, dm.train_batches(epoch=0))
         train_step, eval_step, put_batch = make_steps(ctx, self.method, dm.num_classes,
                                                       device=self.device)
@@ -372,6 +408,17 @@ class Trainer:
             "boundary": t_train - t_start, "train": t_end - t_train,
             "end_task": t_test - t_end, "test": t_done - t_test, "wall": t_done - t_start})
         return results
+
+    def _set_active_classes(self, task: TaskInfo) -> None:
+        """TranSeg's class tokens in use: the task's classes, on the model
+        and on the previous model too.  The JAX teacher is the current
+        task's module applied to the previous parameters
+        (``bacs_tpu/methods/base.py:82-89``), so it attends over the current
+        count of tokens, the new ones with their values from before the
+        surgery (the previous model was copied at ``end_task``)."""
+        for model in (self.state.model, self.state.prev_model):
+            if isinstance(model, TranSeg):
+                model.active_classes = task.nb_current_classes
 
     def _eval_pass(self, d, eval_step, put_batch, ctx=None):
         """(confusion matrix, sample-weighted mean loss, aux matrix, aux

@@ -28,8 +28,11 @@ import numpy as np
 import torch
 from torch import nn
 
+# leaves that keep their name and layout
+_RAW_PARAMS = ("head_kernel", "head_bias", "pos_embed", "class_tokens", "proj_patch",
+               "proj_classes", "mask_norm_scale", "mask_norm_bias")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                 "head_kernel": "head_kernel", "head_bias": "head_bias"}
+                 **{k: k for k in _RAW_PARAMS}}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -56,9 +59,12 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
                 raise KeyError(f"unknown Flax leaf {'/'.join(path)}")
             arr = np.asarray(leaf, np.float32)
             if name == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel")
-                if _is_transpose(mod):
+                if arr.ndim not in (2, 4):
+                    raise ValueError(f"{'/'.join(path)}: expected a 4-D conv or 2-D "
+                                     "Dense kernel")
+                if arr.ndim == 2:
+                    arr = arr.T
+                elif _is_transpose(mod):
                     arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
                 else:
                     arr = arr.transpose(3, 2, 0, 1)
@@ -78,12 +84,14 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Di
         *mod, name = key.split(".")
         arr = t.detach().float().cpu().numpy()
         if name == "weight":
-            tree, leaf = params, "kernel" if arr.ndim == 4 else "scale"
+            tree, leaf = params, "scale" if arr.ndim == 1 else "kernel"
             if arr.ndim == 4 and _is_transpose(mod):
                 arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
             elif arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)
-        elif name in ("bias", "head_kernel", "head_bias"):
+            elif arr.ndim == 2:
+                arr = arr.T
+        elif name == "bias" or name in _RAW_PARAMS:
             tree, leaf = params, name
         elif name in ("running_mean", "running_var"):
             tree, leaf = stats, name[len("running_"):]

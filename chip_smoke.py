@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (CE, BACS, MiB, PLOP, ER, SDR
-and iCaRL; DeepLabV3 and UNet; gradient accumulation and stage remat),
-eval, continual-trainer and protocol-runner paths on one NVIDIA GPU
+and iCaRL; DeepLabV3, UNet and TranSeg; gradient accumulation and stage
+remat), eval, continual-trainer and protocol-runner paths on one NVIDIA GPU
 (H100).
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --family-times [--package-root DIR]
     python3 chip_smoke.py --bacs-busy [--package-root DIR]
+    python3 chip_smoke.py --transeg
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -41,7 +42,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    rounding where the network is smooth);
 9. trains in bf16 (f32 master weights) at 512^2, batch 16, through
    ``train.step.make_steps`` on seeded synthetic batches whose labels are
-   learnable from the colours: 2 warm-up and 18 timed steps with the
+   learnable from the colours: 2 warm-up and 10 timed steps with the
    launch counters reset just before the timed ones; asserts 1 K1 forward,
    1 K1 backward and 107 train-ABN applies per step and a falling loss,
    prints the curve, the median img/s and the peak memory, and profiles
@@ -64,7 +65,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    (the prototype sweep, the previous-model snapshot and the 300-slot
    reservoir fill in train mode, evictions included), then task-1 BACS
    steps (``bacs_plus_bg.yaml``: replay 2 x 12, the detector, the teacher
-   distillation): 2 warm-up and 10 timed with the counters reset just
+   distillation): 2 warm-up and 6 timed with the counters reset just
    before, asserting per step 1 K3 and 1 K4 forward and backward, no K1,
    321 train-ABN applies and 107 eval-ABN (K5, the previous model); the
    median img/s of the main batch, the peak memory, a two-step profile by
@@ -88,7 +89,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    phase 13 does;
 19. at 512^2 in bf16, batch 12 (``cont_15_1.yaml``), per method: ``end_task``
    of task 0 (the previous-model snapshot), the imprinting, for PLOP
-   ``begin_task`` over 10 batches (timed), then 2 warm-up and 10 timed
+   ``begin_task`` over 10 batches (timed), then 2 warm-up and 6 timed
    task-1 steps with the counters reset just before, asserting per step
    (MiB) 1 K6 and 1 K7 each way or (PLOP) 1 K9, 1 K1 forward and 1 K8,
    and 107 train-ABN and 107 K5 (the previous model), a finite loss; the
@@ -112,7 +113,8 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    bf16, batch 12, on the synthetic source at VOC's 21 classes (400 train
    and 48 validation images), one step per new class: all 6 tasks, BACS's
    ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``,
-   the run stopped after task 1's first mid-task checkpoint and resumed;
+   the run stopped after task 1's first mid-task checkpoint and resumed
+   (a new Trainer on the first run's DataModule: the same images);
    asserts the metric keys, 1 K12 each way per train-mode network pass of
    every train step (1 pass at task 0, 3 later) and a finite final mIoU;
    prints the seconds of each task's parts, ``Trainer.throughput``, the
@@ -126,7 +128,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    ``cont_15_1.yaml``), per method: task 0's ``end_task`` (ER's buffer
    population, timed), the imprinting, the task-1 eval steps (107 K5 and 1
    K2 each, with K1's forward for ER and K6's for SDR; finite losses), then
-   2 warm-up and 6 timed task-1 steps with the counters reset just before,
+   2 warm-up and 4 timed task-1 steps with the counters reset just before,
    asserting per step the launches the code implies (ER: 1 K1 and 1 K4
    each way and 214 train-ABN; SDR: 1 K6 and 1 K7 each way, 107 train-ABN
    and 107 K5; iCaRL: 107 train-ABN and 107 K5, no upsample kernel), a
@@ -157,6 +159,26 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 32. the 3-task protocol (UNet-3) through ``bacs_tpu_torch.protocol_compare``
    in-process for CE, MiB and BACS at one epoch a task: the records' keys,
    3 tasks, finite mIoUs, no kernel launched;
+33. f32 TranSeg steps at RN101 4 x 128^2 with the shipped head (hidden 256,
+   8 heads, 2 layers, feed-forward 2048) on the card and on the CPU (TF32
+   off), identity and leaky activations, held as phase 8: a task-0 CE step
+   (16 of 21 class tokens) and the eval step before it, then a task-1 BACS+ step after
+   task 0's ``end_task`` with the ``mean`` token growth, 17 tokens on the
+   model and the previous model, and the detector (draws injected as [13]);
+34. TranSeg at the shipped width, 512^2, bf16: CE train steps at batch 16
+   (1 K1 each way and 104 train-ABN a step, a falling loss, wall, busy,
+   idle share, peak, a profile by kind), eval steps (104 K5, 1 K1 forward,
+   1 K2), serving through the Predictor (104 K5 and 1 K10 a forward, on
+   float32 logits), K1, K2, K10, K3 and K4 on float32 input at the path's
+   shapes held to their plain versions and timed beside their bounds, and
+   task-1 BACS+ steps at 12 + 2 x 12 replay with the detector after task
+   0's ``end_task`` and the token growth (1 K3 and 1 K4 each way, 312
+   train-ABN and 104 K5 a step);
+35. ``conf/experiments/bacs_transformer_config`` through
+   ``bacs_tpu_torch.main.train`` in-process with [24]'s synthetic source
+   (200 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
+   the class counts checked at every boundary, a finite final mIoU, the
+   seconds per task and the launches;
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -171,6 +193,7 @@ t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
 Every profiled window logs the card's SM clock over it (``[clock]``,
 ``nvidia-smi`` sampling), beside the busy time it gives.
 
+``--transeg`` only builds and runs phases [33]-[35].
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -220,7 +243,7 @@ ABN_PER_FORWARD = 107  # stem 1 + 33 bottlenecks x 3 + 4 proj_bn + ASPP 3
 OPTIMIZER_YAML = "conf/bacs/optimizer/nesterov.yaml"
 SCHEDULER_YAML = "conf/bacs/scheduler/poly.yaml"
 MAX_ITERS = 20000  # poly horizon: about 30 VOC epochs of 10582 images at batch 16
-TRAIN_STEPS, WARMUP_STEPS, EVAL_STEPS = 18, 2, 3
+TRAIN_STEPS, WARMUP_STEPS, EVAL_STEPS = 10, 2, 3
 # the H100 SXM's published peaks (dense f32 on CUDA cores, HBM3 bandwidth)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -800,11 +823,12 @@ def load_yaml(path: str) -> dict:
 
 
 # the network config keys create_network reads
-NET_KEYS = ("norm", "backbone", "n_channels", "bilinear", "num_layers", "remat")
+NET_KEYS = ("norm", "backbone", "n_channels", "bilinear", "num_layers", "remat",
+            "transformer")
 
 
 def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=False,
-                accumulate=1, **state_kw):
+                accumulate=1, crop_size=CROP, active_classes=None, **state_kw):
     """A train state: f32 master weights from the Flax trees, convs
     computing in ``dtype``, nesterov SGD under the poly schedule, its
     gradients averaged over ``accumulate`` mini-steps.  ``cfg`` is a
@@ -812,7 +836,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=Fals
     every ABN (and so every block output) the identity activation in place
     of the configured leaky-ReLU; ``fused_stem`` the stem's fused ABN +
     max-pool (K12).  Flax trees with a ``seen_fg_network`` build the
-    network with the background detector; ``state_kw`` are further
+    network with the background detector; ``crop_size`` and
+    ``active_classes`` go to TranSeg; ``state_kw`` are further
     ``TrainState`` fields."""
     from bacs_tpu_torch.models import ABN, create_network
     from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
@@ -822,7 +847,8 @@ def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=Fals
     model = create_network(cfg["_target_"], N_CLASSES, dtype=dtype,
                            param_dtype=torch.float32, n_tasks=N_TASKS,
                            use_bg_detector="seen_fg_network" in params,
-                           fused_stem=fused_stem,
+                           fused_stem=fused_stem, crop_size=crop_size,
+                           active_classes=active_classes,
                            **{k: v for k, v in cfg.items() if k in NET_KEYS})
     load_flax_variables(model, params, stats)
     if smooth:
@@ -1076,7 +1102,7 @@ BACS_METHOD = dict(use_bg_detector=True, bg_weighted_ce=True, alpha=0.8, beta=0.
                    buffer_size=300, replay_minibatch_size=12)
 BACS_TASK = dict(initial_classes=16, increment=1, num_classes=N_CLASSES,
                  n_tasks=N_TASKS, max_epochs=30)
-BACS_STEPS, FILL_BATCHES = 10, 20
+BACS_STEPS, FILL_BATCHES = 6, 20
 # per BACS step: the main, alpha and beta train forwards; the previous model
 TRAIN_ABN_PER_BACS_STEP = 3 * ABN_PER_FORWARD
 # device kernels of a profile, by name, in the order they are matched
@@ -1329,7 +1355,7 @@ def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict
 # conf/experiments/{mib,plop}_config.yaml with training/cont_15_1.yaml: VOC
 # 15-1 (16 classes with background at task 0, then one per task), batch 12
 MIB_PLOP_METHODS = ("loss.MiB", "loss.PlopLoss")
-MIB_PLOP_BATCH, MIB_PLOP_STEPS, PLOP_BEGIN_BATCHES = 12, 10, 10
+MIB_PLOP_BATCH, MIB_PLOP_STEPS, PLOP_BEGIN_BATCHES = 12, 6, 10
 OLD_CLASSES = 16
 MIB_PLOP_CASES = [((12, 32, 32, 17), (512, 512)), ((2, 33, 47, 17), (261, 373)),
                   ((2, 5, 7, 6), (37, 51))]
@@ -1632,7 +1658,7 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
 # 15-1, batch 12; ER keeps 50 slots a task and replays 12
 MORE_METHODS = {"loss.ExperienceReplay": dict(buffer_size=50, replay_minibatch_size=12),
                 "loss.SDR": {}, "loss.IcarlLoss": {}}
-MORE_STEPS, ER_FILL_BATCHES = 6, 6
+MORE_STEPS, ER_FILL_BATCHES = 4, 6
 # the launches per task-1 train step the code implies, written before the
 # first run: ER the main CE (K1 each way) and the replay's class-weighted CE
 # (K4 each way) over two train forwards, no previous model; SDR the unbiased
@@ -2294,6 +2320,568 @@ def unet_runner(seed: int) -> dict:
     return dict(records=records, wall=wall)
 
 
+# ---------------------------------------------------------------- TranSeg
+
+# conf/experiments/bacs_transformer_config.yaml: TranSeg (hidden 256, 8
+# heads, 2 decoder layers, feed-forward 2048, RN101) with bacs_plus and
+# der_15_1_transformer (TransformerLearner, new_token_init mean, the
+# detector, batch 12)
+TRANSEG_YAML = "conf/experiments/network/deep_lab_transformer.yaml"
+TRANSEG_CONFIG = ("conf/experiments", "bacs_transformer_config")
+TRANSEG_ABN = ABN_PER_FORWARD - 3  # DeepLabV3's less the ASPP's 3: the backbone's
+TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 4, 4
+# [35] the protocol through the CLI on [24]'s synthetic source cut to 200
+# training images (every task keeps 17-29, task 0 15 steps; the
+# run's time), no checkpoints
+TRANSEG_OVERRIDES = ["+network.fused_stem=true",
+                     "dataset._target_=dataloaders.SyntheticDataModule",
+                     "+dataset.dataset.n_train=200", "+dataset.dataset.n_val=48",
+                     "+training.steps_per_class=1", "training.epochs=1",
+                     "~training.ckpt_dir"]
+
+
+def launch_counters():
+    """(reset_counts, counts) over every wrapper's launch counter."""
+    from bacs_tpu_torch.ops.abn_core import fused_abn, fused_abn_eval
+    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd, stem_pool_grad
+    from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
+        uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
+    from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
+    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
+
+    counters = dict(k5=fused_abn_eval, train_abn=fused_abn, k1f=ce_sums_per_image,
+                    k1b=ce_dsem, k2=upsampled_confusion, k10=upsampled_argmax_conf,
+                    k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem,
+                    k6f=uce_sums, k6b=uce_dsem, k7f=ukd_sum, k7b=ukd_dsem,
+                    k8=ce_dsem_per_image, k9=plop_pseudo_labels, k12f=stem_pool_fwd,
+                    k12b=stem_pool_grad)
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    return reset_counts, counts
+
+
+def transeg_cfg() -> dict:
+    """The shipped TranSeg network config (its null keys dropped)."""
+    return {k: v for k, v in load_yaml(TRANSEG_YAML).items() if v is not None}
+
+
+def transeg_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
+                      smooth: bool = False, crop: int = CROP, active_classes=None):
+    """Flax-layout (params, batch_stats) of a TranSeg: the head drawn as the
+    Trainer draws it (``train.loop.init_weights``: Flax's initialisers),
+    the backbone's convolutions He normal and its ABN vectors spread as
+    ``seeded_variables`` does (each bottleneck's last scale small), the
+    running statistics calibrated by one small CPU forward (for identity
+    activations if ``smooth``)."""
+    from bacs_tpu_torch.data.transforms import normalize_image
+    from bacs_tpu_torch.models import ABN, create_network
+    from bacs_tpu_torch.train.loop import init_weights
+    from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
+
+    model = create_network(cfg["_target_"], N_CLASSES, n_tasks=N_TASKS,
+                           use_bg_detector=use_bg_detector, crop_size=crop,
+                           active_classes=active_classes,
+                           **{k: v for k, v in cfg.items() if k in NET_KEYS}).eval()
+    init_weights(model, seed)
+    g = torch.Generator().manual_seed(seed + 33)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, ABN):
+                lo, span = (0.1, 0.2) if name.endswith("bn3") else (0.5, 1.0)
+                m.weight.copy_(lo + span * torch.rand(m.weight.shape, generator=g))
+                m.bias.copy_((torch.rand(m.bias.shape, generator=g) - 0.5) * 0.2)
+                if smooth:
+                    m.activation, m.slope = "identity", 1.0
+    img = torch.randint(0, 256, (4, 128, 128, 3), generator=g, dtype=torch.uint8)
+    calibrate_norms(model, normalize_image(img), full=use_bg_detector)
+    return state_dict_to_flax(model.state_dict())
+
+
+def transeg_state(cfg, variables, dtype, device, smooth=False, crop=CROP, active=None,
+                  **state_kw):
+    """``train_state`` for TranSeg at crop ``crop`` with ``active`` class
+    tokens in use, the detector's dropout off."""
+    state = train_state(cfg, *variables, dtype, device, smooth=smooth, crop_size=crop,
+                        active_classes=active, **state_kw)
+    if hasattr(state.model, "seen_fg_network"):
+        state.model.seen_fg_network.dropout_rate = 0.0
+    return state
+
+
+def token_growth_ok(model, task) -> bool:
+    """The ``mean`` growth of ``task``'s new class tokens: each equal to the
+    mean of the old ones, their ``mask_norm`` entries 1 and 0."""
+    head = model.base_classifier
+    lo, hi = task.old_classes, task.nb_current_classes
+    mean = head.class_tokens[:lo].mean(dim=0)
+    return (bool(torch.equal(head.class_tokens[lo:hi], mean.expand(hi - lo, -1)))
+            and bool((head.mask_norm_scale[lo:hi] == 1).all())
+            and bool((head.mask_norm_bias[lo:hi] == 0).all()))
+
+
+def transeg_step_card_vs_cpu(seed, dev) -> None:
+    """[33] f32 TranSeg steps at RN101 4 x 128^2 with the shipped head, on the
+    card and on the CPU (TF32 off), with identity and with the leaky
+    activations: a task-0 CE step (16 of 21 class tokens; the eval step on
+    its batch before it: loss rtol 1e-5, at most 1e-3 of the pixels counted
+    differently, argmax near-ties), then the task-1 BACS+ step after task 0's
+    ``end_task`` (run once on the CPU and copied to both devices: the
+    snapshot, the prototypes, the buffer, the drifted statistics), the
+    ``mean`` token growth on each device and 17 tokens on the model and on
+    the previous model, replay draws injected as [13] does.  Held by
+    ``hold_step``; the prototypes to 1e-4."""
+    import copy
+
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.learner import transformer_init
+    from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
+    from bacs_tpu_torch.train.step import make_steps
+
+    cfg, crop, n, replay, slots = transeg_cfg(), 128, 4, 4, 8
+    task0, task1 = (TaskInfo(task_id=t, **BACS_TASK) for t in (0, 1))
+    gen = torch.Generator().manual_seed(seed + 33)
+    batch0 = synthetic_batch(n, crop, gen, "cpu", n_classes=16)
+    batch1 = synthetic_batch(n, crop, gen, "cpu", n_classes=17)
+    fill = synthetic_batch(slots - 2, crop, gen, "cpu", n_classes=16)
+    keys = [-torch.log(-torch.log(torch.rand(slots, generator=gen))) for _ in range(2)]
+    crop_params = dict(i=torch.tensor([3.5, 0.0, 40.25, 0.0]),
+                       j=torch.tensor([0.0, 17.0, 2.5, 0.0]),
+                       ch=torch.tensor([80.0, 128.0, 61.0, 128.0]),
+                       cw=torch.tensor([105.0, 66.0, 120.0, 128.0]),
+                       flip=torch.tensor([True, False, False, True]))
+    kw = dict(buffer_size=slots, replay_minibatch_size=replay)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for activation in ("identity", "leaky"):
+        smooth = activation == "identity"
+        variables = transeg_variables(cfg, seed, True, smooth=smooth, crop=crop,
+                                      active_classes=16)
+        dim = len(variables[0]["seen_fg_network"]["base_bn"]["scale"])
+        # task 0: CE, then the eval step
+        runs, evals = [], []
+        for device in (dev, torch.device("cpu")):
+            state = transeg_state(cfg, variables, torch.float32, device, smooth, crop, 16)
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            train_step, eval_step, put_batch = make_steps(
+                ModelContext(task0), create_method("loss.CrossEntropy"), N_CLASSES,
+                device=device)
+            b = put_batch(batch0)
+            cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=device)
+            cm, loss = eval_step(state, cm, b)
+            evals.append((cm.cpu(), float(loss)))
+            state, metrics = train_step(state, b)
+            runs.append((float(metrics["loss"]), *grads_and_stats(state.model)))
+            del state
+        hold_step(f"[33] f32 TranSeg task-0 CE step card vs CPU, RN101 {n} x {crop}^2, "
+                  "16 of 21 class tokens", activation, *runs, p0)
+        (cm_g, loss_g), (cm_c, loss_c) = evals
+        valid = int((batch0["label"] != 255).sum())
+        moved = int((cm_g - cm_c).abs().sum()) // 2
+        log(f"[33] task-0 eval step card vs CPU, {activation}: loss {loss_g:.7f} vs "
+            f"{loss_c:.7f}; {moved} of {valid} pixels counted differently")
+        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+        assert int(cm_g.sum()) == int(cm_c.sum()) == valid and moved <= 1e-3 * valid
+
+        # task 0's end_task once, on the CPU
+        _, method, _ = bacs_steps(0, "cpu", **kw)
+        state = transeg_state(cfg, variables, torch.float32, "cpu", smooth, crop, 16,
+                              generator=torch.Generator().manual_seed(seed),
+                              prototypes=torch.zeros((N_TASKS, dim)),
+                              proto_counts=torch.zeros(N_TASKS))
+        state.buffer = method.init_buffer(task0, (crop, crop), (crop // 16, crop // 16),
+                                          device="cpu")
+        state = method.end_task(state, ModelContext(task0), [fill])
+        after = copy.deepcopy(state)
+        del state
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            state = transeg_state(
+                cfg, variables, torch.float32, device, smooth, crop, 16,
+                generator=torch.Generator(device).manual_seed(seed),
+                prototypes=after.prototypes.to(device),
+                proto_counts=after.proto_counts.to(device), buffer=after.buffer.to(device))
+            state.model.load_state_dict(after.model.state_dict())
+            state.prev_model = frozen_copy(state.model)
+            state.prev_model.load_state_dict(after.prev_model.state_dict())
+            transformer_init(state, task1, "mean")
+            assert token_growth_ok(state.model, task1)
+            state.model.active_classes = state.prev_model.active_classes = 17
+            p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+            _, _, (train_step, eval_step, put_batch) = bacs_steps(1, device, **kw)
+            b = put_batch(batch1)
+            with injected_draws([k.to(device) for k in keys], crop_params):
+                state, metrics = train_step(state, b)
+            runs.append((float(metrics["loss"]), *grads_and_stats(state.model),
+                         state.prototypes.cpu()))
+            del state
+        (loss_g, grads_g, params_g, stats_g, protos_g), (
+            loss_c, grads_c, params_c, stats_c, protos_c) = runs
+        proto_rel = float((protos_g - protos_c).abs().max() / protos_c.abs().max())
+        hold_step(f"[33] f32 TranSeg task-1 BACS+ step card vs CPU, RN101 {n} x {crop}^2, "
+                  f"mean token growth, 17 tokens, replay {replay}", activation,
+                  (loss_g, grads_g, params_g, stats_g), (loss_c, grads_c, params_c, stats_c),
+                  p0, f"; prototypes {proto_rel:.3g}")
+        assert proto_rel <= 1e-4, proto_rel
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+
+def f32_kernel_checks(dev, seed) -> dict:
+    """[34] K1, K2, K10 at TranSeg's CE, eval and serving shapes and K3, K4 at
+    its BACS+ step's (main and dark++ replay batch of 12), float32, held to
+    their plain versions, then timed (CUDA-graph replay; the plain K1-K4
+    versions by events, as [t]) beside their bounds.  Returns {key:
+    (max abs err, ms, plain ms, bound)}."""
+    from bacs_tpu_torch.ops.upsample_argmax import argmax_conf_from, upsampled_argmax_conf
+    from bacs_tpu_torch.ops.upsample_ce import (
+        bacs_dsem, bacs_dsem_plain, bacs_sum, bacs_sum_plain, ce_dsem, ce_dsem_plain,
+        ce_sums_per_image, ce_sums_plain, wce_dsem, wce_dsem_plain, wce_sums,
+        wce_sums_plain)
+    from bacs_tpu_torch.ops.upsample_confusion import confusion_plain, upsampled_confusion
+    from bacs_tpu_torch.ops.upsample_tiles import kmats
+
+    f32, hw = torch.float32, (CROP, CROP)
+    main = (BATCH, CROP // 16, CROP // 16, N_CLASSES)
+    bacs = (TRANSEG_BATCH, CROP // 16, CROP // 16, 17)
+    errs = {}
+    e = check_ce(main, hw, f32, dev, seed)
+    errs["k1f"], errs["k1b"] = e["val_abs"], e["grad_abs"]
+    errs["k2"] = check_confusion(main, hw, f32, dev, seed)
+    errs["k10"] = check_argmax(main, hw, f32, dev, seed)
+    e = check_bacs(bacs, hw, f32, dev, seed=seed)
+    errs["k3f"], errs["k3b"] = e["val_abs"], e["grad_abs"]
+    e = check_wce(bacs, hw, f32, dev, seed=seed)
+    errs["k4f"], errs["k4b"] = e["val_abs"], e["grad_abs"]
+    log(f"[34] K1, K2, K10 at {main}->{CROP}^2 and K3, K4 at {bacs}->{CROP}^2, float32: "
+        f"held to their plain versions; max abs errors {errs} (K2: pixels counted "
+        "differently)")
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 34)
+    labels = synthetic_batch(BATCH, CROP, gen, dev)["label"]
+    sem = torch.randn(main, generator=gen, device=dev) * 3
+    lab3 = synthetic_batch(TRANSEG_BATCH, CROP, gen, dev, n_classes=17)["label"]
+    sem3 = torch.randn(bacs, generator=gen, device=dev) * 3
+    seen = torch.rand(lab3.shape, generator=gen, device=dev)
+    w4 = beta_weights(17, dev)
+    g1 = torch.tensor(1.0 / float((labels != 255).sum()), device=dev)
+    g3 = torch.tensor(1.0 / lab3.numel(), device=dev)
+    g4 = (1.0 / wce_sums_plain(sem3, lab3, w4, hw)[1]).reshape(())
+    kh, kw = (torch.from_numpy(k).to(dev) for k in kmats(sem.shape, hw))
+    calls = {
+        "k1f": (lambda: ce_sums_per_image(sem, labels, hw),
+                lambda: ce_sums_plain(sem, labels, hw), (sem, labels, None)),
+        "k1b": (lambda: ce_dsem(sem, labels, hw, g1),
+                lambda: ce_dsem_plain(sem, labels, hw, g1), (sem, labels, None)),
+        "k2": (lambda: upsampled_confusion(sem, labels, hw, N_CLASSES),
+               lambda: confusion_plain(sem, labels, hw, N_CLASSES), (sem, labels, None)),
+        "k3f": (lambda: bacs_sum(sem3, lab3, seen, hw, 16),
+                lambda: bacs_sum_plain(sem3, lab3, seen, hw, 16), (sem3, lab3, seen)),
+        "k3b": (lambda: bacs_dsem(sem3, lab3, seen, hw, g3, 16),
+                lambda: bacs_dsem_plain(sem3, lab3, seen, hw, g3, 16), (sem3, lab3, seen)),
+        "k4f": (lambda: wce_sums(sem3, lab3, w4, hw),
+                lambda: wce_sums_plain(sem3, lab3, w4, hw), (sem3, lab3, w4)),
+        "k4b": (lambda: wce_dsem(sem3, lab3, w4, hw, g4),
+                lambda: wce_dsem_plain(sem3, lab3, w4, hw, g4), (sem3, lab3, w4)),
+    }
+    out = {}
+    for key, (kernel, plain, (s, lab, extra)) in calls.items():
+        out[key] = (errs[key], device_ms(kernel), time_ms(plain, iters=5),
+                    upsample_bound(key, s, hw, lab, extra))
+    out["k10"] = (errs["k10"], device_ms(lambda: upsampled_argmax_conf(sem, hw)),
+                  device_ms(lambda: argmax_conf_from(torch.einsum(
+                      "Ww,nHwc->nHWc", kw, torch.einsum("Hh,nhwc->nHwc", kh, sem)))),
+                  upsample_bound("k10", sem, hw))
+    for key, (err, ms, plain_ms, bnd) in out.items():
+        log(f"[34] {key} float32 at TranSeg's shape: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), max abs err {err:.3g}")
+    return out
+
+
+def transeg_full_width(seed, dev, reset_counts, counts) -> dict:
+    """[34] TranSeg at the shipped width (``conf/experiments/network/
+    deep_lab_transformer.yaml``: RN101, hidden 256, 8 heads, 2 layers,
+    feed-forward 2048), 512^2, bf16 convolutions and Dense layers on f32
+    master weights, random seeded weights, the class-coloured synthetic
+    batches: CE train steps at batch 16 on all 21 classes (per step 1 K1
+    each way and 104 train-ABN; a falling loss; wall, busy, idle share,
+    peak, a profile by kernel kind), eval steps (104 K5, 1 K1 forward, 1 K2
+    a step), serving through the Predictor at batch 16 (104 K5 and 1 K10 a
+    forward, on float32 logits), the f32 kernel checks and times
+    (``f32_kernel_checks``), and task-1 BACS+ steps with the detector at 12
+    + 2 x 12 replay after task 0's ``end_task`` and the ``mean`` token
+    growth (per step 1 K3 and 1 K4 each way, 3 x 104 train-ABN, 104 K5 of
+    the previous model)."""
+    from bacs_tpu_torch.serve import Predictor
+    from bacs_tpu_torch.train.learner import transformer_init
+
+    out = {}
+    cfg = transeg_cfg()
+    # one draw for both networks: the CE network's is the detector's less
+    # the detector
+    det = transeg_variables(cfg, seed, use_bg_detector=True, active_classes=16)
+    variables = tuple({k: v for k, v in tree.items() if k != "seen_fg_network"}
+                      for tree in det)
+    state = transeg_state(cfg, variables, torch.bfloat16, dev)
+    train_step, eval_step, _ = ce_steps(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 34)
+    batches = [synthetic_batch(BATCH, CROP, gen, dev) for _ in range(WARMUP_STEPS + 6)]
+    losses = []
+    for b in batches[:WARMUP_STEPS]:
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for b in batches[WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append(1000 * (time.perf_counter() - t0))
+    n = len(step_ms)
+    out["train_counts"] = c = counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    log(f"[34] TranSeg bf16 CE train step, batch {BATCH}, {CROP}^2: median {med:.3f} ms "
+        f"({BATCH * 1000 / med:.2f} img/s; min {min(step_ms):.3f}, max {max(step_ms):.3f} "
+        f"over {n} steps); peak memory {peak / 2**30:.3f} GiB; launches {c}")
+    log(f"[34] loss curve: {' '.join(f'{v:.4f}' for v in losses)}")
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall"
+    assert c["k1f"] == c["k1b"] == n and c["train_abn"] == TRANSEG_ABN * n, c
+    assert sum(v for k, v in c.items() if k not in ("k1f", "k1b", "train_abn")) == 0, c
+    busy, parts = profile_by_kind(lambda: train_step(state, batches[0]),
+                                  f"TranSeg bf16 CE train steps (batch {BATCH}, {CROP}^2)")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[p] TranSeg train step by kind: {ms:.3f} ms ({ms / busy:.1%}) {part}")
+    log(f"[p] TranSeg train: device busy {busy:.3f} ms per step; median wall {med:.3f} ms: "
+        f"device idle share {1 - busy / med:.3f}")
+    out["train"] = dict(wall=med, busy=busy, peak=peak / 2**30)
+
+    cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+    eval_step(state, cm.clone(), batches[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    eval_ms = []
+    for b in batches[:EVAL_STEPS]:
+        t0 = time.perf_counter()
+        cm, loss = eval_step(state, cm, b)
+        assert np.isfinite(float(loss)), float(loss)
+        eval_ms.append(1000 * (time.perf_counter() - t0))
+    out["eval_counts"] = c = counts()
+    valid = sum(int((b["label"] != 255).sum()) for b in batches[:EVAL_STEPS])
+    assert int(cm.sum()) == valid, (int(cm.sum()), valid)
+    assert c["k5"] == TRANSEG_ABN * EVAL_STEPS and c["k1f"] == c["k2"] == EVAL_STEPS, c
+    assert sum(v for k, v in c.items() if k not in ("k5", "k1f", "k2")) == 0, c
+    eval_busy = busy_ms(lambda: eval_step(state, cm.clone(), batches[0]))
+    log(f"[34] TranSeg eval step, batch {BATCH}: median wall {np.median(eval_ms):.3f} ms, "
+        f"device busy {eval_busy:.3f} ms; every valid pixel counted; launches {c}")
+    out["eval"] = dict(wall=float(np.median(eval_ms)), busy=eval_busy)
+    del state
+    torch.cuda.empty_cache()
+
+    pred = Predictor(cfg, N_CLASSES, *variables, crop_size=CROP, dtype=torch.bfloat16,
+                     device=dev)
+    rs = np.random.RandomState(seed + 34)
+    served = [rs.randint(0, 256, (BATCH, CROP, CROP, 3)).astype(np.uint8) for _ in range(6)]
+    for _ in pred.predict_many(served[:2]):
+        pass
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = list(pred.predict_many(served))
+    t_many = time.perf_counter() - t0
+    out["serve_counts"] = c = counts()
+    assert c["k10"] == len(served) and c["k5"] == TRANSEG_ABN * len(served), c
+    for preds, conf in results:
+        assert preds.shape == (BATCH, CROP, CROP) and preds.max() < N_CLASSES
+        assert bool(np.isfinite(conf.astype(np.float32)).all())
+    x = torch.from_numpy(served[0]).to(dev)
+    with torch.inference_mode():
+        from bacs_tpu_torch.data.transforms import normalize_image
+
+        served_sem = pred.model.sem_logits(normalize_image(x).to(torch.bfloat16))
+        serve_busy = busy_ms(lambda: pred._infer(x))
+    assert served_sem.dtype == torch.float32, served_sem.dtype
+    log(f"[34] TranSeg bf16 serving, predict_many {len(served)} x {BATCH}: "
+        f"{len(served) * BATCH / t_many:.2f} img/s, device busy {serve_busy:.3f} ms a batch; "
+        f"K10 on {tuple(served_sem.shape)} {served_sem.dtype}; launches {c}")
+    out["serve"] = dict(img_s=len(served) * BATCH / t_many, busy=serve_busy)
+    del pred, served_sem
+    torch.cuda.empty_cache()
+
+    out["f32"] = f32_kernel_checks(dev, seed)
+
+    # task 1 of BACS+ with the detector: task 0's end_task, the token growth
+    dim = len(det[0]["seen_fg_network"]["base_bn"]["scale"])
+    state = transeg_state(cfg, det, torch.bfloat16, dev, active=16,
+                          generator=torch.Generator(dev).manual_seed(seed),
+                          prototypes=torch.zeros((N_TASKS, dim), device=dev),
+                          proto_counts=torch.zeros(N_TASKS, device=dev))
+    state.model.seen_fg_network.dropout_rate = 0.1  # as shipped
+    kw = dict(replay_minibatch_size=TRANSEG_BATCH)
+    ctx0, method, _ = bacs_steps(0, dev, **kw)
+    state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP // 16, CROP // 16),
+                                      device=dev)
+    fill = [synthetic_batch(TRANSEG_BATCH, CROP, gen, dev, n_classes=16)
+            for _ in range(TRANSEG_FILL)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = method.end_task(state, ctx0, fill)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter() - t0
+    ctx1, _, (bacs_train, _, _) = bacs_steps(1, dev, **kw)
+    transformer_init(state, ctx1.task, "mean")
+    assert token_growth_ok(state.model, ctx1.task)
+    state.model.active_classes = state.prev_model.active_classes = 17
+    steps = [synthetic_batch(TRANSEG_BATCH, CROP, gen, dev, n_classes=17)
+             for _ in range(TRANSEG_STEPS + 1)]
+    state, _ = bacs_train(state, steps[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bacs_losses, bacs_ms = [], []
+    for b in steps[1:]:
+        t0 = time.perf_counter()
+        state, metrics = bacs_train(state, b)
+        bacs_losses.append(float(metrics["loss"]))
+        bacs_ms.append(1000 * (time.perf_counter() - t0))
+    out["bacs_counts"] = c = counts()
+    bacs_peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(bacs_losses)), bacs_losses
+    for key in ("k3f", "k3b", "k4f", "k4b"):
+        assert c[key] == TRANSEG_STEPS, (key, c)
+    assert c["train_abn"] == 3 * TRANSEG_ABN * TRANSEG_STEPS, c
+    assert c["k5"] == TRANSEG_ABN * TRANSEG_STEPS, c  # the previous model
+    assert c["k1f"] == c["k1b"] == c["k2"] == 0, c
+    bacs_busy, parts = profile_by_kind(lambda: bacs_train(state, steps[1]),
+                                       f"TranSeg bf16 BACS+ steps (batch {TRANSEG_BATCH})")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[p] TranSeg BACS+ step by kind: {ms:.3f} ms ({ms / bacs_busy:.1%}) {part}")
+    bacs_med = float(np.median(bacs_ms))
+    log(f"[34] TranSeg task-1 BACS+ step (detector, batch {TRANSEG_BATCH} + replay 2 x "
+        f"{TRANSEG_BATCH}, 17 of 21 tokens after the mean growth; end_task of task 0 over "
+        f"{TRANSEG_FILL} x {TRANSEG_BATCH} images {t_end:.3f} s, buffer "
+        f"{int(state.buffer.valid.sum())} valid): losses "
+        f"{' '.join(f'{v:.4f}' for v in bacs_losses)}; median wall {bacs_med:.3f} ms, device "
+        f"busy {bacs_busy:.3f} ms (idle share {1 - bacs_busy / bacs_med:.3f}), peak "
+        f"{bacs_peak / 2**30:.3f} GiB; launches {c}")
+    out["bacs"] = dict(wall=bacs_med, busy=bacs_busy, peak=bacs_peak / 2**30)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def transeg_cli(seed: int) -> dict:
+    """[35] ``bacs_tpu_torch.main.train`` in-process on
+    ``conf/experiments/bacs_transformer_config`` (TranSeg, bacs_plus, the
+    TransformerLearner with mean token growth, the detector, batch 12, bf16)
+    with [24]'s synthetic source and the fused stem, no checkpoints: all 6
+    tasks.  Checks the token growth at every boundary (the new rows the
+    mean of the old, ``mask_norm`` 1 and 0, the model and the previous
+    model at the task's class count) and returns the final mIoU, the
+    Trainer and the launches over the run."""
+    from unittest import mock
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.train import loop
+    from bacs_tpu_torch.utils.logging import Logger
+
+    config = load_config(*TRANSEG_CONFIG, TRANSEG_OVERRIDES + [f"training.seed={42 + seed}"])
+    trainers, grown, metrics = [], [], []
+    Trainer = loop.Trainer
+
+    class Checked(Trainer):
+        def fit(self):
+            trainers.append(self)
+            return super().fit()
+
+        def _set_active_classes(self, task):
+            super()._set_active_classes(task)
+            n = task.nb_current_classes
+            assert self.state.model.active_classes == n
+            if task.task_id > 0:
+                assert token_growth_ok(self.state.model, task), task.task_id
+                assert self.state.prev_model.active_classes == n
+                grown.append(task.task_id)
+
+    reset_counts, counts = launch_counters()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "Trainer", Checked), mock.patch.object(
+            Logger, "log_metrics", lambda self, m: metrics.append(dict(m))):
+        miou = cli.train(config, "cuda")
+    wall = time.perf_counter() - t0
+    tr = trainers[0]
+    assert isinstance(tr.state.model, loop.TranSeg) and tr.n_tasks == N_TASKS
+    assert grown == list(range(1, N_TASKS)), grown
+    assert np.isfinite(miou), miou
+    final = {k: v for m in metrics for k, v in m.items() if k.startswith("Final/")}
+    assert final and all(np.isfinite(v) for v in final.values()), final
+    return dict(miou=miou, trainer=tr, launches=counts(), wall=wall)
+
+
+def report_transeg_cli(run: dict) -> None:
+    """[35] log and hold the protocol run's launches."""
+    c, tr = run["launches"], run["trainer"]
+    log(f"[35] CLI train() on {'/'.join(TRANSEG_CONFIG)} {' '.join(TRANSEG_OVERRIDES)}: "
+        f"final mIoU {run['miou']:.4f} in {run['wall']:.1f} s; the mean token growth and "
+        f"the class counts held at tasks 1-5; launches {c}")
+    for k, sec in enumerate(tr.task_seconds):
+        log(f"[35] task {k}: " + ", ".join(f"{p} {v:.2f} s" for p, v in sec.items()))
+    log(f"[35] Trainer.throughput {tr.throughput:.2f} img/s")
+    for key in ("k1f", "k1b", "k2", "k3f", "k3b", "k4f", "k4b", "k5", "train_abn",
+                "k12f", "k12b"):
+        assert c[key] > 0, (key, c)
+    assert c["k10"] == 0, c
+
+
+# each row of the kernels line by the suffix of its name: its launch counters
+TRANSEG_ROW_KEYS = {"(K5)": ("k5", "train_abn"), "(K10)": ("k10",),
+                    "(K1 forward)": ("k1f",), "(K1 backward)": ("k1b",), "(K2)": ("k2",),
+                    "(K3 forward)": ("k3f",), "(K3 backward)": ("k3b",),
+                    "(K4 forward)": ("k4f",), "(K4 backward)": ("k4b",),
+                    "(K6 forward)": ("k6f",), "(K6 backward)": ("k6b",),
+                    "(K7 forward)": ("k7f",), "(K7 backward)": ("k7b",), "(K8)": ("k8",),
+                    "(K9)": ("k9",), "(K12 forward)": ("k12f",),
+                    "(K12 backward)": ("k12b",)}
+
+
+def transeg_main(args) -> int:
+    """``--transeg``: build, then phases [33]-[35] alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    reset_counts, counts = launch_counters()
+    t0 = time.perf_counter()
+    transeg_step_card_vs_cpu(args.seed, dev)
+    t33 = time.perf_counter() - t0
+    transeg_full_width(args.seed, dev, reset_counts, counts)
+    t34 = time.perf_counter() - t0 - t33
+    report_transeg_cli(transeg_cli(args.seed))
+    log(f"[time] [33] {t33:.1f} s, [34] {t34:.1f} s, [35] "
+        f"{time.perf_counter() - t0 - t33 - t34:.1f} s")
+    return 0
+
+
 # ---------------------------------------------------------------- the upsample+loss family
 
 # the device busy ms per step measured in the runs before K7's and K12's
@@ -2891,6 +3479,12 @@ def cli_protocol(seed: int) -> dict:
         return step, eval_step, put_batch
 
     class Recorded(Trainer):
+        def __init__(self, config, datamodule=None, device="cuda"):
+            # the resumed run reads the first run's data (the same images,
+            # made again from the same seeds otherwise)
+            super().__init__(config, datamodule or (trainers[0].datamodule if trainers
+                                                    else None), device)
+
         def fit(self):
             trainers.append(self)
             return super().fit()
@@ -2984,7 +3578,11 @@ def main() -> int:
     ap.add_argument("--package-root", default=None,
                     help="with --family-times or --bacs-busy: the checkout whose port "
                          "to time")
+    ap.add_argument("--transeg", action="store_true",
+                    help="only build and run the TranSeg phases [33]-[35]")
     args = ap.parse_args()
+    if args.transeg:
+        return transeg_main(args)
     if args.family_times:
         return family_times_main(args)
     if args.bacs_busy:
@@ -3180,27 +3778,11 @@ def main() -> int:
                         stats, dev, args.seed)
 
     # 9. bf16 training at 512^2, batch 16, launches counted
-    from bacs_tpu_torch.ops.abn_core import fused_abn
     from bacs_tpu_torch.ops.upsample_ce import (
-        bacs_dsem, bacs_sum, ce_dsem, ce_dsem_per_image, ce_sums_per_image, uce_dsem,
-        uce_sums, ukd_dsem, ukd_sum, wce_dsem, wce_sums)
+        bacs_dsem, bacs_sum, ce_dsem, ce_sums_per_image, wce_dsem, wce_sums)
     from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
-    from bacs_tpu_torch.ops.stem_pool import stem_pool_fwd, stem_pool_grad
-    from bacs_tpu_torch.ops.upsample_pseudo import plop_pseudo_labels
 
-    counters = dict(k5=fused_abn_eval, train_abn=fused_abn, k1f=ce_sums_per_image,
-                    k1b=ce_dsem, k2=upsampled_confusion, k10=upsampled_argmax_conf,
-                    k3f=bacs_sum, k3b=bacs_dsem, k4f=wce_sums, k4b=wce_dsem,
-                    k6f=uce_sums, k6b=uce_dsem, k7f=ukd_sum, k7b=ukd_dsem,
-                    k8=ce_dsem_per_image, k9=plop_pseudo_labels, k12f=stem_pool_fwd,
-                    k12b=stem_pool_grad)
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def counts():
-        return {k: fn.launches for k, fn in counters.items()}
+    reset_counts, counts = launch_counters()
 
     state = train_state(cfg, params, stats, torch.bfloat16, dev)
     train_step, eval_step, _ = ce_steps(dev)
@@ -3483,6 +4065,20 @@ def main() -> int:
     t_unet = time.perf_counter() - t_unet
     torch.cuda.empty_cache()
 
+    # 33. TranSeg f32 steps card against CPU; 34. TranSeg at the shipped
+    # width: CE, eval, serving, its f32 kernels, a BACS+ step; 35. the
+    # bacs_transformer_config protocol through the CLI
+    t_transeg = time.perf_counter()
+    transeg_step_card_vs_cpu(args.seed, dev)
+    transeg = transeg_full_width(args.seed, dev, reset_counts, counts)
+    transeg_run = transeg_cli(args.seed)
+    report_transeg_cli(transeg_run)
+    transeg_launches = {k: sum(d[k] for d in (
+        transeg["train_counts"], transeg["eval_counts"], transeg["serve_counts"],
+        transeg["bacs_counts"], transeg_run["launches"])) for k in counts()}
+    t_transeg = time.perf_counter() - t_transeg
+    torch.cuda.empty_cache()
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -3580,7 +4176,8 @@ def main() -> int:
         f"(losses, prototype folds, replay draws, augmentation, autocontrast)")
 
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
-        f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s")
+        f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s, "
+        f"phases [33]-[35] {t_transeg:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -3598,7 +4195,7 @@ def main() -> int:
                               + (", weight=w" if key.startswith("k4") else "")
                               + "), host-launched CUDA events"}
 
-    print(json.dumps({"kernels": [
+    rows = [
         entry("abn_apply (K5)", "triton", "bacs_tpu_torch/ops/abn_core.py",
               "bacs_tpu/ops/abn_pallas.py:45",
               k5_launches + eval_counts["k5"] + train_counts["train_abn"]
@@ -3666,13 +4263,13 @@ def main() -> int:
               library_trio_is="F.interpolate(bilinear, align_corners=False) + argmax + "
                               "torch.bincount, three calls, host-launched CUDA events"),
         entry("upsample_bacs_sum (K3 forward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
+              "bacs_tpu_torch/csrc/upsample_bacs.cu", "bacs_tpu/ops/upsample_ce.py:396",
               bacs_counts["k3f"], k3f_err, *times["k3f"], bounds["k3f"]),
         entry("upsample_bacs_grad (K3 backward)", "cuda",
-              "bacs_tpu_torch/csrc/upsample_ce.cu", "bacs_tpu/ops/upsample_ce.py:396",
+              "bacs_tpu_torch/csrc/upsample_bacs.cu", "bacs_tpu/ops/upsample_ce.py:396",
               bacs_counts["k3b"], k3b_err, *times["k3b"], bounds["k3b"]),
         with_pair(entry("upsample_wce_sums (K4 forward)", "cuda",
-                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu_torch/csrc/upsample_wce.cu",
                         "bacs_tpu/ops/upsample_ce.py:233",
                         bacs_counts["k4f"] + er_run["steps"]["k4f"] + runner_counts["k4f"],
                         k4f_err,
@@ -3681,7 +4278,7 @@ def main() -> int:
                                           "er_step_replay": er_run["steps"]["k4f"],
                                           "protocol_runner": runner_counts["k4f"]}), "k4f"),
         with_pair(entry("upsample_wce_grad (K4 backward)", "cuda",
-                        "bacs_tpu_torch/csrc/upsample_ce.cu",
+                        "bacs_tpu_torch/csrc/upsample_wce.cu",
                         "bacs_tpu/ops/upsample_ce.py:243",
                         bacs_counts["k4b"] + er_run["steps"]["k4b"] + runner_counts["k4b"],
                         k4b_err,
@@ -3697,13 +4294,13 @@ def main() -> int:
                                   "sdr_eval_step": sdr_run["eval"][key],
                                   "protocol_runner": runner_counts[key]})
           for name, source, replaces, run, key in (
-              ("upsample_uce_sums (K6 forward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+              ("upsample_uce_sums (K6 forward)", "bacs_tpu_torch/csrc/upsample_uce.cu",
                "bacs_tpu/ops/upsample_ce.py:543", mib["steps"], "k6f"),
-              ("upsample_uce_grad (K6 backward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+              ("upsample_uce_grad (K6 backward)", "bacs_tpu_torch/csrc/upsample_uce.cu",
                "bacs_tpu/ops/upsample_ce.py:543", mib["steps"], "k6b"),
-              ("upsample_ukd_sum (K7 forward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+              ("upsample_ukd_sum (K7 forward)", "bacs_tpu_torch/csrc/upsample_ukd.cu",
                "bacs_tpu/ops/upsample_ce.py:695", mib["steps"], "k7f"),
-              ("upsample_ukd_grad (K7 backward)", "bacs_tpu_torch/csrc/upsample_ce.cu",
+              ("upsample_ukd_grad (K7 backward)", "bacs_tpu_torch/csrc/upsample_ukd.cu",
                "bacs_tpu/ops/upsample_ce.py:695", mib["steps"], "k7b"),
               ("upsample_ce_grad_per_image (K8)", "bacs_tpu_torch/csrc/upsample_ce.cu",
                "bacs_tpu/ops/upsample_ce.py:125", plop["steps"], "k8"),
@@ -3722,7 +4319,19 @@ def main() -> int:
           for name, replaces, key in (
               ("stem_pool_fwd (K12 forward)", "bacs_tpu/ops/stem_pool.py:232", "k12f"),
               ("stem_pool_grad (K12 backward)", "bacs_tpu/ops/stem_pool.py:338", "k12b"))),
-    ]}))
+    ]
+    # TranSeg's path ([34], [35]): its launches, and the upsample kernels on
+    # its float32 logits ([34]'s shapes)
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["launches"] += sum(transeg_launches[k] for k in keys)
+        row["transeg_launches"] = sum(transeg_launches[k] for k in keys)
+        if keys[0] in transeg["f32"]:
+            err, ms, plain_ms, bnd = transeg["f32"][keys[0]]
+            row.update(f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=bnd[0],
+                       f32_bound_by=bnd[1], f32_max_abs_err=err,
+                       f32_is="float32 logits at TranSeg's shapes (phase [34])")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

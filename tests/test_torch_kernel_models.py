@@ -9,7 +9,7 @@ these tests check, on the CPU, the two facts their designs rest on:
   value and first-max code (ky*3+kx) as the port's ``_pool_codes`` and
   JAX's ``_pool_codes_jnp`` (one strict scan over the nine cells), on
   inputs with ties everywhere and at the edge windows (W = 2, odd H / 2).
-- K7 (``csrc/upsample_ce.cu``, ``UkdTerm``) writes the hand-derived
+- K7 (``csrc/upsample_ce.cuh``, ``UkdTerm``) writes the hand-derived
   gradient g (q0 s_G + q 1[1 <= i < c_old] - p) / c_old of the upsampled
   logits; evaluated in torch and taken back through the two interpolations,
   it equals ``jax.grad`` of ``_ukd_sum_jnp`` on the same pair.

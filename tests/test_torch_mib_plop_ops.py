@@ -296,7 +296,8 @@ def test_multihead_init_matches_jax():
     port network, against JAX ``multihead_init`` on the same weights as a
     Flax tree: the new class's kernel row is the background's, its bias and
     the background's are bg_bias - log 2; every other parameter unchanged.
-    Task 0 changes nothing; the transformer learner raises."""
+    Task 0 changes nothing; the transformer learner raises on a network
+    without TranSeg's class tokens."""
     torch.manual_seed(0)
     model = create_network("deeplab", 21, backbone="resnet18")
     with torch.no_grad():
@@ -325,7 +326,9 @@ def test_multihead_init_matches_jax():
     assert got["backbone"]["conv1"]["kernel"].tobytes() == \
         params["backbone"]["conv1"]["kernel"].tobytes()
     assert learner.get_learner("singlehead") is learner.singlehead_init
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+    # the transformer learner needs TranSeg's class tokens
+    assert learner.get_learner("learner.TransformerLearner") is learner.transformer_init
+    with pytest.raises(ValueError, match="TranSeg"):
         learner.get_learner("learner.TransformerLearner")(state, TaskInfo(**TASK1))
     with pytest.raises(ValueError, match="unknown learner"):
         learner.get_learner("nonsense")

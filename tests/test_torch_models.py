@@ -132,12 +132,20 @@ def test_bf16_network_keeps_abn_in_float32():
 
 
 def test_unported_networks_raise():
-    """TranSeg and the atrous encoder raise, naming their ROADMAP item;
-    UNet builds (held to Flax by ``tests/test_torch_unet.py``)."""
+    """The atrous encoder raises, naming its ROADMAP item (2, the non-fused
+    ``bn`` norm it needs); UNet and TranSeg build (held to Flax by
+    ``tests/test_torch_unet.py`` and ``tests/test_torch_transeg.py``), TranSeg
+    emitting full-width logits with its inactive channels filled."""
     with torch.no_grad():
         out = create_network("networks.UNet", NUM_CLASSES).eval()(torch.zeros(1, 32, 32, 3))
-    assert out.sem_logits.shape == (1, 32, 32, NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        create_network("networks.TranSeg", NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert out.sem_logits.shape == (1, 32, 32, NUM_CLASSES)
+        net = create_network("networks.TranSeg", NUM_CLASSES, active_classes=3,
+                             backbone="resnet18", crop_size=32,
+                             transformer=dict(hidden_dim=16, dim_feedforward=32))
+        out = net.eval()(torch.zeros(1, 32, 32, 3))
+    assert out.sem_logits.shape == (1, 2, 2, NUM_CLASSES)
+    assert bool((out.sem_logits[..., 3:] == -1e9).all())
+    with pytest.raises(NotImplementedError, match="item 2"):
         create_network("deeplab", NUM_CLASSES, atrous_encoder=True)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        create_network("networks.TranSeg", NUM_CLASSES, atrous_encoder=True)

@@ -1,6 +1,6 @@
 """The host-built tap tables and band plan of the upsample+loss kernels.
 
-The CUDA kernels of ``bacs_tpu_torch/csrc/upsample_ce.cu`` (K1, K3, K4,
+The CUDA kernels of ``bacs_tpu_torch/csrc/upsample_ce.cuh`` (K1, K3, K4,
 K6, K8) read their bilinear taps from tables that
 ``ops/upsample_ce.py:launch_plan`` builds with numpy: these tests hold the
 tables to ``interp_matrix`` bit for bit, their inverse ranges to its
