@@ -3,9 +3,8 @@
 The port's own copy of ``bacs_tpu/data/continual.py`` (numpy only):
 ``ContinualScenario``, ``shuffle_class_order`` and ``compute_class_sets``,
 whose per-image class scan counts with ``np.bincount`` where the JAX
-package calls its native ``class_presence`` (the same sets).  The
-domain-incremental ``DomainScenario`` (Cityscapes cities) is ROADMAP.md
-queue 1 item 7 and raises.
+package calls its native ``class_presence`` (the same sets), and the
+domain-incremental ``DomainScenario`` (Cityscapes cities).
 
 What the JAX module re-implements, from the reference's `continuum`
 library (reference: dataset/cityscape_dataset.py:110-215 `_filter_images`,
@@ -153,9 +152,55 @@ def compute_class_sets(
 
 
 class DomainScenario:
-    """Domain-incremental scenario (``bacs_tpu/data/continual.py:155-207``):
-    ROADMAP.md queue 1 item 7."""
+    """Domain-incremental scenario: tasks are domains (e.g. Cityscapes
+    cities), every task carries the full label space.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the domain-incremental scenario is ROADMAP.md queue 1 item 7")
+    Redesign of the reference CityScapeDomainScenario
+    (reference: dataloaders/cityscape_datamodule.py:270-348): per task,
+    `n_domains_per_task` domains; train/val use an 80/20 shuffle split of
+    each task's merged images (reference: ShuffleSplit per task).
+    """
+
+    def __init__(
+        self,
+        domain_ids,
+        num_classes: int,
+        n_domains_per_task: int = 1,
+        val_fraction: float = 0.2,
+        seed: int = 42,
+    ):
+        self.domain_ids = np.asarray(domain_ids)
+        self.num_classes = num_classes
+        domains = sorted(set(int(d) for d in self.domain_ids))
+        self.domains = domains
+        self.n_tasks = (len(domains) + n_domains_per_task - 1) // n_domains_per_task
+        self.n_per_task = n_domains_per_task
+        self.val_fraction = val_fraction
+        self.seed = seed
+
+    def _task_domains(self, task_id: int):
+        lo = task_id * self.n_per_task
+        return set(self.domains[lo : lo + self.n_per_task])
+
+    def _split(self, task_id: int):
+        doms = self._task_domains(task_id)
+        idx = np.where(np.isin(self.domain_ids, list(doms)))[0]
+        rng = np.random.RandomState(self.seed + task_id)
+        perm = rng.permutation(idx)
+        n_val = max(1, int(len(perm) * self.val_fraction))
+        return perm[n_val:], perm[:n_val]
+
+    def task_indices(self, task_id: int) -> np.ndarray:
+        return self._split(task_id)[0]
+
+    def val_indices(self, task_id: int) -> np.ndarray:
+        return self._split(task_id)[1]
+
+    def label_table(self, task_id: int, train: bool = True) -> np.ndarray:
+        table = np.arange(256, dtype=np.int32)
+        table[self.num_classes : 255] = 0
+        table[255] = 255
+        return table
+
+    def n_classes_at(self, task_id: int) -> int:
+        return self.num_classes

@@ -15,12 +15,17 @@ whole batches with the padding's labels ignored and ``n_real`` given.
   packages crop differently from one seed, as their generators differ.
 - Host decode runs in a prefetch thread (``_prefetch``, two batches ahead)
   into pinned host memory; the consumer thread copies each batch to the
-  card without blocking and transforms it there.  A ``DeviceCache``
-  source skips both: its batches are gathered on the card.
+  card without blocking and transforms it there.  With
+  ``training.num_workers`` (or ``input_workers``) of 2 or more, the thread
+  reads the batches from a pool of decode processes
+  (``data/decode_pool.py``; the same stream at any count).  A
+  ``DeviceCache`` source skips both: its batches are gathered on the card.
+- The domain-incremental mode (Cityscapes cities, or the synthetic
+  source's ``n_domains``): tasks are domains, and each task validates on
+  its own 20 % of the train source (``:352-357``).
 
-Not ported: multihost slicing (``process_shard``) and the multi-process
-decode pool (ROADMAP.md queue 1 items 10 and 7: ``training.num_workers``
-is not read, and decoding stays in the one prefetch thread).
+Not ported: multihost slicing (``process_shard``, ROADMAP.md queue 1 item
+10) and ``dataset.download`` (it needs the network; it raises).
 """
 
 from __future__ import annotations
@@ -35,15 +40,20 @@ import torch
 from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.data.continual import (
     ContinualScenario,
+    DomainScenario,
     compute_class_sets,
     shuffle_class_order,
 )
 from bacs_tpu_torch.data.datasets import (
     DecodedCache,
     DeviceCache,
+    DomainShiftedSource,
     SyntheticSource,
+    make_ade_source,
+    make_cityscapes_source,
     make_voc_source,
 )
+from bacs_tpu_torch.data.decode_pool import DecodePool, gather_host, pool_eligible
 
 
 def _prefetch(iterator, depth: int = 2):
@@ -113,6 +123,9 @@ class DataModule:
         debug: bool = False,
         sweep: bool = False,
         cache_dir: Optional[str] = None,
+        domain_ids=None,
+        n_domains_per_task: int = 1,
+        input_workers: int = 0,
         device: torch.device | str = "cuda",
     ):
         self.train_source = train_source
@@ -125,12 +138,23 @@ class DataModule:
         self.seed = seed
         self.task_id = 0
         self.device = torch.device(device)
+        # decode processes (reference num_workers, base_datamodule.py:45-54);
+        # they engage at 2 or more on a pool-eligible source
+        self.input_workers = int(input_workers or 0)
+        self._pools: Dict[int, DecodePool] = {}
+        # domain-incremental mode (reference: cityscape_datamodule.py:270-295)
+        self.domain_shift = domain_ids is not None
         # continual detection (reference: base_datamodule.py:37-40)
-        self.continual = 0 < initial_increment < num_classes - 1
+        self.continual = (0 < initial_increment < num_classes - 1) or self.domain_shift
         class_order = (
             shuffle_class_order(num_classes, seed) if shuffle_classes else None
         )
-        if self.continual:
+        if self.domain_shift:
+            scenario = DomainScenario(domain_ids, num_classes, n_domains_per_task, seed=seed)
+            self.train_scenario = scenario
+            self.val_scenario = scenario
+            self.n_tasks = scenario.n_tasks
+        elif self.continual:
 
             def _sets(source, tag):
                 cache = (
@@ -211,8 +235,14 @@ class DataModule:
 
     def eval_index_batches(self, task_id: int):
         """(index batches padded to whole batches, real counts, label table)
-        of task ``task_id``'s validation images."""
-        if self.continual:
+        of task ``task_id``'s validation images (in the domain mode, indices
+        of the train source)."""
+        if self.domain_shift:
+            # domain tasks validate on their own held-out 20% of the SAME
+            # (merged) source (reference: cityscape_datamodule.py:270-295)
+            idx = self.val_scenario.val_indices(task_id)
+            table = self.val_scenario.label_table(self.task_id, train=False)
+        elif self.continual:
             idx = self.val_scenario.task_indices(task_id)
             table = self.val_scenario.label_table(self.task_id, train=False)
         else:
@@ -229,14 +259,30 @@ class DataModule:
             batches.append(batch_idx)
         return batches, n_reals, table
 
-    def _gather(self, source, indices):
-        """One index batch decoded on the host (pinned when bound for the
-        card)."""
-        pairs = [source.load(int(i)) for i in indices]
-        out = [torch.from_numpy(np.stack(x)) for x in zip(*pairs)]
-        if self.device.type == "cuda":
-            out = [x.pin_memory() for x in out]
-        return out
+    def _host_stream(self, source, index_batches):
+        """Decoded (images, labels) numpy batches: from the decode pool when
+        it is configured and the source may ship to it, else decoded here,
+        one sample after another (the same stream either way)."""
+        if self.input_workers >= 2 and pool_eligible(source):
+            pool = self._pools.get(id(source))
+            if pool is None:
+                pool = self._pools[id(source)] = DecodePool(source, self.input_workers)
+            return pool.stream(index_batches)
+        return (gather_host(source, idx) for idx in index_batches)
+
+    def _pinned(self, source, index_batches):
+        """The host stream as tensors, pinned when bound for the card."""
+        for batch in self._host_stream(source, index_batches):
+            out = [torch.from_numpy(x) for x in batch]
+            if self.device.type == "cuda":
+                out = [x.pin_memory() for x in out]
+            yield out
+
+    def close(self):
+        """Terminate the decode workers (idempotent)."""
+        for pool in self._pools.values():
+            pool.close()
+        self._pools.clear()
 
     def _device_stream(self, source, index_batches) -> Iterator:
         """(images, labels) uint8 tensors on the card per index batch."""
@@ -244,7 +290,7 @@ class DataModule:
             for idx in index_batches:
                 yield source.load_batch(idx)
             return
-        host = _prefetch(self._gather(source, idx) for idx in index_batches)
+        host = _prefetch(self._pinned(source, index_batches))
         for imgs, lbls in host:
             yield (imgs.to(self.device, non_blocking=True),
                    lbls.to(self.device, non_blocking=True))
@@ -262,13 +308,21 @@ class DataModule:
             else:
                 yield transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)
 
+    def train_loader(self, epoch: int, augment: bool = True) -> "_Loader":
+        """``train_batches`` as a loader: each iteration streams the epoch
+        anew, as the reference's DataLoader does, so a consumer that passes
+        over it twice (``end_task``'s prototype sweep, then its buffer
+        fill) gets the batches both times."""
+        return _Loader(lambda: self.train_batches(epoch, augment=augment))
+
     def eval_batches(self, task_id: int) -> Iterator[Dict[str, torch.Tensor]]:
         """Eval batches for ONE task's val subset with labels of tasks 0..t
         visible (reference: base_datamodule.py:407-431 get_val_test_all);
         each carries ``n_real``, its count of real (unpadded) images."""
         batches, n_reals, table = self.eval_index_batches(task_id)
         table = torch.from_numpy(table).to(self.device)
-        for n_real, (imgs, lbls) in zip(n_reals, self._device_stream(self.val_source, batches)):
+        source = self.train_source if self.domain_shift else self.val_source
+        for n_real, (imgs, lbls) in zip(n_reals, self._device_stream(source, batches)):
             if n_real < self.batch_size:  # padded duplicates count for nothing
                 lbls = lbls.clone()
                 lbls[n_real:] = 255
@@ -282,6 +336,30 @@ class DataModule:
         if not self.continual:
             return [0]
         return list(range(up_to_task + 1))
+
+
+class _Loader:
+    def __init__(self, make):
+        self._make = make
+
+    def __iter__(self):
+        return iter(self._make())
+
+
+def _host_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def _resolve_workers(value) -> int:
+    """Reference num_workers grammar (base_datamodule.py:45-54): "auto" is
+    the host's cores; a count is clamped to them (decode workers are
+    CPU-bound, so more processes only add spawn and IPC cost)."""
+    if str(value).lower() == "auto":
+        return _host_cores()
+    return min(int(value or 0), _host_cores())
 
 
 def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule:
@@ -298,6 +376,8 @@ def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule
         num_classes=num_classes,
         crop_size=crop,
         batch_size=int(tcfg.get("batch_size", 8)),
+        # `input_workers` wins if both are set
+        input_workers=_resolve_workers(tcfg.get("input_workers", tcfg.get("num_workers", 0))),
         initial_increment=int(tcfg.get("initial_increment", 0) or 0),
         increment=int(tcfg.get("increment", 0) or 0),
         mode=str(tcfg.get("mode", "overlap")),
@@ -326,9 +406,20 @@ def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule
         train = _maybe_cache(make_voc_source(root, "train", crop))
         val = _maybe_cache(make_voc_source(root, "val", crop))
         common["cache_dir"] = os.path.expanduser(os.path.join(root, "cache"))
-    elif "ade" in target or "cityscape" in target:
-        raise NotImplementedError(
-            f"the {dcfg['_target_']} source (ADE20K, Cityscapes) is ROADMAP.md queue 1 item 7")
+    elif "ade" in target:
+        train = _maybe_cache(make_ade_source(root, "train", crop))
+        val = _maybe_cache(make_ade_source(root, "val", crop))
+    elif "cityscape" in target:
+        train = make_cityscapes_source(root, "train", crop)
+        val = make_cityscapes_source(root, "val", crop)
+        n_cities = inner.get("n_cities", None)
+        if n_cities:
+            # domain-shift variant: cities become domains
+            common["domain_ids"] = train.domain_ids
+            common["n_domains_per_task"] = max(
+                1, len(set(train.domain_ids)) // int(n_cities))
+        else:
+            train, val = _maybe_cache(train), _maybe_cache(val)
     else:  # synthetic
         n_train = int(inner.get("n_train", 64))
         n_val = int(inner.get("n_val", 16))
@@ -345,10 +436,14 @@ def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule
             )
         train = SyntheticSource(n_train, crop, num_classes, seed=1, style=style, **era_kw)
         val = SyntheticSource(n_val, crop, num_classes, seed=2, style=style, **era_kw)
-        if inner.get("n_domains", None):
-            raise NotImplementedError(
-                "the domain-shifted synthetic source (dataset.dataset.n_domains) is "
-                "ROADMAP.md queue 1 item 7")
         if str(cache_decoded).lower() == "device":
             train, val = DeviceCache(train, device), DeviceCache(val, device)
+        n_domains = inner.get("n_domains", None)
+        if n_domains:
+            domain_ids = [i % int(n_domains) for i in range(n_train)]
+            # a real appearance shift per domain, so domain forgetting is
+            # measurable (val is the 80/20 split of the train source inside
+            # DomainScenario)
+            train = DomainShiftedSource(train, domain_ids)
+            common["domain_ids"] = domain_ids
     return DataModule(train, val, **common)

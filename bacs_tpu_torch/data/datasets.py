@@ -1,4 +1,5 @@
-"""Dataset sources: VOC file-backed and synthetic, and the decoded caches.
+"""Dataset sources: VOC, ADE20K and Cityscapes file-backed, synthetic,
+domain-shifted, and the decoded caches.
 
 Port of ``bacs_tpu/data/datasets.py``.  Each source exposes ``load(i) ->
 (image uint8 [H, W, 3], label uint8 [H, W])`` at a fixed canonical size;
@@ -6,22 +7,27 @@ augmentation happens on the device (``data/transforms.py``).
 
 - ``SyntheticSource`` (both styles, ``flat`` and ``rich``, and the era
   options): a numpy copy, bit-equal to the JAX package's images and labels.
-- ``FolderSource`` and ``make_voc_source``: PIL decode, one image at a time
-  (PIL is imported only when an image is decoded).
+- ``FolderSource`` with its label remap, and ``make_voc_source``,
+  ``make_ade_source``, ``make_cityscapes_source`` (raw ids remapped to
+  train ids, unknown ids to background, a ``domain_ids`` entry per city):
+  PIL decode, one image at a time (PIL is imported only when an image is
+  decoded).  The JAX package decodes a batch through its native decoder
+  when that builds (``datasets.py:91-113``); its output differs from
+  PIL's by a few levels, and the port has only the PIL path, the JAX
+  ``load``.  Several images decode at once in the decode pool
+  (``data/decode_pool.py``).
+- ``DomainShiftedSource``: a fixed colour transform per domain.
 - ``DecodedCache`` (RAM mode) and ``DeviceCache``: the decoded set in host
   memory, or resident on the card as uint8 tensors with batches gathered
   there (``datasets.py:511-566``).
 
-ROADMAP.md queue 1 item 7 (``create_datamodule`` raises on them): the
-ADE20K and Cityscapes sources, ``DomainShiftedSource``, the native and
-multi-process decoders.  The ``DecodedCache`` disk mode (memmaps for a
-slow TPU host) is not ported.
+The ``DecodedCache`` disk mode (memmaps for a slow TPU host) is not ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,12 @@ VOC_CLASSES = [
     "car", "cat", "chair", "cow", "diningtable", "dog", "horse", "motorbike",
     "person", "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 ]
+
+# Cityscapes id → train id (reference: dataset/cityscape_domain_dataset.py:15-51)
+CITYSCAPES_ID_TO_TRAINID = {
+    7: 1, 8: 2, 11: 3, 12: 4, 13: 5, 17: 6, 19: 7, 20: 8, 21: 9, 22: 10,
+    23: 11, 24: 12, 25: 13, 26: 14, 27: 15, 28: 16, 31: 17, 32: 18, 33: 19,
+}
 
 
 def _load_pair(img_path: str, lbl_path: str, size: int):
@@ -56,9 +68,10 @@ def _load_pair(img_path: str, lbl_path: str, size: int):
 
 
 class FolderSource:
-    """Generic (image, mask) path-list source, decoded with PIL one image at
-    a time.  (The JAX class's label remap serves only the Cityscapes
-    source, ROADMAP.md queue 1 item 7.)"""
+    """Generic (image, mask) path-list source with optional label remap,
+    decoded with PIL one image at a time.  The remap is a [256] table:
+    ``label_remap``'s ids to their values, 0 and 255 kept, every other id
+    to ``remap_default``."""
 
     def __init__(
         self,
@@ -66,23 +79,39 @@ class FolderSource:
         label_paths: Sequence[str],
         size: int,
         class_names: Sequence[str],
+        label_remap: Optional[dict] = None,
+        remap_default: int = 255,
     ):
         assert len(image_paths) == len(label_paths)
         self.image_paths = list(image_paths)
         self.label_paths = list(label_paths)
         self.size = size
         self.class_names = list(class_names)
+        self._table = None
+        if label_remap is not None:
+            table = np.full((256,), remap_default, np.uint8)
+            table[0] = 0
+            table[255] = 255
+            for k, v in label_remap.items():
+                table[k] = v
+            self._table = table
 
     def __len__(self):
         return len(self.image_paths)
 
     def load(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
-        return _load_pair(self.image_paths[i], self.label_paths[i], self.size)
+        img, lbl = _load_pair(self.image_paths[i], self.label_paths[i], self.size)
+        if self._table is not None:
+            lbl = self._table[lbl]
+        return img, lbl
 
     def load_label(self, i: int) -> np.ndarray:
         from PIL import Image
 
-        return np.asarray(Image.open(self.label_paths[i]), np.uint8)
+        lbl = np.asarray(Image.open(self.label_paths[i]), np.uint8)
+        if self._table is not None:
+            lbl = self._table[lbl]
+        return lbl
 
 
 class DecodedCache:
@@ -399,6 +428,109 @@ class DeviceCache:
         return self._host_lbls[i]
 
 
+class DomainShiftedSource:
+    """Wrap a source with a REAL per-domain appearance shift, so that
+    domain forgetting is measurable on the synthetic source.  Each domain
+    gets a fixed, deterministic color transform (per-channel gain/bias +
+    channel permutation — a stand-in for Cityscapes' per-city appearance
+    statistics, reference: dataset/cityscape_domain_dataset.py); labels
+    are untouched, so class semantics stay constant across domains and
+    any accuracy drop on old domains is genuine appearance forgetting.
+    """
+
+    def __init__(self, base, domain_ids):
+        self.base = base
+        self.domain_ids = list(domain_ids)
+        self.class_names = base.class_names
+        perms = [(0, 1, 2), (1, 2, 0), (2, 0, 1), (0, 2, 1), (2, 1, 0),
+                 (1, 0, 2)]
+        self._tx = {}
+        for d in sorted(set(self.domain_ids)):
+            rs = np.random.RandomState(9176 + d)
+            self._tx[d] = (
+                perms[d % len(perms)],
+                rs.uniform(0.6, 1.2, 3).astype(np.float32),  # gain
+                rs.uniform(-30, 30, 3).astype(np.float32),   # bias
+            )
+
+    def __len__(self):
+        return len(self.base)
+
+    def load(self, i: int):
+        img, lbl = self.base.load(i)
+        perm, gain, bias = self._tx[self.domain_ids[i]]
+        out = img.astype(np.float32)[..., list(perm)] * gain + bias
+        return np.clip(out, 0, 255).astype(np.uint8), lbl
+
+    def load_label(self, i: int) -> np.ndarray:
+        return self.base.load_label(i)
+
+
+# ADE20K label names (published dataset metadata;
+# reference: dataset/ade20k.py:56-208 MAP_LABELS)
+ADE20K_CLASSES = [
+    'background', 'wall', 'building;edifice', 'sky', 'floor;flooring',
+    'tree', 'ceiling', 'road;route', 'bed', 'windowpane;window', 'grass',
+    'cabinet', 'sidewalk;pavement', 'person', 'earth;ground',
+    'door;double;door', 'table', 'mountain;mount', 'plant;flora;plant;life',
+    'curtain;drape;drapery;mantle;pall', 'chair',
+    'car;auto;automobile;machine;motorcar', 'water', 'painting;picture',
+    'sofa;couch;lounge', 'shelf', 'house', 'sea', 'mirror',
+    'rug;carpet;carpeting', 'field', 'armchair', 'seat', 'fence;fencing',
+    'desk', 'rock;stone', 'wardrobe;closet;press', 'lamp',
+    'bathtub;bathing;tub;bath;tub', 'railing;rail', 'cushion',
+    'base;pedestal;stand', 'box', 'column;pillar', 'signboard;sign',
+    'chest;of;drawers;chest;bureau;dresser', 'counter', 'sand', 'sink',
+    'skyscraper', 'fireplace;hearth;open;fireplace', 'refrigerator;icebox',
+    'grandstand;covered;stand', 'path', 'stairs;steps', 'runway',
+    'case;display;case;showcase;vitrine',
+    'pool;table;billiard;table;snooker;table', 'pillow',
+    'screen;door;screen', 'stairway;staircase', 'river', 'bridge;span',
+    'bookcase', 'blind;screen', 'coffee;table;cocktail;table',
+    'toilet;can;commode;crapper;pot;potty;stool', 'flower', 'book', 'hill',
+    'bench', 'countertop', 'stove;kitchen;stove;range;kitchen;cooking;stove',
+    'palm;palm;tree', 'kitchen;island', 'computer', 'swivel;chair', 'boat',
+    'bar', 'arcade;machine', 'hovel;hut;hutch;shack;shanty',
+    'bus;coach;double-decker;passenger;vehicle', 'towel',
+    'light;light;source', 'truck;motortruck', 'tower',
+    'chandelier;pendant;pendent', 'awning;sunshade;sunblind',
+    'streetlight;street;lamp', 'booth;cubicle;stall;kiosk', 'television',
+    'airplane;aeroplane;plane', 'dirt;track',
+    'apparel;wearing;apparel;dress;clothes', 'pole', 'land;ground;soil',
+    'bannister;banister;balustrade;balusters;handrail',
+    'escalator;moving;staircase;moving;stairway',
+    'ottoman;pouf;pouffe;puff;hassock', 'bottle', 'buffet;counter;sideboard',
+    'poster;posting;placard;notice;bill;card', 'stage', 'van', 'ship',
+    'fountain', 'conveyer;belt;conveyor;belt;conveyor;transporter', 'canopy',
+    'washer;automatic;washer;washing;machine', 'plaything;toy',
+    'swimming;pool;swimming;bath;natatorium', 'stool', 'barrel;cask',
+    'basket;handbasket', 'waterfall;falls', 'tent;collapsible;shelter',
+    'bag', 'minibike;motorbike', 'cradle', 'oven', 'ball', 'food;solid;food',
+    'step;stair', 'tank;storage;tank', 'trade;name;brand;name;brand;marque',
+    'microwave;microwave;oven', 'pot;flowerpot',
+    'animal;animate;being;beast;brute;creature;fauna',
+    'bicycle;bike;wheel;cycle', 'lake',
+    'dishwasher;dish;washer;dishwashing;machine',
+    'screen;silver;screen;projection;screen', 'blanket;cover', 'sculpture',
+    'hood;exhaust;hood', 'sconce', 'vase',
+    'traffic;light;traffic;signal;stoplight', 'tray',
+    'trash;can;garbage;wastebin;bin;ashbin;dustbin;barrel;bin', 'fan',
+    'pier;wharf;wharfage;dock', 'crt;screen', 'plate',
+    'monitor;monitoring;device', 'bulletin;board;notice;board', 'shower',
+    'radiator', 'glass;drinking;glass', 'clock', 'flag',
+]
+
+
+# Cityscapes trainid names (published dataset metadata;
+# reference: dataset/cityscape_dataset.py:50-72 map_labels)
+CITYSCAPES_CLASSES = [
+    'background', 'road', 'sidewalk', 'building', 'wall', 'fence', 'pole',
+    'traffic light', 'traffic sign', 'vegetation', 'terrain', 'sky',
+    'person', 'rider', 'car', 'truck', 'bus', 'train', 'motorcycle',
+    'bicycle',
+]
+
+
 def make_voc_source(root: str, split: str, size: int) -> FolderSource:
     """VOC2012-aug (reference: dataset/voc.py:92-147): SegmentationClassAug
     masks with train_aug.txt / val list files."""
@@ -430,3 +562,52 @@ def make_voc_source(root: str, split: str, size: int) -> FolderSource:
     imgs = [os.path.join(voc_root, "JPEGImages", f"{n}.jpg") for n in names]
     lbls = [os.path.join(mask_dir, f"{n}.png") for n in names]
     return FolderSource(imgs, lbls, size, VOC_CLASSES)
+
+
+def make_ade_source(root: str, split: str, size: int) -> FolderSource:
+    """ADE20K (reference: dataset/ade20k.py): 150 fg classes + bg = 151."""
+    root = os.path.expanduser(root)
+    base = os.path.join(root, "ADEChallengeData2016")
+    sub = "training" if split == "train" else "validation"
+    img_dir = os.path.join(base, "images", sub)
+    ann_dir = os.path.join(base, "annotations", sub)
+    if not os.path.isdir(img_dir):
+        raise FileNotFoundError(f"ADE20K root {img_dir} not found")
+    names = sorted(os.listdir(img_dir))
+    imgs = [os.path.join(img_dir, n) for n in names]
+    lbls = [
+        os.path.join(ann_dir, os.path.splitext(n)[0] + ".png") for n in names
+    ]
+    class_names = list(ADE20K_CLASSES)
+    return FolderSource(imgs, lbls, size, class_names)
+
+
+def make_cityscapes_source(root: str, split: str, size: int) -> FolderSource:
+    """Cityscapes (reference: dataset/cityscape_dataset.py): gtFine labelIds
+    remapped id→trainid (20 classes incl. bg)."""
+    root = os.path.expanduser(root)
+    img_base = os.path.join(root, "leftImg8bit", split)
+    ann_base = os.path.join(root, "gtFine", split)
+    if not os.path.isdir(img_base):
+        raise FileNotFoundError(f"Cityscapes root {img_base} not found")
+    imgs: List[str] = []
+    lbls: List[str] = []
+    domain_ids: List[int] = []
+    for ci, city in enumerate(sorted(os.listdir(img_base))):
+        for name in sorted(os.listdir(os.path.join(img_base, city))):
+            imgs.append(os.path.join(img_base, city, name))
+            domain_ids.append(ci)
+            lbls.append(
+                os.path.join(
+                    ann_base,
+                    city,
+                    name.replace("leftImg8bit", "gtFine_labelIds"),
+                )
+            )
+    class_names = list(CITYSCAPES_CLASSES)
+    src = FolderSource(
+        imgs, lbls, size, class_names,
+        label_remap=CITYSCAPES_ID_TO_TRAINID, remap_default=0,
+    )
+    src.domain_ids = domain_ids  # per-image city index (domain-shift mode)
+    return src

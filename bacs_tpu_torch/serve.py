@@ -15,8 +15,10 @@ at all, and masks as uint8 or bit-packed on the device
 (``ops/bitpack.py``).
 
 ``device`` is explicit.  Asking for CUDA where there is none raises; the
-Predictor never falls back to the CPU.  Multi-GPU serving, ``export`` and
-``from_checkpoint`` are ROADMAP.md queue 1 items 10 and 13 and raise.
+Predictor never falls back to the CPU.  ``from_checkpoint`` serves the
+newest checkpoint of a training run through the Trainer's own restore.
+Multi-GPU serving and ``export`` are ROADMAP.md queue 1 items 10 and 13
+and raise.
 """
 
 from __future__ import annotations
@@ -96,10 +98,34 @@ class Predictor:
     # ------------------------------------------------------------------
 
     @classmethod
-    def from_checkpoint(cls, ckpt_dir: str, config, **kwargs) -> "Predictor":
-        raise NotImplementedError(
-            "from_checkpoint needs the trainer and the checkpoint port: "
-            "ROADMAP.md queue 1 items 8 and 13"
+    def from_checkpoint(cls, ckpt_dir: str, config, device: str | torch.device = "cuda",
+                        **kwargs) -> "Predictor":
+        """The newest task checkpoint the Trainer saved under ``ckpt_dir``
+        (``utils/checkpoint.py``), served at that task's class count."""
+        from bacs_tpu_torch.train.loop import Trainer
+        from bacs_tpu_torch.utils.checkpoint import latest_checkpoint
+        from bacs_tpu_torch.utils.torch_weights import model_variables
+
+        found = latest_checkpoint(ckpt_dir)
+        if not found:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        task_id, path = found
+        trainer = Trainer(config, device=device)
+        state = trainer.restore(task_id, path)
+        variables = model_variables(state.model)
+        # the seen detector takes no part in serving, and the served network
+        # is built without it (JAX's apply ignores its variables)
+        for tree in variables.values():
+            tree.pop("seen_fg_network", None)
+        return cls(
+            dict(config.get("network", {})),
+            trainer.datamodule.num_classes,
+            variables["params"],
+            variables["batch_stats"],
+            crop_size=trainer.datamodule.crop_size,
+            active_classes=trainer._task_info(task_id).nb_current_classes,
+            device=device,
+            **kwargs,
         )
 
     def export(self, path: str, batch_size: int = 8) -> str:

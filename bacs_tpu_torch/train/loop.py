@@ -23,9 +23,12 @@ multihost streams, ``training.spatial_partition`` (GSPMD),
 ``training.profile_dir`` (the ``jax.profiler`` trace).  These raise, naming
 their ROADMAP.md item: more than one card asked for where more than one
 is visible (queue 1 item 10); media,
-prototype and drift logging and the OOD pass (item 14); a
-``backbone_weights_path`` that exists (item 13).  Asking for more devices
-than are visible warns and runs on one, as the JAX loop does.
+prototype and drift logging and the OOD pass (item 14).  Asking for more
+devices than are visible warns and runs on one, as the JAX loop does.  A
+``network.backbone_weights_path`` that exists is loaded into the new
+network's backbone (the PLOP release layout, ``utils/torch_weights.py``);
+one that does not is logged, and the network trains from its seeded
+weights, as in JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils import checkpoint
 from bacs_tpu_torch.utils.logging import Logger
+from bacs_tpu_torch.utils.torch_weights import load_backbone_into
 
 # training keys that tune the TPU or its host, ignored here
 TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch", "profile_dir")
@@ -212,7 +216,9 @@ class Trainer:
     def _task_info(self, task_id: int) -> TaskInfo:
         dm = self.datamodule
         tcfg = self.config["training"]
-        if self.continual:
+        # a domain task sees every class (bacs_tpu/train/loop.py:183-202)
+        domain = getattr(dm, "domain_shift", False)
+        if self.continual and not domain:
             initial = int(tcfg.get("initial_increment", 0)) + 1  # + background
             inc = int(tcfg.get("increment", 0))
         else:
@@ -222,6 +228,7 @@ class Trainer:
             task_id=task_id, initial_classes=initial, increment=inc,
             num_classes=dm.num_classes, n_tasks=self.n_tasks,
             max_epochs=self._epochs_for(task_id), ignore_index=self.ignore_index,
+            domain_shift=domain,
         )
 
     def _epochs_for(self, task_id: int) -> int:
@@ -273,9 +280,9 @@ class Trainer:
         # pretrained backbone (reference: deeplab_v3.py:36-49)
         bw_path = self.config.get("network", {}).get("backbone_weights_path")
         if bw_path and os.path.isfile(os.path.expanduser(str(bw_path))):
-            raise NotImplementedError(
-                f"loading the pretrained backbone {bw_path} is ROADMAP.md queue 1 item 13")
-        if bw_path:
+            n = load_backbone_into(model, str(bw_path))
+            self.logger.info(f"loaded {n} pretrained backbone tensors from {bw_path}")
+        elif bw_path:
             self.logger.info(f"backbone weights path {bw_path} not found; "
                              "training from scratch")
         # probe the sem-logit size and the penultimate width
@@ -492,12 +499,7 @@ class Trainer:
             return 0
         t_ckpt, path = found
         is_final = path.endswith("final")
-        # the template's schedule is the task's own: its step budget counts
-        # the task's batches (the JAX loop rebuilds its optax chain per task)
-        self.datamodule.set_task_id(t_ckpt)
-        template = self._init_state(self._task_info(t_ckpt))
-        if self.method.needs_prev_model and (t_ckpt > 0 or is_final):
-            template.prev_model = frozen_copy(template.model)
+        template = self._template(t_ckpt, path)
         try:
             self.state = checkpoint.restore_checkpoint(path, template)
         except Exception as e:  # structure drift → start fresh (or raise)
@@ -513,6 +515,22 @@ class Trainer:
         self._skip_surgery = True
         self.logger.info(f"resumed mid-task {t_ckpt} at epoch {self._resume_epoch}: {path}")
         return t_ckpt
+
+    def _template(self, task_id: int, path: str) -> TrainState:
+        """A fresh state of the structure of task ``task_id``'s checkpoint
+        at ``path``."""
+        # the template's schedule is the task's own: its step budget counts
+        # the task's batches (the JAX loop rebuilds its optax chain per task)
+        self.datamodule.set_task_id(task_id)
+        template = self._init_state(self._task_info(task_id))
+        if self.method.needs_prev_model and (task_id > 0 or path.endswith("final")):
+            template.prev_model = frozen_copy(template.model)
+        return template
+
+    def restore(self, task_id: int, path: str) -> TrainState:
+        """The checkpoint at ``path`` of task ``task_id``, restored into a
+        state of the same structure (a structure mismatch raises)."""
+        return checkpoint.restore_checkpoint(path, self._template(task_id, path))
 
     def fit(self) -> float:
         """The outer task loop (reference: trainer.py:415-433)."""

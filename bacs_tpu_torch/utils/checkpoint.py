@@ -96,7 +96,9 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[tuple[int, str]]:
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (a freshly built state of the same
-    structure, on its device) and return it.  A structure mismatch raises."""
+    structure, on its device) and return it.  A structure mismatch raises.
+    The generator's state is restored where the checkpoint's device type
+    is the state's; otherwise ``state``'s own generator is kept."""
     device = next(state.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=False)
     state.model.load_state_dict(saved["model"])
@@ -105,8 +107,14 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     state.step, state.epoch_step, state.epoch = (
         saved["step"], saved["epoch_step"], saved["epoch"])
     if saved["generator"] is not None:
-        state.generator = torch.Generator(device)
-        state.generator.set_state(saved["generator"].cpu())
+        generator = torch.Generator(device)
+        rng = saved["generator"].cpu()
+        # a checkpoint of another device type (the card's state restored on
+        # the CPU, as serving does) cannot continue its draws here: the
+        # template's seeded generator stays
+        if rng.numel() == generator.get_state().numel():
+            generator.set_state(rng)
+            state.generator = generator
     if saved["prev_model"] is not None:
         if state.prev_model is None:
             state.prev_model = frozen_copy(state.model)

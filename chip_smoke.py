@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (CE, BACS, MiB, PLOP, ER, SDR
 and iCaRL; DeepLabV3, UNet and TranSeg; gradient accumulation and stage
-remat), eval, continual-trainer and protocol-runner paths on one NVIDIA GPU
-(H100).
+remat), eval, continual-trainer and protocol-runner paths, and its folder
+datasets, weight import and checkpoint serving, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --family-times [--package-root DIR]
     python3 chip_smoke.py --bacs-busy [--package-root DIR]
     python3 chip_smoke.py --transeg
+    python3 chip_smoke.py --real-data
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -179,6 +180,30 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    (200 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
    the class counts checked at every boundary, a finite final mIoU, the
    seconds per task and the launches;
+36. VOC and weights, DeepLabV3-RN101 at 512^2 in bf16: a VOC tree (48 train,
+   16 validation images of 512-818 px, ``bacs_tpu_torch.data.layouts``) and
+   a release-layout ``resnet101_iabn_sync.pth.tar`` of seeded values
+   (``export_backbone_release``); the Trainer's network on the card checked
+   against the file tensor by tensor; ``python -m bacs_tpu_torch.main`` on
+   ``conf/bacs`` (the detector, BACS+, 2 tasks, 2 decode workers) in a
+   subprocess: the loaded count equals the file's, K3 and K4 launched at task
+   1; ``python -m bacs_tpu_torch.predict`` on its checkpoint over 8 of the
+   tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in f32 on the
+   card and on the CPU over them (the share of pixels that differ, within
+   ``SERVE_PIXEL_TOL``); a reference-layout DeepLabV3 checkpoint of seeded
+   values (``reference_deeplab_shapes``) through ``python -m
+   bacs_tpu_torch.import_ckpt --populate-buffer``, then resumed at task 1 on
+   the card; then the decode pool's host img/s at 0, 2 and 4 workers;
+37. ADE20K at 151 classes: an ADE tree (36 train, 16 validation images),
+   ``conf/experiments/joint`` (DeepLabV3-RN101, CE, batch 12, bf16) through
+   ``main.train`` in-process (K1 each way and K2 per step and eval batch at
+   151 classes), serving 12 images (1 K10), the train and eval steps' busy
+   time and the peak memory, and K1 each way, K2 and K10 at [12, 32, 32, 151]
+   -> 512^2 held to their plain versions and timed beside their bounds;
+38. the domain tasks: a Cityscapes tree of 3 cities with ``n_cities=3`` on
+   ``conf/continual_debug`` (RN18, 128^2) and its ``synthetic_domain``,
+   through ``main.train`` in-process: one domain a task, each task's train
+   and validation images its domain's and disjoint, every task tested;
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -193,7 +218,8 @@ t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
 Every profiled window logs the card's SM clock over it (``[clock]``,
 ``nvidia-smi`` sampling), beside the busy time it gives.
 
-``--transeg`` only builds and runs phases [33]-[35].
+``--transeg`` only builds and runs phases [33]-[35], ``--real-data``
+phases [36]-[38].
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -3565,6 +3591,516 @@ def report_cli(run: dict) -> None:
         log(f"[24] checkpoint step_{task_id}/{step}: {size / 2**30:.3f} GiB in {sec:.2f} s")
 
 
+# ---------------------------------------------------------------- real data and weights
+
+# [36]-[38]: trees in the real datasets' layouts (written by
+# bacs_tpu_torch/data/layouts.py from the synthetic source), a release-layout
+# backbone and a reference-layout checkpoint with seeded values, under build/
+REAL_ROOT = "build/chip_smoke_real"
+# [36] the VOC leg: conf/bacs with the detector (der_15_1_bg, bacs_plus_bg,
+# batch 12, 300 slots), 2 tasks (16 classes, then 5), overlap membership so
+# both tasks get images of the 48, 2 epochs a task; two decode workers
+VOC_TREE = dict(n_train=48, n_val=16, size=CROP)
+VOC_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "training.num_workers=2",
+                 "training.initial_increment=15", "training.increment=5",
+                 "training.mode=overlap", "training.epochs=2", "training.val_every=0"]
+PREDICT_IMAGES = 8
+# the share of pixels whose class may differ between the f32 Predictor on
+# the card (cuDNN, TF32 off) and on the CPU: the ties within rounding
+SERVE_PIXEL_TOL = 1e-3
+# [37] ADE20K: conf/experiments/joint (DeepLabV3-RN101, CE, batch 12, bf16)
+ADE_CLASSES_BG = ADE_CLASSES + 1  # 151 with the background
+ADE_TREE = dict(n_train=36, n_val=16, size=CROP)
+ADE_OVERRIDES = ["training.epochs=1", "training.val_every=0", "~training.ckpt_dir",
+                 "training.num_workers=2"]
+ADE_BATCH = 12
+# [38] the domains: 3 Cityscapes cities at 256 px, one a task, on
+# conf/continual_debug's DeepLabV3-RN18 at 128^2; then its synthetic_domain
+CITY_TREE = dict(cities=3, per_city=8, val_cities=1, val_per_city=4, size=256)
+CITY_OVERRIDES = ["network=deep_lab", "dataset._target_=dataloaders.CityscapeDataModule",
+                  "dataset.dataset.num_classes=20", "dataset.dataset.crop_size=128",
+                  "+dataset.dataset.n_cities=3", "training.debug=false"]
+DOMAIN_OVERRIDES = ["dataset=synthetic_domain", "network=deep_lab"]
+# a CLI run in a subprocess, as `python -m <module>` runs it (runpy), with the
+# launch counters of every task and of what ran outside the tasks printed at
+# its end
+COUNTED_MODULE = """
+import json, runpy, sys
+from chip_smoke import launch_counters
+from bacs_tpu_torch.train import loop
+reset, counts = launch_counters()
+per_task = []
+run_task = loop.Trainer._run_task
+def counted(self, task_id):
+    reset()
+    out = run_task(self, task_id)
+    per_task.append([task_id, counts()])
+    reset()
+    return out
+loop.Trainer._run_task = counted
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+reset()
+runpy.run_module(module, run_name="__main__")
+print("LAUNCHES " + json.dumps({"per_task": per_task, "last": counts()}), flush=True)
+"""
+
+
+def run_counted(module: str, args: list, log_path: str, timeout: int = 600) -> tuple:
+    """Run ``python -m module args`` in a subprocess (through
+    ``COUNTED_MODULE``), its output to ``log_path``; returns (its stdout, the
+    launch counters per task and of the run's end)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", COUNTED_MODULE, module, *args],
+                         capture_output=True, text=True, timeout=timeout)
+    with open(log_path, "w") as f:
+        f.write(res.stdout + "\n--- stderr\n" + res.stderr)
+    if res.returncode != 0:
+        log(res.stdout[-3000:] + res.stderr[-3000:])
+        raise AssertionError(f"python -m {module} exited {res.returncode}; {log_path}")
+    line = next(x for x in res.stdout.splitlines() if x.startswith("LAUNCHES "))
+    log(f"[36] python -m {module}: {time.perf_counter() - t0:.1f} s (log {log_path})")
+    return res.stdout, json.loads(line[len("LAUNCHES "):])
+
+
+def release_to_port_key(key: str) -> str:
+    """The port's state_dict key of a release backbone key."""
+    import re
+
+    key = key.replace("module.", "")
+    if key.startswith("mod1."):
+        return "backbone." + key[len("mod1."):]
+    m = re.fullmatch(r"mod(\d+)\.block(\d+)\.(?:convs\.)?(.+)", key)
+    return f"backbone.mod{m.group(1)}_block{m.group(2)}.{m.group(3)}"
+
+
+def seeded_release(path: str, seed: int) -> int:
+    """A release-layout RN101 backbone file (``export_backbone_release``) of
+    the port's seeded initial weights, every ABN vector redrawn: weights of
+    magnitude 0.5-1.5 and random sign, biases and means within 0.1,
+    variances 0.8-1.25.  Returns its count of backbone tensors."""
+    from bacs_tpu_torch.models import create_network
+    from bacs_tpu_torch.train.loop import init_weights
+    from bacs_tpu_torch.utils import torch_weights as tw
+
+    model = create_network("deeplab", N_CLASSES, backbone="resnet101")
+    init_weights(model, seed)
+    variables = tw.model_variables(model)
+    rs = np.random.RandomState(seed)
+
+    def redraw(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                redraw(v)
+            elif k == "scale":
+                node[k] = (rs.uniform(0.5, 1.5, v.shape) * rs.choice([-1, 1], v.shape)
+                           ).astype(np.float32)
+            elif k in ("bias", "mean"):
+                node[k] = rs.uniform(-0.1, 0.1, v.shape).astype(np.float32)
+            elif k == "var":
+                node[k] = rs.uniform(0.8, 1.25, v.shape).astype(np.float32)
+
+    redraw(variables["params"]["backbone"])
+    redraw(variables["batch_stats"]["backbone"])
+    return tw.export_backbone_release(variables, path)
+
+
+def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
+    """[36] the VOC leg: a VOC tree and a release backbone file, the
+    backbone's load checked tensor by tensor on the card, the protocol
+    through ``python -m bacs_tpu_torch.main`` (2 decode workers), its
+    checkpoint served through ``python -m bacs_tpu_torch.predict`` and by
+    ``Predictor.from_checkpoint`` in f32 on the card and on the CPU, then a
+    reference-layout checkpoint imported with ``python -m
+    bacs_tpu_torch.import_ckpt`` and resumed on the card."""
+    import glob
+    import re
+    import shutil
+    from unittest import mock
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.data.layouts import generate_voc
+    from bacs_tpu_torch.serve import Predictor
+    from bacs_tpu_torch.train.loop import Trainer
+    from bacs_tpu_torch.utils import torch_weights as tw
+    from bacs_tpu_torch.utils.logging import Logger
+
+    base = os.path.abspath(os.path.join(REAL_ROOT, "voc"))
+    shutil.rmtree(base, ignore_errors=True)
+    root, ckpt = os.path.join(base, "data"), os.path.join(base, "ckpt")
+    bb_path = os.path.join(base, "resnet101_iabn_sync.pth.tar")
+    out = {}
+    t0 = time.perf_counter()
+    generate_voc(root, seed=seed, **VOC_TREE)
+    n_bb = seeded_release(bb_path, seed + 36)
+    out["t_setup"] = time.perf_counter() - t0
+    overrides = VOC_OVERRIDES + [f"dataset.dataset.root={root}",
+                                 f"network.backbone_weights_path={bb_path}",
+                                 f"training.ckpt_dir={ckpt}", f"training.seed={42 + seed}"]
+    log(f"[36] a VOC tree of {VOC_TREE} and a release backbone of {n_bb} tensors in "
+        f"{out['t_setup']:.1f} s")
+
+    # the load, tensor by tensor on the card: convolutions as the file holds
+    # them, ABN weights as magnitudes
+    config = load_config("conf/bacs", "bacs_plus_config", overrides)
+    trainer = Trainer(config, device="cuda")
+    state = trainer._init_state(trainer._task_info(0))
+    own = state.model.state_dict()
+    release = tw.load_torch_state_dict(bb_path)
+    checked = 0
+    for key, value in release.items():
+        if key.startswith("classifier."):
+            continue
+        want = torch.from_numpy(np.abs(value) if key.endswith(".weight") and value.ndim == 1
+                                else value).to(dev)
+        got = own[release_to_port_key(key)]
+        assert got.device.type == "cuda" and torch.equal(got, want), key
+        checked += 1
+    assert checked == n_bb, (checked, n_bb)
+    log(f"[36] the Trainer's network on the card holds all {checked} backbone tensors of "
+        "the file (convolutions as stored, ABN weights as magnitudes)")
+    del state, own
+
+    # the protocol through the CLI, in a subprocess
+    stdout, launches = run_counted("bacs_tpu_torch.main", [
+        "--config-path", "conf/bacs", "--config-name", "bacs_plus_config", *overrides],
+        os.path.join(base, "main.log"))
+    m = re.search(r"loaded (\d+) pretrained backbone tensors from", stdout)
+    assert m and int(m.group(1)) == n_bb, (m and m.group(0), n_bb)
+    miou = float(re.search(r"final mIoU: (\S+)", stdout).group(1))
+    assert np.isfinite(miou), miou
+    per_task = dict((t, c) for t, c in launches["per_task"])
+    assert sorted(per_task) == [0, 1], per_task
+    t1 = per_task[1]
+    for key in ("k3f", "k3b", "k4f", "k4b"):
+        assert t1[key] > 0, (key, t1)
+    log(f"[36] python -m bacs_tpu_torch.main (2 tasks, 2 decode workers): loaded {n_bb} "
+        f"backbone tensors; final mIoU {miou:.4f}; task 0 launches {per_task[0]}; task 1 "
+        f"{t1}")
+    out.update(leg_launches=launches, miou=miou, n_bb=n_bb)
+
+    # serving the checkpoint: the predict CLI, then from_checkpoint in f32
+    images = sorted(glob.glob(os.path.join(root, "VOCdevkit", "VOC2012", "JPEGImages",
+                                           "synth_va_*.jpg")))[:PREDICT_IMAGES]
+    masks_dir = os.path.join(base, "masks")
+    _, pl = run_counted("bacs_tpu_torch.predict", [
+        "--config-path", "conf/bacs", "--config-name", "bacs_plus_config", "--checkpoint",
+        ckpt, "--images", *images, "--out", masks_dir, *overrides],
+        os.path.join(base, "predict.log"))
+    written = sorted(os.listdir(masks_dir))
+    assert len(written) == PREDICT_IMAGES and pl["last"]["k10"] >= 1, (written, pl["last"])
+    log(f"[36] python -m bacs_tpu_torch.predict: {len(written)} masks written, launches "
+        f"{pl['last']}")
+    out["predict_launches"] = pl["last"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        masks = {d: Predictor.from_checkpoint(ckpt, config, device=d, dtype=torch.float32)
+                 .predict_files(images) for d in ("cuda", "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    differ = float(np.mean([np.mean(a != b) for a, b in zip(masks["cuda"], masks["cpu"])]))
+    log(f"[36] Predictor.from_checkpoint f32, card against CPU over {len(images)} images: "
+        f"{differ:.2e} of the pixels in another class (tolerance {SERVE_PIXEL_TOL:.0e})")
+    assert differ <= SERVE_PIXEL_TOL, differ
+    out["serve_differ"] = differ
+
+    # a reference-layout checkpoint of task 0 (seeded), imported with the
+    # buffer populated (end_task over the train stream) and resumed
+    shapes = tw.reference_deeplab_shapes(tw.model_variables(trainer._make_model()), [16])
+    sd = tw.seeded_state_dict(shapes, seed + 37)
+    ref_ckpt, imported = os.path.join(base, "final.ckpt"), os.path.join(base, "imported")
+    torch.save({"state_dict": {f"network.{k}": v for k, v in sd.items()}}, ref_ckpt)
+    stdout, _ = run_counted("bacs_tpu_torch.import_ckpt", [
+        "--ckpt", ref_ckpt, "--config-path", "conf/bacs", "--config-name",
+        "bacs_plus_config", "--out", imported, "--populate-buffer", *overrides],
+        os.path.join(base, "import.log"))
+    m = re.search(r"imported (\d+)/(\d+) tensors", stdout)
+    assert m and m.group(1) == m.group(2) == str(len(shapes)), (m and m.group(0), len(shapes))
+    resumed = load_config("conf/bacs", "bacs_plus_config",
+                          overrides + [f"training.ckpt_dir={imported}"])
+    metrics = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(Logger, "log_metrics", lambda self, m: metrics.append(dict(m))):
+        miou = cli.train(resumed, "cuda")
+    out["resume_launches"] = counts()
+    keys = {k for mm in metrics for k in mm}
+    assert "test.1/Task 1/mIoU" in keys and "test.0/Task 0/mIoU" not in keys, sorted(keys)[:5]
+    assert out["resume_launches"]["k3f"] > 0 and np.isfinite(miou), out["resume_launches"]
+    log(f"[36] {m.group(0)} (a reference checkpoint of {len(shapes)} keys, task 0) "
+        f"and resumed at task 1 on the card in {time.perf_counter() - t0:.1f} s: final mIoU "
+        f"{miou:.4f}, launches {out['resume_launches']}")
+    out["root"] = root
+    trainer.datamodule.close()
+    return out
+
+
+def decode_pool_rates(root: str) -> dict:
+    """Host decode img/s of the VOC tree's train images through the
+    DataModule's host stream at 0, 2 and 4 workers (batches of 12), three
+    passes each: the first with the workers' spawn."""
+    from bacs_tpu_torch.data.datamodule import DataModule, _host_cores
+    from bacs_tpu_torch.data.datasets import make_voc_source
+
+    src = make_voc_source(root, "train", CROP)
+    idx = [list(range(i, min(i + 12, len(src)))) for i in range(0, len(src), 12)]
+    rates = {}
+    for workers in (0, 2, 4):
+        dm = DataModule(src, src, N_CLASSES, CROP, 12, input_workers=workers, device="cpu")
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(len(b[0]) for b in dm._host_stream(src, idx))
+            passes.append(n / (time.perf_counter() - t0))
+        dm.close()
+        rates[workers] = passes
+    log(f"[36] decode pool, host numbers: {len(src)} VOC images of "
+        f"{VOC_TREE['size']}-{int(VOC_TREE['size'] * 1.6)} px decoded to {CROP}^2, img/s "
+        "(three passes, the first with the spawn): "
+        + ", ".join(f"{w} workers " + " / ".join(f"{r:.1f}" for r in p)
+                    for w, p in rates.items())
+        + f"; host cores {_host_cores()} (os.cpu_count {os.cpu_count()})")
+    return rates
+
+
+def ade_full_width(seed: int, dev, reset_counts, counts) -> dict:
+    """[37] ADE20K at 151 classes: an ADE tree, ``conf/experiments/joint``
+    through ``bacs_tpu_torch.main.train`` in-process (train steps, the test,
+    launches), serving through the Predictor; K1 each way, K2 and K10 at
+    the path's [12, 32, 32, 151] -> 512^2 held to their plain versions and
+    timed beside their bounds; the train and eval steps' busy time and the
+    peak memory."""
+    import shutil
+    from unittest import mock
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.data.layouts import generate_ade
+    from bacs_tpu_torch.methods import ModelContext
+    from bacs_tpu_torch.ops.upsample_argmax import argmax_conf_from, upsampled_argmax_conf
+    from bacs_tpu_torch.ops.upsample_ce import (
+        ce_dsem, ce_dsem_plain, ce_sums_per_image, ce_sums_plain)
+    from bacs_tpu_torch.ops.upsample_confusion import confusion_plain, upsampled_confusion
+    from bacs_tpu_torch.ops.upsample_tiles import kmats
+    from bacs_tpu_torch.serve import Predictor
+    from bacs_tpu_torch.train import loop
+    from bacs_tpu_torch.train.step import make_steps
+    from bacs_tpu_torch.utils.logging import Logger
+    from bacs_tpu_torch.utils.torch_weights import model_variables
+
+    base = os.path.abspath(os.path.join(REAL_ROOT, "ade"))
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_ade(base, num_classes=ADE_CLASSES_BG, seed=seed, **ADE_TREE)
+    t_layout = time.perf_counter() - t0
+    config = load_config("conf/experiments", "joint", ADE_OVERRIDES + [
+        f"dataset.dataset.root={base}", f"training.seed={42 + seed}"])
+    trainers, metrics = [], []
+    Trainer = loop.Trainer
+
+    class Kept(Trainer):
+        def fit(self):
+            trainers.append(self)
+            return super().fit()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "Trainer", Kept), mock.patch.object(
+            Logger, "log_metrics", lambda self, m: metrics.append(dict(m))):
+        miou = cli.train(config, "cuda")
+    wall = time.perf_counter() - t0
+    fit_counts = counts()
+    tr = trainers[0]
+    dm = tr.datamodule
+    assert dm.num_classes == ADE_CLASSES_BG and len(dm.class_names) == ADE_CLASSES_BG
+    steps = dm.steps_per_epoch()
+    evals = -(-ADE_TREE["n_val"] // ADE_BATCH)
+    assert fit_counts["k1f"] == steps + evals and fit_counts["k1b"] == steps, fit_counts
+    assert fit_counts["k2"] == evals and np.isfinite(miou), (fit_counts, miou)
+    log(f"[37] conf/experiments/joint on an ADE tree of {ADE_TREE} ({t_layout:.1f} s to "
+        f"write): {steps} train steps at batch {ADE_BATCH}, the test over "
+        f"{ADE_TREE['n_val']} images, final mIoU {miou:.4f} in {wall:.1f} s; launches "
+        f"{fit_counts}")
+
+    # serving at 151 classes
+    v = model_variables(tr.state.model)
+    pred = Predictor(dict(config["network"]), ADE_CLASSES_BG, v["params"], v["batch_stats"],
+                     crop_size=CROP, device="cuda")
+    images = np.stack([dm.val_source.load(i)[0] for i in range(ADE_BATCH)])
+    reset_counts()
+    masks, conf = pred.predict(images)
+    serve_counts = counts()
+    assert serve_counts["k10"] == 1 and masks.shape == (ADE_BATCH, CROP, CROP), serve_counts
+    assert int(masks.max()) < ADE_CLASSES_BG and np.isfinite(conf.astype(np.float32)).all()
+
+    # the train and eval steps at 151 classes: busy, wall, peak
+    ctx = ModelContext(tr._task_info(0), fused_ce=tr.fused_ce)
+    train_step, eval_step, put_batch = make_steps(ctx, tr.method, ADE_CLASSES_BG, device=dev)
+    batch = put_batch(next(iter(dm.train_batches(0))))
+    eval_batch = next(iter(dm.eval_batches(0)))
+    eval_batch.pop("n_real")
+    eval_batch = put_batch(eval_batch)
+    cm = torch.zeros((ADE_CLASSES_BG, ADE_CLASSES_BG), dtype=torch.int32, device=dev)
+    state = tr.state
+
+    def step():
+        nonlocal state
+        state, m = train_step(state, batch)
+        return m
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        float(step()["loss"])
+        walls.append(1000 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    busy = busy_ms(step)
+    eval_busy = busy_ms(lambda: eval_step(state, cm, eval_batch))
+    log(f"[37] ADE train step (batch {ADE_BATCH}, 151 classes, bf16): busy {busy:.2f} ms, "
+        f"wall median {np.median(walls):.2f} ms (idle share "
+        f"{1 - busy / np.median(walls):.3f}), peak {peak / 2**30:.2f} GiB; eval step busy "
+        f"{eval_busy:.2f} ms")
+
+    # K1, K2, K10 at the path's shape, held and timed
+    shape, hw = (ADE_BATCH, CROP // 16, CROP // 16, ADE_CLASSES_BG), (CROP, CROP)
+    bf16 = torch.bfloat16
+    e = check_ce(shape, hw, bf16, dev, seed)
+    errs = {"k1f": e["val_abs"], "k1b": e["grad_abs"],
+            "k2": check_confusion(shape, hw, bf16, dev, seed),
+            "k10": check_argmax(shape, hw, bf16, dev, seed)}
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    sem = (torch.randn(shape, generator=gen, device=dev) * 3).to(bf16)
+    labels = seeded_labels(ADE_BATCH, hw, ADE_CLASSES_BG, dev, seed + 37)
+    g = torch.tensor(1.0 / float((labels != 255).sum()), device=dev)
+    kh, kw = (torch.from_numpy(k).to(dev) for k in kmats(sem.shape, hw))
+    calls = {
+        "k1f": (lambda: ce_sums_per_image(sem, labels, hw),
+                lambda: ce_sums_plain(sem, labels, hw), labels),
+        "k1b": (lambda: ce_dsem(sem, labels, hw, g),
+                lambda: ce_dsem_plain(sem, labels, hw, g), labels),
+        "k2": (lambda: upsampled_confusion(sem, labels, hw, ADE_CLASSES_BG),
+               lambda: confusion_plain(sem, labels, hw, ADE_CLASSES_BG), labels),
+    }
+    kernels = {}
+    for key, (kernel, plain, lab) in calls.items():
+        kernels[key] = (errs[key], device_ms(kernel), time_ms(plain, iters=3),
+                        upsample_bound(key, sem, hw, lab))
+    kernels["k10"] = (errs["k10"], device_ms(lambda: upsampled_argmax_conf(sem, hw)),
+                      device_ms(lambda: argmax_conf_from(torch.einsum(
+                          "Ww,nHwc->nHWc", kw, torch.einsum("Hh,nhwc->nHwc", kh,
+                                                            sem.float())))),
+                      upsample_bound("k10", sem, hw))
+    for key, (err, ms, plain_ms, bnd) in kernels.items():
+        log(f"[37] {key} at {shape}->{CROP}^2 bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), max abs err {err:.3g}"
+            + (" (pixels counted differently)" if key == "k2" else ""))
+    tr.datamodule.close()
+    launches = {k: fit_counts[k] + serve_counts[k] for k in fit_counts}
+    return dict(kernels=kernels, launches=launches, busy=busy, eval_busy=eval_busy,
+                walls=walls, peak=peak, miou=miou)
+
+
+def domain_runs(seed: int, reset_counts, counts) -> dict:
+    """[38] the domain tasks: a Cityscapes tree of 3 cities through
+    ``conf/continual_debug`` with ``n_cities=3`` (one city a task; each
+    task's train and validation images its city's, disjoint), then
+    ``dataset=synthetic_domain``, both through ``main.train`` in-process on
+    the card: every task's test, finite mIoUs."""
+    import shutil
+    from unittest import mock
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.data.datasets import DomainShiftedSource
+    from bacs_tpu_torch.data.layouts import generate_cityscapes
+    from bacs_tpu_torch.train import loop
+    from bacs_tpu_torch.utils.logging import Logger
+
+    base = os.path.abspath(os.path.join(REAL_ROOT, "cityscapes"))
+    shutil.rmtree(base, ignore_errors=True)
+    generate_cityscapes(base, seed=seed, **CITY_TREE)
+    runs = {}
+    for name, overrides in (("cityscapes", CITY_OVERRIDES + [f"+dataset.dataset.root={base}"]),
+                            ("synthetic_domain", DOMAIN_OVERRIDES)):
+        config = load_config("conf/continual_debug", "config", overrides)
+        trainers, metrics = [], []
+        Trainer = loop.Trainer
+
+        class Kept(Trainer):
+            def fit(self):
+                trainers.append(self)
+                return super().fit()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(loop, "Trainer", Kept), mock.patch.object(
+                Logger, "log_metrics", lambda self, m: metrics.append(dict(m))):
+            miou = cli.train(config, "cuda")
+        wall = time.perf_counter() - t0
+        dm = trainers[0].datamodule
+        ids = np.asarray(dm.train_scenario.domain_ids)
+        assert dm.domain_shift and dm.n_tasks == 3, (dm.domain_shift, dm.n_tasks)
+        if name == "synthetic_domain":
+            assert isinstance(dm.train_source, DomainShiftedSource)
+        for t in range(3):
+            tr_idx = dm.train_scenario.task_indices(t)
+            va_idx = dm.val_scenario.val_indices(t)
+            assert set(ids[tr_idx]) == set(ids[va_idx]) == {dm.train_scenario.domains[t]}
+            assert not set(tr_idx) & set(va_idx) and len(va_idx)
+        keys = {k for m in metrics for k in m}
+        assert {f"test.{d}/Task 2/mIoU" for d in range(3)} <= keys and np.isfinite(miou)
+        runs[name] = dict(launches=counts(), miou=miou, wall=wall)
+        log(f"[38] {name}: 3 domain tasks (each task's train and validation images its "
+            f"domain's, disjoint), final mIoU {miou:.4f} in {wall:.1f} s; launches "
+            f"{runs[name]['launches']}")
+        dm.close()
+    return runs
+
+
+def real_data_phases(seed: int, dev, reset_counts, counts) -> dict:
+    """[36]-[38] and the decode pool's rates; returns their results and the
+    launches of their main paths, summed by counter."""
+    t0 = time.perf_counter()
+    voc = voc_weights_leg(seed, dev, reset_counts, counts)
+    rates = decode_pool_rates(voc["root"])
+    t36 = time.perf_counter() - t0
+    ade = ade_full_width(seed, dev, reset_counts, counts)
+    t37 = time.perf_counter() - t0 - t36
+    domains = domain_runs(seed, reset_counts, counts)
+    t38 = time.perf_counter() - t0 - t36 - t37
+    parts = [voc["leg_launches"]["last"], *(c for _, c in voc["leg_launches"]["per_task"]),
+             voc["predict_launches"], voc["resume_launches"], ade["launches"],
+             *(r["launches"] for r in domains.values())]
+    launches = {k: sum(p.get(k, 0) for p in parts) for k in counts()}
+    log(f"[time] [36] {t36:.1f} s, [37] {t37:.1f} s, [38] {t38:.1f} s; launches of their "
+        f"main paths {launches}")
+    return dict(voc=voc, rates=rates, ade=ade, domains=domains, launches=launches,
+                seconds=(t36, t37, t38))
+
+
+def real_data_main(args) -> int:
+    """``--real-data``: build, then phases [36]-[38] alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    reset_counts, counts = launch_counters()
+    real_data_phases(args.seed, dev, reset_counts, counts)
+    return 0
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3580,9 +4116,13 @@ def main() -> int:
                          "to time")
     ap.add_argument("--transeg", action="store_true",
                     help="only build and run the TranSeg phases [33]-[35]")
+    ap.add_argument("--real-data", action="store_true",
+                    help="only build and run the real-data phases [36]-[38]")
     args = ap.parse_args()
     if args.transeg:
         return transeg_main(args)
+    if args.real_data:
+        return real_data_main(args)
     if args.family_times:
         return family_times_main(args)
     if args.bacs_busy:
@@ -4079,6 +4619,14 @@ def main() -> int:
     t_transeg = time.perf_counter() - t_transeg
     torch.cuda.empty_cache()
 
+    # 36. the VOC leg on a VOC tree with a release backbone, serving its
+    # checkpoint, importing a reference checkpoint; the decode pool's rates;
+    # 37. ADE20K at 151 classes; 38. the domain tasks
+    t_real = time.perf_counter()
+    real = real_data_phases(args.seed, dev, reset_counts, counts)
+    t_real = time.perf_counter() - t_real
+    torch.cuda.empty_cache()
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -4177,7 +4725,7 @@ def main() -> int:
 
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
         f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s, "
-        f"phases [33]-[35] {t_transeg:.1f} s")
+        f"phases [33]-[35] {t_transeg:.1f} s, phases [36]-[38] {t_real:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -4331,6 +4879,19 @@ def main() -> int:
             row.update(f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=bnd[0],
                        f32_bound_by=bnd[1], f32_max_abs_err=err,
                        f32_is="float32 logits at TranSeg's shapes (phase [34])")
+    # the real-data paths ([36]-[38]): their launches, and K1, K2 and K10 at
+    # ADE20K's 151 classes ([37]'s shapes)
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["real_data_launches"] = sum(real["launches"][k] for k in keys)
+        row["launches"] += row["real_data_launches"]
+        if keys[0] in real["ade"]["kernels"]:
+            err, ms, plain_ms, bnd = real["ade"]["kernels"][keys[0]]
+            row.update(ade151_ms=ms, ade151_plain_ms=plain_ms, ade151_bound_ms=bnd[0],
+                       ade151_bound_by=bnd[1], ade151_max_abs_err=err,
+                       ade151_launches=real["ade"]["launches"][keys[0]],
+                       ade151_is="ADE20K's 151 classes, [12, 32, 32, 151] bf16 -> 512^2 "
+                                 "(phase [37])")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -97,8 +97,10 @@ def test_class_sets_scenarios_tables_and_subsets_match_jax():
                 assert got.n_classes_at(t) == ref.n_classes_at(t)
                 for train in (True, False):
                     assert np.array_equal(got.label_table(t, train), ref.label_table(t, train))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        continual.DomainScenario([0, 1], 6)
+    # the domain-incremental scenario is ported (tests/test_torch_domain.py)
+    got, ref = continual.DomainScenario([0, 1], 6), jax_continual.DomainScenario([0, 1], 6)
+    assert got.n_tasks == ref.n_tasks == 2
+    assert np.array_equal(got.val_indices(1), ref.val_indices(1))
 
 
 def _modules(debug=False, sweep=False, batch_size=4):
@@ -175,13 +177,20 @@ def test_device_cache_and_unported_sources():
     assert np.array_equal(lbls[1].numpy(), src.load(0)[1])
     ram = datasets.DecodedCache(src)
     assert np.array_equal(ram.load(3)[0], src.load(3)[0])
+    # ADE20K and Cityscapes are ported: a missing root raises as in JAX
+    # (their trees: tests/test_torch_folder_sources.py)
     for target in ("dataloaders.AdeDataModule", "dataloaders.CityscapesDataModule"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            datamodule.create_datamodule(
-                {"dataset": {"_target_": target, "dataset": {}}, "training": {}}, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        datamodule.create_datamodule({"dataset": {"dataset": {"n_domains": 2}},
-                                      "training": {}}, "cpu")
+        cfg = {"dataset": {"_target_": target, "dataset": {"root": "/nonexistent"}},
+               "training": {}}
+        with pytest.raises(FileNotFoundError, match="not found"):
+            datamodule.create_datamodule(cfg, "cpu")
+        with pytest.raises(FileNotFoundError, match="not found"):
+            jax_datamodule.create_datamodule(cfg)
+    # and so is the domain-shifted synthetic source
+    cfg = {"dataset": {"dataset": {"n_domains": 2, "crop_size": 16}}, "training": {}}
+    got, ref = datamodule.create_datamodule(cfg, "cpu"), jax_datamodule.create_datamodule(cfg)
+    assert got.domain_shift and got.n_tasks == ref.n_tasks == 2
+    assert isinstance(got.train_source, datasets.DomainShiftedSource)
 
 
 # ---------------------------------------------------------------- transforms

@@ -156,7 +156,9 @@ def test_unported_entry_points_raise():
         port(n_devices=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port().export("unused.bin")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # from_checkpoint is ported (tests/test_torch_serve_ckpt.py): no
+    # checkpoint under the directory raises
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         Predictor.from_checkpoint("unused", None)
     with pytest.raises(ValueError, match="conf_dtype"):
         port(conf_dtype="bf16")
