@@ -16,14 +16,22 @@ Experience Replay with
   reservoir filled in train mode, the backbone's statistics drifting twice
   per batch as in the reference (``:133-203``).
 
+Four options, off in every shipped config: ``pseudo_label`` (the previous
+model's argmax over the old classes relabels the background, reference
+``:205-210``), ``use_cosine_dist`` (the alpha term as the mean of
+``1 - cos`` over each image's flattened logits), ``mixup`` (the beta
+term on co-occurrence blends of replayed images, reference
+``buffer.py:275-303``) and ``merged_replay`` (both replay batches through
+one forward; the statistics then come from the merged batch, a departure
+from the reference that JAX makes on purpose).
+
 The buffer lives on the card, and both replay batches are drawn there
-every step from the state's generator, with no host read.  ``mixup``,
-``merged_replay``, ``use_cosine_dist`` and ``pseudo_label`` are off in every
-shipped config and raise (ROADMAP.md queue 1 item 9).
+every step from the state's generator, with no host read.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,8 +39,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from bacs_tpu_torch.data.transforms import replay_augment
-from bacs_tpu_torch.methods.base import ModelContext, StepAux, proto_updates
+from bacs_tpu_torch.methods.base import (
+    ModelContext, StepAux, proto_updates, update_task_prototypes)
 from bacs_tpu_torch.methods.er import ExperienceReplayMethod
+from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.ops.interpolate import resize_bilinear
 from bacs_tpu_torch.ops.losses import cross_entropy
 from bacs_tpu_torch.train import buffer as buffer_lib
@@ -40,6 +50,9 @@ from bacs_tpu_torch.train.state import frozen_copy
 
 # images per chunk of the teacher distillation's full-resolution pass
 DISTILL_CHUNK = 2
+# candidates per draw of the Gamma sampler: a draw whose every candidate is
+# rejected (probability below 0.05 ** 16 each) takes the distribution's mode
+GAMMA_ROUNDS = 16
 
 
 def random_autocontrast(x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -53,6 +66,38 @@ def random_autocontrast(x: torch.Tensor, generator: Optional[torch.Generator] = 
     stretched = (x - lo) / torch.clamp(hi - lo, min=1e-8)
     apply = torch.rand((), generator=generator, device=x.device) < p
     return torch.where(apply, stretched, x)
+
+
+def _gamma(a: float, n: int, generator: Optional[torch.Generator],
+           device: torch.device) -> torch.Tensor:
+    """[n] draws of Gamma(a, 1) from ``generator`` by Marsaglia and Tsang's
+    method, on the device and with no host read: ``GAMMA_ROUNDS`` candidates
+    per draw from normals and uniforms, the first accepted one kept; for
+    ``a < 1`` a Gamma(a + 1) draw times ``U ** (1 / a)``."""
+    if a <= 0:
+        raise ValueError(f"Gamma shape must be positive, got {a}")
+    d = (a + 1.0 if a < 1 else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    z = torch.randn((GAMMA_ROUNDS, n), generator=generator, device=device)
+    u = torch.rand((GAMMA_ROUNDS, n), generator=generator, device=device)
+    v = (1.0 + c * z) ** 3
+    log_v = torch.log(torch.clamp(v, min=torch.finfo(v.dtype).tiny))
+    ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v + d * log_v)
+    first = ok.int().argmax(dim=0, keepdim=True)
+    g = torch.where(ok.any(dim=0), d * v.gather(0, first)[0], d)
+    if a < 1:
+        g = g * torch.rand(n, generator=generator, device=device) ** (1.0 / a)
+    return g
+
+
+def beta_sample(a: float, n: int, generator: Optional[torch.Generator],
+                device: torch.device) -> torch.Tensor:
+    """[n] draws of Beta(a, a), as ``jax.random.beta``, from ``generator``
+    (torch's ``Beta`` takes no generator): X / (X + Y) of two Gamma(a)
+    draws."""
+    x = _gamma(a, n, generator, device)
+    y = _gamma(a, n, generator, device)
+    return x / torch.clamp(x + y, min=torch.finfo(x.dtype).tiny)
 
 
 def _distill_chunk(old_att, new_att, keep, lkd_shape):
@@ -99,14 +144,6 @@ class BACSMethod(ExperienceReplayMethod):
     ):
         if transplant_mode not in ("reference", "per_sample"):
             raise ValueError(f"unknown transplant_mode {transplant_mode!r}")
-        # pseudo-labeling only when weighted CE is off (reference: :60-61)
-        for flag, on in (("mixup", mixup), ("merged_replay", merged_replay),
-                         ("use_cosine_dist", use_cosine_dist),
-                         ("pseudo_label", pseudo_label and not bg_weighted_ce)):
-            if on:
-                raise NotImplementedError(
-                    f"BACS {flag} is ROADMAP.md queue 1 item 9 (off in every "
-                    "shipped config)")
         super().__init__(
             name=name, alpha=alpha, buffer_size=buffer_size,
             replay_minibatch_size=replay_minibatch_size,
@@ -116,10 +153,17 @@ class BACSMethod(ExperienceReplayMethod):
         )
         self.beta = beta
         self.dark_plus_plus = dark_plus_plus
+        self.use_cosine_dist = use_cosine_dist
         self.ignore_rep_bg = ignore_rep_bg
         self.lkd = lkd
         self.lkd_threshold = lkd_threshold
+        # pseudo-labeling only when weighted CE is off (reference: :60-61)
+        self.pseudo_label = pseudo_label and not bg_weighted_ce
+        self.mixup = mixup
+        self.mixup_alpha = mixup_alpha
+        self.mixup_threshold = mixup_threshold
         self.transplant_mode = transplant_mode
+        self.merged_replay = merged_replay
         # True (the reference): the buffer is filled in train mode, so the
         # running statistics drift at every task end
         self.boundary_train_mode = boundary_train_mode
@@ -137,6 +181,8 @@ class BACSMethod(ExperienceReplayMethod):
         task = ctx.task
         image, mask = batch["image"], batch["label"]
         use_der = task.task_id > 0
+        if train and self.pseudo_label and state.prev_model is not None:
+            mask = self._pseudo_labels(ctx, state, image, mask)
         need_distill = use_der and train and self.lkd > 0
         base = self.compute_base_loss(
             ctx, state, image, mask, train, generator,
@@ -159,6 +205,13 @@ class BACSMethod(ExperienceReplayMethod):
             n_cur=ctx.n_cur,
             state_updates=updates,
         )
+
+    @staticmethod
+    def _pseudo_labels(ctx, state, image, mask):
+        """``mask`` with every background label replaced by the previous
+        model's argmax over the old classes (reference: bacs_loss.py:205-210)."""
+        old = ctx.forward_prev(state, image).logits[..., : ctx.task.old_classes]
+        return torch.where(mask == 0, old.argmax(dim=-1).to(mask.dtype), mask)
 
     # ------------------------------------------------------------------
 
@@ -234,6 +287,11 @@ class BACSMethod(ExperienceReplayMethod):
         mem_logits = torch.where(grow, transplant, mem["logits"][..., : ctx.n_cur])
         if self.ignore_rep_bg:
             mem_logits[..., 0] = transplant[..., 0]
+        if self.use_cosine_dist:
+            a = mem_logits.reshape(mem_logits.shape[0], -1)
+            b = sem.float().reshape(sem.shape[0], -1)
+            cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-8)
+            return (1.0 - cos).mean()
         return torch.square(mem_logits - sem.float()).mean()
 
     def _old_class_weights(self, ctx, device):
@@ -252,18 +310,90 @@ class BACSMethod(ExperienceReplayMethod):
         if not self.dark_plus_plus:
             return 0.0, updates
         mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, generator)
+        weights = self._old_class_weights(ctx, mem["images"].device)
+        if self.mixup:
+            return self._dark_pp_mixup(ctx, state, generator, mem, weights), updates
         images, labels = replay_augment(mem["images"], mem["labels"], generator)
         base = self.compute_base_loss(
             ctx, state, images, labels, True, generator,
-            class_weights=self._old_class_weights(ctx, images.device),
+            class_weights=weights,
             is_replay=True,
             proto_base=(updates.get("prototypes", state.prototypes),
                         updates.get("proto_counts", state.proto_counts)),
         )
         return base.loss, proto_updates(base, updates)
 
+    def _dark_pp_mixup(self, ctx, state, generator, mem, weights):
+        """The beta term on co-occurrence blends (reference: buffer.py:275-303
+        ``_co_occurance_image_blend`` and bacs_loss.py:361-374): each
+        replayed item's partner is the item of the batch that maximises its
+        class co-occurrence score (the diagonal excluded); lambda is 0.9 where
+        the two items' classes together exceed ``mixup_threshold``, else a
+        Beta(``mixup_alpha``, ``mixup_alpha``) draw; the blend keeps the
+        reference's literal ``lambda a + lambda b``; the loss mixes the
+        per-pixel class-weighted CE against both label maps by lambda and
+        1 - lambda.  No re-augmentation and no prototype fold.
+
+        The co-occurrence matrix is JAX's ``einsum("ic,jd->cd")`` over the
+        valid slots' classes (background and the ignore column cleared):
+        the outer product of the class counts.  The scores are counts, so
+        they are summed in float64, exactly at any buffer size."""
+        buf = state.buffer
+        fg = buf.label_mask.clone()
+        fg[:, 0] = False
+        fg[:, -1] = False
+        held = (fg & buf.valid[:, None]).double()
+        co = torch.einsum("ic,jd->cd", held, held)
+        sets = fg[mem["indices"]].double()  # [B, C]
+        sim = sets @ co @ sets.t()
+        b = sets.shape[0]
+        sim = sim.masked_fill(torch.eye(b, dtype=torch.bool, device=sim.device), -torch.inf)
+        partner = sim.argmax(dim=1)
+        n_merged = (sets.sum(dim=1) + sets[partner].sum(dim=1)).float()
+        draw = beta_sample(self.mixup_alpha, b, generator, n_merged.device)
+        lam = torch.where(n_merged > self.mixup_threshold, 0.9, draw)
+        lam4 = lam[:, None, None, None]
+        mixed = lam4 * mem["images"] + lam4 * mem["images"][partner]
+        logits = ctx.forward(state.model, mixed, True, generator).logits[..., : ctx.n_cur]
+        ce_a = cross_entropy(logits, mem["labels"], self.ignore_index, class_weights=weights,
+                             reduction="none")
+        ce_b = cross_entropy(logits, mem["labels"][partner], self.ignore_index,
+                             class_weights=weights, reduction="none")
+        return (lam[:, None, None] * ce_a + (1 - lam)[:, None, None] * ce_b).mean()
+
+    def _merged_replay_der_loss(self, ctx, state, generator, updates):
+        """Both replay batches through one forward (``loss.merged_replay``,
+        JAX ``_merged_replay_der_loss``): the autocontrasted alpha sample and
+        the re-augmented beta sample, concatenated.  The alpha term comes
+        from the first half's sem logits, the beta term from the second
+        half's through ``ce_with_upsample`` (K4), and only the beta half folds
+        into the prototypes.  The batch statistics are the merged batch's,
+        a departure from the reference's two forwards."""
+        n = self.replay_minibatch_size
+        mem_dl = buffer_lib.sample(state.buffer, n, generator)
+        inputs_dl = random_autocontrast(mem_dl["images"], generator)
+        mem_pp = buffer_lib.sample(state.buffer, n, generator)
+        imgs_pp, labs_pp = replay_augment(mem_pp["images"], mem_pp["labels"], generator)
+        big = torch.cat([inputs_dl, imgs_pp.to(inputs_dl.dtype)])
+        out = ctx.forward(state.model, big, True, generator)
+        sem = out.sem_logits[..., : ctx.n_cur]
+        dark = self._dark_from_sem(ctx, sem[:n], mem_dl)
+        half = NetOutput(out.sem_logits[n:], out.penultimate[n:], (), out.out_hw)
+        pp = self.ce_with_upsample(ctx, sem[n:], half, labs_pp,
+                                   self._old_class_weights(ctx, big.device))
+        if self.track_prototypes:
+            updates = dict(updates)
+            updates["prototypes"], updates["proto_counts"] = update_task_prototypes(
+                updates.get("prototypes", state.prototypes),
+                updates.get("proto_counts", state.proto_counts),
+                out.penultimate[n:], labs_pp, ctx.task)
+        return self.alpha * dark + self.beta * pp, updates
+
     def _replay_der_loss(self, ctx, state, generator, updates):
         """(reference: bacs_loss.py:433-463)."""
+        if (self.merged_replay and self.alpha != 0 and self.beta != 0
+                and self.dark_plus_plus and not self.mixup):
+            return self._merged_replay_der_loss(ctx, state, generator, updates)
         total = 0.0
         if self.alpha != 0:
             total = total + self.alpha * self._dark_logits(ctx, state, generator)

@@ -3,7 +3,8 @@
 Port of ``bacs_tpu/train/loop.py`` on one device (the card unless the
 caller asks for the CPU).  Per task: head surgery by the learner and a
 fresh optimizer under the task's schedule -> ``begin_task`` -> the epochs
-of train steps, with mid-epoch checkpoints and periodic validation ->
+of train steps, with mid-epoch checkpoints (written in the background, as
+the JAX loop's ``block=False``) and periodic validation ->
 ``end_task`` on the task's unaugmented batches -> the test over tasks
 0..t with the reference's metric keys (and the seen detector's aux
 metrics when it is on) -> ``PerStepResult``.  A run resumes from the
@@ -207,6 +208,8 @@ class Trainer:
         self.ckpt_dir = tcfg.get("ckpt_dir", None)
         self.resume_enabled = bool(self.ckpt_dir) and not bool(tcfg.get("debug", False))
         self.save_checkpoints = bool(self.ckpt_dir)
+        # mid-task saves write in the background (bacs_tpu/train/loop.py:553-558)
+        self.saver = checkpoint.AsyncSaver()
         self.strict_restore = bool(tcfg.get("strict_restore", False))
         self._resume_epoch = -1
         self._skip_surgery = False
@@ -385,7 +388,8 @@ class Trainer:
                         and (i + 1) // ckpt_every > saved_chunks and (i + 1) < steps_epoch):
                     saved_chunks = (i + 1) // ckpt_every
                     checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
-                                                    step=f"last{last_slot}")
+                                                    f"last{last_slot}", self.saver,
+                                                    block=False)
                     last_slot = 1 - last_slot
                 if step_count >= max_iters:
                     break
@@ -396,7 +400,7 @@ class Trainer:
                 self._run_validation(task_id, ctx, eval_step, put_batch, epoch)
             if self.save_checkpoints:
                 checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
-                                                step=f"last{last_slot}")
+                                                f"last{last_slot}", self.saver, block=False)
                 last_slot = 1 - last_slot
             if step_count >= max_iters:
                 break
@@ -406,8 +410,9 @@ class Trainer:
         # re-augments per step (reference: base_datamodule.py:433-451)
         self.state = self.method.end_task(self.state, ctx,
                                           dm.train_batches(epoch=0, augment=False))
-        if self.save_checkpoints:
-            checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state, "final")
+        if self.save_checkpoints:  # blocking, after the pending write
+            checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state, "final",
+                                            self.saver)
         t_test = time.perf_counter()
         results = self._run_test(task_id, ctx, eval_step, put_batch)
         t_done = time.perf_counter()
@@ -494,6 +499,7 @@ class Trainer:
         (reference: trainer.py:254-268 task-indexed resume)."""
         if not self.resume_enabled:
             return 0
+        self.saver.wait()
         found = checkpoint.latest_checkpoint(self.ckpt_dir)
         if not found:
             return 0
@@ -533,17 +539,21 @@ class Trainer:
         return checkpoint.restore_checkpoint(path, self._template(task_id, path))
 
     def fit(self) -> float:
-        """The outer task loop (reference: trainer.py:415-433)."""
-        start_task = self._try_resume()
-        # metric keys are task-indexed; resumed runs start aggregating at the
-        # resumed task (earlier tasks' historical metrics lived in the logs)
-        self.per_step_metric.task_id = start_task
-        for task_id in range(start_task, self.n_tasks):
-            self.logger.info(
-                f"=== task {task_id + 1}/{self.n_tasks} "
-                f"(classes ≤ {self._task_info(task_id).nb_current_classes}) ===")
-            results = self._run_task(task_id)
-            self.per_step_metric.update(results)
+        """The outer task loop (reference: trainer.py:415-433).  A pending
+        checkpoint write is waited for when it ends or raises."""
+        try:
+            start_task = self._try_resume()
+            # metric keys are task-indexed; resumed runs start aggregating at
+            # the resumed task (earlier tasks' metrics lived in the logs)
+            self.per_step_metric.task_id = start_task
+            for task_id in range(start_task, self.n_tasks):
+                self.logger.info(
+                    f"=== task {task_id + 1}/{self.n_tasks} "
+                    f"(classes ≤ {self._task_info(task_id).nb_current_classes}) ===")
+                results = self._run_task(task_id)
+                self.per_step_metric.update(results)
+        finally:
+            self.saver.wait()
         self._log_final_results()
         return self.per_step_metric.final_miou
 

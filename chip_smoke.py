@@ -111,15 +111,18 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 24. the continual protocol through the CLI's ``bacs_tpu_torch.main.train``
    in-process: ``conf/bacs/bacs_plus_config`` with ``der_15_1_bg``,
    ``bacs_plus_bg`` and the fused stem, DeepLabV3-ResNet-101 at 512^2 in
-   bf16, batch 12, on the synthetic source at VOC's 21 classes (400 train
+   bf16, batch 12, on the synthetic source at VOC's 21 classes (240 train
    and 48 validation images), one step per new class: all 6 tasks, BACS's
-   ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``,
-   the run stopped after task 1's first mid-task checkpoint and resumed
-   (a new Trainer on the first run's DataModule: the same images);
+   ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``
+   (the mid-task ones asynchronous), the run stopped after task 2's first
+   mid-task checkpoint and resumed (a new Trainer on the first run's
+   DataModule: the same images);
    asserts the metric keys, 1 K12 each way per train-mode network pass of
    every train step (1 pass at task 0, 3 later) and a finite final mIoU;
-   prints the seconds of each task's parts, ``Trainer.throughput``, the
-   checkpoints' sizes and times, and the last task's device idle share;
+   prints the seconds of each task's parts, ``Trainer.throughput``, each
+   checkpoint's size, the seconds the step loop was blocked by it (an
+   asynchronous save's snapshot) and its writer's seconds, and the last
+   task's device idle share;
 25. runs one f32 task-1 step of ER, SDR and iCaRL (RN101 4 x 128^2, after
    task 0's ``end_task`` and the imprinting; ER's replay draws injected)
    on the CPU and on the card (TF32 off), with identity and leaky
@@ -136,7 +139,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    finite loss, the median wall, the peak memory and a two-step profile by
    kernel kind;
 27. the 15-1 flagship protocol through ``bacs_tpu_torch.protocol_compare``
-   in-process for ER, SDR and iCaRL, cut to one epoch a task and 96 / 64
+   in-process for ER, SDR and iCaRL, cut to one epoch a task and 64 / 48
    images: the records' keys, one Avg-IoU per task, finite mIoUs and a
    finite loss at every train step;
 28. one f32 CE train step of UNet-4 at 4 x 128^2 on the card and on the
@@ -177,7 +180,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    train-ABN and 104 K5 a step);
 35. ``conf/experiments/bacs_transformer_config`` through
    ``bacs_tpu_torch.main.train`` in-process with [24]'s synthetic source
-   (200 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
+   (120 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
    the class counts checked at every boundary, a finite final mIoU, the
    seconds per task and the launches;
 36. VOC and weights, DeepLabV3-RN101 at 512^2 in bf16: a VOC tree (48 train,
@@ -204,6 +207,15 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    ``conf/continual_debug`` (RN18, 128^2) and its ``synthetic_domain``,
    through ``main.train`` in-process: one domain a task, each task's train
    and validation images its domain's and disjoint, every task tested;
+39. BACS's four options: for each of ``pseudo_label``, ``use_cosine_dist``,
+   ``mixup`` and ``merged_replay``, one f32 task-1 step at RN101 4 x 128^2
+   card against CPU (TF32 off, identity activations, the draws, mixup's
+   Beta draws among them, taken on the card and copied to the CPU), held as
+   phase 13; then the bf16 512^2 task-1 step (batch 16 + 2 x 12, the
+   detector) with ``merged_replay`` off, on, on, off and ``mixup`` on:
+   device busy, median wall, idle share and peak memory of each turn, and
+   per step the launches (K3 and K4 each way: 1 and 1, 1 and 1 merged, 1
+   and 0 with mixup; no K1; 321, 214 merged, train-ABN forwards; 107 K5);
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -1000,18 +1012,20 @@ def hold_step(label: str, activation: str, card, cpu, p0: dict, extra: str = "")
         assert grad_norm <= 5e-2 and update_norm <= 5e-2, (grad_norm, update_norm)
 
 
-def device_kernels(fn, steps: int = 2, warm: bool = True) -> tuple:
+def device_kernels(fn, steps: int = 2, warm: bool = True, cpu: bool = True) -> tuple:
     """The profiler's device events (kernels, copies) of ``steps`` calls of
     ``fn``, after one call unrecorded where ``warm``, and the profiler
-    itself."""
+    itself; without ``cpu`` the host's operators are not traced (a cheaper
+    trace, no table by operator)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     if warm:
         fn()
         torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with sm_clock(f"profiled window of {steps} call(s)"):
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tprofile(activities=activities) as prof:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
@@ -1019,8 +1033,9 @@ def device_kernels(fn, steps: int = 2, warm: bool = True) -> tuple:
 
 
 def busy_ms(fn, steps: int = 2) -> float:
-    """Device time of one call of ``fn``: its kernels' total, profiled."""
-    events, _ = device_kernels(fn, steps)
+    """Device time of one call of ``fn``: its kernels' total, profiled
+    (the device only: the host's operators untraced, a cheaper trace)."""
+    events, _ = device_kernels(fn, steps, cpu=False)
     return sum(e.self_device_time_total for e in events) / 1000 / steps
 
 
@@ -1162,9 +1177,9 @@ def bacs_steps(task_id, device, **method_kw):
     return ctx, method, make_steps(ctx, method, N_CLASSES, device=device)
 
 
-def bacs_after_task0(cfg, seed, dev):
+def bacs_after_task0(cfg, seed, dev, fill_batches=FILL_BATCHES):
     """[14]'s set-up at 512^2 in bf16: the BACS state with the detector and
-    the prototypes at task 0, then its ``end_task`` over FILL_BATCHES
+    the prototypes at task 0, then its ``end_task`` over ``fill_batches``
     synthetic batches of 16 (the sweep, the snapshot and the 300-slot
     buffer's fill); returns (state, method, seconds of ``end_task``, the
     batches' generator)."""
@@ -1179,7 +1194,7 @@ def bacs_after_task0(cfg, seed, dev):
                                       device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     fill = [synthetic_batch(BATCH, CROP, gen, dev, n_classes=16)
-            for _ in range(FILL_BATCHES)]
+            for _ in range(fill_batches)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = method.end_task(state, ctx0, fill)
@@ -1215,51 +1230,63 @@ def bacs_busy_main(args) -> int:
 
 
 @contextlib.contextmanager
-def injected_draws(keys, crop_params):
+def injected_draws(keys, crop_params, lambdas=None):
     """The BACS step's random draws fixed, whatever the device: the two
     buffer samples take the Gumbel ``keys`` in turn, the replay crop and
-    flip take ``crop_params``, the autocontrast does not apply (its
-    stretched images make the stem's batch variance cancel, which amplifies
-    rounding: tests/test_torch_bacs_step.py)."""
+    flip take ``crop_params``, mixup's Beta draws ``lambdas``, the
+    autocontrast does not apply (its stretched images make the stem's
+    batch variance cancel, which amplifies rounding:
+    tests/test_torch_bacs_step.py)."""
     import bacs_tpu_torch.methods.bacs as bacs_mod
     from bacs_tpu_torch.data.transforms import apply_crop_params
 
     saved = (bacs_mod.buffer_lib.sample, bacs_mod.random_autocontrast,
-             bacs_mod.replay_augment)
-    sample, autocontrast, _ = saved
+             bacs_mod.replay_augment, bacs_mod.beta_sample)
+    sample, autocontrast, _, _ = saved
     turn = itertools.cycle(keys)
     bacs_mod.buffer_lib.sample = lambda buf, n, gen=None: sample(buf, n, keys=next(turn))
     bacs_mod.random_autocontrast = lambda x, gen=None, p=0.5: autocontrast(x, gen, 0.0)
     bacs_mod.replay_augment = lambda im, lab, gen=None: apply_crop_params(
         im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
+    if lambdas is not None:
+        bacs_mod.beta_sample = lambda a, n, gen, device: lambdas.to(device)
     try:
         yield
     finally:
         (bacs_mod.buffer_lib.sample, bacs_mod.random_autocontrast,
-         bacs_mod.replay_augment) = saved
+         bacs_mod.replay_augment, bacs_mod.beta_sample) = saved
 
 
-def bacs_step_card_vs_cpu(cfg, seed, dev):
+def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
+                          activations=("identity", "leaky"), method_kw=None,
+                          variables=None):
     """[13] One f32 BACS step at task 1, RN101 4 x 128^2 (replay 4 from 8
     slots), on the card and on the CPU (TF32 off), with identity and with
     the configured leaky activations; the draws injected and the
     detector's dropout off.  Holds the loss, every gradient and update
     tensor (each norm's scale and bias joined), the running statistics and
-    the prototypes, as phase [8]."""
+    the prototypes, as phase [8].  With ``method_kw`` (phase [39], one of
+    BACS's options) the draws, mixup's Beta draws among them, are taken on
+    the card from a seeded generator and copied to the CPU.  ``variables``:
+    the seeded variables by activation, made here unless given."""
+    from bacs_tpu_torch.data.transforms import sample_crop_params
+    from bacs_tpu_torch.methods.bacs import beta_sample
     from bacs_tpu_torch.train import buffer as buffer_lib
     from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
 
     crop, n, replay, slots = 128, 4, 4, 8
+    options = dict(method_kw or {})
+    method_kw = dict(options, buffer_size=slots, replay_minibatch_size=replay)
     # statistics calibrated for each network's own activations, so the
     # previous model's eval-mode embeddings keep the train-mode scale
-    variables = {a: seeded_variables(cfg, seed, use_bg_detector=True,
-                                     smooth=a == "identity")
-                 for a in ("identity", "leaky")}
-    params = variables["leaky"][0]
+    variables = variables or {a: seeded_variables(cfg, seed, use_bg_detector=True,
+                                                  smooth=a == "identity")
+                              for a in activations}
+    params = variables[activations[-1]][0]
     gen = torch.Generator().manual_seed(seed)
     batch = synthetic_batch(n, crop, gen, "cpu", n_classes=17)
     fill = synthetic_batch(slots + 2, crop, gen, "cpu", n_classes=16)
-    _, method, _ = bacs_steps(1, "cpu", buffer_size=slots, replay_minibatch_size=replay)
+    _, method, _ = bacs_steps(1, "cpu", **method_kw)
     buf = method.init_buffer(TaskInfo(task_id=0, **BACS_TASK), (crop, crop),
                              (crop // 16, crop // 16), device="cpu")
     buffer_lib.add_batch(buf, fill["image"],
@@ -1276,6 +1303,14 @@ def bacs_step_card_vs_cpu(cfg, seed, dev):
                        ch=torch.tensor([80.0, 128.0, 61.0, 128.0]),
                        cw=torch.tensor([105.0, 66.0, 120.0, 128.0]),
                        flip=torch.tensor([True, False, False, True]))
+    lambdas = None
+    if options:  # an option's step: the draws of the card
+        g = torch.Generator(dev).manual_seed(seed + 39)
+        keys = [-torch.log(-torch.log(torch.rand(slots, generator=g, device=dev).clamp_(
+            min=torch.finfo(torch.float32).tiny))).cpu() for _ in range(2)]
+        crop_params = {k: v.cpu() for k, v in sample_crop_params(
+            replay, (crop, crop), g, dev).items()}
+        lambdas = beta_sample(method.mixup_alpha, replay, g, dev).cpu()
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1291,9 +1326,8 @@ def bacs_step_card_vs_cpu(cfg, seed, dev):
             state.model.seen_fg_network.dropout_rate = 0.0
             state.prev_model = frozen_copy(state.model)
             p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
-            _, _, (train_step, _, put_batch) = bacs_steps(
-                1, device, buffer_size=slots, replay_minibatch_size=replay)
-            with injected_draws([k.to(device) for k in keys], crop_params):
+            _, _, (train_step, _, put_batch) = bacs_steps(1, device, **method_kw)
+            with injected_draws([k.to(device) for k in keys], crop_params, lambdas):
                 state, metrics = train_step(state, put_batch(batch))
             runs.append((float(metrics["loss"]), *grads_and_stats(state.model),
                          state.prototypes.cpu(), state.proto_counts.cpu()))
@@ -1305,12 +1339,85 @@ def bacs_step_card_vs_cpu(cfg, seed, dev):
                 assert not any(bool(v.any()) for key, v in grads.items()
                                if key.startswith(f"seen_fg_network.{k}")), k
         proto_rel = float((protos_g - protos_c).abs().max() / protos_c.abs().max())
-        hold_step(f"[13] f32 BACS step card vs CPU, RN101 {n} x {crop}^2, task 1, replay "
+        hold_step(f"{label} card vs CPU, RN101 {n} x {crop}^2, task 1, replay "
                   f"{replay}", activation, (loss_g, grads_g, params_g, stats_g),
                   (loss_c, grads_c, params_c, stats_c), p0,
                   f"; prototypes {proto_rel:.3g}, counts {counts_g.tolist()}")
         assert proto_rel <= 1e-4 and torch.equal(counts_g, counts_c), proto_rel
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# [39] BACS's four options: each one's f32 step card against CPU; then at
+# 512^2 bf16 (batch 16 + 2 x 12, the detector) merged_replay off and on in
+# turns, and mixup on, after a task-0 end_task over OPTION_FILL_BATCHES
+BACS_OPTIONS = {"pseudo_label": dict(pseudo_label=True, bg_weighted_ce=False),
+                "use_cosine_dist": dict(use_cosine_dist=True), "mixup": dict(mixup=True),
+                "merged_replay": dict(merged_replay=True)}
+OPTION_TURNS = (("two forwards", {}), ("merged_replay", dict(merged_replay=True)),
+                ("merged_replay", dict(merged_replay=True)), ("two forwards", {}),
+                ("mixup", dict(mixup=True)))
+OPTION_STEPS, OPTION_FILL_BATCHES = 3, 4
+# per step of each turn: (K3, K4, K1) launches each way, train-ABN forwards
+OPTION_LAUNCHES = {"two forwards": (1, 1, 0, TRAIN_ABN_PER_BACS_STEP),
+                   "merged_replay": (1, 1, 0, 2 * ABN_PER_FORWARD),
+                   "mixup": (1, 0, 0, TRAIN_ABN_PER_BACS_STEP)}
+
+
+def bacs_options_512(cfg, seed, dev, reset_counts, counts) -> dict:
+    """[39b] The bf16 task-1 BACS step at 512^2 (batch 16 + 2 x 12, the
+    detector) in OPTION_TURNS: per turn one warm-up step, then OPTION_STEPS
+    steps timed by the host clock (each ending in a host read), their
+    launches (asserted per step: OPTION_LAUNCHES, and 107 K5 for the
+    previous model) and peak memory, then one more step's device busy time
+    (profiled).
+    Returns the turns and the launches of the timed steps."""
+    state, _, t_end, gen = bacs_after_task0(cfg, seed, dev, fill_batches=OPTION_FILL_BATCHES)
+    log(f"[39] end_task of task 0 over {OPTION_FILL_BATCHES} batches of {BATCH}: "
+        f"{t_end:.3f} s; buffer {int(state.buffer.valid.sum())} valid")
+    batches = [synthetic_batch(BATCH, CROP, gen, dev, 17) for _ in range(OPTION_STEPS)]
+    turns, launches = [], {k: 0 for k in counts()}
+    for name, kw in OPTION_TURNS:
+        _, _, (train, _, _) = bacs_steps(1, dev, **kw)
+        state, _ = train(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        walls, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = train(state, b)
+            losses.append(float(metrics["loss"]))
+            walls.append(1000 * (time.perf_counter() - t0))
+        c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        events, _ = device_kernels(lambda: train(state, batches[0]), steps=1, warm=False,
+                                   cpu=False)
+        busy = sum(e.self_device_time_total for e in events) / 1000
+        assert busy > 0, name
+        launches = {k: launches[k] + v for k, v in c.items()}
+        per_step = {k: v / OPTION_STEPS for k, v in c.items() if v}
+        wall = float(np.median(walls))
+        turns.append(dict(name=name, busy=busy, wall=wall, peak=peak, per_step=per_step))
+        log(f"[39] bf16 BACS step, {name}, batch {BATCH} + 2 x "
+            f"{BACS_METHOD['replay_minibatch_size']}, {CROP}^2: device busy {busy:.3f} ms, "
+            f"median wall {wall:.3f} ms (min {min(walls):.3f}, max {max(walls):.3f}) over "
+            f"{OPTION_STEPS} steps, idle share {1 - busy / wall:.3f}, peak "
+            f"{peak / 2**30:.3f} GiB; launches per step {per_step}; losses {losses}")
+        assert all(np.isfinite(losses)), losses
+        k3, k4, k1, abn = OPTION_LAUNCHES[name]
+        want = dict(k3f=k3, k3b=k3, k4f=k4, k4b=k4, k1f=k1, k1b=k1, train_abn=abn,
+                    k5=ABN_PER_FORWARD)
+        assert all(c[k] == v * OPTION_STEPS for k, v in want.items()), (name, c)
+    for name in ("merged_replay", "mixup"):
+        on = [t for t in turns if t["name"] == name]
+        off = [t for t in turns if t["name"] == "two forwards"]
+        mean = lambda ts, k: float(np.mean([t[k] for t in ts]))  # noqa: E731
+        log(f"[39] {name} against the two forwards (means of their turns): busy "
+            f"{mean(on, 'busy') - mean(off, 'busy'):+.3f} ms, wall "
+            f"{mean(on, 'wall') - mean(off, 'wall'):+.3f} ms, peak "
+            f"{(mean(on, 'peak') - mean(off, 'peak')) / 2**30:+.3f} GiB a step")
+    del state
+    return dict(turns=turns, launches=launches)
 
 
 def profile_by_kind(fn, label: str, steps: int = 2):
@@ -1927,12 +2034,12 @@ def more_steps_512(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
 
 
 # [27] the flagship protocol through the port's runner, cut in depth: one
-# epoch a task, 96 train and 64 validation images (every task's train and
-# validation subsets non-empty: 95/16-23 and 63/10-16 images), crop 256,
-# DeepLabV3-RN50, f32 as the protocol runs it
+# epoch a task, 64 train and 48 validation images (every task's train and
+# validation subsets non-empty), crop 256, DeepLabV3-RN50, f32 as the
+# protocol runs it
 RUNNER_ARGS = ["--protocol", "15-1-flagship", "--methods", "er,sdr,icarl", "--epochs", "1",
-               "--override", "dataset.dataset.n_train=96",
-               "--override", "dataset.dataset.n_val=64"]
+               "--override", "dataset.dataset.n_train=64",
+               "--override", "dataset.dataset.n_val=48"]
 
 
 def runner_protocol(seed: int) -> dict:
@@ -1975,7 +2082,7 @@ def runner_protocol(seed: int) -> dict:
                    for k in ("final_miou", "oldest_task_miou", "task0_miou")), r
     assert losses and all(np.isfinite(v) for _, v in losses), losses
     per_task = [sum(1 for t, _ in losses if t == k) for k in range(N_TASKS)]
-    assert per_task[0] >= 3 * 5 and all(c >= 3 for c in per_task[1:]), per_task
+    assert per_task[0] >= 3 * 4 and all(c >= 3 for c in per_task[1:]), per_task
     return dict(records=records, losses=losses, per_task=per_task, wall=wall)
 
 
@@ -2356,12 +2463,11 @@ TRANSEG_YAML = "conf/experiments/network/deep_lab_transformer.yaml"
 TRANSEG_CONFIG = ("conf/experiments", "bacs_transformer_config")
 TRANSEG_ABN = ABN_PER_FORWARD - 3  # DeepLabV3's less the ASPP's 3: the backbone's
 TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 4, 4
-# [35] the protocol through the CLI on [24]'s synthetic source cut to 200
-# training images (every task keeps 17-29, task 0 15 steps; the
-# run's time), no checkpoints
+# [35] the protocol through the CLI on [24]'s synthetic source cut to 120
+# training images (every task keeps some; the run's time), no checkpoints
 TRANSEG_OVERRIDES = ["+network.fused_stem=true",
                      "dataset._target_=dataloaders.SyntheticDataModule",
-                     "+dataset.dataset.n_train=200", "+dataset.dataset.n_val=48",
+                     "+dataset.dataset.n_train=120", "+dataset.dataset.n_val=48",
                      "+training.steps_per_class=1", "training.epochs=1",
                      "~training.ckpt_dir"]
 
@@ -3458,20 +3564,21 @@ def stem_kernel_times(dev, shape=STEM_MAIN) -> dict:
 # [24] the paper's BACS+ recipe through the port's CLI: conf/bacs with
 # training/der_15_1_bg.yaml (batch 12, the detector, 300 slots, alpha 0.8,
 # beta 0.5), the fused stem, on the synthetic source at VOC's widths; one
-# step per new class, one epoch per task.  400 / 48 images give every task
-# train and validation images (tasks 1-5: 31-37 and 4-8), and task 0 16
-# steps over 223 images, so the reservoir fills.
+# step per new class, one epoch per task.  240 / 48 images give every task
+# train and validation images (task 0 11 steps an epoch, task 2 two, the
+# others one), so task 2 is the first to save mid-task; the run stops after
+# that save (mid-task saves are asynchronous) and resumes from it
 CLI_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "+network.fused_stem=true",
                  "dataset._target_=dataloaders.SyntheticDataModule",
-                 "+dataset.dataset.n_train=400", "+dataset.dataset.n_val=48",
+                 "+dataset.dataset.n_train=240", "+dataset.dataset.n_val=48",
                  "+training.steps_per_class=1", "training.epochs=1"]
-CLI_CKPT = "build/chip_smoke_ckpt"
+CLI_CKPT, CLI_STOP_TASK = "build/chip_smoke_ckpt", 2
 
 
 def cli_protocol(seed: int) -> dict:
     """[24] ``bacs_tpu_torch.main.train`` in-process on the full-width config:
-    all 6 tasks, stopped after task 1's first mid-task checkpoint and resumed
-    from it.  Counts K12 per train step (one each way per train-mode network
+    all 6 tasks, stopped after task CLI_STOP_TASK's first mid-task checkpoint
+    and resumed from it.  Counts K12 per train step (one each way per train-mode network
     pass: 1 at task 0, 3 at later tasks), records the logged metric keys,
     profiles the last task (device busy against its wall) and returns the
     counts, the final mIoU, the per-task seconds and the throughput."""
@@ -3520,7 +3627,7 @@ def cli_protocol(seed: int) -> dict:
                 return super()._run_task(task_id)
             events, _ = device_kernels(lambda: results.append(super(Recorded, self)
                                                               ._run_task(task_id)),
-                                       steps=1, warm=False)
+                                       steps=1, warm=False, cpu=False)
             busy = sum(e.self_device_time_total for e in events) / 1e6
             self.last_task_busy = (busy, self.task_seconds[-1]["wall"])
             return results.pop()
@@ -3533,13 +3640,13 @@ def cli_protocol(seed: int) -> dict:
             patched.enter_context(mock.patch.object(obj, name, value))
         t0 = time.perf_counter()
         try:
-            with checkpoint.resume_check_saves(stop_task=1, record=saves):
+            with checkpoint.resume_check_saves(stop_task=CLI_STOP_TASK, record=saves):
                 cli.train(config, "cuda")
             raise AssertionError("the first run was not stopped")
         except checkpoint.Interrupted as e:
             t_first = time.perf_counter() - t0
-            log(f"[24] first run stopped after task 1's mid-task checkpoint {e} at "
-                f"{t_first:.1f} s")
+            log(f"[24] first run stopped after task {CLI_STOP_TASK}'s mid-task checkpoint "
+                f"{e} at {t_first:.1f} s")
         t0 = time.perf_counter()
         with checkpoint.resume_check_saves(record=saves):
             miou = cli.train(config, "cuda")
@@ -3570,9 +3677,9 @@ def report_cli(run: dict) -> None:
     non_finite = sum(not np.isfinite(loss) for *_, loss in run["per_step"])
     final = {k: v for m in run["metrics"] for k, v in m.items() if k.startswith("Final/")}
     log(f"[24] CLI train() on conf/bacs/bacs_plus_config {' '.join(CLI_OVERRIDES)}: "
-        f"final mIoU {run['miou']:.4f}; first run {run['t_first']:.1f} s (tasks 0-1, "
-        f"stopped), resumed run {run['t_resumed']:.1f} s (tasks 1-5); {len(keys)} metric keys, "
-        f"all expected present")
+        f"final mIoU {run['miou']:.4f}; first run {run['t_first']:.1f} s (tasks "
+        f"0-{CLI_STOP_TASK}, stopped), resumed run {run['t_resumed']:.1f} s (tasks "
+        f"{CLI_STOP_TASK}-5); {len(keys)} metric keys, all expected present")
     log(f"[24] Final: {json.dumps({k: round(v, 4) for k, v in sorted(final.items())})}")
     log(f"[24] train steps (task, K12 forward, K12 backward, loss): {run['per_step']}; "
         f"{non_finite} non-finite losses; K12 launches over both runs (the boundary "
@@ -3580,15 +3687,21 @@ def report_cli(run: dict) -> None:
     for name in ("first", "resumed"):
         tr = run[name]
         for k, sec in enumerate(tr.task_seconds):
-            log(f"[24] {name} run, task {k + (0 if name == 'first' else 1)}: "
+            log(f"[24] {name} run, task {k + (0 if name == 'first' else CLI_STOP_TASK)}: "
                 + ", ".join(f"{p} {v:.2f} s" for p, v in sec.items()))
         log(f"[24] {name} run: Trainer.throughput {tr.throughput:.2f} img/s (steps after "
             f"each task's second; 0 where no task trains more than two)")
     busy, wall = run["resumed"].last_task_busy
     log(f"[24] last task (5) profiled: device busy {busy:.3f} s of its {wall:.3f} s wall "
         f"(under the profiler): device idle share {1 - busy / wall:.3f}")
-    for task_id, step, sec, size in run["saves"]:
-        log(f"[24] checkpoint step_{task_id}/{step}: {size / 2**30:.3f} GiB in {sec:.2f} s")
+    for task_id, step, blocked, size, written in run["saves"]:
+        log(f"[24] checkpoint step_{task_id}/{step}: {size / 2**30:.3f} GiB, the step loop "
+            f"blocked {blocked:.3f} s" + (f" (the snapshot), the writer {written:.3f} s"
+                                          if written is not None else " (a blocking save)"))
+    mid = [b for *_, b, _, w in run["saves"] if w is not None]
+    assert mid, run["saves"]  # the mid-task saves are asynchronous
+    log(f"[24] asynchronous mid-task saves: the step loop blocked {min(mid):.3f}-"
+        f"{max(mid):.3f} s a save ({len(mid)} saves)")
 
 
 # ---------------------------------------------------------------- real data and weights
@@ -3599,11 +3712,12 @@ def report_cli(run: dict) -> None:
 REAL_ROOT = "build/chip_smoke_real"
 # [36] the VOC leg: conf/bacs with the detector (der_15_1_bg, bacs_plus_bg,
 # batch 12, 300 slots), 2 tasks (16 classes, then 5), overlap membership so
-# both tasks get images of the 48, 2 epochs a task; two decode workers
+# both tasks get images of the 48, one epoch a task (cut from two for the
+# script's time); two decode workers
 VOC_TREE = dict(n_train=48, n_val=16, size=CROP)
 VOC_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "training.num_workers=2",
                  "training.initial_increment=15", "training.increment=5",
-                 "training.mode=overlap", "training.epochs=2", "training.val_every=0"]
+                 "training.mode=overlap", "training.epochs=1", "training.val_every=0"]
 PREDICT_IMAGES = 8
 # the share of pixels whose class may differ between the f32 Predictor on
 # the card (cuDNN, TF32 off) and on the CPU: the ties within rounding
@@ -4627,6 +4741,19 @@ def main() -> int:
     t_real = time.perf_counter() - t_real
     torch.cuda.empty_cache()
 
+    # 39. BACS's four options: an f32 step each card against CPU; then
+    # merged_replay off and on and mixup on at 512^2 with the launches counted
+    t_options = time.perf_counter()
+    smooth = {"identity": seeded_variables(cfg, args.seed, use_bg_detector=True, smooth=True)}
+    for option, kw in BACS_OPTIONS.items():
+        bacs_step_card_vs_cpu(cfg, args.seed, dev, label=f"[39] f32 BACS step, {option}",
+                              activations=("identity",), method_kw=kw, variables=smooth)
+    torch.cuda.empty_cache()
+    options = bacs_options_512(cfg, args.seed, dev, reset_counts, counts)
+    t_options = time.perf_counter() - t_options
+    log(f"[time] [39] {t_options:.1f} s; launches of its 512^2 steps {options['launches']}")
+    torch.cuda.empty_cache()
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -4892,6 +5019,11 @@ def main() -> int:
                        ade151_launches=real["ade"]["launches"][keys[0]],
                        ade151_is="ADE20K's 151 classes, [12, 32, 32, 151] bf16 -> 512^2 "
                                  "(phase [37])")
+    # BACS's options at 512^2 ([39])
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["bacs_options_launches"] = sum(options["launches"][k] for k in keys)
+        row["launches"] += row["bacs_options_launches"]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

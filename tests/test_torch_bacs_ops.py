@@ -506,12 +506,16 @@ def test_teacher_distill_matches_jax():
 
 
 def test_bacs_options_not_ported_raise():
+    """The four options build and set JAX's flags
+    (``tests/test_torch_bacs_options.py`` holds their steps to JAX)."""
     for kw in (dict(mixup=True), dict(merged_replay=True), dict(pseudo_label=True),
                dict(use_cosine_dist=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_method("loss.BACSLoss", **kw)
+        (flag, on), = kw.items()
+        assert getattr(create_method("loss.BACSLoss", **kw), flag) is on
+        assert getattr(jax_create_method("loss.BACSLoss", **kw), flag) is on
     # pseudo-labels are off whenever the weighted CE is on (reference :60-61)
-    create_method("loss.BACSLoss", pseudo_label=True, bg_weighted_ce=True)
+    assert not create_method("loss.BACSLoss", pseudo_label=True,
+                             bg_weighted_ce=True).pseudo_label
     with pytest.raises(ValueError, match="transplant_mode"):
         create_method("bacs", transplant_mode="nonsense")
     # BACS extends ER and overrides its step and end_task; ER itself is

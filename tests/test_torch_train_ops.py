@@ -298,5 +298,5 @@ def test_unported_options_raise():
         assert create_method(name, bg_weighted_ce=True).bg_weighted_ce
     with pytest.raises(ValueError, match="unknown"):
         create_method("nonsense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_method("loss.BACSLoss", mixup=True)
+    # BACS's options are ported (held to JAX by tests/test_torch_bacs_options.py)
+    assert create_method("loss.BACSLoss", mixup=True).mixup
