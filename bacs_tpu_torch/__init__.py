@@ -8,9 +8,11 @@ kernel (Triton or CUDA C++ under ``csrc/``) beside a plain PyTorch version:
 a wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors.  The package imports neither ``jax`` nor ``flax``.
 
-Ported so far: serving (``serve.Predictor``); the CE, BACS, MiB and PLOP
-train steps and the eval step (``train/step.py``); the continual trainer
-and its command line (``python -m bacs_tpu_torch.main``, ``train/loop.py``).
+Ported so far: serving (``serve.Predictor``); every method's train step and
+the eval step (``train/step.py``); the continual trainer and its command
+line (``python -m bacs_tpu_torch.main``, ``train/loop.py``); data
+parallelism across devices (``parallel/``, one process a rank).  Still to
+port: ``Predictor.export``, the OOD pass and viz (ROADMAP.md queue 1).
 """
 
 __version__ = "0.1.0"

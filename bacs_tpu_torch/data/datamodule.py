@@ -24,8 +24,12 @@ whole batches with the padding's labels ignored and ``n_real`` given.
   source's ``n_domains``): tasks are domains, and each task validates on
   its own 20 % of the train source (``:352-357``).
 
-Not ported: multihost slicing (``process_shard``, ROADMAP.md queue 1 item
-10) and ``dataset.download`` (it needs the network; it raises).
+- Data parallelism: the global batch is ``batch_size x n_devices``
+  (``:216-294``), and a rank decodes only its contiguous rows of it
+  (``rank``), as JAX's process slice; its augmentation draws are the
+  global batch's, those rows taken.
+
+Not ported: ``dataset.download`` (it needs the network; it raises).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from bacs_tpu_torch import parallel
 from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.data.continual import (
     ContinualScenario,
@@ -211,19 +216,22 @@ class DataModule:
             idx = np.arange(len(self.train_source))
         return self._subset(idx, np.random.RandomState(self.seed + t))
 
-    def steps_per_epoch(self) -> int:
-        return max(1, len(self.train_indices()) // max(self.batch_size, 1))
+    def steps_per_epoch(self, n_devices: int = 1) -> int:
+        """Steps of one epoch at the global batch ``batch_size x n_devices``."""
+        global_batch = self.batch_size * n_devices
+        return max(1, len(self.train_indices()) // max(global_batch, 1))
 
     # ------------------------------------------------------------------
 
-    def train_index_batches(self, epoch: int):
-        """(index batches of one epoch, the augmentation seed, the label
-        table) of the current task."""
+    def train_index_batches(self, epoch: int, n_devices: int = 1):
+        """(index batches of one epoch at the global batch ``batch_size x
+        n_devices``, the augmentation seed, the label table) of the current
+        task."""
         t = self.task_id
         indices = self.train_indices(t)
         rng = np.random.RandomState((self.seed, t, epoch).__hash__() % (2**31))
         perm = rng.permutation(indices)
-        global_batch = self.batch_size
+        global_batch = self.batch_size * n_devices
         n_steps = max(1, len(perm) // global_batch) if len(perm) >= global_batch else 1
         if len(perm) < global_batch:  # tile tiny debug sets to a full batch
             perm = np.resize(perm, global_batch)
@@ -233,10 +241,11 @@ class DataModule:
         batches = [perm[s * global_batch:(s + 1) * global_batch] for s in range(n_steps)]
         return batches, seed, table
 
-    def eval_index_batches(self, task_id: int):
-        """(index batches padded to whole batches, real counts, label table)
-        of task ``task_id``'s validation images (in the domain mode, indices
-        of the train source)."""
+    def eval_index_batches(self, task_id: int, n_devices: int = 1):
+        """(index batches padded to whole global batches of ``batch_size x
+        n_devices``, real counts, label table) of task ``task_id``'s
+        validation images (in the domain mode, indices of the train
+        source)."""
         if self.domain_shift:
             # domain tasks validate on their own held-out 20% of the SAME
             # (merged) source (reference: cityscape_datamodule.py:270-295)
@@ -249,15 +258,23 @@ class DataModule:
             idx = np.arange(len(self.val_source))
             table = _identity_table(self.num_classes)
         idx = self._subset(idx, np.random.RandomState(self.seed + 77 + task_id))
-        n_steps = math.ceil(len(idx) / self.batch_size)
+        global_batch = self.batch_size * n_devices
+        n_steps = math.ceil(len(idx) / global_batch)
         batches, n_reals = [], []
         for s in range(n_steps):
-            batch_idx = idx[s * self.batch_size:(s + 1) * self.batch_size]
+            batch_idx = idx[s * global_batch:(s + 1) * global_batch]
             n_reals.append(len(batch_idx))
-            if len(batch_idx) < self.batch_size:  # pad to a whole batch
-                batch_idx = np.resize(batch_idx, self.batch_size)
+            if len(batch_idx) < global_batch:  # pad to a whole batch
+                batch_idx = np.resize(batch_idx, global_batch)
             batches.append(batch_idx)
         return batches, n_reals, table
+
+    def _rows(self, n_devices: int, rank: Optional[int]):
+        """(lo, hi) of a rank's rows of the global batch; every row for
+        ``rank`` None."""
+        if rank is None:
+            return 0, self.batch_size * n_devices
+        return parallel.rank_rows(self.batch_size * n_devices, n_devices, rank)
 
     def _host_stream(self, source, index_batches):
         """Decoded (images, labels) numpy batches: from the decode pool when
@@ -295,16 +312,24 @@ class DataModule:
             yield (imgs.to(self.device, non_blocking=True),
                    lbls.to(self.device, non_blocking=True))
 
-    def train_batches(self, epoch: int,
-                      augment: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
-        """One epoch of batches for the current task, on the card."""
-        batches, seed, table = self.train_index_batches(epoch)
+    def train_batches(self, epoch: int, augment: bool = True, n_devices: int = 1,
+                      rank: Optional[int] = None) -> Iterator[Dict[str, torch.Tensor]]:
+        """One epoch of batches for the current task, on the card.  The
+        global batch is ``batch_size x n_devices`` (``bacs_tpu/data/
+        datamodule.py:216-294``); with ``rank`` only that rank's contiguous
+        ``batch_size`` rows are decoded and augmented, the augmentation
+        drawn for the whole global batch, so the ranks' rows together are
+        the global batch."""
+        batches, seed, table = self.train_index_batches(epoch, n_devices)
+        lo, hi = self._rows(n_devices, rank)
         table = torch.from_numpy(table).to(self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        for imgs, lbls in self._device_stream(self.train_source, batches):
+        for imgs, lbls in self._device_stream(self.train_source, [b[lo:hi] for b in batches]):
             if augment:
-                yield transforms.train_transform(gen, imgs, lbls, table, crop=self.crop_size)
+                shard = {} if rank is None else {"rows": (lo, len(batches[0]))}
+                yield transforms.train_transform(gen, imgs, lbls, table, crop=self.crop_size,
+                                                 **shard)
             else:
                 yield transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)
 
@@ -315,17 +340,24 @@ class DataModule:
         fill) gets the batches both times."""
         return _Loader(lambda: self.train_batches(epoch, augment=augment))
 
-    def eval_batches(self, task_id: int) -> Iterator[Dict[str, torch.Tensor]]:
+    def eval_batches(self, task_id: int, n_devices: int = 1,
+                     rank: Optional[int] = None) -> Iterator[Dict[str, torch.Tensor]]:
         """Eval batches for ONE task's val subset with labels of tasks 0..t
         visible (reference: base_datamodule.py:407-431 get_val_test_all);
-        each carries ``n_real``, its count of real (unpadded) images."""
-        batches, n_reals, table = self.eval_index_batches(task_id)
+        each carries ``n_real``, its global batch's count of real
+        (unpadded) images.  The global batch is ``batch_size x n_devices``,
+        the last one padded to it whatever the world; with ``rank`` the
+        rank's rows only, as JAX's process slice
+        (``bacs_tpu/data/datamodule.py:377-396``)."""
+        batches, n_reals, table = self.eval_index_batches(task_id, n_devices)
+        lo, hi = self._rows(n_devices, rank)
         table = torch.from_numpy(table).to(self.device)
         source = self.train_source if self.domain_shift else self.val_source
-        for n_real, (imgs, lbls) in zip(n_reals, self._device_stream(source, batches)):
-            if n_real < self.batch_size:  # padded duplicates count for nothing
+        for n_real, (imgs, lbls) in zip(n_reals,
+                                        self._device_stream(source, [b[lo:hi] for b in batches])):
+            if n_real < hi:  # padded duplicates count for nothing
                 lbls = lbls.clone()
-                lbls[n_real:] = 255
+                lbls[max(0, n_real - lo):] = 255
             out = transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)
             out["n_real"] = n_real
             yield out

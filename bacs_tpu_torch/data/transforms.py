@@ -141,14 +141,19 @@ def remap_labels(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def train_transform(generator: Optional[torch.Generator], images: torch.Tensor,
                     labels: torch.Tensor, table: torch.Tensor, crop: int = 512,
-                    scale: Tuple[float, float] = (0.5, 2.0)) -> Dict[str, torch.Tensor]:
+                    scale: Tuple[float, float] = (0.5, 2.0),
+                    rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """uint8 images [N, H, W, 3] and labels [N, H, W] -> the augmented batch
     {image: normalized f32 [N, crop, crop, 3], label: int32 [N, crop, crop]}:
     a crop region and a flip per image drawn from ``generator`` on the
     images' device, the region resized to ``crop`` (bilinear images,
-    nearest labels), then normalize and remap."""
-    params = sample_crop_params(images.shape[0], tuple(images.shape[1:3]), generator,
+    nearest labels), then normalize and remap.  ``rows`` = (first row,
+    global batch): the images are rows ``first..first + N`` of a global
+    batch, and the draws are the global batch's, those rows taken."""
+    lo, total = rows or (0, images.shape[0])
+    params = sample_crop_params(total, tuple(images.shape[1:3]), generator,
                                 images.device, scale)
+    params = {k: v[lo:lo + images.shape[0]] for k, v in params.items()}
     img, lbl = apply_crop_params(images, labels, params, out=crop)
     return {"image": normalize_image(img), "label": remap_labels(lbl, table)}
 

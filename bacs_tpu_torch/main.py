@@ -8,13 +8,17 @@ The same config trees and override grammar as ``main.py`` (group swaps,
 ``a.b=v``, ``+a.b=v``, ``~a.b``; ``config/core.py``), the same metric keys
 on stdout, and the final mIoU printed and returned.  It trains on the card
 (``--device cuda``, the default; it raises where torch sees none) unless
-asked for the CPU with ``--device cpu``.  ``main.py``'s compilation cache
-is XLA's and has no counterpart here.
+asked for the CPU with ``--device cpu``.  ``training.n_devices`` (or the
+reference's ``n_gpus``) above 1 trains data-parallel: one spawned rank per
+card (NCCL; fewer cards than asked warns and uses those there are), or
+with ``--device cpu`` that many gloo ranks (``parallel/``); rank 0 prints.
+``main.py``'s compilation cache is XLA's and has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -28,9 +32,22 @@ def parse_args(argv):
     return parser.parse_args(argv)
 
 
-def train(config, device: str = "cuda") -> float:
+def _train_rank(group, device, config) -> float:
     from bacs_tpu_torch.train.loop import Trainer
 
+    return Trainer(config, device=device, group=group).fit()
+
+
+def train(config, device: str = "cuda") -> float:
+    """Train ``config`` on ``device``; the final mIoU (rank 0's)."""
+    import torch.distributed as dist
+
+    from bacs_tpu_torch import parallel
+    from bacs_tpu_torch.train.loop import Trainer, available_devices, requested_devices
+
+    n = min(requested_devices(config), available_devices(device))
+    if n > 1 and not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        return parallel.spawn(_train_rank, n, (config,), device=device)[0]
     return Trainer(config, device=device).fit()
 
 

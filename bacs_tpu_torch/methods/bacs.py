@@ -386,7 +386,7 @@ class BACSMethod(ExperienceReplayMethod):
             updates["prototypes"], updates["proto_counts"] = update_task_prototypes(
                 updates.get("prototypes", state.prototypes),
                 updates.get("proto_counts", state.proto_counts),
-                out.penultimate[n:], labs_pp, ctx.task)
+                out.penultimate[n:], labs_pp, ctx.task, ctx.group)
         return self.alpha * dark + self.beta * pp, updates
 
     def _replay_der_loss(self, ctx, state, generator, updates):

@@ -17,8 +17,10 @@ same gate to K6 (``uce_with_upsample``, ``:326``), their unbiased KD to K7
 (``ukd_with_upsample``, ``:355-384``), MiB's and PLOP's plain CE over all
 pixels to K1's sums (``ce_over_all_pixels``); and ``begin_task`` (a no-op
 but for PLOP), ``end_task`` and ``_sweep_prototypes`` (``:539-587``).  The
-JAX context's ``axis_name`` and ``spatial_mesh`` serve multi-device steps
-(ROADMAP.md queue 1 item 10) and are not ported.
+JAX context's ``axis_name`` is the context's process ``group``: a train
+step's prototype folds sum their batch sums and counts across its ranks
+(``methods/base.py:154-155``).  Its ``spatial_mesh`` (GSPMD) is not
+ported.
 
 The JAX ``compute_base_loss`` folds the batch into a local copy of the
 prototypes for the detector and ``prototype_updates`` folds it again for
@@ -43,6 +45,7 @@ from bacs_tpu_torch.ops.losses import (
 from bacs_tpu_torch.ops.upsample_ce import (
     upsampled_bacs_weighted_ce, upsampled_ce_sums, upsampled_cross_entropy,
     upsampled_uce_sums, upsampled_unbiased_kd, upsampled_weighted_cross_entropy)
+from bacs_tpu_torch.parallel import all_reduce_
 from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
 
 
@@ -71,11 +74,13 @@ class ModelContext:
     """What is static per task.
 
     ``fused_ce`` is the config gate ``training.fused_ce`` of the upsample
-    kernels.
+    kernels; ``group`` the process group of a data-parallel step (the JAX
+    ``axis_name``), None on one device and in the task-boundary passes.
     """
 
     task: TaskInfo
     fused_ce: bool = True
+    group: Any = None
 
     def forward(self, model: nn.Module, x: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> NetOutput:
@@ -102,11 +107,13 @@ def label_task_ids(labels: torch.Tensor, task: TaskInfo) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update_task_prototypes(prototypes, counts, penultimate, labels, task: TaskInfo):
+def update_task_prototypes(prototypes, counts, penultimate, labels, task: TaskInfo,
+                           group=None):
     """Fold a batch into the running-mean per-task foreground prototypes:
     per task, the mean penultimate feature over the pixels whose
     nearest-downsampled label belongs to it (background and ignore
-    excluded).  Returns (prototypes [T, D], counts [T]); no host read."""
+    excluded), the sums and counts summed across ``group``'s ranks.
+    Returns (prototypes [T, D], counts [T]); no host read."""
     feats = penultimate.float()
     labels_down = resize_nearest(labels, tuple(feats.shape[1:3]))
     valid = (labels_down != 0) & (labels_down != task.ignore_index)
@@ -114,6 +121,7 @@ def update_task_prototypes(prototypes, counts, penultimate, labels, task: TaskIn
     t_onehot = t_onehot * valid.unsqueeze(-1)
     sums = torch.einsum("nhwt,nhwd->td", t_onehot, feats)
     n_feats = t_onehot.sum(dim=(0, 1, 2))
+    all_reduce_([sums, n_feats], group, mean=False)
     new_counts = counts + n_feats
     new_protos = torch.where(
         (n_feats > 0)[:, None],
@@ -279,7 +287,7 @@ class Method:
         if not (train and self.track_prototypes):
             return {}
         protos, counts = update_task_prototypes(state.prototypes, state.proto_counts,
-                                                penultimate, labels, ctx.task)
+                                                penultimate, labels, ctx.task, ctx.group)
         return {"prototypes": protos, "proto_counts": counts}
 
     def compute_base_loss(
@@ -314,7 +322,8 @@ class Method:
         protos = None
         cur = proto_base or (state.prototypes, state.proto_counts)
         if train and self.track_prototypes:
-            protos = cur = update_task_prototypes(*cur, out.penultimate, labels, task)
+            protos = cur = update_task_prototypes(*cur, out.penultimate, labels, task,
+                                                  ctx.group)
 
         seen_prob = None
         if use_weighted_ce and train:

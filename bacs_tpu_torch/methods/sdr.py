@@ -34,6 +34,7 @@ import torch
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux
 from bacs_tpu_torch.ops.interpolate import resize_nearest
 from bacs_tpu_torch.ops.upsample_ce import upsampled_argmax_nearest
+from bacs_tpu_torch.parallel import all_reduce_
 
 EPS = 1e-15
 
@@ -100,7 +101,7 @@ class SDRMethod(Method):
         them, and the updated class prototypes and counts."""
         task = ctx.task
         feats = out.penultimate
-        protos, counts = self._update_class_prototypes(state, feats, mask, task)
+        protos, counts = self._update_class_prototypes(state, feats, mask, task, ctx.group)
         old_out = ctx.forward_prev(state, image)
         return {
             "class_prototypes": protos,
@@ -124,17 +125,19 @@ class SDRMethod(Method):
         return labels_down, _one_hot(safe, task.nb_current_classes) * valid.unsqueeze(-1)
 
     @torch.no_grad()
-    def _update_class_prototypes(self, state, feats, mask, task):
+    def _update_class_prototypes(self, state, feats, mask, task, group=None):
         """The batch folded into the per-class running means (the
         background skipped at a task > 0 unless ``sequential_mode``,
-        reference sdr.py:121-158); returns (prototypes [num_classes, D],
-        counts [num_classes])."""
+        reference sdr.py:121-158), the sums and counts summed across
+        ``group``'s ranks (sdr.py:135-136); returns (prototypes
+        [num_classes, D], counts [num_classes])."""
         f = feats.float()
         _, onehot = self._class_masks(mask, tuple(f.shape[1:3]), task)
         if not self.sequential_mode and task.task_id > 0:
             onehot[..., 0] = 0.0
         sums = torch.einsum("nhwc,nhwd->cd", onehot, f)
         n = onehot.sum(dim=(0, 1, 2))
+        all_reduce_([sums, n], group, mean=False)
         pad = task.num_classes - n.shape[0]
         sums = torch.nn.functional.pad(sums, (0, 0, 0, pad))
         n = torch.nn.functional.pad(n, (0, pad))

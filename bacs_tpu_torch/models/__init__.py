@@ -1,9 +1,9 @@
-"""Network zoo of the port: DeepLabV3 and TranSeg on an ABN ResNet, and
-UNet, each with the BACS background detector.
+"""Network zoo of the port: DeepLabV3 and TranSeg on an ABN ResNet or
+(DeepLabV3) the SDR atrous ResNet, and UNet, each with the BACS background
+detector.
 
 ``create_network`` mirrors the JAX package's registry
-(``bacs_tpu/models/__init__.py``).  The atrous encoder is ROADMAP.md queue 1
-item 2 (it needs the non-fused ``bn`` norm) and raises until it lands.
+(``bacs_tpu/models/__init__.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from bacs_tpu_torch.models.deeplab import DeepLabHead, DeepLabV3  # noqa: F401
 from bacs_tpu_torch.models.layers import Attention, Block, Linear  # noqa: F401
 from bacs_tpu_torch.models.norm import ABN, BatchNorm, make_norm  # noqa: F401
 from bacs_tpu_torch.models.resnet import Conv2d, ResNet, create_resnet  # noqa: F401
+from bacs_tpu_torch.models.resnet_atrous import ResNetAtrous, create_resnet_atrous  # noqa: F401
 from bacs_tpu_torch.models.transeg import TranSeg, TransformerHead  # noqa: F401
 from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet  # noqa: F401
 
@@ -56,20 +57,21 @@ def create_network(
     ``num_decoder_layers`` 2, ``dim_feedforward`` 2048 by default), with
     ``crop_size`` (the positional embedding's extent) and
     ``active_classes`` (the class tokens in use; default all); for UNet
-    ``n_channels``, ``bilinear`` and ``num_layers`` (default 5).
-    ``fused_abn=false`` (the non-fused train ABN) is ROADMAP.md queue 1
-    item 2 and raises.
+    ``n_channels``, ``bilinear`` and ``num_layers`` (default 5);
+    ``fused_abn`` (default true; false trains every ABN through the
+    non-fused branch).  The atrous encoder replaces ``norm`` by the
+    synchronized ``bn`` of momentum 3e-4 on the whole model
+    (``bacs_tpu/models/__init__.py:56-63``).
     """
     short = name.rsplit(".", 1)[-1].lower()
-    if not kwargs.get("fused_abn", True):
-        raise NotImplementedError(
-            "network.fused_abn=false (the non-fused train-mode ABN) is "
-            "ROADMAP.md queue 1 item 2; only the fused ABN is ported"
-        )
+    atrous = bool(kwargs.get("atrous_encoder"))
     remat = kwargs.get("remat", False)
     remat = (tuple(int(s) for s in remat) if isinstance(remat, (list, tuple))
              else bool(remat))
-    abn = make_norm(norm, fused_stem=bool(kwargs.get("fused_stem", False)))
+    norm_kw = dict(fused_stem=bool(kwargs.get("fused_stem", False)),
+                   fused=bool(kwargs.get("fused_abn", True)))
+    abn = (make_norm("bn", sync=True, **norm_kw) if atrous
+           else make_norm(norm, **norm_kw))
     if short in ("deeplabv3", "deeplab", "deep_lab"):
         model = DeepLabV3(
             num_classes=num_classes,
@@ -78,7 +80,7 @@ def create_network(
             norm=abn,
             n_tasks=n_tasks,
             use_bg_detector=use_bg_detector,
-            atrous_encoder=bool(kwargs.get("atrous_encoder")),
+            atrous_encoder=atrous,
             remat=remat,
         )
     elif short == "unet":
@@ -91,9 +93,6 @@ def create_network(
             use_bg_detector=use_bg_detector,
         )
     elif short in ("transeg", "deep_lab_transformer"):
-        if kwargs.get("atrous_encoder"):
-            raise NotImplementedError(
-                "the atrous encoder is ROADMAP.md queue 1 item 2 (the non-fused bn norm)")
         tr = kwargs.get("transformer") or {}
         model = TranSeg(
             num_classes=num_classes,

@@ -10,9 +10,9 @@ train and eval steps read only ``sem_logits`` on the kernel path, and the
 Predictor calls :meth:`DeepLabV3.sem_logits`.  With ``use_bg_detector``
 the network carries the BACS background detector (``models/bg_detector.py``)
 and its penultimate output is the detector trunk's.  ``remat`` chooses the
-backbone stages recomputed in the backward (``models/resnet.py``).  The
-atrous encoder needs the non-fused ``bn`` norm, ROADMAP.md queue 1 item 2,
-and raises until it lands.
+backbone stages recomputed in the backward (``models/resnet.py``).  With
+``atrous_encoder`` the backbone is the SDR atrous ResNet
+(``models/resnet_atrous.py``: five attention maps, six with the head's).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.models.bg_detector import BgDetector
 from bacs_tpu_torch.models.norm import ABN
 from bacs_tpu_torch.models.resnet import Conv2d, conv, create_resnet
+from bacs_tpu_torch.models.resnet_atrous import create_resnet_atrous
 
 
 class DeepLabHead(nn.Module):
@@ -83,11 +84,8 @@ class DeepLabV3(nn.Module):
         remat=False,
     ):
         super().__init__()
-        if atrous_encoder:
-            raise NotImplementedError(
-                "the atrous encoder is ROADMAP.md queue 1 item 2 (the non-fused bn norm)"
-            )
-        self.backbone = create_resnet(backbone_name, norm, output_stride, remat)
+        make_backbone = create_resnet_atrous if atrous_encoder else create_resnet
+        self.backbone = make_backbone(backbone_name, norm, output_stride, remat)
         self.base_classifier = DeepLabHead(
             self.backbone.out_channels, out_in_planes,
             out_stride=output_stride, norm=norm,

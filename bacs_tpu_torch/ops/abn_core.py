@@ -43,6 +43,8 @@ import functools
 
 import torch
 
+from bacs_tpu_torch.parallel import all_reduce_
+
 tl = None  # triton.language, bound at the first launch (CPU builds lack triton)
 
 
@@ -157,12 +159,14 @@ def _safe_scale(scale: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 class _FusedABN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, slope):
+    def forward(ctx, x, scale, bias, eps, slope, group):
         dims = tuple(range(x.dim() - 1))
         rows = x.numel() // x.shape[-1]
         mean = torch.mean(x, dims, dtype=torch.float32)
         # squares in x's dtype, accumulated in f32, as the JAX function does
         mean_sq = torch.mean(x * x, dims, dtype=torch.float32)
+        # the global moments: one collective of (mean, mean_sq) (abn_core.py:73-74)
+        mean, mean_sq = all_reduce_([mean, mean_sq], group)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if x.device.type == "cpu":
             y = abn_eval_plain(x, mean, var, scale, bias, eps, slope)
@@ -171,7 +175,7 @@ class _FusedABN(torch.autograd.Function):
                                   bias.contiguous(), eps, slope, fused_abn)
         # residuals: the OUTPUT and [C] vectors only; x is not saved
         ctx.save_for_backward(y, scale, bias, torch.rsqrt(var + eps))
-        ctx.slope, ctx.rows = slope, rows
+        ctx.slope, ctx.rows, ctx.group = slope, rows, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -189,9 +193,12 @@ class _FusedABN(torch.autograd.Function):
         da = torch.where(pos, dy, dy * slope)
         sum_da = torch.sum(da, dims, dtype=torch.float32)
         sum_da_xhat = torch.sum(da * x_hat, dims, dtype=torch.float32)
+        # the sync-BN backward averages the two means across ranks too
+        # (abn_core.py:116-120); dscale and dbias stay this rank's sums
+        mean_da, mean_da_xhat = all_reduce_([sum_da / rows, sum_da_xhat / rows], ctx.group)
         g = (scale * inv).to(dt)
-        dx = g * (da - (sum_da / rows).to(dt)) - (g * (sum_da_xhat / rows).to(dt)) * x_hat
-        return dx, sum_da_xhat, sum_da, None, None
+        dx = g * (da - mean_da.to(dt)) - (g * mean_da_xhat.to(dt)) * x_hat
+        return dx, sum_da_xhat, sum_da, None, None, None
 
 
 def fused_abn(
@@ -200,12 +207,15 @@ def fused_abn(
     bias: torch.Tensor,
     eps: float = 1e-5,
     slope: float = 0.01,
+    group=None,
 ):
     """Train-mode ABN over the last axis of ``x`` -> (y, batch mean, batch
     var), the statistics f32 and not differentiable.
 
-    Port of ``fused_abn`` (``bacs_tpu/ops/abn_core.py:52-128``) on one
-    device.  Forward: the f32 batch mean and mean of squares, biased
+    Port of ``fused_abn`` (``bacs_tpu/ops/abn_core.py:52-128``).  With a
+    process ``group`` (the JAX ``axis_name``) the statistics are the
+    global batch's: the moments are averaged across its ranks before the
+    apply, and so are the backward's two means.  Forward: the f32 batch mean and mean of squares, biased
     ``var = max(E[x^2] - mean^2, 0)``, then the apply and leaky with
     ``slope`` (1 = identity).  The apply is K5's Triton kernel fed the batch
     statistics (it computes the same function), counted on this function's
@@ -215,7 +225,7 @@ def fused_abn(
     recovered from ``y`` (``abn_core.py:96-125``).  The statistics and the
     backward are plain PyTorch ops (ROADMAP.md queue 2, note A).
     """
-    return _FusedABN.apply(x, scale, bias, float(eps), float(slope))
+    return _FusedABN.apply(x, scale, bias, float(eps), float(slope), group)
 
 
 fused_abn.launches = 0

@@ -28,8 +28,10 @@ the conv output ``c`` and the pooled ``p``.
 
 Pool semantics match a 3x3/2 max-pool with padding 1 on even H and W; the
 ABN module takes this path only then (``models/norm.py``).  Bound on the
-H100 and the kernels' tolerance: see ``csrc/stem_pool.cu``.  Cross-GPU
-statistics (the JAX ``axis_name``) are ROADMAP.md queue 1 item 10.
+H100 and the kernels' tolerance: see ``csrc/stem_pool.cu``.  With a
+process group (the JAX ``axis_name``) the forward's moments and the
+backward's two means are averaged across its ranks before the kernels
+take them (``stem_pool.py:412-413,458-461``); the kernels do not change.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from bacs_tpu_torch.kernels import build
 from bacs_tpu_torch.ops.abn_core import _safe_scale
+from bacs_tpu_torch.parallel import all_reduce_
 
 _NEG = -1e30  # the padding value of the JAX kernel
 
@@ -153,14 +156,16 @@ def _rounded(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def forward_vectors(c: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, group=None):
     """(mean, var, inv, vec) of the forward (``_fwd_impl``, ``stem_pool.py:
     408-425``): the f32 batch mean and mean of squares of NHWC ``c`` (squares
     in c's dtype, as the JAX function), the biased variance, its rsqrt, and
-    ``vec`` = [a, b] [2, C], the folded affine rounded to c's dtype."""
+    ``vec`` = [a, b] [2, C], the folded affine rounded to c's dtype; the
+    moments averaged across ``group``'s ranks."""
     dims = (0, 1, 2)
     mean = torch.mean(c, dims, dtype=torch.float32)
     mean_sq = torch.mean(c * c, dims, dtype=torch.float32)
+    mean, mean_sq = all_reduce_([mean, mean_sq], group)
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
     a = _rounded(inv * scale, c.dtype)
@@ -168,12 +173,13 @@ def forward_vectors(c: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return mean, var, inv, torch.stack([a, b])
 
 
-def backward_vectors(c, p, dp, scale, bias, mean, inv, vec, slope):
+def backward_vectors(c, p, dp, scale, bias, mean, inv, vec, slope, group=None):
     """(dap, vec7, dscale, dbias) of the backward outside the kernel
     (``_fused_abn_pool_bwd``, ``stem_pool.py:437-478``): ``dap`` is dp
     through the leaky slope at each window's max; x_hat at the max is
     recovered from p by inverting the leaky and the affine; ``vec7`` =
-    [a, b, g, g_mean_da, g_mean_da_xhat, mean, inv] rounded to c's dtype."""
+    [a, b, g, g_mean_da, g_mean_da_xhat, mean, inv] rounded to c's dtype,
+    the two means averaged across ``group``'s ranks."""
     dt = c.dtype
     n = c.numel() // c.shape[-1]
     dims = (0, 1, 2)
@@ -183,20 +189,21 @@ def backward_vectors(c, p, dp, scale, bias, mean, inv, vec, slope):
     x_hat_max = (z - bias.to(dt)) * (1.0 / _safe_scale(scale)).to(dt)
     sum_da = torch.sum(dap, dims, dtype=torch.float32)
     sum_da_xhat = torch.sum(dap * x_hat_max, dims, dtype=torch.float32)
+    mean_da, mean_da_xhat = all_reduce_([sum_da / n, sum_da_xhat / n], group)
     g = scale * inv
     vec7 = torch.cat([vec, torch.stack([
-        _rounded(g, dt), _rounded(g * (sum_da / n), dt), _rounded(g * (sum_da_xhat / n), dt),
+        _rounded(g, dt), _rounded(g * mean_da, dt), _rounded(g * mean_da_xhat, dt),
         _rounded(mean, dt), _rounded(inv, dt)])])
     return dap, vec7, sum_da_xhat, sum_da
 
 
 class _FusedAbnPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, c, scale, bias, eps, slope):
-        mean, var, inv, vec = forward_vectors(c, scale, bias, eps)
+    def forward(ctx, c, scale, bias, eps, slope, group):
+        mean, var, inv, vec = forward_vectors(c, scale, bias, eps, group)
         p = stem_pool_fwd(c, vec, slope)
         ctx.save_for_backward(c, p, scale, bias, mean, inv, vec)
-        ctx.slope = slope
+        ctx.slope, ctx.group = slope, group
         ctx.mark_non_differentiable(mean, var)
         return p, mean, var
 
@@ -204,12 +211,13 @@ class _FusedAbnPool(torch.autograd.Function):
     def backward(ctx, dp, _dmean, _dvar):
         c, p, scale, bias, mean, inv, vec = ctx.saved_tensors
         dap, vec7, dscale, dbias = backward_vectors(c, p, dp, scale, bias, mean, inv, vec,
-                                                    ctx.slope)
-        return stem_pool_grad(c, dap, vec7, ctx.slope), dscale, dbias, None, None
+                                                    ctx.slope, ctx.group)
+        return stem_pool_grad(c, dap, vec7, ctx.slope), dscale, dbias, None, None, None
 
 
 def fused_abn_pool(c: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float = 1e-5, slope: float = 0.01):
+                   eps: float = 1e-5, slope: float = 0.01, group=None):
     """(pooled, batch mean, batch var) = maxpool3x3/2(leaky(BN(c))) of NHWC
-    ``c`` with even H and W; the statistics f32 and not differentiable."""
-    return _FusedAbnPool.apply(c, scale, bias, float(eps), float(slope))
+    ``c`` with even H and W; the statistics f32 and not differentiable,
+    the global batch's with a process ``group``."""
+    return _FusedAbnPool.apply(c, scale, bias, float(eps), float(slope), group)

@@ -9,8 +9,8 @@ The counterpart of ``predict.py``: the same flags, plus ``--device``
 the CPU).  It restores the newest checkpoint under ``--checkpoint``
 (``serve.Predictor.from_checkpoint``), resizes each image to the crop,
 and writes one VOC-coloured ``<name>_mask.png`` per image to ``--out``.
-``--export`` (ROADMAP.md queue 1 item 13) and ``--n-devices`` above 1
-(item 10) raise.
+``--n-devices`` splits each batch over that many cards, one replica a
+card; ``--export`` (ROADMAP.md queue 1 item 13) raises.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def parse_args(argv):
                         help="bit-pack the masks to ceil(log2(classes)) bits a pixel "
                              "on the device")
     parser.add_argument("--n-devices", type=int, default=None,
-                        help="cards to split the batch over (only 1 is ported)")
+                        help="cards to split each batch over, one replica a card")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda raises without a card")
     parser.add_argument("overrides", nargs="*", help="key=value overrides")
@@ -47,16 +47,13 @@ def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
     if args.export:
         raise NotImplementedError("--export is ROADMAP.md queue 1 item 13")
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError("--n-devices > 1 (multi-GPU serving) is ROADMAP.md "
-                                  "queue 1 item 10")
     from bacs_tpu_torch.config import load_config
     from bacs_tpu_torch.serve import Predictor
 
     config = load_config(args.config_path, args.config_name, args.overrides)
     predictor = Predictor.from_checkpoint(
         args.checkpoint, config, device=args.device,
-        conf_dtype=args.conf_dtype, pack_masks=args.pack_masks)
+        conf_dtype=args.conf_dtype, pack_masks=args.pack_masks, n_devices=args.n_devices)
     masks = predictor.predict_files(args.images, out_dir=args.out) if args.images else []
     if args.images:
         print(f"wrote {len(args.images)} masks to {args.out}/")

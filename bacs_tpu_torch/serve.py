@@ -17,13 +17,23 @@ at all, and masks as uint8 or bit-packed on the device
 ``device`` is explicit.  Asking for CUDA where there is none raises; the
 Predictor never falls back to the CPU.  ``from_checkpoint`` serves the
 newest checkpoint of a training run through the Trainer's own restore.
-Multi-GPU serving and ``export`` are ROADMAP.md queue 1 items 10 and 13
-and raise.
+
+``n_devices`` > 1 serves data-parallel, as the JAX Predictor's mesh
+(``bacs_tpu/serve.py:118-135``): one process holds a replica of the
+network on each of the first ``n_devices`` cards (or on ``devices``, which
+may list CPU devices), splits each batch into contiguous slices across
+them, runs K10 on each replica, and gathers the slices on the first
+device.  The eval forward has no cross-image state, so no collective
+runs.  Fewer cards than asked warns and serves on those there are.
+``export`` is ROADMAP.md queue 1 item 13 and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
+import warnings
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -35,6 +45,25 @@ from bacs_tpu_torch.ops.bitpack import bits_needed, pack_bits, unpack_bits
 from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.viz.media import voc_colormap
+
+
+def replica_devices(device: torch.device, n_devices: Optional[int] = None,
+                    devices: Optional[Sequence[str | torch.device]] = None) -> List[torch.device]:
+    """The replicas' devices: ``devices`` as given, else ``device`` alone or
+    with ``n_devices`` > 1 the first ``n_devices`` cards, warning when
+    fewer are visible (``bacs_tpu/serve.py:100-117``)."""
+    if devices:
+        return [torch.device(d) for d in devices]
+    if not n_devices or n_devices <= 1:
+        return [device]
+    if device.type != "cuda":
+        return [device] * n_devices
+    avail = torch.cuda.device_count()
+    got = min(n_devices, avail)
+    if got < n_devices:
+        warnings.warn(f"Predictor(n_devices={n_devices}) but only {avail} CUDA device(s) "
+                      f"visible — serving on {got}.", stacklevel=3)
+    return [torch.device("cuda", i) for i in range(got)]
 
 
 class Predictor:
@@ -51,19 +80,21 @@ class Predictor:
         pack_masks: bool = False,
         n_devices: Optional[int] = None,
         device: str | torch.device = "cuda",
+        devices: Optional[Sequence[str | torch.device]] = None,
     ):
         """``params``/``batch_stats`` are the JAX package's Flax trees
-        (nested mappings of arrays), converted by ``utils/flax_weights.py``."""
+        (nested mappings of arrays), converted by ``utils/flax_weights.py``.
+        ``devices`` names the replicas' devices (default: ``device``, or
+        with ``n_devices`` > 1 the first ``n_devices`` cards)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Predictor(device='cuda') but torch sees no CUDA device; pass "
                 "device='cpu' to serve on the CPU"
             )
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(
-                "multi-GPU serving is ROADMAP.md queue 1 item 10"
-            )
+        self.devices = replica_devices(self.device, n_devices, devices)
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
         self.crop_size = crop_size
         self.num_classes = num_classes
         self.active_classes = active_classes or num_classes
@@ -89,6 +120,8 @@ class Predictor:
         )
         load_flax_variables(self.model, params, batch_stats)
         self.model.eval().to(self.device)
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
         # device->host copies run on their own stream, so batch i's copy
         # overlaps batch i+1's forward (predict_many)
         self._copy_stream = (
@@ -134,12 +167,25 @@ class Predictor:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    def _infer_replica(self, model, images_u8: torch.Tensor):
+        dev = images_u8.device
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            x = normalize_image(images_u8).to(self.dtype)
+            sem = model.sem_logits(x)[..., : self.active_classes]
+            return upsampled_argmax_conf(sem.contiguous(),
+                                         (images_u8.shape[1], images_u8.shape[2]))
+
+    @torch.inference_mode()
     def _infer(self, images_u8: torch.Tensor):
-        x = normalize_image(images_u8).to(self.dtype)
-        sem = self.model.sem_logits(x)[..., : self.active_classes]
-        preds, conf = upsampled_argmax_conf(
-            sem.contiguous(), (images_u8.shape[1], images_u8.shape[2])
-        )
+        if self.n_devices == 1:
+            preds, conf = self._infer_replica(self.model, images_u8)
+        else:
+            # contiguous slices, one per replica; each launch is queued on its
+            # own card before any result is gathered
+            outs = [self._infer_replica(m, x.to(d, non_blocking=True))
+                    for m, x, d in zip(self.replicas,
+                                       images_u8.chunk(self.n_devices), self.devices)]
+            preds, conf = (torch.cat([o[i].to(self.device) for o in outs]) for i in (0, 1))
         if self.conf_dtype == "uint8":
             conf = torch.round(conf.float() * 255.0).to(torch.uint8)
         if self.pack_masks:
@@ -155,6 +201,9 @@ class Predictor:
         return next(iter(self.predict_many([images])))
 
     def _dispatch(self, images: np.ndarray):
+        if images.shape[0] % self.n_devices:
+            raise ValueError(f"batch {images.shape[0]} not divisible by the Predictor's "
+                             f"{self.n_devices} devices")
         x = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
         if self._copy_stream is None:
             return self._infer(x), None

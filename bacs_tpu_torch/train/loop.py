@@ -1,8 +1,11 @@
 """The continual task loop: ``Trainer(config).fit()`` -> final mIoU.
 
 Port of ``bacs_tpu/train/loop.py`` on one device (the card unless the
-caller asks for the CPU).  Per task: head surgery by the learner and a
-fresh optimizer under the task's schedule -> ``begin_task`` -> the epochs
+caller asks for the CPU) or data-parallel over the ranks of a process
+group (``parallel/``; for ``training.n_devices`` > 1
+``bacs_tpu_torch.main`` spawns one rank per card, or per CPU process with
+``--device cpu``).  Per task: head surgery by the learner and a fresh
+optimizer under the task's schedule -> ``begin_task`` -> the epochs
 of train steps, with mid-epoch checkpoints (written in the background, as
 the JAX loop's ``block=False``) and periodic validation ->
 ``end_task`` on the task's unaugmented batches -> the test over tasks
@@ -16,16 +19,26 @@ start; a task's classes are the first ``nb_current_classes``), with the
 frozen previous model beside it, and the steps of ``train/step.py`` update
 it in place.
 
+Data parallelism, as the JAX loop's mesh (``loop.py:60-120,350-423``): the
+train steps run on each rank's slice of a global batch of ``batch_size x
+n_devices`` (the epoch's steps and the schedule count global batches),
+and the eval passes on each rank's slice, their matrices summed.  The
+task-boundary passes (head surgery, ``begin_task``, ``end_task``'s sweeps
+and buffer fill) run on every rank alike, on loader-sized streams, with a
+context that names no group, so no norm synchronizes there and the
+ranks' states stay identical.  Only rank 0 logs and writes checkpoints;
+the others wait at a barrier after each task's final save, and every
+rank resumes from the same file.
+
 Not ported, because they exist only for the TPU or its host; a config that
-sets one gets one log line that it is ignored: the device mesh and
-multihost streams, ``training.spatial_partition`` (GSPMD),
+sets one gets one log line that it is ignored: multihost streams,
+``training.spatial_partition`` (GSPMD),
 ``training.boundary_gc`` (XLA's executable cache),
 ``training.steps_per_dispatch`` (``make_multi_step``) and
 ``training.profile_dir`` (the ``jax.profiler`` trace).  These raise, naming
-their ROADMAP.md item: more than one card asked for where more than one
-is visible (queue 1 item 10); media,
-prototype and drift logging and the OOD pass (item 14).  Asking for more
-devices than are visible warns and runs on one, as the JAX loop does.  A
+their ROADMAP.md item: media, prototype and drift logging and the OOD pass
+(queue 1 item 14).  Asking for more cards than are visible warns and runs
+on those there are, as the JAX loop does.  A
 ``network.backbone_weights_path`` that exists is loaded into the new
 network's backbone (the PLOP release layout, ``utils/torch_weights.py``);
 one that does not is logged, and the network trains from its seeded
@@ -40,7 +53,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from bacs_tpu_torch import parallel
 from bacs_tpu_torch.data.datamodule import create_datamodule
 from bacs_tpu_torch.methods import create_method
 from bacs_tpu_torch.methods.base import ModelContext
@@ -131,11 +146,30 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
             head.mask_norm_bias.zero_()
 
 
+def requested_devices(config) -> int:
+    """``training.n_devices`` (or the reference's ``n_gpus``), at least 1."""
+    tcfg = config["training"]
+    return max(int(tcfg.get("n_devices", tcfg.get("n_gpus", 1)) or 1), 1)
+
+
+def available_devices(device: torch.device | str) -> int:
+    """Ranks a run on ``device`` may have: the visible cards, or on the CPU
+    any number (gloo ranks, the counterpart of JAX's virtual CPU devices)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1 << 30
+
+
 class Trainer:
     """``Trainer(config, device).fit()`` -> final mIoU (reference:
-    trainer.py:57,415)."""
+    trainer.py:57,415).  ``group`` is the process group of a data-parallel
+    run (this process one of its ranks, on ``device``); without one the
+    group already running in this process, or the one ``torchrun``
+    describes, is joined when ``training.n_devices`` asks for more than
+    one device."""
 
-    def __init__(self, config, datamodule=None, device: torch.device | str = "cuda"):
+    def __init__(self, config, datamodule=None, device: torch.device | str = "cuda",
+                 group=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -144,8 +178,14 @@ class Trainer:
             )
         self.config = config
         tcfg = config["training"]
+        n_dev = requested_devices(config)
+        if group is None and n_dev > 1:
+            group = parallel.join_env(self.device)
+        self.group = group
+        self.rank = parallel.rank(group)
+        self.n_devices = parallel.world_size(group)
         self.seed = int(tcfg.get("seed", 42))
-        self.logger = Logger()
+        self.logger = Logger(enabled=self.rank == 0)
         self.datamodule = datamodule or create_datamodule(config, self.device)
         dm = self.datamodule
         self.continual = dm.continual
@@ -160,17 +200,16 @@ class Trainer:
         self.lr_next = tcfg.get("lr_next", None)
         self.ignore_index = 255
 
-        n_dev = int(tcfg.get("n_devices", tcfg.get("n_gpus", 1)) or 1)
-        avail = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if n_dev > 1 and avail > 1:
-            raise NotImplementedError(
-                f"training.n_devices={n_dev} on {avail} visible cards: multi-GPU "
-                "training is ROADMAP.md queue 1 item 10")
-        if n_dev > 1:
+        if self.n_devices < n_dev:
+            # the reference's DDP would fail here; warn instead of silently
+            # downgrading (bacs_tpu/train/loop.py:67-75).  Ranks are processes:
+            # bacs_tpu_torch.main.train (or torchrun) starts them
             self.logger.info(
-                f"WARNING: training.n_devices={n_dev} requested but only {avail} "
-                "device available — running on 1.  Global batch/LR semantics "
-                "differ from the requested topology.")
+                f"WARNING: training.n_devices={n_dev} requested but this process is "
+                f"one of {self.n_devices} rank(s) (visible: "
+                f"{min(n_dev, available_devices(self.device))}) — running on "
+                f"{self.n_devices}.  "
+                "Global batch/LR semantics differ from the requested topology.")
         for key in TPU_ONLY_KEYS:
             if key in tcfg:
                 self.logger.info(f"training.{key}={tcfg[key]!r} tunes the TPU or its "
@@ -208,6 +247,8 @@ class Trainer:
         self.ckpt_dir = tcfg.get("ckpt_dir", None)
         self.resume_enabled = bool(self.ckpt_dir) and not bool(tcfg.get("debug", False))
         self.save_checkpoints = bool(self.ckpt_dir)
+        # one writer in a data-parallel run: rank 0
+        self.writes_checkpoints = self.save_checkpoints and self.rank == 0
         # mid-task saves write in the background (bacs_tpu/train/loop.py:553-558)
         self.saver = checkpoint.AsyncSaver()
         self.strict_restore = bool(tcfg.get("strict_restore", False))
@@ -259,7 +300,7 @@ class Trainer:
 
     def _max_iters(self, task: TaskInfo) -> int:
         """The task's optimizer updates: the schedule's length."""
-        steps_epoch = -(-self.datamodule.steps_per_epoch() // self.accumulate)
+        steps_epoch = -(-self.datamodule.steps_per_epoch(self.n_devices) // self.accumulate)
         total = steps_epoch * self._epochs_for(task.task_id)
         if self.steps_per_class:
             # ReCall-style budget (reference: trainer.py:322-327)
@@ -319,7 +360,9 @@ class Trainer:
         dm.set_task_id(task_id)
         t_start = time.perf_counter()
         task = self._task_info(task_id)
-        ctx = ModelContext(task, fused_ce=self.fused_ce)
+        ctx = ModelContext(task, fused_ce=self.fused_ce, group=self.group)
+        # the boundary passes name no group (bacs_tpu/train/loop.py:364-371)
+        boundary_ctx = ModelContext(task, fused_ce=self.fused_ce)
         if self.state is None:
             self.state = self._init_state(task)
         elif self._skip_surgery:
@@ -334,14 +377,15 @@ class Trainer:
                 self.state = self.learner_init(self.state, task)
             self.state.optimizer, self.state.scheduler = self._make_tx(task, self.state.model)
         self._set_active_classes(task)
-        self.state = self.method.begin_task(self.state, ctx, dm.train_batches(epoch=0))
+        # loader-sized streams at the boundary (bacs_tpu/train/loop.py:405-414)
+        self.state = self.method.begin_task(self.state, boundary_ctx, dm.train_batches(epoch=0))
         train_step, eval_step, put_batch = make_steps(ctx, self.method, dm.num_classes,
                                                       device=self.device)
         t_train = time.perf_counter()
 
         max_iters = self._max_iters(task) * self.accumulate  # mini-steps
         step_count = 0
-        steps_epoch = dm.steps_per_epoch()
+        steps_epoch = dm.steps_per_epoch(self.n_devices)
         # mid-task resume restarts the SAME epoch and skips the batches the
         # restored epoch_step says were already consumed (the per-epoch data
         # order is deterministic); a full epoch_step means the epoch finished.
@@ -364,7 +408,9 @@ class Trainer:
             skip = resume_skip if epoch == start_epoch else 0
             saved_chunks = skip // ckpt_every if ckpt_every else 0
             self.state.epoch, self.state.epoch_step = epoch, skip
-            for i, batch in enumerate(dm.train_batches(epoch=epoch)):
+            batches = dm.train_batches(epoch=epoch, n_devices=self.n_devices,
+                                       rank=self.rank if self.group is not None else None)
+            for i, batch in enumerate(batches):
                 if i < skip:
                     step_count += 1  # already consumed before the interruption
                     continue
@@ -382,9 +428,9 @@ class Trainer:
                     float(metrics["loss"])  # a host read, so the time is real
                     dt = time.perf_counter() - t0
                     if dt < 5.0:  # leave out first-call compilations
-                        self._timing["images"] += batch["image"].shape[0]
+                        self._timing["images"] += batch["image"].shape[0] * self.n_devices
                         self._timing["seconds"] += dt
-                if (self.save_checkpoints and ckpt_every
+                if (self.writes_checkpoints and ckpt_every
                         and (i + 1) // ckpt_every > saved_chunks and (i + 1) < steps_epoch):
                     saved_chunks = (i + 1) // ckpt_every
                     checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
@@ -398,7 +444,7 @@ class Trainer:
             val_every = int(self.config["training"].get("val_every", 0) or 0)
             if val_every and (epoch + 1) % val_every == 0 and epoch + 1 < self._epochs_for(task_id):
                 self._run_validation(task_id, ctx, eval_step, put_batch, epoch)
-            if self.save_checkpoints:
+            if self.writes_checkpoints:
                 checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
                                                 f"last{last_slot}", self.saver, block=False)
                 last_slot = 1 - last_slot
@@ -408,11 +454,12 @@ class Trainer:
 
         # buffers are populated from CANONICAL (non-augmented) images; replay
         # re-augments per step (reference: base_datamodule.py:433-451)
-        self.state = self.method.end_task(self.state, ctx,
+        self.state = self.method.end_task(self.state, boundary_ctx,
                                           dm.train_batches(epoch=0, augment=False))
-        if self.save_checkpoints:  # blocking, after the pending write
+        if self.writes_checkpoints:  # blocking, after the pending write
             checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state, "final",
                                             self.saver)
+        self._barrier()
         t_test = time.perf_counter()
         results = self._run_test(task_id, ctx, eval_step, put_batch)
         t_done = time.perf_counter()
@@ -440,7 +487,8 @@ class Trainer:
                            device=self.device)
         conf_aux = torch.zeros((2, 2), dtype=torch.int32, device=self.device)
         losses, weights, aux_stats = [], [], []
-        for batch in dm.eval_batches(d):
+        for batch in dm.eval_batches(d, n_devices=self.n_devices,
+                                     rank=self.rank if self.group is not None else None):
             # padded tail batches count only their real samples
             # (reference: PL batch-size weighting)
             weights.append(batch.pop("n_real"))
@@ -554,8 +602,14 @@ class Trainer:
                 self.per_step_metric.update(results)
         finally:
             self.saver.wait()
+        self._barrier()
         self._log_final_results()
         return self.per_step_metric.final_miou
+
+    def _barrier(self):
+        """Every rank waits here for the others (rank 0's writes)."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def _log_final_results(self):
         """(reference: trainer.py:352-369 `_log_final_results`)."""

@@ -6,7 +6,10 @@ background detector is on (reference: training/ood_model.py): the
 detector's max seen-probability, thresholded at 0.5, is a binary fg/bg
 prediction scored against the fg/bg ground truth (a 2-class confusion
 matrix on the device), with the seen-probability's mean and variance over
-the background, foreground, current-task and old-class pixels.  The OOD
+the background, foreground, current-task and old-class pixels.  With the
+context's process group each rank scores its slice of the batch and the
+matrix and the statistics' sums are summed across the ranks, so they are
+the global batch's, as the JAX step computes them on the sharded batch.  The OOD
 dataset pass (``ood_test``) is ROADMAP.md queue 1 item 14 and raises.
 """
 
@@ -19,6 +22,7 @@ import torch
 
 from bacs_tpu_torch.methods.base import ModelContext
 from bacs_tpu_torch.ops.confusion import confusion_matrix, iou_from_confusion
+from bacs_tpu_torch.parallel import all_reduce_
 
 
 @torch.no_grad()
@@ -35,14 +39,18 @@ def aux_bg_step(ctx: ModelContext, state, batch: Dict[str, torch.Tensor],
                                        task.task_id + 1).amax(dim=-1)
     target = torch.where(mask == ignore, ignore, (mask != 0).to(mask.dtype))
     preds = (seen_prob > 0.5).to(torch.int32)
-    conf2 = conf2 + confusion_matrix(preds, target, 2, ignore_index=ignore)
+    group = ctx.group
+    conf2 = conf2 + all_reduce_([confusion_matrix(preds, target, 2, ignore_index=ignore)],
+                                group, mean=False)[0]
 
     def _stats(sel):
         sel = sel.float()
-        cnt = torch.clamp(sel.sum(), min=1.0)
-        mean = (seen_prob * sel).sum() / cnt
-        var = (torch.square(seen_prob - mean) * sel).sum() / cnt
-        return mean, var
+        total, count = all_reduce_([torch.stack([(seen_prob * sel).sum(), sel.sum()])],
+                                   group, mean=False)[0]
+        cnt = torch.clamp(count, min=1.0)
+        mean = total / cnt
+        sq = all_reduce_([(torch.square(seen_prob - mean) * sel).sum()], group, mean=False)[0]
+        return mean, sq / cnt
 
     stats = {}
     stats["bg_prob_mean"], stats["bg_prob_var"] = _stats(target == 0)

@@ -165,6 +165,16 @@ def make_optimizer(
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
 
+def zero_missing_grads(optimizer: torch.optim.Optimizer) -> list:
+    """The optimizer's parameters, each whose ``.grad`` is None given a
+    zero one (see :func:`apply_updates`)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return params
+
+
 def apply_updates(
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
@@ -179,10 +189,7 @@ def apply_updates(
     their running mean and only every k-th call goes on, with the mean in
     ``.grad``.  Then: clip by value, step the optimizer, advance the
     schedule."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    params = zero_missing_grads(optimizer)
     head = optimizer.param_groups[0]
     k = head.get("accumulate_steps", 1)
     if k > 1:

@@ -1,8 +1,8 @@
-"""Train and eval step factory on one device.
+"""Train and eval step factory, on one device or data-parallel over ranks.
 
 Port of ``bacs_tpu/train/step.py`` (``_train_step_impl``,
-``_eval_step_impl`` and ``make_steps`` without a mesh, ``:27-122``).  The
-JAX steps are pure jitted functions over a donated state; here the network,
+``_eval_step_impl`` and ``make_steps``, ``:27-122,175-230``).  The JAX
+steps are pure jitted functions over a donated state; here the network,
 its ABN statistics and the optimizer are updated in place and the same
 state object is returned.
 
@@ -24,27 +24,61 @@ state object is returned.
 - ``put_batch(batch) -> batch``: the image (float NHWC) and label (int
   [N, H, W]) arrays as contiguous tensors on the step's device.
 
+Data parallelism (the JAX ``shard_map`` over the ``data`` mesh axis) is
+the context's process ``group`` (``parallel/``): each rank gets its
+contiguous slice of the global batch, and the steps do what JAX's
+collectives do.  The synchronized norms reduce their statistics across
+the ranks (``parallel.synchronized``), the prototype folds sum theirs, and
+each rank draws from its own generator (``parallel.rank_generator``; JAX
+folds the rank into the step's key).  After the backward one collective
+averages the gradients, the loss and the running statistics
+(``step.py:45-50``): each rank's loss is the mean over its own shard, so
+the loss is the mean of the shard means, not the global batch's mean
+where shards hold different counts of ignored pixels.  A parameter the
+loss did not reach counts as a zero gradient on every rank, so the
+update that follows (clip after the average, as optax runs after
+``pmean``; under accumulation each mini-step's average joins the running
+mean) is the same everywhere.  The eval step sums the confusion matrices
+and averages the loss.
+
 On the card every step runs the hand-written kernels: in training the
 train-ABN apply and, by method, the upsample+CE forward and backward (CE,
 K1) or the BACS seen-weighted and class-weighted upsample+CE forward and
 backward (BACS at task > 0, K3 and K4, ``ops/upsample_ce.py``) with the
 previous model's eval ABN; in evaluation the eval ABN, the upsample+CE
-forward and the confusion kernel.  Multi-device steps (the JAX mesh path,
-``make_gspmd_steps``) are ROADMAP.md queue 1 item 10; ``_multi_step_impl``
-only hides the TPU host's dispatch cost and is not ported.
+forward and the confusion kernel.  GSPMD's spatial partitioning
+(``make_gspmd_steps``) and ``_multi_step_impl`` (which only hides the
+TPU host's dispatch cost) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
 from bacs_tpu_torch.methods.base import Method, ModelContext
 from bacs_tpu_torch.ops.confusion import confusion_matrix
 from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
-from bacs_tpu_torch.train.optim import apply_updates
+from bacs_tpu_torch.parallel import all_reduce_, rank_generator, synchronized
+from bacs_tpu_torch.train.optim import apply_updates, zero_missing_grads
 from bacs_tpu_torch.train.state import TrainState
+
+
+def running_stats(model: torch.nn.Module):
+    """The network's running statistics (the JAX ``batch_stats``)."""
+    return [b for name, b in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))]
+
+
+def _average_across_ranks(state: TrainState, loss: torch.Tensor, group) -> torch.Tensor:
+    """Average the gradients (a missing one as zeros), the loss and the
+    running statistics across ``group`` in one collective per dtype;
+    returns the averaged loss."""
+    params = zero_missing_grads(state.optimizer)
+    loss = loss.detach().clone()
+    all_reduce_([p.grad for p in params] + running_stats(state.model) + [loss], group)
+    return loss
 
 
 def _train_step_impl(
@@ -53,15 +87,19 @@ def _train_step_impl(
     state: TrainState,
     batch: Dict[str, torch.Tensor],
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    group = ctx.group
     state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = method.compute_loss(ctx, state, batch, True, state.generator)
-    loss.backward()
+    with synchronized(group):
+        loss, aux = method.compute_loss(ctx, state, batch, True,
+                                        rank_generator(state.generator, group))
+        loss.backward()
+    loss = loss.detach() if group is None else _average_across_ranks(state, loss, group)
     apply_updates(state.optimizer, state.scheduler)
     for field, value in aux.state_updates.items():
         setattr(state, field, value)
     state.step += 1
     state.epoch_step += 1
-    return state, {"loss": loss.detach()}
+    return state, {"loss": loss}
 
 
 @torch.no_grad()
@@ -82,6 +120,10 @@ def _eval_step_impl(
     else:
         cm = confusion_matrix(aux.logits.argmax(dim=-1), labels, num_classes,
                               ignore_index=method.ignore_index)
+    if ctx.group is not None:
+        loss = loss.detach().clone()
+        all_reduce_([cm], ctx.group, mean=False)
+        all_reduce_([loss], ctx.group)
     conf_mat += cm
     return conf_mat, loss
 
@@ -90,18 +132,16 @@ def make_steps(
     ctx: ModelContext,
     method: Method,
     num_classes: int,
-    mesh: Optional[Any] = None,
     device: str | torch.device = "cuda",
 ) -> Tuple[Callable, Callable, Callable]:
-    """Build (train_step, eval_step, put_batch) for one task on ``device``.
+    """Build (train_step, eval_step, put_batch) for one task on ``device``,
+    data-parallel over ``ctx.group`` when it is set.
 
     The optimizer lives in the ``TrainState`` (torch optimizers hold their
-    parameters), so unlike the JAX factory this one takes no ``tx``.
-    Asking for CUDA where torch sees none raises; nothing falls back to the
-    CPU.
+    parameters), so unlike the JAX factory this one takes no ``tx``; the
+    JAX ``mesh`` is the context's group.  Asking for CUDA where torch sees
+    none raises; nothing falls back to the CPU.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device steps are ROADMAP.md queue 1 item 10")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

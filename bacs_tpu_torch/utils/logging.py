@@ -3,8 +3,8 @@
 Port of ``bacs_tpu/utils/logging.py``: the same lines, ``[<seconds>s]
 <message>``, with metrics as one JSON object per call in the reference's
 metric namespace.  Neither machine the port runs on has Weights & Biases,
-so a config's ``wandb`` block is not read; one process logs (multi-GPU
-runs are ROADMAP.md queue 1 item 10).
+so a config's ``wandb`` block is not read.  In a data-parallel run only
+rank 0 logs (``enabled``).
 """
 
 from __future__ import annotations
@@ -15,10 +15,13 @@ from typing import Dict
 
 
 class Logger:
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
         self._t0 = time.time()
+        self.enabled = enabled
 
     def info(self, msg: str):
+        if not self.enabled:
+            return
         dt = time.time() - self._t0
         print(f"[{dt:8.1f}s] {msg}", flush=True)
 

@@ -25,8 +25,11 @@ same file, and these rules hold as they do there:
   heads are concatenated into the padded head.
 
 A tensor whose shape does not match its target is skipped, as in JAX (the
-count says how many were taken).  The atrous backbone's layout
-(``backbone.layer1.*``) raises: that encoder is ROADMAP.md queue 1 item 2.
+count says how many were taken).  A DeepLabV3 state dict with the SDR
+atrous backbone (``backbone.layer1.*``) takes that layout's converter
+(``_convert_atrous``), and every norm scale of it, the head's too, is a
+plain BatchNorm2d's, signed (``bacs_tpu/utils/torch_weights.py:127-190,
+246-249``).
 """
 
 from __future__ import annotations
@@ -237,12 +240,42 @@ def export_backbone_release(variables: Mapping[str, Tree], path: str,
 
 
 def _backbone_sd(sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    bb = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
-    if any(k.startswith("layer1.") for k in bb):
-        raise NotImplementedError(
-            "a reference state dict with the atrous backbone (backbone.layer1.*): the "
-            "atrous encoder is ROADMAP.md queue 1 item 2")
-    return bb
+    return {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+
+
+def _convert_atrous(sd: Mapping[str, np.ndarray], params: Tree, batch_stats: Tree):
+    """The SDR ResNet_Atrous keys (``conv1``, ``bn1``, ``layer{s}.{b}.conv{i}``
+    / ``bn{i}``, ``downsample.0`` / ``.1``; reference: networks/resnet_atrous.py)
+    onto the ``layer{s}_block{b+1}`` tree, the norm scales signed:
+    (params, batch_stats, count)."""
+    params, batch_stats = _clone(params), _clone(batch_stats)
+    bb_p = params.get("backbone", {})
+    bb_s = batch_stats.get("backbone", {})
+    loaded = 0
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "conv1" and parts[-1] == "weight":
+            loaded += _set_leaf(bb_p, ["conv1", "kernel"], _to_flax_conv(value))
+        elif parts[0] == "bn1":
+            loaded += _set_norm(bb_p, bb_s, ["bn1"], parts[1], value, magnitude=False)
+        elif parts[0].startswith("layer"):
+            mod = f"{parts[0]}_block{int(parts[1]) + 1}"
+            layer = parts[2]
+            if layer.startswith("conv") and parts[-1] == "weight":
+                loaded += _set_leaf(bb_p, [mod, layer, "kernel"], _to_flax_conv(value))
+            elif layer.startswith("bn"):
+                loaded += _set_norm(bb_p, bb_s, [mod, layer], parts[3], value,
+                                    magnitude=False)
+            elif layer == "downsample":
+                # downsample.0 is the 1x1 conv, downsample.1 its BatchNorm2d
+                if parts[3] == "0" and parts[-1] == "weight":
+                    loaded += _set_leaf(bb_p, [mod, "downsample_conv", "kernel"],
+                                        _to_flax_conv(value))
+                elif parts[3] == "1":
+                    loaded += _set_norm(bb_p, bb_s, [mod, "downsample_bn"], parts[4], value,
+                                        magnitude=False)
+    params["backbone"], batch_stats["backbone"] = bb_p, bb_s
+    return params, batch_stats, loaded
 
 
 def convert_reference_deeplab(sd: Mapping[str, np.ndarray], variables: Mapping[str, Tree]):
@@ -254,8 +287,10 @@ def convert_reference_deeplab(sd: Mapping[str, np.ndarray], variables: Mapping[s
     # BNReLUAct wraps a BatchNorm2d in a `.bn` submodule
     # (reference: deeplab_v3.py:308-332): that level collapses
     sd = {k.replace("_bn.bn.", "_bn."): v for k, v in sd.items()}
-    params, batch_stats, loaded = _convert(
-        _backbone_sd(sd), variables["params"], variables.get("batch_stats", {}))
+    backbone = _backbone_sd(sd)
+    atrous = any(k.startswith("layer1.") for k in backbone)
+    params, batch_stats, loaded = (_convert_atrous if atrous else _convert)(
+        backbone, variables["params"], variables.get("batch_stats", {}))
     hd_p = params.get("base_classifier", {})
     hd_s = batch_stats.get("base_classifier", {})
     det_p = params.get("seen_fg_network", {})
@@ -271,7 +306,9 @@ def convert_reference_deeplab(sd: Mapping[str, np.ndarray], variables: Mapping[s
             elif parts[1].endswith("_conv") and parts[2] == "weight":
                 loaded += _set_leaf(hd_p, [parts[1], "kernel"], _to_flax_conv(value))
             elif parts[1].endswith("_bn"):
-                loaded += _set_norm(hd_p, hd_s, [parts[1]], parts[2], value)
+                # the atrous model's head norms are BatchNorm2d's too: signed
+                loaded += _set_norm(hd_p, hd_s, [parts[1]], parts[2], value,
+                                    magnitude=not atrous)
         elif parts[0] == "classifier_head":
             # one conv (classifier_head.weight) or a ModuleList (.<t>.weight)
             idx = 0 if parts[1] in ("weight", "bias") else int(parts[1])

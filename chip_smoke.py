@@ -180,7 +180,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    train-ABN and 104 K5 a step);
 35. ``conf/experiments/bacs_transformer_config`` through
    ``bacs_tpu_torch.main.train`` in-process with [24]'s synthetic source
-   (120 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
+   (96 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
    the class counts checked at every boundary, a finite final mIoU, the
    seconds per task and the launches;
 36. VOC and weights, DeepLabV3-RN101 at 512^2 in bf16: a VOC tree (48 train,
@@ -190,12 +190,12 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    against the file tensor by tensor; ``python -m bacs_tpu_torch.main`` on
    ``conf/bacs`` (the detector, BACS+, 2 tasks, 2 decode workers) in a
    subprocess: the loaded count equals the file's, K3 and K4 launched at task
-   1; ``python -m bacs_tpu_torch.predict`` on its checkpoint over 8 of the
-   tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in f32 on the
+   1; the predict command line (``bacs_tpu_torch.predict.main``, in this
+   process) on its checkpoint over 8 of the tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in f32 on the
    card and on the CPU over them (the share of pixels that differ, within
    ``SERVE_PIXEL_TOL``); a reference-layout DeepLabV3 checkpoint of seeded
-   values (``reference_deeplab_shapes``) through ``python -m
-   bacs_tpu_torch.import_ckpt --populate-buffer``, then resumed at task 1 on
+   values (``reference_deeplab_shapes``) through the ``import_ckpt``
+   command line's ``main --populate-buffer`` (in this process), then resumed at task 1 on
    the card; then the decode pool's host img/s at 0, 2 and 4 workers;
 37. ADE20K at 151 classes: an ADE tree (36 train, 16 validation images),
    ``conf/experiments/joint`` (DeepLabV3-RN101, CE, batch 12, bf16) through
@@ -216,6 +216,33 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    device busy, median wall, idle share and peak memory of each turn, and
    per step the launches (K3 and K4 each way: 1 and 1, 1 and 1 merged, 1
    and 0 with mixup; no K1; 321, 214 merged, train-ABN forwards; 107 K5);
+40. data parallelism through ``bacs_tpu_torch.parallel``: two gloo ranks on
+   the one card (NCCL refuses two ranks per device; gloo carries CUDA
+   tensors), spawned after the build above, each with 4 images of a global
+   batch of 8 at 512^2, DeepLabV3-RN101 at its full width with the fused
+   stem and the synchronized norm: an f32 CE step (TF32 off, labels with no
+   255, identity activations) whose loss, confusion matrix and averaged
+   gradients are held to one process's step on the global batch of 8 (loss
+   within 1e-4, matrices equal, each rank's gradients per tensor to 1e-4 of
+   the tensor's largest value, each ABN's scale and bias joined); then bf16 CE steps (per step and rank 1 K1 and 1 K12 each way,
+   106 train-ABN), the collectives a step and the time of the gradient
+   all-reduce alone, eval steps (107 K5, 1 K1 forward, 1 K2; the summed
+   matrix counts every valid pixel), task-1 BACS steps after task 0's
+   ``end_task`` at 4 + 2 x 4 a rank (1 K3 and 1 K4 each way, 321
+   train-ABN, 107 K5; the prototypes equal on the ranks), and one step in
+   a world-1 NCCL group; before the ranks, a ``Predictor`` with two
+   replicas on the card, bit-equal to one (1 K10 a replica).  A rank's
+   failure fails the run;
+41. the non-fused norms: DeepLabV3-RN101 with the SDR atrous encoder
+   (output stride 16: the synchronized ``bn``, BN + ReLU layers on the
+   non-fused branch beside the identity ones on K5's train apply) and
+   DeepLabV3-RN101 with ``network.fused_abn=false`` (every train norm
+   non-fused): one eval step and one f32 CE train step each at 8 x 128^2
+   on the card and on the CPU (TF32 off), with identity activations (for
+   the atrous blocks also no ReLU after the add) and with the configured
+   ones, held as phase 8, with the card's launches per step asserted
+   (train: 1 K1 each way, one train-ABN apply per identity norm, none for
+   ``fused_abn=false``; eval: 1 K5 per norm, 1 K1 forward, 1 K2);
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -231,7 +258,7 @@ Every profiled window logs the card's SM clock over it (``[clock]``,
 ``nvidia-smi`` sampling), beside the busy time it gives.
 
 ``--transeg`` only builds and runs phases [33]-[35], ``--real-data``
-phases [36]-[38].
+phases [36]-[38], ``--ddp`` phases [40] and [41].
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -747,7 +774,8 @@ def seeded_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
 
     model = create_network(cfg["_target_"], N_CLASSES, norm=cfg["norm"],
                            backbone=cfg["backbone"], n_tasks=N_TASKS,
-                           use_bg_detector=use_bg_detector).eval()
+                           use_bg_detector=use_bg_detector,
+                           atrous_encoder=bool(cfg.get("atrous_encoder"))).eval()
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for k, t in model.state_dict().items():
@@ -862,7 +890,7 @@ def load_yaml(path: str) -> dict:
 
 # the network config keys create_network reads
 NET_KEYS = ("norm", "backbone", "n_channels", "bilinear", "num_layers", "remat",
-            "transformer")
+            "transformer", "atrous_encoder", "output_stride", "fused_abn")
 
 
 def train_state(cfg, params, stats, dtype, device, smooth=False, fused_stem=False,
@@ -1356,7 +1384,7 @@ BACS_OPTIONS = {"pseudo_label": dict(pseudo_label=True, bg_weighted_ce=False),
 OPTION_TURNS = (("two forwards", {}), ("merged_replay", dict(merged_replay=True)),
                 ("merged_replay", dict(merged_replay=True)), ("two forwards", {}),
                 ("mixup", dict(mixup=True)))
-OPTION_STEPS, OPTION_FILL_BATCHES = 3, 4
+OPTION_STEPS, OPTION_FILL_BATCHES = 2, 2  # 3 and 4 before phase [40] came
 # per step of each turn: (K3, K4, K1) launches each way, train-ABN forwards
 OPTION_LAUNCHES = {"two forwards": (1, 1, 0, TRAIN_ABN_PER_BACS_STEP),
                    "merged_replay": (1, 1, 0, 2 * ABN_PER_FORWARD),
@@ -2463,11 +2491,12 @@ TRANSEG_YAML = "conf/experiments/network/deep_lab_transformer.yaml"
 TRANSEG_CONFIG = ("conf/experiments", "bacs_transformer_config")
 TRANSEG_ABN = ABN_PER_FORWARD - 3  # DeepLabV3's less the ASPP's 3: the backbone's
 TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 4, 4
-# [35] the protocol through the CLI on [24]'s synthetic source cut to 120
-# training images (every task keeps some; the run's time), no checkpoints
+# [35] the protocol through the CLI on [24]'s synthetic source cut to 96
+# training images (every task keeps 8 or more; the run's time: 120 before
+# phase [40] came), no checkpoints
 TRANSEG_OVERRIDES = ["+network.fused_stem=true",
                      "dataset._target_=dataloaders.SyntheticDataModule",
-                     "+dataset.dataset.n_train=120", "+dataset.dataset.n_val=48",
+                     "+dataset.dataset.n_train=96", "+dataset.dataset.n_val=48",
                      "+training.steps_per_class=1", "training.epochs=1",
                      "~training.ckpt_dir"]
 
@@ -3777,6 +3806,23 @@ def run_counted(module: str, args: list, log_path: str, timeout: int = 600) -> t
     return res.stdout, json.loads(line[len("LAUNCHES "):])
 
 
+def run_here(main_fn, label: str, args: list, log_path: str, reset_counts, counts) -> tuple:
+    """Call a command line's ``main(argv)`` in this process (the program's
+    own entry point, as ``python -m`` calls it, without a second process's
+    start: torch's import, the kernels' load and Triton's compiles), its
+    standard output to ``log_path``; returns (that output, its launches)."""
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        main_fn(args)
+    launches = counts()
+    with open(log_path, "w") as f:
+        f.write(buf.getvalue())
+    log(f"[36] {label}, in this process: {time.perf_counter() - t0:.1f} s (log {log_path})")
+    return buf.getvalue(), launches
+
+
 def release_to_port_key(key: str) -> str:
     """The port's state_dict key of a release backbone key."""
     import re
@@ -3823,15 +3869,17 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     """[36] the VOC leg: a VOC tree and a release backbone file, the
     backbone's load checked tensor by tensor on the card, the protocol
     through ``python -m bacs_tpu_torch.main`` (2 decode workers), its
-    checkpoint served through ``python -m bacs_tpu_torch.predict`` and by
+    checkpoint served through the predict command line's ``main`` and by
     ``Predictor.from_checkpoint`` in f32 on the card and on the CPU, then a
-    reference-layout checkpoint imported with ``python -m
-    bacs_tpu_torch.import_ckpt`` and resumed on the card."""
+    reference-layout checkpoint imported with the ``import_ckpt`` command
+    line's ``main`` and resumed on the card (the two ``main``s in this
+    process: a process of their own costs ~35 s of start-up)."""
     import glob
     import re
     import shutil
     from unittest import mock
 
+    from bacs_tpu_torch import import_ckpt, predict
     from bacs_tpu_torch import main as cli
     from bacs_tpu_torch.config import load_config
     from bacs_tpu_torch.data.layouts import generate_voc
@@ -3898,15 +3946,14 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     images = sorted(glob.glob(os.path.join(root, "VOCdevkit", "VOC2012", "JPEGImages",
                                            "synth_va_*.jpg")))[:PREDICT_IMAGES]
     masks_dir = os.path.join(base, "masks")
-    _, pl = run_counted("bacs_tpu_torch.predict", [
+    _, pl = run_here(predict.main, "bacs_tpu_torch.predict.main", [
         "--config-path", "conf/bacs", "--config-name", "bacs_plus_config", "--checkpoint",
         ckpt, "--images", *images, "--out", masks_dir, *overrides],
-        os.path.join(base, "predict.log"))
+        os.path.join(base, "predict.log"), reset_counts, counts)
     written = sorted(os.listdir(masks_dir))
-    assert len(written) == PREDICT_IMAGES and pl["last"]["k10"] >= 1, (written, pl["last"])
-    log(f"[36] python -m bacs_tpu_torch.predict: {len(written)} masks written, launches "
-        f"{pl['last']}")
-    out["predict_launches"] = pl["last"]
+    assert len(written) == PREDICT_IMAGES and pl["k10"] >= 1, (written, pl)
+    log(f"[36] bacs_tpu_torch.predict: {len(written)} masks written, launches {pl}")
+    out["predict_launches"] = pl
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
@@ -3926,10 +3973,10 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     sd = tw.seeded_state_dict(shapes, seed + 37)
     ref_ckpt, imported = os.path.join(base, "final.ckpt"), os.path.join(base, "imported")
     torch.save({"state_dict": {f"network.{k}": v for k, v in sd.items()}}, ref_ckpt)
-    stdout, _ = run_counted("bacs_tpu_torch.import_ckpt", [
+    stdout, _ = run_here(import_ckpt.main, "bacs_tpu_torch.import_ckpt.main", [
         "--ckpt", ref_ckpt, "--config-path", "conf/bacs", "--config-name",
         "bacs_plus_config", "--out", imported, "--populate-buffer", *overrides],
-        os.path.join(base, "import.log"))
+        os.path.join(base, "import.log"), reset_counts, counts)
     m = re.search(r"imported (\d+)/(\d+) tensors", stdout)
     assert m and m.group(1) == m.group(2) == str(len(shapes)), (m and m.group(0), len(shapes))
     resumed = load_config("conf/bacs", "bacs_plus_config",
@@ -4218,6 +4265,384 @@ def real_data_main(args) -> int:
 # ---------------------------------------------------------------- main
 
 
+# [40] data parallelism on the card: two gloo ranks on the one H100 (NCCL
+# refuses two ranks on one device; gloo carries CUDA tensors), each with 4
+# of a global batch of 8 at 512^2, through the port's own group, steps and
+# norms (``bacs_tpu_torch.parallel``): an f32 CE step on labels without
+# ignored pixels held to one process's step on the global batch (there the
+# mean of the two shard means is the global mean), then bf16 CE steps with
+# the fused stem, eval steps and task-1 BACS steps after task 0's
+# ``end_task``, with every launch counted on each rank, and one step in a
+# world-1 NCCL group
+DDP_RANKS, DDP_PER_RANK, DDP_STEPS = 2, 4, 2
+DDP_BACS_METHOD = {**BACS_METHOD, "replay_minibatch_size": DDP_PER_RANK}
+DDP_GLOBAL = DDP_RANKS * DDP_PER_RANK
+# [40]'s per-step launches: CE (K1 each way, K12 each way, the other 106
+# train ABNs), eval (107 K5, K1 forward, K2), BACS (K3 and K4 each way, 321
+# train ABNs, 107 K5 for the previous model)
+DDP_CE_LAUNCHES = dict(k1f=1, k1b=1, k12f=1, k12b=1, train_abn=ABN_PER_FUSED_STEM_FORWARD)
+DDP_EVAL_LAUNCHES = dict(k5=ABN_PER_FORWARD, k1f=1, k2=1)
+DDP_BACS_LAUNCHES = dict(k3f=1, k3b=1, k4f=1, k4b=1, train_abn=TRAIN_ABN_PER_BACS_STEP,
+                         k5=ABN_PER_FORWARD)
+
+
+def ddp_rank(group, dev, cfg, seed) -> dict:
+    """[40] on one rank; returns its launches, losses and timings.  Any
+    failed check raises, and the phase with it."""
+    import torch.distributed as dist
+
+    from bacs_tpu_torch import parallel
+    from bacs_tpu_torch.methods import ModelContext, create_method
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.train.step import make_steps, running_stats
+
+    reset_counts, counts = launch_counters()
+    rank = parallel.rank(group)
+    lo, hi = parallel.rank_rows(DDP_GLOBAL, parallel.world_size(group),
+                                parallel.rank(group))
+    out = {"rank": rank, "launches": {}}
+    params, stats = seeded_variables(cfg, seed)
+    task0 = TaskInfo(task_id=0, initial_classes=N_CLASSES, increment=0, num_classes=N_CLASSES)
+    ce = create_method("loss.CrossEntropy")
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+
+    def zeros():
+        return torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=dev)
+
+    def add(total):
+        for k, v in counts().items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+        reset_counts()
+
+    # (a) f32 without TF32, no ignored pixel, identity activations: two
+    # ranks against one process, the averaged gradients on each rank
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    glob = synthetic_batch(DDP_GLOBAL, CROP, gen, dev)
+    glob["label"] = torch.where(glob["label"] == 255, 0, glob["label"])
+    smooth = seeded_variables(cfg, seed, smooth=True)
+
+    def f32_step(group_, rows):
+        state = train_state(cfg, *smooth, torch.float32, dev, smooth=True, fused_stem=True)
+        train_step, eval_step, _ = make_steps(ModelContext(task0, group=group_), ce,
+                                              N_CLASSES, device=dev)
+        b = {k: v[rows].contiguous() for k, v in glob.items()}
+        cm, _ = eval_step(state, zeros(), b)
+        state, metrics = train_step(state, b)
+        # .grad after the step: averaged across the group, as the update read it
+        grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+        del state
+        torch.cuda.empty_cache()
+        return float(metrics["loss"]), cm.cpu(), grads
+
+    reset_counts()
+    loss2, cm2, g2 = f32_step(group, slice(lo, hi))
+    add({})
+    flat = torch.empty(sum(g.numel() for g in g2.values()), device=dev)
+    if rank == 0:
+        loss1, cm1, g1 = f32_step(None, slice(None))
+        reset_counts()
+        flat = torch.cat([g1[k].flatten() for k in g2])
+        del g1
+        rel = abs(loss2 - loss1) / abs(loss1)
+        cm_diff = int((cm2 - cm1).abs().sum())
+        out["f32"] = dict(loss2=loss2, loss1=loss1, rel=rel, cm_diff=cm_diff,
+                          valid=int((glob["label"] != 255).sum()), cm_sum=int(cm2.sum()))
+        assert rel <= 1e-4, (loss2, loss1)
+        assert cm_diff == 0, cm_diff
+    dist.broadcast(flat, 0, group=group)  # one process's gradients to every rank
+    g1 = {k: t.view_as(g2[k]) for k, t in zip(g2, flat.split([g.numel() for g in g2.values()]))}
+    # as hold_step's identity case: per tensor, each ABN's scale and bias joined
+    grad_rel, grad_worst = max_rel_error(abn_joined(g2), abn_joined(g1))
+    out["f32_grads"] = dict(rel=grad_rel, worst=grad_worst, norm=norm_error(g2, g1))
+    assert grad_rel <= 1e-4, (grad_rel, grad_worst)
+    dist.barrier(group)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del g1, g2, flat
+    torch.cuda.empty_cache()
+
+    # (b) bf16 CE steps with the fused stem, their collectives, eval steps
+    state = train_state(cfg, params, stats, torch.bfloat16, dev, fused_stem=True)
+    ctx = ModelContext(task0, group=group)
+    train_step, eval_step, _ = make_steps(ctx, ce, N_CLASSES, device=dev)
+    batches = [{k: v[lo:hi].contiguous() for k, v in synthetic_batch(
+        DDP_GLOBAL, CROP, gen, dev).items()} for _ in range(DDP_STEPS + 1)]
+    float(train_step(state, batches[0])[1]["loss"])  # warm-up
+    reset_counts()
+    parallel.counters.update(calls=0, bytes=0)
+    losses, walls, total = [], [], {}
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))  # a host read: synchronises
+        walls.append(1000 * (time.perf_counter() - t0))
+    add(total)
+    per_step = {k: v / DDP_STEPS for k, v in total.items() if v}
+    assert per_step == {k: float(v) for k, v in DDP_CE_LAUNCHES.items()}, per_step
+    assert all(np.isfinite(losses)), losses
+    out["ce"] = dict(losses=losses, wall_ms=float(np.median(walls)), per_step=per_step,
+                     collectives=parallel.counters["calls"] / DDP_STEPS,
+                     collective_mib=parallel.counters["bytes"] / DDP_STEPS / 2**20)
+    # the step's averaging collective alone: gradients, loss, running statistics
+    params_ = [p for g in state.optimizer.param_groups for p in g["params"]]
+    tensors = [p.grad for p in params_] + running_stats(state.model)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.all_reduce_(tensors, group)
+        torch.cuda.synchronize()
+        times.append(1000 * (time.perf_counter() - t0))
+    out["ce"]["grad_all_reduce_ms"] = float(np.median(times))
+    out["ce"]["grad_all_reduce_mib"] = sum(t.numel() * t.element_size() for t in tensors) / 2**20
+    cm, total = zeros(), {}
+    for b in batches:
+        cm, loss = eval_step(state, cm, b)
+        assert np.isfinite(float(loss))
+    add(total)
+    per_eval = {k: v / len(batches) for k, v in total.items() if v}
+    assert per_eval == {k: float(v) for k, v in DDP_EVAL_LAUNCHES.items()}, per_eval
+    valid = torch.tensor([sum(int((b["label"] != 255).sum()) for b in batches)], device=dev)
+    parallel.all_reduce_([valid], group, mean=False)
+    assert int(cm.sum()) == int(valid), (int(cm.sum()), int(valid))
+    out["eval"] = dict(per_step=per_eval, counted=int(cm.sum()))
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) task-1 BACS steps after task 0's end_task (run alike on every rank)
+    state, _, t_end, gen_b = bacs_after_task0(cfg, seed, dev, fill_batches=1)
+    ctx1 = ModelContext(TaskInfo(task_id=1, **BACS_TASK), group=group)
+    method1 = create_method("loss.BACSLoss", **DDP_BACS_METHOD)
+    train1, _, _ = make_steps(ctx1, method1, N_CLASSES, device=dev)
+    batches = [{k: v[lo:hi].contiguous() for k, v in synthetic_batch(
+        DDP_GLOBAL, CROP, gen_b, dev, 17).items()} for _ in range(DDP_STEPS + 1)]
+    float(train1(state, batches[0])[1]["loss"])
+    reset_counts()
+    losses, walls, total = [], [], {}
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train1(state, b)
+        losses.append(float(metrics["loss"]))
+        walls.append(1000 * (time.perf_counter() - t0))
+    add(total)
+    per_step = {k: v / DDP_STEPS for k, v in total.items() if v}
+    assert per_step == {k: float(v) for k, v in DDP_BACS_LAUNCHES.items()}, per_step
+    assert all(np.isfinite(losses)), losses
+    # the prototype folds summed across the ranks: identical on both
+    protos = state.prototypes.clone()
+    spread = protos.clone()
+    parallel.all_reduce_([spread], group)
+    assert torch.equal(spread, protos)
+    out["bacs"] = dict(losses=losses, wall_ms=float(np.median(walls)), per_step=per_step,
+                       end_task_s=t_end, proto_counts=state.proto_counts.tolist())
+    del state
+    torch.cuda.empty_cache()
+
+    # (d) one step in a world-1 NCCL group (every rank takes part in making it)
+    nccl = dist.new_group(ranks=[0], backend="nccl")
+    if rank == 0:
+        state = train_state(cfg, params, stats, torch.bfloat16, dev, fused_stem=True)
+        step, _, _ = make_steps(ModelContext(task0, group=nccl), ce, N_CLASSES, device=dev)
+        b = {k: v[:DDP_PER_RANK].contiguous() for k, v in glob.items()}
+        loss = float(step(state, b)[1]["loss"])
+        add({})
+        assert np.isfinite(loss) and dist.get_backend(nccl) == "nccl"
+        out["nccl"] = dict(loss=loss)
+        del state
+    dist.barrier(group)
+    return out
+
+
+def ddp_serving(cfg, params, stats, seed, dev) -> int:
+    """[40] ``Predictor`` with two replicas, both on the one card
+    (``devices``; ``n_devices=2`` would take a second card), each serving
+    its half of a batch of 16: masks and confidences bit-equal to one
+    replica serving the two halves in turn (the same convolutions; a batch
+    of 16 at once may choose other algorithms); returns its K10
+    launches."""
+    from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
+    from bacs_tpu_torch.serve import Predictor
+
+    one = make_predictor(cfg, params, stats, torch.bfloat16, dev)
+    two = Predictor(cfg, N_CLASSES, params, stats, crop_size=CROP, dtype=torch.bfloat16,
+                    device=dev, devices=[dev, dev])
+    imgs = np.random.RandomState(seed + 41).randint(0, 256, (BATCH, CROP, CROP, 3)).astype(
+        np.uint8)
+    halves = [one.predict(h) for h in np.split(imgs, 2)]
+    p1, c1 = (np.concatenate([h[i] for h in halves]) for i in (0, 1))
+    before = upsampled_argmax_conf.launches
+    p2, c2 = two.predict(imgs)
+    launches = upsampled_argmax_conf.launches - before
+    assert launches == 2, launches
+    assert np.array_equal(p1, p2) and np.array_equal(c1, c2)
+    log(f"[40] Predictor with two replicas on the card, batch {BATCH}: masks and "
+        f"confidences bit-equal to one replica's on the halves, {launches} K10 launches "
+        "(one a replica)")
+    del one, two
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ddp_phase(cfg, params, stats, seed, dev) -> dict:
+    """[40] two gloo ranks on the card (the kernels built above, in this
+    process, so the ranks load them and do not race to build); logs and
+    returns their launches, summed over the ranks, and the Predictor's
+    replicas'."""
+    from bacs_tpu_torch import parallel
+
+    k10 = ddp_serving(cfg, params, stats, seed, dev)
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(ddp_rank, DDP_RANKS, (cfg, seed), device="cuda:0",
+                           backend="gloo", threads=4)
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    f = r0["f32"]
+    log(f"[40] f32 CE step, RN101 {CROP}^2, fused stem, TF32 off, identity activations, "
+        f"labels without 255: two gloo ranks of {DDP_PER_RANK} loss {f['loss2']:.7f} against "
+        f"one process at batch {DDP_GLOBAL} {f['loss1']:.7f} (rel {f['rel']:.2e}; limit "
+        f"1e-4); confusion matrices on the initial weights "
+        f"{'equal' if f['cm_diff'] == 0 else 'differ'} ({f['cm_sum']} pixels of "
+        f"{f['valid']})")
+    for r in ranks:
+        g = r["f32_grads"]
+        log(f"[40] rank {r['rank']}: its averaged gradients against one process's, max rel "
+            f"err per tensor (each ABN's scale and bias joined) {g['rel']:.3g} ({g['worst']}; "
+            f"limit 1e-4), norm rel err {g['norm']:.3g}")
+    for r in ranks:
+        ce = r["ce"]
+        log(f"[40] rank {r['rank']}: bf16 CE steps {CROP}^2, {DDP_PER_RANK} a rank, fused stem: "
+            f"losses {[round(x, 4) for x in ce['losses']]}, median wall {ce['wall_ms']:.1f} ms, "
+            f"launches per step {ce['per_step']}; collectives per step "
+            f"{ce['collectives']:.0f} ({ce['collective_mib']:.1f} MiB); the gradient + "
+            f"statistics all-reduce alone {ce['grad_all_reduce_ms']:.1f} ms for "
+            f"{ce['grad_all_reduce_mib']:.1f} MiB (gloo, staged through the host)")
+        log(f"[40] rank {r['rank']}: eval steps, launches per step {r['eval']['per_step']}, "
+            f"the summed confusion matrix counts every valid pixel ({r['eval']['counted']})")
+        bacs = r["bacs"]
+        log(f"[40] rank {r['rank']}: task-1 BACS steps after end_task ({bacs['end_task_s']:.1f}"
+            f" s), {DDP_PER_RANK} + 2 x {DDP_PER_RANK} a rank: losses "
+            f"{[round(x, 4) for x in bacs['losses']]}, median wall {bacs['wall_ms']:.1f} ms, "
+            f"launches per step {bacs['per_step']}; prototypes equal on the ranks, counts "
+            f"{[round(x) for x in bacs['proto_counts']]}")
+    log(f"[40] world-1 NCCL group: one bf16 CE step, loss {r0['nccl']['loss']:.4f}")
+    launches = {k: r0["launches"].get(k, 0) + r1["launches"].get(k, 0)
+                for k in set(r0["launches"]) | set(r1["launches"])}
+    launches["k10"] = launches.get("k10", 0) + k10
+    log(f"[time] [40] {wall:.1f} s for the ranks; launches over both ranks and the "
+        f"Predictor's replicas {launches}")
+    return {"launches": launches, "wall": wall}
+
+
+# [41] the non-fused norms, card against CPU: network config overrides
+NONFUSED_NETS = {"atrous encoder os16": dict(atrous_encoder=True, output_stride=16),
+                 "fused_abn=false": dict(fused_abn=False)}
+NONFUSED_BATCH, NONFUSED_CROP = 8, 128
+
+
+@contextlib.contextmanager
+def atrous_blocks_without_relu():
+    """The atrous bottleneck without its ReLU after the add (with identity
+    norms, the smooth network that ``hold_step`` holds per tensor)."""
+    from bacs_tpu_torch.models.resnet_atrous import AtrousBottleneck
+
+    def forward(self, x):
+        y = self.bn3(self.conv3(self.bn2(self.conv2(self.bn1(self.conv1(x))))))
+        return y + (self.downsample_bn(self.downsample_conv(x)) if self.needs_proj else x)
+
+    plain = AtrousBottleneck.forward
+    AtrousBottleneck.forward = forward
+    try:
+        yield
+    finally:
+        AtrousBottleneck.forward = plain
+
+
+def nonfused_card_vs_cpu(seed, dev, reset_counts, counts) -> dict:
+    """[41] for each of ``NONFUSED_NETS``: an eval step on the initial
+    weights, then an f32 CE train step, on the card and on the CPU (TF32
+    off), with identity and with the configured activations; the step held
+    by ``hold_step``, the eval loss to 1e-5 and the matrices' totals equal;
+    the card's launches per step asserted.  Returns the card's launches."""
+    from bacs_tpu_torch.models.norm import ABN
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_batch(NONFUSED_BATCH, NONFUSED_CROP, torch.Generator().manual_seed(seed),
+                            "cpu")
+    launches: dict = {}
+    for name, extra in NONFUSED_NETS.items():
+        cfg = {**network_cfg(), **extra}
+        atrous = bool(extra.get("atrous_encoder"))
+        for activation in ("identity", "configured"):
+            smooth = activation == "identity"
+            runs, evals = {}, {}
+            with atrous_blocks_without_relu() if smooth and atrous else contextlib.nullcontext():
+                variables = seeded_variables(cfg, seed, smooth=smooth)
+                for device in (dev, torch.device("cpu")):
+                    state = train_state(cfg, *variables, torch.float32, device, smooth=smooth)
+                    norms = [m for m in state.model.modules() if isinstance(m, ABN)]
+                    fused = sum(m.fusable for m in norms)
+                    p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+                    train_step, eval_step, put_batch = ce_steps(device)
+                    b = put_batch(batch)
+                    reset_counts()  # the eval step first, on the initial weights
+                    cm, loss = eval_step(state, torch.zeros((N_CLASSES, N_CLASSES),
+                                                            dtype=torch.int32, device=device), b)
+                    evals[device.type] = (float(loss), cm.cpu())
+                    eval_counts = {k: v for k, v in counts().items() if v}
+                    reset_counts()
+                    state, metrics = train_step(state, b)
+                    train_counts = {k: v for k, v in counts().items() if v}
+                    runs[device.type] = (float(metrics["loss"]), *grads_and_stats(state.model))
+                    del state
+                    if device.type != "cuda":
+                        continue
+                    card = dict(train=train_counts, eval=eval_counts)
+                    assert (fused == 0) == (not atrous) and fused < len(norms), (fused, len(norms))
+                    want = dict(k1f=1, k1b=1, **({"train_abn": fused} if fused else {}))
+                    assert train_counts == want, (train_counts, want)
+                    want = dict(k5=len(norms), k1f=1, k2=1)
+                    assert eval_counts == want, (eval_counts, want)
+                    for k, v in list(train_counts.items()) + list(eval_counts.items()):
+                        launches[k] = launches.get(k, 0) + v
+            (loss_g, cm_g), (loss_c, cm_c) = evals["cuda"], evals["cpu"]
+            hold_step(f"[41] f32 CE step, {name}, {NONFUSED_BATCH} x {NONFUSED_CROP}^2",
+                      activation, runs["cuda"], runs["cpu"], p0,
+                      f"; eval step on the initial weights: loss {loss_g:.7f} vs {loss_c:.7f}, "
+                      f"matrices differ in {int((cm_g - cm_c).abs().sum()) // 2} of "
+                      f"{int(cm_c.sum())} pixels; card launches: train {card['train']} "
+                      f"({fused} of {len(norms)} norms fused), eval {card['eval']}")
+            assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+            assert int(cm_g.sum()) == int(cm_c.sum())
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
+def ddp_main(args) -> int:
+    """``--ddp``: build, then phases [40] and [41] alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    for dt in (torch.float32, torch.bfloat16):  # first Triton compiles, before the ranks
+        check_abn((4, 8, 8, 64), 0.01, dt, dev)
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    cfg = network_cfg()
+    ddp_phase(cfg, *seeded_variables(cfg, args.seed), args.seed, dev)
+    nonfused_card_vs_cpu(args.seed, dev, *launch_counters())
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4232,7 +4657,12 @@ def main() -> int:
                     help="only build and run the TranSeg phases [33]-[35]")
     ap.add_argument("--real-data", action="store_true",
                     help="only build and run the real-data phases [36]-[38]")
+    ap.add_argument("--ddp", action="store_true",
+                    help="only build and run the data-parallel phase [40] and the "
+                         "non-fused norms' phase [41]")
     args = ap.parse_args()
+    if args.ddp:
+        return ddp_main(args)
     if args.transeg:
         return transeg_main(args)
     if args.real_data:
@@ -4754,6 +5184,18 @@ def main() -> int:
     log(f"[time] [39] {t_options:.1f} s; launches of its 512^2 steps {options['launches']}")
     torch.cuda.empty_cache()
 
+    # 40. data parallelism: two gloo ranks on the card, their steps held to
+    # one process's, launches counted on each; a world-1 NCCL step
+    ddp = ddp_phase(cfg, params, stats, args.seed, dev)
+    torch.cuda.empty_cache()
+
+    # 41. the non-fused norms (the atrous encoder, fused_abn=false): an f32
+    # step and an eval step each, card against CPU, launches counted
+    t_nonfused = time.perf_counter()
+    nonfused = nonfused_card_vs_cpu(args.seed, dev, reset_counts, counts)
+    t_nonfused = time.perf_counter() - t_nonfused
+    log(f"[time] [41] {t_nonfused:.1f} s; card launches {nonfused}")
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -4852,7 +5294,8 @@ def main() -> int:
 
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
         f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s, "
-        f"phases [33]-[35] {t_transeg:.1f} s, phases [36]-[38] {t_real:.1f} s")
+        f"phases [33]-[35] {t_transeg:.1f} s, phases [36]-[38] {t_real:.1f} s, phase [39] "
+        f"{t_options:.1f} s, phase [40] {ddp['wall']:.1f} s, phase [41] {t_nonfused:.1f} s")
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -5024,6 +5467,13 @@ def main() -> int:
         keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
         row["bacs_options_launches"] = sum(options["launches"][k] for k in keys)
         row["launches"] += row["bacs_options_launches"]
+    # the data-parallel phase [40], both ranks
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["ddp_launches"] = sum(ddp["launches"].get(k, 0) for k in keys)
+        row["launches"] += row["ddp_launches"]
+        row["nonfused_launches"] = sum(nonfused.get(k, 0) for k in keys)
+        row["launches"] += row["nonfused_launches"]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

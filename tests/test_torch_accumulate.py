@@ -40,23 +40,12 @@ from bacs_tpu_torch.train import loop, optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils import checkpoint
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "conf", "continual_debug")
 OPT_CFG = {"_target_": "torch.optim.SGD", "lr": 0.01, "momentum": 0.9, "nesterov": True,
            "weight_decay": 1e-4}  # conf/bacs/optimizer/nesterov.yaml
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread.  These tests run many small CPU ops;
-    on a host shared by the tier-1 run's six workers, each with a thread
-    per core, they spent their time in oversubscribed thread pools
-    (measured: a test of 4.5 s alone took 316 s in the suite)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------- accumulation

@@ -25,19 +25,11 @@ from bacs_tpu_torch.models import create_network
 from bacs_tpu_torch.train import loop, optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.utils import checkpoint
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP = 32
 TASK = TaskInfo(task_id=0, initial_classes=16, increment=1, num_classes=21, n_tasks=6)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def bacs_state(seed=0):

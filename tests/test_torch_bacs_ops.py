@@ -40,7 +40,7 @@ from bacs_tpu_torch.train import buffer
 from bacs_tpu_torch.train.state import TaskInfo
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict, load_flax_variables, state_dict_to_flax)
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 TASK1 = dict(task_id=1, initial_classes=16, increment=1, num_classes=21, n_tasks=6,
              max_epochs=30)

@@ -55,6 +55,7 @@ from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
 from test_torch_bacs_step import injected  # noqa: F401  (the draws' fixture)
+from torch_port_helpers import _one_thread  # noqa: F401
 
 CROP, REPLAY, SLOTS, N_CLASSES, OLD = bs.CROP, bs.REPLAY, bs.SLOTS, bs.N_CLASSES, 16
 MIXUP_THRESHOLD = 9
@@ -68,15 +69,6 @@ OPTIONS = {
 LAMBDAS = np.float32([0.3, 0.55, 0.8, 0.15])
 # foreground classes of each of the 10 items offered to the buffer
 CLASSES_PER_ITEM = (1, 2, 3, 4, 5, 6, 2, 3, 1, 4)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture
@@ -369,7 +361,9 @@ def test_cli_trains_each_option(option):
             "training.initial_increment=19", "training.epochs=1",
             "training.mixed_precision=false", "training.num_workers=0",
             "network.backbone=resnet18", "training.batch_size=4", "loss.buffer_size=8",
-            "loss.replay_minibatch_size=4", "~training.ckpt_dir"]
+            "loss.replay_minibatch_size=4", "~training.ckpt_dir",
+            # one process: der_15_1's n_gpus 2 would start two CPU ranks
+            "training.n_gpus=1"]
     with mock.patch.object(loop, "Trainer", Recorded):
         miou = port_main.main(argv)
     (trainer,) = trainers

@@ -46,21 +46,12 @@ from bacs_tpu_torch.train import optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, NUM_CLASSES, BATCH, STEPS = 64, 5, 4, 4
 TASK = dict(task_id=0, initial_classes=NUM_CLASSES, increment=0,
             num_classes=NUM_CLASSES, n_tasks=1, max_epochs=1)
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,6 +34,7 @@ from bacs_tpu.train import metrics as jax_metrics
 from bacs_tpu_torch.config import load_config
 from bacs_tpu_torch.data import continual, datamodule, datasets, transforms
 from bacs_tpu_torch.train import metrics
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT_CONFIGS = sorted(

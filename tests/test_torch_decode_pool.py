@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from bacs_tpu_torch.data import datamodule, datasets, decode_pool, layouts
+from torch_port_helpers import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

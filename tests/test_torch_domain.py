@@ -35,16 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from scripts import gen_cityscapes_layout  # noqa: E402
+from torch_port_helpers import _one_thread  # noqa: F401
 
 DEBUG = os.path.join(ROOT, "conf", "continual_debug")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_domain_shifted_source_bit_equal():

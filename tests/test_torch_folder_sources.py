@@ -29,6 +29,7 @@ from bacs_tpu_torch.data import datamodule, datasets, layouts
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from scripts import gen_ade_layout, gen_cityscapes_layout, gen_voc_layout  # noqa: E402
+from torch_port_helpers import _one_thread  # noqa: F401
 
 SIZE = 48  # the images' canonical size
 CROP = 32

@@ -27,6 +27,7 @@ from bacs_tpu.ops.upsample_ce import _ukd_sum_jnp
 from bacs_tpu_torch.ops.stem_pool import _pool_codes
 from bacs_tpu_torch.ops.upsample_ce import upsample_plain
 from bacs_tpu_torch.ops.upsample_tiles import kmats
+from torch_port_helpers import _one_thread  # noqa: F401
 
 NEG = np.float32(-1e30)  # the kernels' padding
 

@@ -15,6 +15,7 @@ from chip_smoke import (
     check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
     check_pseudo, check_repeatable, check_stem, check_uce, check_ukd, check_wce,
     family_calls, stem_raises)
+from torch_port_helpers import _one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -531,3 +532,50 @@ def test_stem_pool_kernels_raise_and_count_launches(cuda):
         out[device.type] = [t.detach().cpu() for t in (p, mean, var, x.grad)]
     for got, ref in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def world1(cuda):
+    """A world-1 gloo group (it carries CUDA and CPU tensors alike),
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from bacs_tpu_torch import parallel
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k12"])
+def test_kernels_fed_all_reduced_statistics_match_plain(cuda, world1, kernel):
+    """The train ABN apply (K5) and the fused stem (K12, forward and
+    backward) with their statistics all-reduced over a world-1 group, on
+    the card, against their plain versions on the CPU through the same
+    group: values rtol 2e-3, gradients rtol 5e-2 (of the largest)."""
+    from bacs_tpu_torch.ops.abn_core import fused_abn
+    from bacs_tpu_torch.ops.stem_pool import fused_abn_pool, stem_pool_fwd
+
+    g = torch.Generator().manual_seed(3)
+    c = torch.randn((4, 32, 24, 64), generator=g)
+    scale, bias = torch.rand(64, generator=g) + 0.5, torch.randn(64, generator=g) * 0.1
+    w = torch.randn((4, 32, 24, 64) if kernel == "k5" else (4, 16, 12, 64), generator=g)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        x = c.to(device).requires_grad_()
+        s, b = (t.to(device).requires_grad_() for t in (scale, bias))
+        before = (fused_abn if kernel == "k5" else stem_pool_fwd).launches
+        if kernel == "k5":
+            y, mean, var = fused_abn(x, s, b, 1e-5, 0.01, world1)
+        else:
+            y, mean, var = fused_abn_pool(x, s, b, 1e-5, 0.01, world1)
+        (y * w.to(device)).sum().backward()
+        if device.type == "cuda":
+            assert (fused_abn if kernel == "k5" else stem_pool_fwd).launches == before + 1
+        out[device.type] = [t.detach().cpu() for t in (y, mean, var, x.grad, s.grad, b.grad)]
+    for i, (got, ref) in enumerate(zip(out["cuda"], out["cpu"])):
+        tol = 2e-3 if i < 3 else 5e-2
+        torch.testing.assert_close(got, ref, rtol=0, atol=tol * float(ref.abs().max()))

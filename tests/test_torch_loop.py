@@ -41,9 +41,7 @@ not 2: the ASPP's global-pooling ABN normalises over the batch alone, and
 over two images the f32 rounding of E[x^2] - mean^2 is amplified into the
 head (the smooth run drifts by 5e-3 at batch 2 by task 1's first step).
 
-Also: a run stopped after a mid-task checkpoint and resumed gives the
-uninterrupted run's final metrics (port only, ``debug: false``, as the
-loop disables resume in debug mode), and the command line
+Also: the command line
 ``python -m bacs_tpu_torch.main --device cpu --config-path
 conf/continual_debug --config-name config network=deep_lab`` finishes and
 prints the JAX package's metric keys.
@@ -53,7 +51,6 @@ import contextlib
 import functools
 import os
 import re
-import shutil
 import subprocess
 import sys
 from unittest import mock
@@ -74,9 +71,9 @@ from bacs_tpu_torch import main as port_main
 from bacs_tpu_torch.config import load_config
 from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.train import loop
-from bacs_tpu_torch.utils import checkpoint
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.utils.logging import Logger
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "conf", "continual_debug")
@@ -177,53 +174,6 @@ def test_trainer_matches_jax(name):
     for k in held:
         assert abs(got_miou[k] - ref_miou[k]) <= MIOU_TOL, (k, got_miou[k], ref_miou[k])
     assert np.isfinite(got["miou"])
-
-
-def _resume_config(ckpt_dir, budget):
-    """BACS on 24 images, batch 2: task 1 has 4 steps an epoch (task 0 9)
-    and stops at its first checkpoint.  With ``budget`` (one step per new
-    class) that is its step budget; without, it resumes with two steps of
-    its schedule to go.  No ``ckpt_dir``: no checkpoints (saving changes
-    nothing of the training)."""
-    return load_config(CONF, "config", BASE + [
-        "training.batch_size=2", "loss=bacs", "training.debug=false", "dataset.dataset.n_train=24"]
-        + ([f"+training.ckpt_dir={ckpt_dir}"] if ckpt_dir else [])
-        + (["+training.steps_per_class=1"] if budget else []))
-
-
-@pytest.mark.parametrize("budget", [True, False], ids=["step_budget", "epoch"])
-def test_resume_from_a_mid_task_checkpoint_matches_the_uninterrupted_run(tmp_path, budget):
-    """The uninterrupted port run, not JAX, is the reference here on
-    purpose: a task resumed already at its step budget trains no further
-    step, where the JAX loop trains one step more
-    (``bacs_tpu/train/loop.py:503-515``, ROADMAP.md queue 3).  A resume
-    parity test against JAX differs there and must not undo this."""
-    whole = loop.Trainer(_resume_config(None, budget), device="cpu")
-    whole_miou = whole.fit()
-    whole_final = whole.per_step_metric.compute()
-    whole_params = [p.detach().clone() for p in whole.state.model.parameters()]
-
-    ckpt_dir = str(tmp_path / "ckpt")
-    saved = []
-    try:
-        with checkpoint.resume_check_saves(stop_task=1, record=saved), \
-                pytest.raises(checkpoint.Interrupted):
-            loop.Trainer(_resume_config(ckpt_dir, budget), device="cpu").fit()
-        assert saved[-1][:2] == (1, "last0") and (0, "final") in [s[:2] for s in saved]
-        with checkpoint.resume_check_saves():
-            resumed = loop.Trainer(_resume_config(ckpt_dir, budget), device="cpu")
-            assert resumed._try_resume() == 1 and resumed._skip_surgery
-            assert resumed.state.step > 0 and resumed.state.prev_model is not None
-            resumed = loop.Trainer(_resume_config(ckpt_dir, budget), device="cpu")
-            miou = resumed.fit()
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    for got, ref in zip(resumed.state.model.parameters(), whole_params):
-        torch.testing.assert_close(got.detach(), ref, rtol=0, atol=0)
-    assert miou == pytest.approx(whole_miou, abs=1e-6)
-    final = resumed.per_step_metric.compute()
-    for metric in ("mIoU", "IoU-Old", "IoU-New"):
-        np.testing.assert_allclose(final[metric], whole_final[metric], atol=1e-6)
 
 
 def test_cli_on_the_cpu_prints_the_jax_metric_keys():

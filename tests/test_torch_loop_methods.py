@@ -59,6 +59,7 @@ from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.train import loop
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.utils.logging import Logger
+from torch_port_helpers import _one_thread  # noqa: F401
 
 LOSS_RTOL, MIOU_TOL = 1e-4, 1e-3
 # a test pixel whose two best logits are closer than TIE_MARGIN can take
@@ -67,15 +68,6 @@ LOSS_RTOL, MIOU_TOL = 1e-4, 1e-3
 TIE_MARGIN, TIE_MIOU_TOL = 1e-4, 1e-2
 RUNS = {"mib": ["loss=mib"], "plop": ["loss=plop"],
         "sdr": ["loss=sdr", "training.batch_size=6"]}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_trainer_run(overrides, injected=contextlib.nullcontext):

@@ -56,7 +56,7 @@ import test_torch_more_methods_step as ms
 from bacs_tpu.train import buffer as jax_buffer
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.train import buffer as port_buffer
-from test_torch_loop_methods import _one_thread  # noqa: F401  (autouse)
+from torch_port_helpers import _one_thread  # noqa: F401
 
 CROP, REPLAY, N_STEPS = 32, 4, 6
 # the replay crops' smallest side

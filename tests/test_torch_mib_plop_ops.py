@@ -34,6 +34,7 @@ from bacs_tpu_torch.ops.upsample_tiles import kmats
 from bacs_tpu_torch.train import learner
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.utils.flax_weights import state_dict_to_flax
+from torch_port_helpers import _one_thread  # noqa: F401
 
 TASK1 = dict(task_id=1, initial_classes=16, increment=1, num_classes=21, n_tasks=6)
 

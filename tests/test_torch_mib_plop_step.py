@@ -50,7 +50,7 @@ from bacs_tpu_torch.train import learner, optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, BATCH, N_CLASSES, N_TASKS, OLD = 64, 4, 21, 6, 16
 TASK = dict(initial_classes=16, increment=1, num_classes=N_CLASSES, n_tasks=N_TASKS,

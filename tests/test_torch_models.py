@@ -14,13 +14,13 @@ import torch
 import jax
 
 from bacs_tpu.models import create_network as jax_create_network
-from bacs_tpu_torch.models import create_network
+from bacs_tpu_torch.models import ABN, create_network
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict,
     load_flax_variables,
     state_dict_to_flax,
 )
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP = 64
 NUM_CLASSES = 5
@@ -132,10 +132,11 @@ def test_bf16_network_keeps_abn_in_float32():
 
 
 def test_unported_networks_raise():
-    """The atrous encoder raises, naming its ROADMAP item (2, the non-fused
-    ``bn`` norm it needs); UNet and TranSeg build (held to Flax by
-    ``tests/test_torch_unet.py`` and ``tests/test_torch_transeg.py``), TranSeg
-    emitting full-width logits with its inactive channels filled."""
+    """Every network builds: the atrous encoder (held to Flax by
+    ``tests/test_torch_atrous.py``) with six attention maps; UNet and
+    TranSeg (held to Flax by ``tests/test_torch_unet.py`` and
+    ``tests/test_torch_transeg.py``), TranSeg emitting full-width logits
+    with its inactive channels filled."""
     with torch.no_grad():
         out = create_network("networks.UNet", NUM_CLASSES).eval()(torch.zeros(1, 32, 32, 3))
         assert out.sem_logits.shape == (1, 32, 32, NUM_CLASSES)
@@ -145,7 +146,10 @@ def test_unported_networks_raise():
         out = net.eval()(torch.zeros(1, 32, 32, 3))
     assert out.sem_logits.shape == (1, 2, 2, NUM_CLASSES)
     assert bool((out.sem_logits[..., 3:] == -1e9).all())
-    with pytest.raises(NotImplementedError, match="item 2"):
-        create_network("deeplab", NUM_CLASSES, atrous_encoder=True)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        create_network("networks.TranSeg", NUM_CLASSES, atrous_encoder=True)
+    with torch.no_grad():
+        out = create_network("deeplab", NUM_CLASSES, atrous_encoder=True,
+                             backbone="resnet50").eval()(torch.zeros(1, 32, 32, 3))
+    assert len(out.attentions) == 6 and out.sem_logits.shape == (1, 2, 2, NUM_CLASSES)
+    net = create_network("networks.TranSeg", NUM_CLASSES, atrous_encoder=True,
+                         backbone="resnet18", crop_size=32)
+    assert all(m.sync for m in net.modules() if isinstance(m, ABN))

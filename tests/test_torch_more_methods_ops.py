@@ -39,6 +39,7 @@ from bacs_tpu_torch.ops import losses
 from bacs_tpu_torch.ops import upsample_ce as uce
 from bacs_tpu_torch.train import buffer as port_buffer
 from bacs_tpu_torch.train.state import TaskInfo
+from torch_port_helpers import _one_thread  # noqa: F401
 
 TASK1 = dict(task_id=1, initial_classes=16, increment=1, num_classes=21, n_tasks=6)
 CROP, D = 64, 24

@@ -50,7 +50,7 @@ from bacs_tpu_torch.train import optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, BATCH, N_CLASSES, N_TASKS, OLD, SLOTS, REPLAY = 64, 4, 21, 6, 16, 8, 4
 # the penultimate width: the backbone's 512, or the detector's trunk's 128

@@ -31,6 +31,7 @@ from bacs_tpu_torch.ops.upsample_argmax import (
 )
 from bacs_tpu_torch.ops.upsample_tiles import interp_matrix, kmats
 from bacs_tpu_torch.viz.media import voc_colormap
+from torch_port_helpers import _one_thread  # noqa: F401
 
 EPS = 1e-5
 
@@ -131,10 +132,15 @@ def test_abn_module_eval_matches_jax(norm, kwargs):
 
 
 def test_abn_train_mode_raises():
-    """Train mode is ported for the fused branch (tests/test_torch_train_ops.py);
-    the non-fused one (ReLU, renorm) still raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ABN(8, activation="relu", activation_param=0.0)(torch.zeros(1, 8, 2, 2))
+    """Train mode is ported for the fused branch (tests/test_torch_train_ops.py)
+    and the non-fused one (ReLU, renorm; held to Flax by
+    tests/test_torch_atrous.py): a ReLU layer in train mode no longer raises,
+    normalises with the batch statistics and clips at 0."""
+    x = torch.arange(32, dtype=torch.float32).reshape(1, 8, 2, 2)
+    y = ABN(8, activation="relu", activation_param=0.0)(x).detach()
+    assert y.shape == x.shape and float(y.min()) == 0.0
+    torch.testing.assert_close(y.amax(dim=(0, 2, 3)), torch.full((8,), 1.3416), atol=1e-4,
+                               rtol=0)
 
 
 def test_abn_cpu_does_not_count_launches():

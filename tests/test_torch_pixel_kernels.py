@@ -38,6 +38,7 @@ from bacs_tpu.ops.upsample_ce import _kmats
 from bacs_tpu.ops.upsample_ce import upsampled_plop_pseudo_labels as jax_pseudo
 from bacs_tpu_torch.ops.losses import pixel_entropy
 from bacs_tpu_torch.ops.upsample_ce import tap_tables
+from torch_port_helpers import _one_thread  # noqa: F401
 
 
 def staged_upsample(sem: torch.Tensor, out_hw) -> torch.Tensor:

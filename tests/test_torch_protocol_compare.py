@@ -25,6 +25,7 @@ import bacs_tpu_torch.config as port_config
 import bacs_tpu_torch.train.loop as port_loop
 from bacs_tpu_torch import protocol_compare as port_pc
 from bacs_tpu_torch.utils import checkpoint
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"method", "final_miou", "oldest_task_miou", "task0_miou", "avg_iou_per_dataset",

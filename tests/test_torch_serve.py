@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from bacs_tpu.models import create_network as jax_create_network
 from bacs_tpu.serve import Predictor as JaxPredictor
 from bacs_tpu_torch.serve import Predictor
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP = 64
@@ -152,8 +152,9 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(n_devices=2)
+    # n_devices is ported (tests/test_torch_ddp.py): on the CPU, replicas on
+    # CPU devices
+    assert port(n_devices=2).n_devices == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port().export("unused.bin")
     # from_checkpoint is ported (tests/test_torch_serve_ckpt.py): no

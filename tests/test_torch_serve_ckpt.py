@@ -40,20 +40,13 @@ from bacs_tpu_torch.train.loop import Trainer
 from bacs_tpu_torch.utils import checkpoint
 from bacs_tpu_torch.utils import torch_weights as tw
 from bacs_tpu_torch.utils.logging import Logger
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JOINT = os.path.join(ROOT, "conf", "joint_debug")
 CONT = os.path.join(ROOT, "conf", "continual_debug")
 JOINT_OVERRIDES = ["network=deep_lab", "training.epochs=1", "training.val_every=0"]
 CONT_OVERRIDES = ["network=deep_lab", "dataset.dataset.crop_size=32", "training.debug=false"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -131,8 +124,10 @@ def test_predict_cli_writes_the_masks(trained, tmp_path):
     assert all(np.array_equal(a, b) for a, b in zip(masks, ref))
     with pytest.raises(NotImplementedError, match="item 13"):
         predict.main(args + ["--export", str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        predict.main(args + ["--n-devices", "2"])
+    # --n-devices splits each batch over replicas (two CPU replicas here)
+    split = predict.main(args + ["--images", *paths, "--out", str(tmp_path / "split"),
+                                 "--n-devices", "2"])
+    assert all(np.array_equal(a, b) for a, b in zip(split, ref))
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         Predictor.from_checkpoint(str(tmp_path / "none"), config, device="cpu")
 

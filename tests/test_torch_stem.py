@@ -48,7 +48,7 @@ from bacs_tpu_torch.train import optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 VALUE_RTOL, GRAD_RTOL = 1e-5, 1e-4
 
@@ -202,16 +202,17 @@ def test_abn_module_fused_stem_matches_flax(shape, monkeypatch):
 
 def test_create_network_gates():
     """``fused_stem`` reaches every ABN, as the JAX factory passes it, and
-    only the stem pools; ``fused_abn=false`` (the non-fused train ABN)
-    raises; ``remat`` chooses the blocks recomputed in the backward
+    only the stem pools; ``fused_abn=false`` trains every ABN through the
+    non-fused branch; ``remat`` chooses the blocks recomputed in the backward
     (held to the plain step by ``tests/test_torch_accumulate.py``)."""
     net = create_network("networks.DeepLabV3", 3, backbone="resnet18", fused_stem=True)
     abns = [m for m in net.modules() if isinstance(m, ABN)]
     assert all(m.fused_stem for m in abns) and sum(m.pool for m in abns) == 1
     assert not any(m.fused_stem for m in create_network(
         "networks.DeepLabV3", 3, backbone="resnet18").modules() if isinstance(m, ABN))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        create_network("networks.DeepLabV3", 3, backbone="resnet18", fused_abn=False)
+    assert not any(m.fusable for m in create_network(
+        "networks.DeepLabV3", 3, backbone="resnet18", fused_abn=False).modules()
+        if isinstance(m, ABN))
     net = create_network("networks.DeepLabV3", 3, backbone="resnet18", remat=[3],
                          fused_stem=True)
     assert net.backbone.remat_blocks == {"mod4_block1", "mod4_block2"}

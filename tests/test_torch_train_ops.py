@@ -38,6 +38,7 @@ from bacs_tpu_torch.ops.upsample_ce import (
 )
 from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
 from bacs_tpu_torch.train import optim
+from torch_port_helpers import _one_thread  # noqa: F401
 
 EPS = 1e-5
 
@@ -120,8 +121,20 @@ def test_abn_module_train_matches_jax(kwargs):
 
 @pytest.mark.parametrize("norm", ["bn", "iabr_sync"])
 def test_abn_non_fused_train_branch_raises(norm):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_norm(norm)(8).train()(torch.zeros(2, 8, 3, 3))
+    """The non-fused train branch no longer raises: ``bn`` (ReLU) and the
+    renorm norms train through it (held to Flax per tensor by
+    ``tests/test_torch_atrous.py``); here its output and running statistics
+    against the JAX module on one input."""
+    x = np.random.RandomState(4).randn(2, 3, 3, 8).astype(np.float32)
+    jm = jax_make_norm(norm)(8)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref, mut = jm.apply(v, jnp.asarray(x), mutable=["batch_stats"])
+    m = make_norm(norm)(8).train()
+    assert not m.fusable
+    got = m(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m.running_var.numpy(), np.asarray(mut["batch_stats"]["var"]),
+                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------- K1: upsample+CE

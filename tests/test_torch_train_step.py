@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,7 @@ from bacs_tpu.train import optim as jax_optim
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
 from bacs_tpu.train.step import make_steps as jax_make_steps
+from bacs_tpu_torch import parallel
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.models import base as models_base
 from bacs_tpu_torch.models import create_network
@@ -57,7 +59,7 @@ from bacs_tpu_torch.train import optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, NUM_CLASSES, BATCH, STEPS = 64, 5, 4, 2
 OPT_CFG = {"_target_": "torch.optim.SGD", "lr": 0.01, "momentum": 0.9,
@@ -250,8 +252,20 @@ def test_put_batch_and_unported_options(monkeypatch):
     b = put_batch({"image": np.zeros((1, 8, 8, 3), np.uint8),
                    "label": np.zeros((1, 8, 8), np.int32)})
     assert b["image"].dtype == torch.float32 and b["label"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_steps(ctx, method, NUM_CLASSES, mesh=object(), device="cpu")
+    # the JAX mesh is the context's process group: a world-1 gloo group
+    # gives the same step as none
+    losses = []
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for group in (None, dist.group.WORLD):
+            state, _ = port_steps("leaky")
+            train_step, _, put = make_steps(ModelContext(TaskInfo(**TASK), group=group),
+                                            method, NUM_CLASSES, device="cpu")
+            losses.append(float(train_step(state, put(batches()[0]))[1]["loss"]))
+    finally:
+        dist.destroy_process_group()
+    assert losses[0] == losses[1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_steps(ctx, method, NUM_CLASSES)

@@ -51,7 +51,7 @@ from bacs_tpu_torch.train.loop import init_weights
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict, load_flax_variables, state_dict_to_flax)
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, NUM_CLASSES, N_TASKS, BATCH, D = 32, 8, 3, 2, 32
 TR = dict(hidden_dim=D, nhead=4, num_decoder_layers=2, dim_feedforward=64)
@@ -59,15 +59,6 @@ TR = dict(hidden_dim=D, nhead=4, num_decoder_layers=2, dim_feedforward=64)
 NETS = [(5, True), (8, False)]
 NET_IDS = ["5of8-det", "8of8"]
 TRUNC = 0.87962566103423978  # the std of a standard normal truncated to [-2, 2]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def redraw(tree, rs):
@@ -445,8 +436,12 @@ def test_create_network_builds_transeg():
                for m in linears)
     model.active_classes = 17
     assert head.active_classes == 17
-    with pytest.raises(NotImplementedError, match="item 2"):
-        create_network("transeg", 21, atrous_encoder=True)
+    # the atrous flag gives TranSeg the atrous encoder's synchronized bn (ReLU)
+    # on its ResNet, as the JAX registry does (bacs_tpu/models/__init__.py:56-63)
+    bn = [m for m in create_network("transeg", 21, backbone="resnet18", crop_size=64,
+                                    atrous_encoder=True).modules() if isinstance(m, ABN)]
+    assert bn and all(m.sync and m.momentum == 3e-4 for m in bn)
+    assert all(m.activation in ("relu", "identity") for m in bn)
     # the JAX registry builds the same variable tree
     jm = jax_create_network("transeg", 21, backbone="resnet18", crop_size=64,
                             active_classes=16, axis_name=None)

@@ -46,6 +46,7 @@ from bacs_tpu_torch.models.transeg import TranSeg
 from bacs_tpu_torch.train import loop
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.utils.logging import Logger
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "conf", "continual_debug")
@@ -66,15 +67,6 @@ CLI = (["--device", "cpu", "--config-path", os.path.join(ROOT, "conf", "experime
         "loss.replay_minibatch_size=2"]
        + [o.lstrip("+") for o in TR])
 LOSS_RTOL, MIOU_TOL = 1e-4, 1e-3
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _patches(models_mod, logger_cls, loop_mod, log):

@@ -73,7 +73,7 @@ from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict, load_flax_variables, state_dict_to_flax)
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, BATCH, REPLAY, SLOTS, N_CLASSES, N_TASKS = 32, 4, 4, 8, 21, 6
 TR = dict(hidden_dim=32, nhead=4, num_decoder_layers=2, dim_feedforward=64)
@@ -84,15 +84,6 @@ TASK = dict(initial_classes=16, increment=1, num_classes=N_CLASSES, n_tasks=N_TA
             max_epochs=30)
 BACS = dict(use_bg_detector=True, bg_weighted_ce=True, alpha=0.8, beta=0.5, lkd=0.25,
             buffer_size=SLOTS, replay_minibatch_size=REPLAY)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_model(active, det):

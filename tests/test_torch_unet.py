@@ -43,7 +43,7 @@ from bacs_tpu_torch.utils.flax_weights import (
     load_flax_variables,
     state_dict_to_flax,
 )
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, NUM_CLASSES, N_TASKS, BATCH = 32, 5, 3, 2
 # UNet-3 and UNet-4, bilinear and transpose, with and without the detector:
@@ -51,15 +51,6 @@ CROP, NUM_CLASSES, N_TASKS, BATCH = 32, 5, 3, 2
 NETS = [(3, True, False), (3, False, True), (4, True, True), (4, False, False)]
 NET_IDS = [f"unet{layers}-{'bilinear' if b else 'tconv'}{'-det' if d else ''}"
            for layers, b, d in NETS]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 class SmoothDoubleConv(jax_unet.DoubleConv):

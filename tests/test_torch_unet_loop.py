@@ -43,21 +43,13 @@ from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.train import loop
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.utils.logging import Logger
+from torch_port_helpers import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "conf", "continual_debug")
 JOINT = os.path.join(ROOT, "conf", "joint_debug")
 BASE = ["network.num_layers=3", "dataset.dataset.crop_size=32", "training.batch_size=3"]
 LOSS_RTOL, MIOU_TOL = 1e-3, 1e-3
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _patches(logger_cls, loop_mod, log):

@@ -61,7 +61,7 @@ from bacs_tpu_torch.train import optim
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables, state_dict_to_flax
-from torch_port_helpers import randomize_abn
+from torch_port_helpers import _one_thread, randomize_abn  # noqa: F401
 
 CROP, BATCH, LAYERS = 32, 4, 3
 OPT_CFG = {"_target_": "torch.optim.SGD", "lr": 0.01, "momentum": 0.9,
@@ -78,15 +78,6 @@ TASK1 = dict(task_id=1, initial_classes=16, increment=1, num_classes=N_CLASSES,
              n_tasks=N_TASKS, max_epochs=30)
 BACS = dict(use_bg_detector=True, bg_weighted_ce=True, alpha=0.8, beta=0.5,
             buffer_size=SLOTS, replay_minibatch_size=REPLAY)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one intra-op thread (``tests/test_torch_accumulate.py``)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_model(n_classes, det):

@@ -15,6 +15,7 @@ from bacs_tpu_torch.ops.upsample_ce import (
     SMEM_MAX, TARGET_BLOCKS, _plan_numpy, band_plan, grad_smem_bytes, tap_tables,
     tile_span)
 from bacs_tpu_torch.ops.upsample_tiles import interp_matrix
+from torch_port_helpers import _one_thread  # noqa: F401
 
 # (in, out) pairs of the card tests: upsamples at integer and odd scales,
 # equal sizes and downscales

@@ -6,6 +6,7 @@ import torch
 
 from bacs_tpu.models import create_network
 from bacs_tpu.utils.torch_weights import _convert
+from torch_port_helpers import _one_thread  # noqa: F401
 
 
 def _fake_abn_resnet18_sd():

@@ -1,6 +1,21 @@
-"""Shared inputs for the port's parity tests (``tests/test_torch_*.py``)."""
+"""Shared inputs and fixtures for the port's parity tests (``tests/test_torch_*.py``)."""
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """torch on one intra-op thread while a test runs, the count before
+    restored after.  The tier-1 suite runs six workers on the host's cores;
+    each on every core oversubscribes them, and a test of thousands of
+    small ops then runs tens of times slower.  A test file imports this
+    fixture to have it (autouse applies it to every test of the file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def randomize_abn(tree, rs):
