@@ -8,11 +8,13 @@ kernel (Triton or CUDA C++ under ``csrc/``) beside a plain PyTorch version:
 a wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors.  The package imports neither ``jax`` nor ``flax``.
 
-Ported so far: serving (``serve.Predictor``); every method's train step and
-the eval step (``train/step.py``); the continual trainer and its command
-line (``python -m bacs_tpu_torch.main``, ``train/loop.py``); data
-parallelism across devices (``parallel/``, one process a rank).  Still to
-port: ``Predictor.export``, the OOD pass and viz (ROADMAP.md queue 1).
+Ported: serving and its ``torch.export`` program (``serve.Predictor``,
+``export``, ``run_exported``); every method's train step and the eval step
+(``train/step.py``); the continual trainer and its command line (``python
+-m bacs_tpu_torch.main``, ``train/loop.py``) with the OOD pass
+(``train/ood.py``) and the media, prototype and drift loggers (``viz/``);
+data parallelism across devices (``parallel/``, one process a rank).  What
+exists only for the TPU or its host is not ported (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,11 @@ docstring).
   stored in the input dtype.  The CPU path and the kernel's reference.
 - :func:`fused_abn_eval`: the wrapper.  A CUDA tensor launches the Triton
   kernel below or raises; a CPU tensor runs the plain version.  Its
-  ``launches`` attribute counts kernel launches.
+  ``launches`` attribute counts kernel launches.  It calls the registered
+  op ``bacs::abn_eval`` (``abn_eval_op``), so ``torch.export`` keeps each
+  eval ABN as one node whose implementation is this launch
+  (``serve.Predictor.export``).  On the CPU its gradient is the plain
+  version's; the kernel's output takes none, as before the op.
 
 The kernel views the channels-last input as ``[rows, C]`` and walks masked 2-D
 blocks (rows x channels), so every channel count and row count is taken,
@@ -126,6 +130,29 @@ def _abn_apply_triton(x, mean, var, scale, bias, eps, slope, counter):
     return y
 
 
+# The registered op ``bacs::abn_eval``: the plain version for a CPU tensor
+# (registered for autograd on the CPU as well, so that its gradient is the
+# plain version's, as before the op), the Triton kernel (or its raise) for a
+# CUDA one.  As one op it stays one node of a ``torch.export`` graph, and
+# the loaded program runs these functions, so the kernel and its counter
+# run there too.  Defined with ``torch.library.Library`` rather than
+# ``custom_op``, whose Python dispatch costs several times as much host time
+# a call (107 calls a forward).
+_LIB = torch.library.Library("bacs", "FRAGMENT")
+_LIB.define("abn_eval(Tensor x, Tensor mean, Tensor var, Tensor scale, Tensor bias, "
+            "float eps, float slope) -> Tensor")
+for _key in ("CPU", "AutogradCPU"):
+    _LIB.impl("abn_eval", abn_eval_plain, _key)
+_LIB.impl("abn_eval", lambda x, mean, var, scale, bias, eps, slope: _abn_apply_triton(
+    x, mean, var, scale, bias, eps, slope, fused_abn_eval), "CUDA")
+abn_eval_op = torch.ops.bacs.abn_eval.default
+
+
+@torch.library.register_fake("bacs::abn_eval", lib=_LIB)
+def _abn_eval_fake(x, mean, var, scale, bias, eps, slope):
+    return torch.empty_like(x)
+
+
 def fused_abn_eval(
     x: torch.Tensor,
     mean: torch.Tensor,
@@ -135,13 +162,12 @@ def fused_abn_eval(
     eps: float = 1e-5,
     slope: float = 0.01,
 ) -> torch.Tensor:
-    """Inference ABN over the last axis of ``x`` (channels last), one pass.
+    """Inference ABN over the last axis of ``x`` (channels last), one pass,
+    through the op ``bacs::abn_eval``.
 
     CPU tensors take the plain version, CUDA tensors the Triton kernel.
     """
-    if x.device.type == "cpu":
-        return abn_eval_plain(x, mean, var, scale, bias, eps, slope)
-    return _abn_apply_triton(x, mean, var, scale, bias, eps, slope, fused_abn_eval)
+    return abn_eval_op(x, mean, var, scale, bias, float(eps), float(slope))
 
 
 fused_abn_eval.launches = 0

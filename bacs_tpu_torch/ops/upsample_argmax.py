@@ -12,9 +12,11 @@ logits, so the [N, H, W, C] full-resolution logits never exist.
   launches the hand-written kernel ``csrc/upsample_argmax.cu`` (replacing the
   TPU kernel ``_argmax_conf_pallas``, ``bacs_tpu/ops/upsample_argmax.py:88``)
   or raises; for a CPU tensor it runs the plain version.  Its ``launches``
-  attribute counts kernel launches.  The kernel reads its bilinear taps
-  and bands of output rows from the tables of
-  ``ops/upsample_ce.py:launch_plan`` (shared with K1 at the same shape).
+  attribute counts kernel launches.  It calls the registered op
+  ``bacs::upsample_argmax_conf`` (``upsample_argmax_conf_op``), which
+  ``torch.export`` keeps as one node (``serve.Predictor.export``).  The
+  kernel reads its bilinear taps and bands of output rows from the tables
+  of ``ops/upsample_ce.py:launch_plan`` (shared with K1 at the same shape).
 
 Tolerance of the kernel against the plain version: preds equal wherever the
 top-2 margin exceeds 1e-4, confidence within 1e-3 (f16 rounding).  The bound
@@ -84,16 +86,34 @@ def _argmax_conf_cuda(
     return preds, conf
 
 
+# The registered op ``bacs::upsample_argmax_conf``: the plain version for a
+# CPU tensor, the kernel (or its raise) for a CUDA one.  One node of a
+# ``torch.export`` graph, whose loaded program runs these functions
+# (defined as ``ops/abn_core.py`` defines ``bacs::abn_eval``).
+_LIB = torch.library.Library("bacs", "FRAGMENT")
+_LIB.define("upsample_argmax_conf(Tensor sem, int H, int W) -> (Tensor, Tensor)")
+_LIB.impl("upsample_argmax_conf", lambda sem, H, W: argmax_conf_plain(sem, (H, W)), "CPU")
+_LIB.impl("upsample_argmax_conf", lambda sem, H, W: _argmax_conf_cuda(sem, (H, W)), "CUDA")
+upsample_argmax_conf_op = torch.ops.bacs.upsample_argmax_conf.default
+
+
+@torch.library.register_fake("bacs::upsample_argmax_conf", lib=_LIB)
+def _upsample_argmax_conf_fake(sem, H, W):
+    n = sem.shape[0]
+    return (sem.new_empty((n, H, W), dtype=torch.uint8),
+            sem.new_empty((n, H, W), dtype=torch.float16))
+
+
 def upsampled_argmax_conf(
     sem_logits: torch.Tensor, out_hw: Tuple[int, int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pred uint8 [n,H,W], max-softmax confidence f16 [n,H,W]) of the
     bilinear-upsampled NHWC ``sem_logits`` (already sliced to the active
-    classes).  CPU tensors take the plain version, CUDA tensors the kernel.
+    classes), through the op ``bacs::upsample_argmax_conf``.  CPU tensors
+    take the plain version, CUDA tensors the kernel.
     """
-    if sem_logits.device.type == "cpu":
-        return argmax_conf_plain(sem_logits, out_hw)
-    return _argmax_conf_cuda(sem_logits, out_hw)
+    H, W = (int(d) for d in out_hw)
+    return upsample_argmax_conf_op(sem_logits, H, W)
 
 
 upsampled_argmax_conf.launches = 0

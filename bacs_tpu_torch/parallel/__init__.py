@@ -21,7 +21,8 @@ ranks per device.
   global batch, for the steps' callers and the DataModule alike.
 - :func:`all_reduce_` sums or averages tensors in place in one flat
   collective; :func:`pmean` is the differentiable mean across ranks whose
-  backward is itself, as the transpose of JAX's ``pmean``.
+  backward is itself, as the transpose of JAX's ``pmean``;
+  :func:`all_gather` joins the ranks' slices of a batch.
 - :func:`synchronized` names the group the synchronized norms read
   (:func:`sync_group`) while a train step runs; the task-boundary passes
   run outside it, as JAX's boundary passes run a model without an axis.
@@ -204,6 +205,17 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group, mean: bool = True):
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
     return tensors
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` (of one shape on all ranks) joined along the first
+    axis in rank order, on every rank: the global batch of contiguous
+    slices."""
+    if group is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 class _PMean(torch.autograd.Function):

@@ -10,7 +10,10 @@ the CPU).  It restores the newest checkpoint under ``--checkpoint``
 (``serve.Predictor.from_checkpoint``), resizes each image to the crop,
 and writes one VOC-coloured ``<name>_mask.png`` per image to ``--out``.
 ``--n-devices`` splits each batch over that many cards, one replica a
-card; ``--export`` (ROADMAP.md queue 1 item 13) raises.
+card.  ``--export PATH`` writes the inference function at batch 8 with
+``torch.export`` (``serve.Predictor.export``) on the serving device; a
+process that loads it imports ``bacs_tpu_torch.serve`` first, and
+``Predictor.run_exported(PATH, variables, images)`` serves it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def parse_args(argv):
     parser.add_argument("--images", nargs="*", default=[])
     parser.add_argument("--out", default="predictions")
     parser.add_argument("--export", default=None,
-                        help="serialize the inference function (not ported; raises)")
+                        help="write the inference function with torch.export to this path")
     parser.add_argument("--conf-dtype", default="float16",
                         choices=("float16", "uint8", "none"),
                         help="confidence wire format (uint8 = 1/255 steps on the "
@@ -45,8 +48,6 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.export:
-        raise NotImplementedError("--export is ROADMAP.md queue 1 item 13")
     from bacs_tpu_torch.config import load_config
     from bacs_tpu_torch.serve import Predictor
 
@@ -54,6 +55,8 @@ def main(argv=None):
     predictor = Predictor.from_checkpoint(
         args.checkpoint, config, device=args.device,
         conf_dtype=args.conf_dtype, pack_masks=args.pack_masks, n_devices=args.n_devices)
+    if args.export:
+        print(f"exported inference fn to {predictor.export(args.export)}")
     masks = predictor.predict_files(args.images, out_dir=args.out) if args.images else []
     if args.images:
         print(f"wrote {len(args.images)} masks to {args.out}/")

@@ -25,7 +25,15 @@ may list CPU devices), splits each batch into contiguous slices across
 them, runs K10 on each replica, and gathers the slices on the first
 device.  The eval forward has no cross-image state, so no collective
 runs.  Fewer cards than asked warns and serves on those there are.
-``export`` is ROADMAP.md queue 1 item 13 and raises.
+
+``export`` writes the single-device inference function (``ServeForward``,
+the first replica's) with ``torch.export``; ``run_exported`` loads it and
+runs it with any weights of the same shapes (``Predictor.variables``), as
+JAX's ``export``/``run_exported`` do with StableHLO (``bacs_tpu/serve.py:
+259-286``).  The two kernels are registered ops (``bacs::abn_eval``,
+``bacs::upsample_argmax_conf``): the graph keeps them as nodes, and a
+process that loads the file must have imported this module, which
+registers them.
 """
 
 from __future__ import annotations
@@ -34,17 +42,57 @@ import contextlib
 import copy
 import os
 import warnings
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from bacs_tpu_torch.data.transforms import normalize_image
+from bacs_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from bacs_tpu_torch.models import create_network
 from bacs_tpu_torch.ops.bitpack import bits_needed, pack_bits, unpack_bits
 from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
 from bacs_tpu_torch.utils.flax_weights import load_flax_variables
 from bacs_tpu_torch.viz.media import voc_colormap
+
+
+def load_exported(path: str) -> nn.Module:
+    """The module of a program that :meth:`Predictor.export` wrote.  Loading
+    needs the ops ``bacs::*`` registered, which importing this module does
+    (through ``ops/abn_core.py`` and ``ops/upsample_argmax.py``).  Its
+    tensors take no gradient: it serves."""
+    return torch.export.load(path).module().requires_grad_(False)
+
+
+class ServeForward(nn.Module):
+    """The single-device inference function, the JAX ``_infer``
+    (``bacs_tpu/serve.py:77-104``): uint8 [N, H, W, 3] -> normalize ->
+    ``sem_logits[..., :active]`` in ``dtype`` -> K10 -> confidence as f16,
+    uint8 steps of 1/255 or none -> masks bit-packed to ``mask_bits`` when
+    set.  Returns ``(preds, conf)``, or ``preds`` alone with
+    ``conf_dtype="none"``.  :meth:`Predictor.export` exports it."""
+
+    def __init__(self, net: nn.Module, active: int, dtype: torch.dtype, conf_dtype: str,
+                 mask_bits: Optional[int]):
+        super().__init__()
+        self.net = net
+        self.active, self.dtype = active, dtype
+        self.conf_dtype, self.mask_bits = conf_dtype, mask_bits
+        dev = next(net.parameters()).device
+        for name, v in (("mean", IMAGENET_MEAN), ("std", IMAGENET_STD)):
+            self.register_buffer(name, torch.tensor(v, dtype=torch.float32, device=dev),
+                                 persistent=False)
+
+    def forward(self, images_u8: torch.Tensor):
+        x = ((images_u8.float() / 255.0 - self.mean) / self.std).to(self.dtype)
+        sem = self.net.sem_logits(x)[..., : self.active]
+        preds, conf = upsampled_argmax_conf(sem.contiguous(),
+                                            (images_u8.shape[1], images_u8.shape[2]))
+        if self.conf_dtype == "uint8":
+            conf = torch.round(conf.float() * 255.0).to(torch.uint8)
+        if self.mask_bits is not None:
+            preds = pack_bits(preds, self.mask_bits)
+        return preds if self.conf_dtype == "none" else (preds, conf)
 
 
 def replica_devices(device: torch.device, n_devices: Optional[int] = None,
@@ -122,6 +170,9 @@ class Predictor:
         self.model.eval().to(self.device)
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
+        self.forwards = [ServeForward(m, self.active_classes, dtype, conf_dtype,
+                                      self.mask_bits if self.pack_masks else None)
+                         for m in self.replicas]
         # device->host copies run on their own stream, so batch i's copy
         # overlaps batch i+1's forward (predict_many)
         self._copy_stream = (
@@ -161,36 +212,64 @@ class Predictor:
             **kwargs,
         )
 
+    @property
+    def variables(self) -> Dict[str, torch.Tensor]:
+        """The served network's tensors by name (its ``state_dict``): what
+        :meth:`run_exported` serves an exported program with."""
+        return dict(self.model.state_dict())
+
     def export(self, path: str, batch_size: int = 8) -> str:
-        raise NotImplementedError("export is ROADMAP.md queue 1 item 13")
+        """Write the single-device inference function at ``batch_size``
+        (uint8 [batch_size, crop, crop, 3] in, the wire format out) with
+        ``torch.export`` to ``path``; returns ``path``.
+
+        The program is traced on the Predictor's device and runs there.  A
+        Predictor with several replicas exports the first one's function,
+        as JAX's does (``bacs_tpu/serve.py:266-271``).  The eval ABNs and the
+        upsample+argmax stay the registered ops ``bacs::abn_eval`` and
+        ``bacs::upsample_argmax_conf``, so the loaded program launches the
+        same kernels as :meth:`predict`.
+        """
+        torch.export.save(self.export_program(batch_size), path)
+        return path
+
+    def export_program(self, batch_size: int = 8) -> torch.export.ExportedProgram:
+        """The ``torch.export`` program that :meth:`export` writes."""
+        x = torch.zeros((batch_size, self.crop_size, self.crop_size, 3),
+                        dtype=torch.uint8, device=self.device)
+        with torch.no_grad():
+            return torch.export.export(self.forwards[0], (x,))
+
+    @staticmethod
+    def run_exported(path: str, variables: Dict[str, torch.Tensor], images_u8):
+        """Run the program :meth:`export` wrote on uint8 images with the
+        network tensors ``variables`` (a :attr:`variables` map of any
+        Predictor of the same shapes): ``(preds, conf)``, or ``preds`` alone
+        for ``conf_dtype="none"``, packed if the exporter packed, as
+        tensors on the program's device."""
+        module = load_exported(path)
+        dev = next(iter(module.state_dict().values())).device
+        tensors = {f"net.{k}": torch.as_tensor(v).to(dev) for k, v in variables.items()}
+        with torch.inference_mode():
+            return torch.func.functional_call(
+                module, tensors, (torch.as_tensor(images_u8).to(dev),))
 
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def _infer_replica(self, model, images_u8: torch.Tensor):
-        dev = images_u8.device
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-            x = normalize_image(images_u8).to(self.dtype)
-            sem = model.sem_logits(x)[..., : self.active_classes]
-            return upsampled_argmax_conf(sem.contiguous(),
-                                         (images_u8.shape[1], images_u8.shape[2]))
-
-    @torch.inference_mode()
     def _infer(self, images_u8: torch.Tensor):
-        if self.n_devices == 1:
-            preds, conf = self._infer_replica(self.model, images_u8)
-        else:
-            # contiguous slices, one per replica; each launch is queued on its
-            # own card before any result is gathered
-            outs = [self._infer_replica(m, x.to(d, non_blocking=True))
-                    for m, x, d in zip(self.replicas,
-                                       images_u8.chunk(self.n_devices), self.devices)]
-            preds, conf = (torch.cat([o[i].to(self.device) for o in outs]) for i in (0, 1))
-        if self.conf_dtype == "uint8":
-            conf = torch.round(conf.float() * 255.0).to(torch.uint8)
-        if self.pack_masks:
-            preds = pack_bits(preds, self.mask_bits)
-        return preds, (None if self.conf_dtype == "none" else conf)
+        # contiguous slices, one per replica; each launch is queued on its
+        # own card before any result is gathered
+        outs = []
+        for fwd, x, dev in zip(self.forwards, images_u8.chunk(self.n_devices), self.devices):
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                out = fwd(x.to(dev, non_blocking=True))
+            outs.append(out if isinstance(out, tuple) else (out,))
+        if len(outs) > 1:
+            outs = [tuple(torch.cat([o[i].to(self.device) for o in outs])
+                          for i in range(len(outs[0])))]
+        preds, *conf = outs[0]
+        return preds, (conf[0] if conf else None)
 
     def predict(self, images: np.ndarray):
         """images: uint8 [N, H, W, 3] at crop size -> (preds [N,H,W], conf).

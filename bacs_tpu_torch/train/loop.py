@@ -35,10 +35,14 @@ sets one gets one log line that it is ignored: multihost streams,
 ``training.spatial_partition`` (GSPMD),
 ``training.boundary_gc`` (XLA's executable cache),
 ``training.steps_per_dispatch`` (``make_multi_step``) and
-``training.profile_dir`` (the ``jax.profiler`` trace).  These raise, naming
-their ROADMAP.md item: media, prototype and drift logging and the OOD pass
-(queue 1 item 14).  Asking for more cards than are visible warns and runs
-on those there are, as the JAX loop does.  A
+``training.profile_dir`` (the ``jax.profiler`` trace).  After each task's
+test the callbacks run (``_run_callbacks``): media collages
+(``training.log_images``), prototype plots (``log_prototypes``), the drift
+snapshot (``log_drift``, measured every ``drift_measure_every`` train
+steps of the later tasks and logged as ``representation_drift``), all
+written under ``training.media_dir``, and with the detector an ``ood``
+dataset's OOD pass (``test.0_aux_ood/*``).  Asking for more cards than are
+visible warns and runs on those there are, as the JAX loop does.  A
 ``network.backbone_weights_path`` that exists is loaded into the new
 network's backbone (the PLOP release layout, ``utils/torch_weights.py``);
 one that does not is logged, and the network trains from its seeded
@@ -66,13 +70,16 @@ from bacs_tpu_torch.models.transeg import TranSeg
 from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet
 from bacs_tpu_torch.train.learner import get_learner, transformer_init
 from bacs_tpu_torch.train.metrics import PerStepResult, detailed_iou_metrics
-from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary
+from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary, ood_test
 from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils import checkpoint
 from bacs_tpu_torch.utils.logging import Logger
 from bacs_tpu_torch.utils.torch_weights import load_backbone_into
+from bacs_tpu_torch.viz.drift import DriftProbe
+from bacs_tpu_torch.viz.media import MediaLogger
+from bacs_tpu_torch.viz.prototypes_viz import PrototypeLogger
 
 # training keys that tune the TPU or its host, ignored here
 TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch", "profile_dir")
@@ -214,13 +221,16 @@ class Trainer:
             if key in tcfg:
                 self.logger.info(f"training.{key}={tcfg[key]!r} tunes the TPU or its "
                                  "host and is ignored")
-        for key in ("log_images", "log_prototypes", "log_drift"):
-            if tcfg.get(key):
-                raise NotImplementedError(
-                    f"training.{key} (media, prototype and drift logging) is ROADMAP.md "
-                    "queue 1 item 14")
-        if config.get("ood") is not None and self.use_bg_detector:
-            raise NotImplementedError("the OOD dataset pass is ROADMAP.md queue 1 item 14")
+        # observability callbacks (bacs_tpu/train/loop.py:156-175; reference:
+        # visualization/, trainer.py:203-223), run after each task's test
+        out_dir = str(tcfg.get("media_dir", "media"))
+        self.media = MediaLogger(out_dir) if tcfg.get("log_images", False) else None
+        self.proto_logger = (PrototypeLogger(out_dir) if tcfg.get("log_prototypes", False)
+                             else None)
+        self.drift = (DriftProbe(measure_every=int(tcfg.get("drift_measure_every", 50)))
+                      if tcfg.get("log_drift", False) else None)
+        # the OOD pass (reference: trainer.py:120-123,406-411)
+        self.ood_config = config.get("ood", None)
         self.fused_ce = bool(tcfg.get("fused_ce", True))
 
         # method (reference loss plugin, trainer.py:242-252)
@@ -421,6 +431,10 @@ class Trainer:
                 t0 = time.perf_counter()
                 self.state, metrics = train_step(self.state, put_batch(batch))
                 step_count += 1
+                if self.drift is not None and task_id > 0 and self.rank == 0:
+                    d = self.drift.measure(ctx, self.state, step_count)
+                    if d is not None:
+                        self.logger.log_metrics({"representation_drift": d})
                 if step_count <= 2 or step_count % 50 == 0:
                     self.logger.info(f"task {task_id} epoch {epoch} step {step_count} "
                                      f"loss {float(metrics['loss']):.4f}")
@@ -481,25 +495,28 @@ class Trainer:
 
     def _eval_pass(self, d, eval_step, put_batch, ctx=None):
         """(confusion matrix, sample-weighted mean loss, aux matrix, aux
-        statistics) of task ``d``'s eval batches; the aux pair with ``ctx``."""
+        statistics, first batch) of task ``d``'s eval batches; the aux pair
+        with ``ctx``."""
         dm = self.datamodule
         conf = torch.zeros((dm.num_classes, dm.num_classes), dtype=torch.int32,
                            device=self.device)
         conf_aux = torch.zeros((2, 2), dtype=torch.int32, device=self.device)
         losses, weights, aux_stats = [], [], []
+        first = None
         for batch in dm.eval_batches(d, n_devices=self.n_devices,
                                      rank=self.rank if self.group is not None else None):
             # padded tail batches count only their real samples
             # (reference: PL batch-size weighting)
             weights.append(batch.pop("n_real"))
             batch = put_batch(batch)
+            first = batch if first is None else first
             conf, loss = eval_step(self.state, conf, batch)
             losses.append(loss)
             if ctx is not None:
                 conf_aux, stats = aux_bg_step(ctx, self.state, batch, conf_aux)
                 aux_stats.append(stats)
         loss = float(np.average([float(v) for v in losses], weights=weights))
-        return conf.cpu().numpy(), loss, conf_aux.cpu().numpy(), aux_stats
+        return conf.cpu().numpy(), loss, conf_aux.cpu().numpy(), aux_stats, first
 
     def _run_validation(self, task_id, ctx, eval_step, put_batch, epoch):
         """Mid-training val pass: current task (+ previous task as `prev`)
@@ -509,7 +526,7 @@ class Trainer:
         if self.continual and task_id > 0:
             targets.append(("prev", task_id - 1))
         for prefix, t in targets:
-            conf, loss, _, _ = self._eval_pass(t, eval_step, put_batch)
+            conf, loss, _, _, _ = self._eval_pass(t, eval_step, put_batch)
             metrics = detailed_iou_metrics(conf, initial_classes=task.initial_classes,
                                            nb_current_classes=task.nb_current_classes)
             self.logger.log_metrics({f"{prefix}/mIoU": metrics["mIoU"],
@@ -520,9 +537,11 @@ class Trainer:
         dm = self.datamodule
         task = ctx.task
         results: List[Dict[str, float]] = []
+        first_batch = None
         for d in dm.eval_task_range(task_id):
-            conf, loss, conf_aux, aux_stats = self._eval_pass(
+            conf, loss, conf_aux, aux_stats, first = self._eval_pass(
                 d, eval_step, put_batch, ctx if self.use_bg_detector else None)
+            first_batch = first if first_batch is None else first_batch
             metrics = detailed_iou_metrics(
                 conf, initial_classes=task.initial_classes,
                 nb_current_classes=task.nb_current_classes, class_names=dm.class_names)
@@ -538,7 +557,55 @@ class Trainer:
                 self.logger.log_metrics({f"test.{d}_aux_bg/{k}": v for k, v in aux.items()})
             self.logger.log_metrics(result)
             results.append(result)
+        self._run_callbacks(task_id, ctx, first_batch)
         return results
+
+    def _global_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch of which ``batch`` is this rank's slice, on
+        every rank (the slices are contiguous and of one size)."""
+        if self.group is None:
+            return batch
+        return {k: parallel.all_gather(batch[k], self.group) for k in ("image", "label")}
+
+    @torch.no_grad()
+    def _run_callbacks(self, task_id, ctx, first_batch):
+        """Media, prototype, drift and OOD passes after a task's test
+        (``bacs_tpu/train/loop.py:712-765``; reference: the visualization
+        callbacks and trainer.py:406-411).  The media and drift samples are
+        the first global batch; the prototype and OOD sums are summed across
+        the ranks; only rank 0 writes, measures and logs."""
+        dm = self.datamodule
+        writer = self.rank == 0
+        if first_batch is not None and (self.media is not None or self.drift is not None):
+            first_batch = self._global_batch(first_batch)
+        if first_batch is not None and self.media is not None and writer:
+            logits = ctx.forward(self.state.model, first_batch["image"], False).logits
+            preds = torch.argmax(logits[..., :ctx.n_cur], dim=-1)
+            self.media.append("test", first_batch["image"], first_batch["label"], preds)
+            path = self.media.flush(task_id)
+            if path:
+                self.logger.info(f"media collage: {path}")
+            self.media.log_wandb(self.logger, task_id, dm.class_names)
+        if self.proto_logger is not None:
+            collected = self.proto_logger.collect(
+                ctx, self.state, dm.eval_batches(
+                    0, n_devices=self.n_devices,
+                    rank=self.rank if self.group is not None else None))
+            if writer:
+                for p in self.proto_logger.plot(ctx, self.state, collected, task_id):
+                    self.logger.info(f"prototype plot: {p}")
+        if self.drift is not None and first_batch is not None and writer:
+            self.drift.snapshot(ctx, self.state, first_batch)
+        if self.ood_config is not None and self.use_bg_detector:
+            ood_dm = create_datamodule(
+                {"dataset": self.ood_config,
+                 "training": dict(self.config["training"], initial_increment=0, increment=0)},
+                self.device)
+            metrics = ood_test(ctx, self.state, ood_dm.eval_batches(
+                0, n_devices=self.n_devices,
+                rank=self.rank if self.group is not None else None))
+            ood_dm.close()
+            self.logger.log_metrics({f"test.0_aux_ood/{k}": v for k, v in metrics.items()})
 
     # ------------------------------------------------------------------
 

@@ -9,6 +9,8 @@ datasets, weight import and checkpoint serving, on one NVIDIA GPU (H100).
     python3 chip_smoke.py --bacs-busy [--package-root DIR]
     python3 chip_smoke.py --transeg
     python3 chip_smoke.py --real-data
+    python3 chip_smoke.py --ddp
+    python3 chip_smoke.py --export-ood
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -90,7 +92,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    phase 13 does;
 19. at 512^2 in bf16, batch 12 (``cont_15_1.yaml``), per method: ``end_task``
    of task 0 (the previous-model snapshot), the imprinting, for PLOP
-   ``begin_task`` over 10 batches (timed), then 2 warm-up and 6 timed
+   ``begin_task`` over 10 batches (timed), then 2 warm-up and 4 timed
    task-1 steps with the counters reset just before, asserting per step
    (MiB) 1 K6 and 1 K7 each way or (PLOP) 1 K9, 1 K1 forward and 1 K8,
    and 107 train-ABN and 107 K5 (the previous model), a finite loss; the
@@ -112,7 +114,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    in-process: ``conf/bacs/bacs_plus_config`` with ``der_15_1_bg``,
    ``bacs_plus_bg`` and the fused stem, DeepLabV3-ResNet-101 at 512^2 in
    bf16, batch 12, on the synthetic source at VOC's 21 classes (240 train
-   and 48 validation images), one step per new class: all 6 tasks, BACS's
+   and 24 validation images), one step per new class: all 6 tasks, BACS's
    ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``
    (the mid-task ones asynchronous), the run stopped after task 2's first
    mid-task checkpoint and resumed (a new Trainer on the first run's
@@ -132,7 +134,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    ``cont_15_1.yaml``), per method: task 0's ``end_task`` (ER's buffer
    population, timed), the imprinting, the task-1 eval steps (107 K5 and 1
    K2 each, with K1's forward for ER and K6's for SDR; finite losses), then
-   2 warm-up and 4 timed task-1 steps with the counters reset just before,
+   2 warm-up and 3 timed task-1 steps with the counters reset just before,
    asserting per step the launches the code implies (ER: 1 K1 and 1 K4
    each way and 214 train-ABN; SDR: 1 K6 and 1 K7 each way, 107 train-ABN
    and 107 K5; iCaRL: 107 train-ABN and 107 K5, no upsample kernel), a
@@ -180,19 +182,20 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    train-ABN and 104 K5 a step);
 35. ``conf/experiments/bacs_transformer_config`` through
    ``bacs_tpu_torch.main.train`` in-process with [24]'s synthetic source
-   (96 training images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
+   (48 training and 24 validation images) and the fused stem, all 6 tasks, no checkpoints: the token growth and
    the class counts checked at every boundary, a finite final mIoU, the
    seconds per task and the launches;
-36. VOC and weights, DeepLabV3-RN101 at 512^2 in bf16: a VOC tree (48 train,
+36. VOC and weights, DeepLabV3-RN101 at 512^2 in bf16: a VOC tree (32 train,
    16 validation images of 512-818 px, ``bacs_tpu_torch.data.layouts``) and
    a release-layout ``resnet101_iabn_sync.pth.tar`` of seeded values
    (``export_backbone_release``); the Trainer's network on the card checked
-   against the file tensor by tensor; ``python -m bacs_tpu_torch.main`` on
-   ``conf/bacs`` (the detector, BACS+, 2 tasks, 2 decode workers) in a
-   subprocess: the loaded count equals the file's, K3 and K4 launched at task
-   1; the predict command line (``bacs_tpu_torch.predict.main``, in this
-   process) on its checkpoint over 8 of the tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in f32 on the
-   card and on the CPU over them (the share of pixels that differ, within
+   against the file tensor by tensor; the training command line
+   (``bacs_tpu_torch.main.main``, in this process) on ``conf/bacs`` (the
+   detector, BACS+, 2 tasks, 2 decode workers): the loaded count equals the
+   file's, K3 and K4 launched at task 1; the predict command line
+   (``bacs_tpu_torch.predict.main``, in this process) on its checkpoint over
+   8 of the tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in
+   f32 on the card and on the CPU over 4 of them (the share of pixels that differ, within
    ``SERVE_PIXEL_TOL``); a reference-layout DeepLabV3 checkpoint of seeded
    values (``reference_deeplab_shapes``) through the ``import_ckpt``
    command line's ``main --populate-buffer`` (in this process), then resumed at task 1 on
@@ -243,6 +246,24 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    ones, held as phase 8, with the card's launches per step asserted
    (train: 1 K1 each way, one train-ABN apply per identity norm, none for
    ``fused_abn=false``; eval: 1 K5 per norm, 1 K1 forward, 1 K2);
+42. the exported serving program (after phase 5, on its images): the
+   phase-5 Predictor (DeepLabV3-RN101, 512^2, bf16) exported at batch 8
+   with ``torch.export`` (the seconds of export, save and load, the file's
+   MiB), its graph holding one ``bacs::upsample_argmax_conf`` node and 107
+   ``bacs::abn_eval`` nodes, the loaded program run and held bit-equal to
+   ``predict`` (masks and confidence), its K5 and K10 launches a call
+   counted by the counters and by the profiler's kernel names and equal to
+   ``predict``'s, the device ms of one call against ``predict``'s; again
+   with ``pack_masks=True, conf_dtype="uint8"`` (unpacked masks equal);
+43. the OOD pass and the loggers (after phase 15, on its BACS state with
+   the detector at task 1, 512^2, bf16): ``ood_test``'s counts over the
+   synthetic OOD source of ``conf/experiments/ood/synthetic.yaml`` (its 64
+   validation images, 4 batches of 16) covering every pixel, 107 K5 per
+   forward; ``PrototypeLogger.collect`` over two eval batches, a
+   ``DriftProbe`` snapshot and a measure (0 on unchanged weights),
+   ``MediaLogger.flush`` (the collage's shape), ``plot`` where matplotlib
+   and scikit-learn are installed; then ``ood_counts``, ``collect`` and
+   the drift card against CPU in f32 at RN101 4 x 128^2 (TF32 off);
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -258,7 +279,8 @@ Every profiled window logs the card's SM clock over it (``[clock]``,
 ``nvidia-smi`` sampling), beside the busy time it gives.
 
 ``--transeg`` only builds and runs phases [33]-[35], ``--real-data``
-phases [36]-[38], ``--ddp`` phases [40] and [41].
+phases [36]-[38], ``--ddp`` phases [40] and [41], ``--export-ood`` phases
+[42] and [43] (with [14]'s set-up over 2 fill batches).
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -750,8 +772,24 @@ def network_cfg() -> dict:
         return yaml.safe_load(f)
 
 
+# seeded_variables' results by their arguments: drawn once, then shared by
+# the phases, which only read them (drawing and calibrating a network's
+# weights takes seconds of the host's time)
+_SEEDED: dict = {}
+
+
 def seeded_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
                      smooth: bool = False):
+    """``draw_variables``' (params, batch_stats), drawn once per arguments
+    and shared (every caller only reads them)."""
+    key = (json.dumps(cfg, sort_keys=True), seed, use_bg_detector, smooth)
+    if key not in _SEEDED:
+        _SEEDED[key] = draw_variables(cfg, seed, use_bg_detector, smooth)
+    return _SEEDED[key]
+
+
+def draw_variables(cfg: dict, seed: int, use_bg_detector: bool = False,
+                   smooth: bool = False):
     """Flax-layout (params, batch_stats) for the configured network (with
     the BACS background detector of N_TASKS heads if ``use_bg_detector``;
     statistics calibrated for identity activations if ``smooth``).
@@ -1516,7 +1554,7 @@ def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict
 # conf/experiments/{mib,plop}_config.yaml with training/cont_15_1.yaml: VOC
 # 15-1 (16 classes with background at task 0, then one per task), batch 12
 MIB_PLOP_METHODS = ("loss.MiB", "loss.PlopLoss")
-MIB_PLOP_BATCH, MIB_PLOP_STEPS, PLOP_BEGIN_BATCHES = 12, 6, 10
+MIB_PLOP_BATCH, MIB_PLOP_STEPS, PLOP_BEGIN_BATCHES = 12, 4, 10  # 6 timed steps before [42], [43]
 OLD_CLASSES = 16
 MIB_PLOP_CASES = [((12, 32, 32, 17), (512, 512)), ((2, 33, 47, 17), (261, 373)),
                   ((2, 5, 7, 6), (37, 51))]
@@ -1819,7 +1857,7 @@ def mib_plop_kernel_times(dev, seed) -> tuple:
 # 15-1, batch 12; ER keeps 50 slots a task and replays 12
 MORE_METHODS = {"loss.ExperienceReplay": dict(buffer_size=50, replay_minibatch_size=12),
                 "loss.SDR": {}, "loss.IcarlLoss": {}}
-MORE_STEPS, ER_FILL_BATCHES = 4, 6
+MORE_STEPS, ER_FILL_BATCHES = 3, 6  # 4 timed steps before [42], [43]
 # the launches per task-1 train step the code implies, written before the
 # first run: ER the main CE (K1 each way) and the replay's class-weighted CE
 # (K4 each way) over two train forwards, no previous model; SDR the unbiased
@@ -2358,6 +2396,7 @@ def accumulate_checks(cfg, params, stats, seed, dev, reset_counts, counts) -> di
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(seed + 30)
     pair = [synthetic_batch(4, 128, g, "cpu") for _ in range(ACC_K)]
+    t_held = time.perf_counter()
     for activation in ("identity", "leaky"):
         runs = []  # the card's, then the CPU's
         for device in (dev, torch.device("cpu")):
@@ -2375,6 +2414,7 @@ def accumulate_checks(cfg, params, stats, seed, dev, reset_counts, counts) -> di
         hold_step(f"[30] f32 RN101 pair of mini-steps (k = {ACC_K}) card vs CPU, 4 x 128^2",
                   activation, *runs, p0,
                   "; the loss is the pair's mean, the gradient the pair's mean, clipped")
+    t_held = time.perf_counter() - t_held
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.empty_cache()
 
@@ -2406,7 +2446,8 @@ def accumulate_checks(cfg, params, stats, seed, dev, reset_counts, counts) -> di
         f"{peak / 2**30:.3f} GiB; launches {acc_counts}")
     del state
     torch.cuda.empty_cache()
-    return dict(counts=acc_counts, busy=busy, wall=float(np.median(wall)), peak=peak / 2**30)
+    return dict(counts=acc_counts, busy=busy, wall=float(np.median(wall)), peak=peak / 2**30,
+                t_held=t_held)
 
 
 def remat_compare(cfg, params, stats, seed, dev, reset_counts, counts) -> dict:
@@ -2491,12 +2532,13 @@ TRANSEG_YAML = "conf/experiments/network/deep_lab_transformer.yaml"
 TRANSEG_CONFIG = ("conf/experiments", "bacs_transformer_config")
 TRANSEG_ABN = ABN_PER_FORWARD - 3  # DeepLabV3's less the ASPP's 3: the backbone's
 TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 4, 4
-# [35] the protocol through the CLI on [24]'s synthetic source cut to 96
-# training images (every task keeps 8 or more; the run's time: 120 before
-# phase [40] came), no checkpoints
+# [35] the protocol through the CLI on [24]'s synthetic source cut to 48
+# training and 24 validation images (every task keeps some of each; the
+# run's time: 120 / 48 before phase [40] came, 96 / 48 before phases [42]
+# and [43]), no checkpoints
 TRANSEG_OVERRIDES = ["+network.fused_stem=true",
                      "dataset._target_=dataloaders.SyntheticDataModule",
-                     "+dataset.dataset.n_train=96", "+dataset.dataset.n_val=48",
+                     "+dataset.dataset.n_train=48", "+dataset.dataset.n_val=24",
                      "+training.steps_per_class=1", "training.epochs=1",
                      "~training.ckpt_dir"]
 
@@ -3593,13 +3635,15 @@ def stem_kernel_times(dev, shape=STEM_MAIN) -> dict:
 # [24] the paper's BACS+ recipe through the port's CLI: conf/bacs with
 # training/der_15_1_bg.yaml (batch 12, the detector, 300 slots, alpha 0.8,
 # beta 0.5), the fused stem, on the synthetic source at VOC's widths; one
-# step per new class, one epoch per task.  240 / 48 images give every task
+# step per new class, one epoch per task.  240 / 24 images give every task
 # train and validation images (task 0 11 steps an epoch, task 2 two, the
-# others one), so task 2 is the first to save mid-task; the run stops after
-# that save (mid-task saves are asynchronous) and resumes from it
+# others one; 23, 2, 2, 1, 3 and 4 validation images, 42, 8, 5, 4, 5 and 6
+# with the 48 before phases [42] and [43] came), so task 2 is the first to save
+# mid-task; the run stops after that save (mid-task saves are asynchronous)
+# and resumes from it
 CLI_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "+network.fused_stem=true",
                  "dataset._target_=dataloaders.SyntheticDataModule",
-                 "+dataset.dataset.n_train=240", "+dataset.dataset.n_val=48",
+                 "+dataset.dataset.n_train=240", "+dataset.dataset.n_val=24",
                  "+training.steps_per_class=1", "training.epochs=1"]
 CLI_CKPT, CLI_STOP_TASK = "build/chip_smoke_ckpt", 2
 
@@ -3741,13 +3785,13 @@ def report_cli(run: dict) -> None:
 REAL_ROOT = "build/chip_smoke_real"
 # [36] the VOC leg: conf/bacs with the detector (der_15_1_bg, bacs_plus_bg,
 # batch 12, 300 slots), 2 tasks (16 classes, then 5), overlap membership so
-# both tasks get images of the 48, one epoch a task (cut from two for the
-# script's time); two decode workers
-VOC_TREE = dict(n_train=48, n_val=16, size=CROP)
+# both tasks get images of the 32 (48 before phases [42] and [43] came),
+# one epoch a task (cut from two for the script's time); two decode workers
+VOC_TREE = dict(n_train=32, n_val=16, size=CROP)
 VOC_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "training.num_workers=2",
                  "training.initial_increment=15", "training.increment=5",
                  "training.mode=overlap", "training.epochs=1", "training.val_every=0"]
-PREDICT_IMAGES = 8
+PREDICT_IMAGES, SERVE_CHECK_IMAGES = 8, 4
 # the share of pixels whose class may differ between the f32 Predictor on
 # the card (cuDNN, TF32 off) and on the CPU: the ties within rounding
 SERVE_PIXEL_TOL = 1e-3
@@ -3764,46 +3808,30 @@ CITY_OVERRIDES = ["network=deep_lab", "dataset._target_=dataloaders.CityscapeDat
                   "dataset.dataset.num_classes=20", "dataset.dataset.crop_size=128",
                   "+dataset.dataset.n_cities=3", "training.debug=false"]
 DOMAIN_OVERRIDES = ["dataset=synthetic_domain", "network=deep_lab"]
-# a CLI run in a subprocess, as `python -m <module>` runs it (runpy), with the
-# launch counters of every task and of what ran outside the tasks printed at
-# its end
-COUNTED_MODULE = """
-import json, runpy, sys
-from chip_smoke import launch_counters
-from bacs_tpu_torch.train import loop
-reset, counts = launch_counters()
-per_task = []
-run_task = loop.Trainer._run_task
-def counted(self, task_id):
-    reset()
-    out = run_task(self, task_id)
-    per_task.append([task_id, counts()])
-    reset()
-    return out
-loop.Trainer._run_task = counted
-module = sys.argv[1]
-sys.argv = [module] + sys.argv[2:]
-reset()
-runpy.run_module(module, run_name="__main__")
-print("LAUNCHES " + json.dumps({"per_task": per_task, "last": counts()}), flush=True)
-"""
 
 
-def run_counted(module: str, args: list, log_path: str, timeout: int = 600) -> tuple:
-    """Run ``python -m module args`` in a subprocess (through
-    ``COUNTED_MODULE``), its output to ``log_path``; returns (its stdout, the
-    launch counters per task and of the run's end)."""
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", COUNTED_MODULE, module, *args],
-                         capture_output=True, text=True, timeout=timeout)
-    with open(log_path, "w") as f:
-        f.write(res.stdout + "\n--- stderr\n" + res.stderr)
-    if res.returncode != 0:
-        log(res.stdout[-3000:] + res.stderr[-3000:])
-        raise AssertionError(f"python -m {module} exited {res.returncode}; {log_path}")
-    line = next(x for x in res.stdout.splitlines() if x.startswith("LAUNCHES "))
-    log(f"[36] python -m {module}: {time.perf_counter() - t0:.1f} s (log {log_path})")
-    return res.stdout, json.loads(line[len("LAUNCHES "):])
+def run_here_per_task(main_fn, label: str, args: list, log_path: str, reset_counts,
+                      counts) -> tuple:
+    """``run_here`` with each task's launches apart: returns (the output,
+    {"per_task": [[task_id, launches], ...], "last": those after the last
+    task})."""
+    from unittest import mock
+
+    from bacs_tpu_torch.train import loop
+
+    per_task = []
+    run_task = loop.Trainer._run_task
+
+    def counted(self, task_id):
+        reset_counts()
+        out = run_task(self, task_id)
+        per_task.append([task_id, counts()])
+        reset_counts()
+        return out
+
+    with mock.patch.object(loop.Trainer, "_run_task", counted):
+        stdout, last = run_here(main_fn, label, args, log_path, reset_counts, counts)
+    return stdout, {"per_task": per_task, "last": last}
 
 
 def run_here(main_fn, label: str, args: list, log_path: str, reset_counts, counts) -> tuple:
@@ -3868,11 +3896,11 @@ def seeded_release(path: str, seed: int) -> int:
 def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     """[36] the VOC leg: a VOC tree and a release backbone file, the
     backbone's load checked tensor by tensor on the card, the protocol
-    through ``python -m bacs_tpu_torch.main`` (2 decode workers), its
+    through the training command line's ``main`` (2 decode workers), its
     checkpoint served through the predict command line's ``main`` and by
     ``Predictor.from_checkpoint`` in f32 on the card and on the CPU, then a
     reference-layout checkpoint imported with the ``import_ckpt`` command
-    line's ``main`` and resumed on the card (the two ``main``s in this
+    line's ``main`` and resumed on the card (the three ``main``s in this
     process: a process of their own costs ~35 s of start-up)."""
     import glob
     import re
@@ -3924,10 +3952,10 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
         "the file (convolutions as stored, ABN weights as magnitudes)")
     del state, own
 
-    # the protocol through the CLI, in a subprocess
-    stdout, launches = run_counted("bacs_tpu_torch.main", [
+    # the protocol through the CLI's main, in this process
+    stdout, launches = run_here_per_task(cli.main, "bacs_tpu_torch.main.main", [
         "--config-path", "conf/bacs", "--config-name", "bacs_plus_config", *overrides],
-        os.path.join(base, "main.log"))
+        os.path.join(base, "main.log"), reset_counts, counts)
     m = re.search(r"loaded (\d+) pretrained backbone tensors from", stdout)
     assert m and int(m.group(1)) == n_bb, (m and m.group(0), n_bb)
     miou = float(re.search(r"final mIoU: (\S+)", stdout).group(1))
@@ -3937,7 +3965,7 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     t1 = per_task[1]
     for key in ("k3f", "k3b", "k4f", "k4b"):
         assert t1[key] > 0, (key, t1)
-    log(f"[36] python -m bacs_tpu_torch.main (2 tasks, 2 decode workers): loaded {n_bb} "
+    log(f"[36] bacs_tpu_torch.main (2 tasks, 2 decode workers): loaded {n_bb} "
         f"backbone tensors; final mIoU {miou:.4f}; task 0 launches {per_task[0]}; task 1 "
         f"{t1}")
     out.update(leg_launches=launches, miou=miou, n_bb=n_bb)
@@ -3957,12 +3985,15 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
+        # half the predicted images, one batch of SERVE_CHECK_IMAGES (8 before
+        # phases [42] and [43] came): the CPU's f32 forward is the cost
         masks = {d: Predictor.from_checkpoint(ckpt, config, device=d, dtype=torch.float32)
-                 .predict_files(images) for d in ("cuda", "cpu")}
+                 .predict_files(images[:SERVE_CHECK_IMAGES], batch_size=SERVE_CHECK_IMAGES)
+                 for d in ("cuda", "cpu")}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     differ = float(np.mean([np.mean(a != b) for a, b in zip(masks["cuda"], masks["cpu"])]))
-    log(f"[36] Predictor.from_checkpoint f32, card against CPU over {len(images)} images: "
+    log(f"[36] Predictor.from_checkpoint f32, card against CPU over {SERVE_CHECK_IMAGES} images: "
         f"{differ:.2e} of the pixels in another class (tolerance {SERVE_PIXEL_TOL:.0e})")
     assert differ <= SERVE_PIXEL_TOL, differ
     out["serve_differ"] = differ
@@ -3998,10 +4029,13 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     return out
 
 
+DECODE_PASSES = 2  # 3 before phases [42] and [43] came
+
+
 def decode_pool_rates(root: str) -> dict:
     """Host decode img/s of the VOC tree's train images through the
-    DataModule's host stream at 0, 2 and 4 workers (batches of 12), three
-    passes each: the first with the workers' spawn."""
+    DataModule's host stream at 0, 2 and 4 workers (batches of 12),
+    ``DECODE_PASSES`` passes each: the first with the workers' spawn."""
     from bacs_tpu_torch.data.datamodule import DataModule, _host_cores
     from bacs_tpu_torch.data.datasets import make_voc_source
 
@@ -4011,7 +4045,7 @@ def decode_pool_rates(root: str) -> dict:
     for workers in (0, 2, 4):
         dm = DataModule(src, src, N_CLASSES, CROP, 12, input_workers=workers, device="cpu")
         passes = []
-        for _ in range(3):
+        for _ in range(DECODE_PASSES):
             t0 = time.perf_counter()
             n = sum(len(b[0]) for b in dm._host_stream(src, idx))
             passes.append(n / (time.perf_counter() - t0))
@@ -4019,7 +4053,7 @@ def decode_pool_rates(root: str) -> dict:
         rates[workers] = passes
     log(f"[36] decode pool, host numbers: {len(src)} VOC images of "
         f"{VOC_TREE['size']}-{int(VOC_TREE['size'] * 1.6)} px decoded to {CROP}^2, img/s "
-        "(three passes, the first with the spawn): "
+        f"({DECODE_PASSES} passes, the first with the spawn): "
         + ", ".join(f"{w} workers " + " / ".join(f"{r:.1f}" for r in p)
                     for w, p in rates.items())
         + f"; host cores {_host_cores()} (os.cpu_count {os.cpu_count()})")
@@ -4622,6 +4656,297 @@ def nonfused_card_vs_cpu(seed, dev, reset_counts, counts) -> dict:
     return launches
 
 
+# ------------------------------------------------------- [42] export, [43] OOD
+
+
+EXPORT_BATCH = 8
+EXPORT_DIR = "build/chip_smoke_export"
+K5_KERNEL, K10_KERNEL = "abn_eval_kernel", "ArgmaxConfTerm"  # profiler names
+EXPORT_CASES = (("plain", {}), ("packed", dict(pack_masks=True, conf_dtype="uint8")))
+
+
+def serve_call(fn, x):
+    with torch.inference_mode():
+        return fn(x)
+
+
+def profiled_launches(fn, calls: int = 2) -> tuple:
+    """(K5 and K10 kernels a call of ``fn`` by the profiler's kernel names,
+    device busy ms a call), from one trace after one call unrecorded."""
+    events, _ = device_kernels(fn, calls, cpu=False)
+    return ({key: sum(e.count for e in events if name in e.key) / calls
+             for key, name in (("k5", K5_KERNEL), ("k10", K10_KERNEL))},
+            sum(e.self_device_time_total for e in events) / 1000 / calls)
+
+
+def export_phase(cfg, params, stats, images_u8, dev) -> dict:
+    """[42] the Predictor's ``torch.export`` program at full width: for each
+    of ``EXPORT_CASES``, export, save and load (timed), the graph's
+    registered-op nodes, the loaded program held bit-equal to ``predict``
+    with the same K5 and K10 launches a call by the counters; for the
+    first case also through ``run_exported`` with the Predictor's
+    variables, and the launches by the profiler's kernel names and the
+    device ms of a call against ``predict``'s.  The files stay under
+    ``EXPORT_DIR``."""
+    from bacs_tpu_torch.ops.abn_core import fused_abn_eval
+    from bacs_tpu_torch.ops.bitpack import unpack_bits
+    from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
+    from bacs_tpu_torch.serve import Predictor, load_exported
+
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    x_np = np.ascontiguousarray(images_u8[:EXPORT_BATCH])
+    x = torch.from_numpy(x_np).to(dev)
+    out = {}
+    for name, kw in EXPORT_CASES:
+        pred = Predictor(cfg, N_CLASSES, params, stats, crop_size=CROP, dtype=torch.bfloat16,
+                         device=dev, **kw)
+        t0 = time.perf_counter()
+        program = pred.export_program(EXPORT_BATCH)
+        t_export = time.perf_counter() - t0
+        ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        nodes = (ops.count("bacs.abn_eval.default"), ops.count("bacs.upsample_argmax_conf.default"))
+        path = os.path.join(EXPORT_DIR, f"deeplab_rn101_b{EXPORT_BATCH}_{name}.pt2")
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        module = load_exported(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        serve_call(module, x)  # warm-up
+        ref = serve_call(pred._infer, x)
+        torch.cuda.synchronize()
+        launches, outs = {}, {}
+        for who, fn in (("exported", module), ("predict", pred._infer)):
+            # a call's launches as the counters' rise over it: the counters
+            # keep running over the whole phase
+            before = fused_abn_eval.launches, upsampled_argmax_conf.launches
+            outs[who] = serve_call(fn, x)
+            launches[who] = (fused_abn_eval.launches - before[0],
+                             upsampled_argmax_conf.launches - before[1])
+        got = outs["exported"]
+        first = name == EXPORT_CASES[0][0]
+        checked = [got, Predictor.run_exported(path, pred.variables, x_np)] if first else [got]
+        equal = all(torch.equal(a, b) for o in checked for a, b in zip(o, ref))
+        prof, busy = {}, {}
+        for who, fn in (("exported", module), ("predict", pred._infer)) if first else ():
+            prof[who], busy[who] = profiled_launches(lambda fn=fn: serve_call(fn, x))
+        masks_equal = None
+        if pred.pack_masks:
+            masks_equal = bool(np.array_equal(
+                unpack_bits(got[0].cpu().numpy(), x_np.shape[:3], pred.mask_bits),
+                pred.predict(x_np)[0]))
+        mib = os.path.getsize(path) / 2**20
+        log(f"[42] {name} ({kw or 'f16 confidence, uint8 masks'}): export {t_export:.2f} s, "
+            f"save {t_save:.2f} s, load {t_load:.2f} s, file {mib:.1f} MiB; graph nodes "
+            f"bacs::abn_eval {nodes[0]}, bacs::upsample_argmax_conf {nodes[1]}; a call's "
+            f"launches (K5, K10) by the counters {launches['exported']} (predict "
+            f"{launches['predict']}); outputs bit-equal to predict {equal}"
+            + (" (and through run_exported)" if first else "")
+            + ("" if masks_equal is None else f", unpacked masks equal {masks_equal}")
+            + (f"; by the profiler's kernel names {prof['exported']} (predict "
+               f"{prof['predict']}), device busy {busy['exported']:.3f} ms a call (predict "
+               f"{busy['predict']:.3f})" if first else ""))
+        assert nodes == (ABN_PER_FORWARD, 1), nodes
+        assert launches["exported"] == launches["predict"] == (ABN_PER_FORWARD, 1), launches
+        assert all(p == {"k5": ABN_PER_FORWARD, "k10": 1} for p in prof.values()), prof
+        assert equal and masks_equal in (None, True)
+        out[name] = dict(t_export=t_export, t_save=t_save, t_load=t_load, mib=mib, busy=busy,
+                         path=path)
+        del pred, module, program
+        torch.cuda.empty_cache()
+    return out
+
+
+OOD_YAML = "conf/experiments/ood/synthetic.yaml"
+PROTO_BATCHES, DRIFT_SAMPLES = 2, 10
+OOD_TIE = 1e-6  # a seen-probability this close to 0.5 may fall on either side
+
+
+def ood_datamodule(seed: int, dev, crop=None):
+    """The synthetic OOD source of ``OOD_YAML`` as the Trainer builds it
+    (``initial_increment=0, increment=0``: one task of every class)."""
+    from bacs_tpu_torch.data.datamodule import create_datamodule
+
+    cfg = load_yaml(OOD_YAML)
+    if crop:
+        cfg["dataset"]["crop_size"] = crop
+    return create_datamodule({"dataset": cfg, "training": {
+        "batch_size": BATCH, "seed": seed, "initial_increment": 0, "increment": 0}}, dev)
+
+
+def ood_viz_phase(state, ctx, seed, dev, reset_counts, counts) -> dict:
+    """[43] the OOD pass and the three loggers at full width on a BACS
+    state with the detector (bf16, 512^2); returns the launches."""
+    from PIL import Image
+
+    from bacs_tpu_torch.train.ood import ood_counts, ood_summary
+    from bacs_tpu_torch.viz import DriftProbe, MediaLogger, PrototypeLogger
+
+    launches = {}
+    dm = ood_datamodule(seed, dev)
+    t0 = time.perf_counter()
+    batches = list(dm.eval_batches(0))
+    t_data = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tp, fn, means = ood_counts(ctx, state, batches)
+    t_ood = time.perf_counter() - t0
+    c = counts()
+    launches = {k: v for k, v in c.items() if v}
+    metrics = ood_summary(tp, fn, means)
+    pixels = len(batches) * BATCH * CROP * CROP
+    log(f"[43] ood_test over {OOD_YAML} ({len(batches)} batches of {BATCH} at {CROP}^2, "
+        f"{t_data:.1f} s to make them): {t_ood:.3f} s; predicted unseen {tp}, seen {fn} of "
+        f"{pixels} pixels; {json.dumps({k: round(v, 6) for k, v in metrics.items()})}; "
+        f"launches {launches}")
+    assert tp + fn == pixels, (tp, fn, pixels)
+    assert c["k5"] == ABN_PER_FORWARD * len(batches) and c["train_abn"] == 0, c
+    assert all(np.isfinite(v) for v in metrics.values())
+    dm.close()
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    evals = [synthetic_batch(BATCH, CROP, gen, dev, ctx.n_cur) for _ in range(PROTO_BATCHES)]
+    out_dir = os.path.join(EXPORT_DIR, "media")
+    logger = PrototypeLogger(out_dir, max_batches=PROTO_BATCHES)
+    reset_counts()
+    t0 = time.perf_counter()
+    collected = logger.collect(ctx, state, evals)
+    t_collect = time.perf_counter() - t0
+    c_collect = counts()["k5"]
+    probe = DriftProbe(max_samples=DRIFT_SAMPLES, measure_every=1)
+    probe.snapshot(ctx, state, evals[0])
+    drift = probe.measure(ctx, state, 1)
+    c_drift = counts()["k5"] - c_collect
+    media = MediaLogger(out_dir)
+    logits = ctx.forward(state.model, evals[0]["image"], False).logits
+    media.append("test", evals[0]["image"], evals[0]["label"],
+                 torch.argmax(logits[..., :ctx.n_cur], dim=-1))
+    path = media.flush(ctx.task.task_id)
+    shape = np.asarray(Image.open(path)).shape
+    log(f"[43] PrototypeLogger.collect over {PROTO_BATCHES} batches: {t_collect:.3f} s, "
+        f"{int((collected['counts'] > 0).sum())} classes present, K5 {c_collect}; DriftProbe "
+        f"snapshot of {DRIFT_SAMPLES} images and a measure on unchanged weights: {drift!r}, "
+        f"K5 {c_drift}; MediaLogger collage {path} {shape}")
+    assert c_collect == ABN_PER_FORWARD * PROTO_BATCHES, c_collect
+    assert c_drift == 2 * ABN_PER_FORWARD and drift == 0.0, (c_drift, drift)
+    assert shape == (min(8, BATCH) * CROP, 3 * CROP, 3), shape
+    assert np.isfinite(collected["class_means"]).all() and (collected["counts"] > 0).any()
+    for k, v in counts().items():
+        launches[k] = launches.get(k, 0) + v
+    try:
+        import matplotlib  # noqa: F401
+        import sklearn  # noqa: F401
+        plotting = True
+    except ImportError as e:
+        plotting = False
+        log(f"[43] host plotting: matplotlib and scikit-learn not both importable ({e}); "
+            "PrototypeLogger.plot not run (host plotting, no kernel)")
+    if plotting:
+        paths = logger.plot(ctx, state, collected, ctx.task.task_id)
+        log(f"[43] host plotting: matplotlib {matplotlib.__version__} and scikit-learn "
+            f"{sklearn.__version__} importable; PrototypeLogger.plot wrote {paths}")
+        assert sorted(os.path.basename(p)[:5] for p in paths) == ["proto", "tsne_"], paths
+    return launches
+
+
+def ood_viz_card_vs_cpu(cfg, seed, dev) -> None:
+    """[43] ``ood_counts``, ``PrototypeLogger.collect`` and the drift measure
+    (a snapshot, then the weights moved by 5 %) in f32 at RN101 4 x 128^2
+    with the detector, card against CPU (TF32 off): the counts equal unless a seen-probability lies within
+    ``OOD_TIE`` of 0.5 (the margin is printed), the per-batch means, the
+    class means and the drift within 1e-4 of their largest value."""
+    import types
+
+    from bacs_tpu_torch.methods import ModelContext
+    from bacs_tpu_torch.train.ood import ood_counts
+    from bacs_tpu_torch.train.state import TaskInfo
+    from bacs_tpu_torch.viz import DriftProbe, PrototypeLogger
+
+    params, stats = seeded_variables(cfg, seed, use_bg_detector=True)
+    rs = np.random.RandomState(seed + 143)
+    dim = len(params["seen_fg_network"]["base_bn"]["scale"])
+    protos = torch.from_numpy((rs.randn(N_TASKS, dim) * 0.5).astype(np.float32))
+    n, crop = 4, 128
+    batches = [{"image": torch.from_numpy(rs.randn(n, crop, crop, 3).astype(np.float32)),
+                "label": torch.from_numpy(rs.randint(0, 17, (n, crop, crop)).astype(np.int32))}
+               for _ in range(2)]
+    ctx = ModelContext(TaskInfo(task_id=1, **BACS_TASK))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for device in (dev, "cpu"):
+        states = [types.SimpleNamespace(
+            model=train_state(cfg, params, stats, torch.float32, device).model,
+            prototypes=protos.to(device)) for _ in range(2)]
+        # the drift's later weights: every parameter scaled by 1 +- 5 %, the
+        # same draws on both devices
+        g = torch.Generator().manual_seed(seed + 43)
+        with torch.no_grad():
+            for p in states[1].model.parameters():
+                p.mul_((0.95 + 0.1 * torch.rand(p.shape, generator=g)).to(device))
+        on = [{k: v.to(device) for k, v in b.items()} for b in batches]
+        with torch.no_grad():
+            probs = torch.cat([states[0].model.seen_probs(
+                ctx.forward(states[0].model, b["image"], False).penultimate,
+                states[0].prototypes, 2)[..., -1].flatten() for b in on])
+        probe = DriftProbe(max_samples=n, measure_every=1)
+        probe.snapshot(ctx, states[0], on[0])
+        res[str(device)] = dict(
+            ood=ood_counts(ctx, states[0], on),
+            protos=PrototypeLogger("unused", max_batches=2).collect(ctx, states[0], on),
+            drift=probe.measure(ctx, states[1], 1), margin=float((probs - 0.5).abs().min()))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    g, c = res[str(dev)], res["cpu"]
+    mean_err = max(abs(a - b) for a, b in zip(g["ood"][2], c["ood"][2])) / max(c["ood"][2])
+    scale = np.abs(c["protos"]["class_means"]).max()
+    proto_err = float(np.abs(g["protos"]["class_means"] - c["protos"]["class_means"]).max()
+                      / scale)
+    drift_err = abs(g["drift"] - c["drift"]) / c["drift"]
+    log(f"[43] f32 card vs CPU, RN101 {n} x {crop}^2, detector: ood counts {g['ood'][:2]} vs "
+        f"{c['ood'][:2]} (smallest |p - 0.5| {c['margin']:.3g}), per-batch means max rel err "
+        f"{mean_err:.3g}; class means max err / max {proto_err:.3g}, counts equal "
+        f"{bool(np.array_equal(g['protos']['counts'], c['protos']['counts']))}; drift "
+        f"{g['drift']:.7f} vs {c['drift']:.7f} (rel err {drift_err:.3g})")
+    assert g["ood"][:2] == c["ood"][:2] or c["margin"] < OOD_TIE, (g["ood"], c["ood"])
+    assert np.array_equal(g["protos"]["counts"], c["protos"]["counts"])
+    assert mean_err <= 1e-4 and proto_err <= 1e-4 and drift_err <= 1e-4, (
+        mean_err, proto_err, drift_err)
+
+
+def export_ood_main(args) -> int:
+    """``--export-ood``: build, then [42] on seeded weights and [43] on
+    [14]'s set-up (2 fill batches), and the card-against-CPU holds."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    cfg = network_cfg()
+    rs = np.random.RandomState(args.seed)
+    t0 = time.perf_counter()
+    export_phase(cfg, *seeded_variables(cfg, args.seed),
+                 rs.randint(0, 256, (EXPORT_BATCH, CROP, CROP, 3)).astype(np.uint8), dev)
+    log(f"[time] [42] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_counts, counts = launch_counters()
+    state, _, _, _ = bacs_after_task0(cfg, args.seed, dev, fill_batches=OPTION_FILL_BATCHES)
+    ctx1, _, _ = bacs_steps(1, dev)
+    ood_viz_phase(state, ctx1, args.seed, dev, reset_counts, counts)
+    del state
+    torch.cuda.empty_cache()
+    ood_viz_card_vs_cpu(cfg, args.seed, dev)
+    log(f"[time] [43] {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def ddp_main(args) -> int:
     """``--ddp``: build, then phases [40] and [41] alone."""
     if not torch.cuda.is_available():
@@ -4660,7 +4985,12 @@ def main() -> int:
     ap.add_argument("--ddp", action="store_true",
                     help="only build and run the data-parallel phase [40] and the "
                          "non-fused norms' phase [41]")
+    ap.add_argument("--export-ood", action="store_true",
+                    help="only build and run the export phase [42] and the OOD and "
+                         "loggers' phase [43]")
     args = ap.parse_args()
+    if args.export_ood:
+        return export_ood_main(args)
     if args.ddp:
         return ddp_main(args)
     if args.transeg:
@@ -4838,6 +5168,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # bf16 in and out, one read and one write; a subtract, an FMA and a select
     k5_bound = bound(2 * 2 * k5_elems, 3 * k5_elems)
+
+    # 42. the exported serving program, held to predict
+    t_export = time.perf_counter()
+    fused_abn_eval.launches = upsampled_argmax_conf.launches = 0
+    exported = export_phase(cfg, params, stats, batches[0], dev)
+    export_launches = {"k5": fused_abn_eval.launches, "k10": upsampled_argmax_conf.launches}
+    t_export = time.perf_counter() - t_export
+    log(f"[time] [42] {t_export:.1f} s; launches {export_launches}")
+    torch.cuda.empty_cache()
 
     # 6. and 7. K1 forward and backward, K2, against their plain versions
     k1f_err = k1b_err = 0.0
@@ -5059,14 +5398,26 @@ def main() -> int:
     log(f"[p] task-1 eval: device busy "
         f"{busy_ms(lambda: bacs_eval(state, conf_mat.clone(), bacs_batches[0])):.3f} ms "
         f"per step")
+
+    # 43. the OOD pass and the loggers on this BACS state; then card vs CPU
+    t_ood = time.perf_counter()
+    ood_launches = ood_viz_phase(state, ctx1, args.seed, dev, reset_counts, counts)
     del state
+    torch.cuda.empty_cache()
+    ood_viz_card_vs_cpu(cfg, args.seed, dev)
+    t_ood = time.perf_counter() - t_ood
+    log(f"[time] [43] {t_ood:.1f} s; launches {ood_launches}")
     torch.cuda.empty_cache()
 
     # 16.-17. K6-K9 against their plain versions; 18. an f32 MiB and PLOP
     # step card against CPU; 19.-20. MiB and PLOP at 512^2 with the launches
     # counted, and their eval steps
     mib_plop_errs = mib_plop_kernel_checks(dev)
+    # the seconds of the f32 card-against-CPU holds of [18], [22], [25],
+    # [30] and [33] (identity and leaky activations each)
+    t_held = time.perf_counter()
     mib_plop_step_card_vs_cpu(cfg, args.seed, dev)
+    held = {"[18]": time.perf_counter() - t_held}
     torch.cuda.empty_cache()
     mib_plop = mib_plop_steps_512(cfg, params, stats, args.seed, dev, reset_counts, counts)
     mib, plop = mib_plop["loss.MiB"], mib_plop["loss.PlopLoss"]
@@ -5086,8 +5437,10 @@ def main() -> int:
     log("[21] K12 raises on a float16, an odd-height and a non-contiguous CUDA tensor")
 
     # 22. one f32 train step with the fused stem, card against CPU
+    t_held = time.perf_counter()
     ce_step_card_vs_cpu("[22] f32 train step with the fused stem card vs CPU, RN101 4 x 128^2",
                         cfg, params, stats, dev, args.seed, fused_stem=True)
+    held["[22]"] = time.perf_counter() - t_held
 
     # 23. the bf16 512^2 CE step with the fused stem on against off
     stem_steps = stem_step_compare(cfg, params, stats, dev, args.seed, reset_counts, counts)
@@ -5111,6 +5464,7 @@ def main() -> int:
     # 512^2 with the launches counted, and their eval steps
     t_more = time.perf_counter()
     more_step_card_vs_cpu(cfg, args.seed, dev)
+    held["[25]"] = time.perf_counter() - t_more
     torch.cuda.empty_cache()
     more = more_steps_512(cfg, params, stats, args.seed, dev, reset_counts, counts)
     er_run, sdr_run, icarl_run = (more[k] for k in MORE_METHODS)
@@ -5137,6 +5491,7 @@ def main() -> int:
     unet_step_card_vs_cpu(args.seed, dev)
     unet = unet_full_width(args.seed, dev, reset_counts, counts)
     acc = accumulate_checks(cfg, params, stats, args.seed, dev, reset_counts, counts)
+    held["[30]"] = acc["t_held"]
     remat = remat_compare(cfg, params, stats, args.seed, dev, reset_counts, counts)
     reset_counts()
     unet_run = unet_runner(args.seed)
@@ -5154,6 +5509,7 @@ def main() -> int:
     # bacs_transformer_config protocol through the CLI
     t_transeg = time.perf_counter()
     transeg_step_card_vs_cpu(args.seed, dev)
+    held["[33]"] = time.perf_counter() - t_transeg
     transeg = transeg_full_width(args.seed, dev, reset_counts, counts)
     transeg_run = transeg_cli(args.seed)
     report_transeg_cli(transeg_run)
@@ -5295,7 +5651,9 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_main:.1f} s from the build to here, phase [24] "
         f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s, "
         f"phases [33]-[35] {t_transeg:.1f} s, phases [36]-[38] {t_real:.1f} s, phase [39] "
-        f"{t_options:.1f} s, phase [40] {ddp['wall']:.1f} s, phase [41] {t_nonfused:.1f} s")
+        f"{t_options:.1f} s, phase [40] {ddp['wall']:.1f} s, phase [41] {t_nonfused:.1f} s, "
+        f"phase [42] {t_export:.1f} s, phase [43] {t_ood:.1f} s; the f32 card-against-CPU "
+        "holds " + ", ".join(f"{k} {v:.1f} s" for k, v in held.items()))
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -5474,6 +5832,14 @@ def main() -> int:
         row["launches"] += row["ddp_launches"]
         row["nonfused_launches"] = sum(nonfused.get(k, 0) for k in keys)
         row["launches"] += row["nonfused_launches"]
+    # the exported program ([42]) and the OOD pass and loggers ([43])
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["export_launches"] = sum(export_launches.get(k, 0) for k in keys)
+        row["ood_viz_launches"] = sum(ood_launches.get(k, 0) for k in keys)
+        row["launches"] += row["export_launches"] + row["ood_viz_launches"]
+    # the registered ops that keep K5 and K10 as nodes of the exported graph
+    rows[0]["exported_op"], rows[1]["exported_op"] = "bacs::abn_eval", "bacs::upsample_argmax_conf"
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

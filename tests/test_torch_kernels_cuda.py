@@ -5,14 +5,16 @@ none; run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.  The checks are
 those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16, 17 and 21), at
 small shapes and at the serving and training shapes, and the repeatability
-of the upsample+loss family (two launches bit-equal).
+of the upsample+loss family (two launches bit-equal); also the registered
+ops of K5 and K10 against the launches they wrap (phases 2 and 3's shapes)
+and as nodes of a ``torch.export`` program.
 """
 
 import pytest
 import torch
 
 from chip_smoke import (
-    check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
+    K5_SHAPES, K10_CASES, check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
     check_pseudo, check_repeatable, check_stem, check_uce, check_ukd, check_wce,
     family_calls, stem_raises)
 from torch_port_helpers import _one_thread  # noqa: F401
@@ -579,3 +581,73 @@ def test_kernels_fed_all_reduced_statistics_match_plain(cuda, world1, kernel):
     for i, (got, ref) in enumerate(zip(out["cuda"], out["cpu"])):
         tol = 2e-3 if i < 3 else 5e-2
         torch.testing.assert_close(got, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+# the registered ops (bacs::abn_eval, bacs::upsample_argmax_conf) that keep
+# K5 and K10 as nodes of a torch.export program (serve.Predictor.export)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_abn_eval_op_equals_its_launch(cuda, shape, dtype):
+    """``bacs::abn_eval`` on CUDA tensors, bit-equal to the Triton launch
+    it wraps, counted once on ``fused_abn_eval.launches``."""
+    import types
+
+    from bacs_tpu_torch.ops.abn_core import _abn_apply_triton, fused_abn_eval
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    v = [torch.rand(shape[-1], generator=g, device=cuda) + 0.5 for _ in range(4)]
+    before = fused_abn_eval.launches
+    y = torch.ops.bacs.abn_eval(x, *v, 1e-5, 0.01)
+    assert fused_abn_eval.launches == before + 1
+    ref = _abn_apply_triton(x, *v, 1e-5, 0.01, types.SimpleNamespace(launches=0))
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,out_hw", K10_CASES)
+def test_upsample_argmax_op_equals_its_launch(cuda, shape, out_hw, dtype):
+    """``bacs::upsample_argmax_conf`` on CUDA tensors, bit-equal to the
+    kernel's launch, counted once on ``upsampled_argmax_conf.launches``."""
+    from bacs_tpu_torch.ops.upsample_argmax import _argmax_conf_cuda, upsampled_argmax_conf
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    sem = (torch.randn(shape, generator=g, device=cuda) * 4).to(dtype)
+    before = upsampled_argmax_conf.launches
+    preds, conf = torch.ops.bacs.upsample_argmax_conf(sem, *out_hw)
+    assert upsampled_argmax_conf.launches == before + 1
+    ref_p, ref_c = _argmax_conf_cuda(sem, out_hw)
+    assert torch.equal(preds, ref_p) and torch.equal(conf, ref_c)
+
+
+def test_export_keeps_each_op_as_a_node(cuda):
+    """``torch.export`` of one eval ABN followed by the upsample+argmax
+    keeps one node of each op, and the loaded program launches both
+    kernels and equals the module."""
+    from bacs_tpu_torch.ops.abn_core import fused_abn_eval
+    from bacs_tpu_torch.ops.upsample_argmax import upsampled_argmax_conf
+
+    class OneLayer(torch.nn.Module):
+        def __init__(self, c):
+            super().__init__()
+            for name in ("mean", "var", "scale", "bias"):
+                self.register_buffer(name, torch.rand(c, device=cuda) + 0.5)
+
+        def forward(self, x):
+            y = fused_abn_eval(x, self.mean, self.var, self.scale, self.bias, 1e-5, 0.01)
+            return upsampled_argmax_conf(y, (128, 128))
+
+    m = OneLayer(21)
+    x = torch.randn((2, 16, 16, 21), device=cuda).to(torch.bfloat16)
+    program = torch.export.export(m, (x,))
+    ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert ops.count("bacs.abn_eval.default") == ops.count(
+        "bacs.upsample_argmax_conf.default") == 1, ops
+    before = (fused_abn_eval.launches, upsampled_argmax_conf.launches)
+    got = program.module()(x)
+    assert (fused_abn_eval.launches, upsampled_argmax_conf.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = m(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))

@@ -209,15 +209,30 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         port_main.main(["--config-path", CONF, "--config-name", "config", "network=deep_lab"])
 
 
+# each option, and the ROADMAP item that ported it
 @pytest.mark.parametrize("override, item", [
     ("+training.log_prototypes=true", "item 14"),
     ("+training.log_images=true", "item 14"),
     ("+training.log_drift=true", "item 14"),
 ])
-def test_unported_options_raise(override, item):
-    """Options not ported raise, naming their ROADMAP item.  UNet and
+def test_unported_options_raise(override, item, tmp_path, monkeypatch):
+    """The options that raised until they were ported now train and do
+    their part: the collages and prototype plots of each task under
+    ``training.media_dir``, the drift logged in the later tasks (held to
+    JAX in ``tests/test_torch_ood_viz.py``).  UNet and
     ``accumulate_gradients`` train (``tests/test_torch_unet_loop.py``,
     ``tests/test_torch_accumulate.py``)."""
-    config = load_config(CONF, "config", BASE + [override])
-    with pytest.raises(NotImplementedError, match=item):
-        loop.Trainer(config, device="cpu").fit()
+    metrics = []
+    monkeypatch.setattr(Logger, "log_metrics", lambda self, m: metrics.append(dict(m)))
+    config = load_config(CONF, "config", BASE + [
+        override, f"+training.media_dir={tmp_path}", "+training.drift_measure_every=1"])
+    loop.Trainer(config, device="cpu").fit()
+    written = sorted(os.listdir(tmp_path)) if os.path.isdir(tmp_path) else []
+    drift = [m["representation_drift"] for m in metrics if "representation_drift" in m]
+    if "prototypes" in override:
+        assert written == sorted(f"{k}_task{t}.png" for t in range(3)
+                                 for k in ("proto_dist", "tsne")), written
+    elif "images" in override:
+        assert written == [f"task{t}_test.png" for t in range(3)], written
+    else:  # two train steps in each of tasks 1 and 2
+        assert not written and len(drift) == 4 and all(np.isfinite(drift)), drift

@@ -151,12 +151,16 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         Predictor(CFG, NUM_CLASSES, params, stats, crop_size=CROP, device="cuda")
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(tmp_path):
     # n_devices is ported (tests/test_torch_ddp.py): on the CPU, replicas on
     # CPU devices
     assert port(n_devices=2).n_devices == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port().export("unused.bin")
+    # export is ported (tests/test_torch_export.py): it writes a program
+    # that serves as predict does
+    p = port()
+    path = p.export(str(tmp_path / "model.pt2"), batch_size=2)
+    np.testing.assert_array_equal(Predictor.run_exported(path, p.variables, images(0))[0],
+                                  p.predict(images(0))[0])
     # from_checkpoint is ported (tests/test_torch_serve_ckpt.py): no
     # checkpoint under the directory raises
     with pytest.raises(FileNotFoundError, match="no checkpoints"):

@@ -5,8 +5,8 @@ pretrained backbone in the port's Trainer, on the CPU.
   checkpoints, then ``Predictor.from_checkpoint``: its masks equal the
   upsampled argmax of the Trainer's own eval forward on the same images;
   ``python -m bacs_tpu_torch.predict`` writes those masks (as
-  ``tests/test_serve.py`` does for JAX), and its ``--export`` and
-  ``--n-devices 2`` raise.
+  ``tests/test_serve.py`` does for JAX), its ``--export`` writes a program
+  that serves them, and ``--n-devices 2`` splits each batch.
 - ``python -m bacs_tpu_torch.import_ckpt`` on a reference Lightning
   checkpoint (``network.``-prefixed keys from
   ``utils/torch_weights.py:reference_deeplab_shapes``, one classifier head
@@ -122,8 +122,12 @@ def test_predict_cli_writes_the_masks(trained, tmp_path):
     pred = Predictor.from_checkpoint(ckpt, config, device="cpu")
     ref = pred.predict_files(paths)
     assert all(np.array_equal(a, b) for a, b in zip(masks, ref))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        predict.main(args + ["--export", str(tmp_path / "x")])
+    # --export writes the inference program (tests/test_torch_export.py)
+    predict.main(args + ["--export", str(tmp_path / "x")])
+    x = np.random.RandomState(0).randint(
+        0, 256, (8, pred.crop_size, pred.crop_size, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(
+        Predictor.run_exported(str(tmp_path / "x"), pred.variables, x)[0], pred.predict(x)[0])
     # --n-devices splits each batch over replicas (two CPU replicas here)
     split = predict.main(args + ["--images", *paths, "--out", str(tmp_path / "split"),
                                  "--n-devices", "2"])
