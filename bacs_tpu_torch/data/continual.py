@@ -139,10 +139,12 @@ def compute_class_sets(
     if cache_path is not None and os.path.exists(cache_path):
         data = np.load(cache_path, allow_pickle=True)
         return list(data["class_sets"])
+    from bacs_tpu_torch.data import native
+
     sets = []
     for item in label_arrays:
         arr = np.asarray(item() if callable(item) else item)
-        presence = np.bincount(arr.astype(np.uint8).ravel(), minlength=256) > 0
+        presence = native.class_presence(arr[None].astype(np.uint8))[0]
         ids = np.where(presence)[0]
         sets.append(ids[(ids != 0) & (ids != 255)].astype(np.int32))
     if cache_path is not None:

@@ -28,8 +28,12 @@ whole batches with the padding's labels ignored and ``n_real`` given.
   (``:216-294``), and a rank decodes only its contiguous rows of it
   (``rank``), as JAX's process slice; its augmentation draws are the
   global batch's, those rows taken.
-
-Not ported: ``dataset.download`` (it needs the network; it raises).
+- Host decode: a folder source's batches decode through the native
+  decoder where it builds (``data/native_decode.py``), else PIL, as JAX's;
+  ``decoder`` names the one the train source takes, which the Trainer logs.
+  ``dataset.cache_decoded`` keeps the decoded set in RAM, on disk under
+  ``<root>/cache`` (``disk``) or on the card (``device``), and
+  ``dataset.download`` fetches a missing tree first (``data/download.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from bacs_tpu_torch import parallel
-from bacs_tpu_torch.data import transforms
+from bacs_tpu_torch.data import download, native_decode, transforms
 from bacs_tpu_torch.data.continual import (
     ContinualScenario,
     DomainScenario,
@@ -192,6 +196,17 @@ class DataModule:
 
     def set_task_id(self, task_id: int):
         self.task_id = task_id
+
+    @property
+    def decoder(self) -> str:
+        """The train source's host decode: ``native``, ``PIL`` (a folder
+        source where the native decoder did not build) or ``generated``."""
+        source = self.train_source
+        while source is not None and not hasattr(source, "label_paths"):
+            source = getattr(source, "source", getattr(source, "base", None))
+        if source is None:
+            return "generated"
+        return "native" if native_decode.available() else "PIL"
 
     @property
     def class_names(self):
@@ -419,10 +434,9 @@ def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule
         sweep=bool(tcfg.get("sweep", False)),
         device=device,
     )
-    if bool(inner.get("download", False)):
-        raise NotImplementedError(
-            "dataset.download is ROADMAP.md queue 1 item 7; place the data under "
-            f"{root} (no network)")
+    # downloads into the layouts the sources read (reference: prepare_data
+    # hooks); offline they raise DownloadError with the layout to place by hand
+    want_download = bool(inner.get("download", False))
     cache_decoded = inner.get("cache_decoded", False)
 
     def _maybe_cache(src):
@@ -435,13 +449,20 @@ def create_datamodule(config, device: torch.device | str = "cuda") -> DataModule
         return DecodedCache(src)
 
     if "voc" in target:
+        if want_download:
+            download.download_voc(root)
         train = _maybe_cache(make_voc_source(root, "train", crop))
         val = _maybe_cache(make_voc_source(root, "val", crop))
         common["cache_dir"] = os.path.expanduser(os.path.join(root, "cache"))
     elif "ade" in target:
+        if want_download:
+            download.download_ade20k(root)
         train = _maybe_cache(make_ade_source(root, "train", crop))
         val = _maybe_cache(make_ade_source(root, "val", crop))
     elif "cityscape" in target:
+        if want_download:
+            download.download_cityscapes(root, str(inner.get("username", "")),
+                                         str(inner.get("password", "")))
         train = make_cityscapes_source(root, "train", crop)
         val = make_cityscapes_source(root, "val", crop)
         n_cities = inner.get("n_cities", None)

@@ -9,19 +9,20 @@ augmentation happens on the device (``data/transforms.py``).
   options): a numpy copy, bit-equal to the JAX package's images and labels.
 - ``FolderSource`` with its label remap, and ``make_voc_source``,
   ``make_ade_source``, ``make_cityscapes_source`` (raw ids remapped to
-  train ids, unknown ids to background, a ``domain_ids`` entry per city):
-  PIL decode, one image at a time (PIL is imported only when an image is
-  decoded).  The JAX package decodes a batch through its native decoder
-  when that builds (``datasets.py:91-113``); its output differs from
-  PIL's by a few levels, and the port has only the PIL path, the JAX
-  ``load``.  Several images decode at once in the decode pool
-  (``data/decode_pool.py``).
+  train ids, unknown ids to background, a ``domain_ids`` entry per city).
+  ``load(i)`` decodes one pair with PIL (imported only when an image is
+  decoded); ``load_batch(indices)`` decodes a batch through the native
+  decoder (``data/native_decode.py``) and returns None where that did not
+  build, as JAX's (``datasets.py:91-113``).  The batch stream takes
+  ``load_batch`` first (``data/decode_pool.py:gather_host``), so on one
+  host both packages read a folder tree's same pixels; the two decoders
+  differ by a few levels.  Several batches decode at once in the decode
+  pool.
 - ``DomainShiftedSource``: a fixed colour transform per domain.
-- ``DecodedCache`` (RAM mode) and ``DeviceCache``: the decoded set in host
-  memory, or resident on the card as uint8 tensors with batches gathered
-  there (``datasets.py:511-566``).
-
-The ``DecodedCache`` disk mode (memmaps for a slow TPU host) is not ported.
+- ``DecodedCache`` and ``DeviceCache``: the decoded set in host memory or
+  in memmaps on disk (``datasets.py:124-272``; JAX's key and file layout,
+  so either package reads the other's files), or resident on the card as
+  uint8 tensors with batches gathered there (``datasets.py:511-566``).
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def _load_pair(img_path: str, lbl_path: str, size: int):
 
 class FolderSource:
     """Generic (image, mask) path-list source with optional label remap,
-    decoded with PIL one image at a time.  The remap is a [256] table:
+    decoded with PIL one image at a time (``load``) or natively a batch at
+    a time (``load_batch``).  The remap is a [256] table:
     ``label_remap``'s ids to their values, 0 and 255 kept, every other id
     to ``remap_default``."""
 
@@ -105,6 +107,27 @@ class FolderSource:
             lbl = self._table[lbl]
         return img, lbl
 
+    def load_batch(self, indices):
+        """(images, labels) of ``indices`` decoded in parallel by the native
+        decoder, a slot it fails patched through PIL; None (the caller's
+        per-sample path) when the decoder is unavailable."""
+        from bacs_tpu_torch.data import native_decode
+
+        out = native_decode.decode_batch(
+            [self.image_paths[i] for i in indices],
+            [self.label_paths[i] for i in indices],
+            self.size,
+        )
+        if out is None:
+            return None
+        imgs, lbls, failed = out
+        for k in np.nonzero(failed)[0]:
+            imgs[k], lbls[k] = _load_pair(
+                self.image_paths[indices[k]], self.label_paths[indices[k]], self.size)
+        if self._table is not None:
+            lbls = self._table[lbls]
+        return imgs, lbls
+
     def load_label(self, i: int) -> np.ndarray:
         from PIL import Image
 
@@ -115,36 +138,146 @@ class FolderSource:
 
 
 class DecodedCache:
-    """In-memory cache of a source's canonical decoded (image, label) pairs
-    (``bacs_tpu/data/datasets.py:124-272``, its RAM mode): the first touch of
-    a sample decodes and stores it, later epochs read the bytes.
-    ``load_label`` passes through uncached (the class-set scan reads the
-    full-resolution labels)."""
+    """Cache of a source's canonical decoded (image, label) pairs
+    (``bacs_tpu/data/datasets.py:124-272``): the first touch of a sample
+    decodes and stores it, later epochs read the bytes.  Lossless, since a
+    source decodes to a fixed canonical size.
+
+    - RAM (``cache_dir`` None): arrays in this process.
+    - disk (``cache_dir``, ``dataset.cache_decoded=disk``: for datasets
+      bigger than host memory): three memmaps ``<cache_dir>/decoded_<s>_
+      <key>.{imgs,lbls,valid}``, ``key`` a blake2b of the size, each path's
+      mtime and size and the remap table, kept across runs; JAX's key and
+      layout, so a cache that either package writes, the other reads.  A
+      sample's ``valid`` flag is set after its pixels are flushed, so a
+      crash mid-fill only decodes again.  The files are created whole under
+      a private name and linked into place, never truncated, and every
+      process opens them ``r+``: data-parallel ranks (processes here, where
+      JAX's mesh is one) may open one cache at once.
+
+    ``load_label`` passes through uncached: the class-set scan reads the
+    full-resolution labels, not the center-cropped canvas.
+    """
 
     def __init__(self, source, cache_dir: Optional[str] = None):
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "DecodedCache's disk mode (dataset.cache_decoded=disk) is not "
-                "ported; use cache_decoded=ram or device")
         self.source = source
         self.size = source.size
         self.class_names = source.class_names
         n, s = len(source), source.size
-        self._imgs = np.zeros((n, s, s, 3), np.uint8)
-        self._lbls = np.zeros((n, s, s), np.uint8)
-        self._valid = np.zeros((n,), bool)
+        self._disk = cache_dir is not None
+        if cache_dir is None:  # RAM mode
+            self._imgs = np.zeros((n, s, s, 3), np.uint8)
+            self._lbls = np.zeros((n, s, s), np.uint8)
+            self._valid = np.zeros((n,), np.uint8)
+            return
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=8)
+        h.update(str(source.size).encode())
+        for p in source.image_paths + source.label_paths:
+            st = os.stat(p)
+            h.update(f"{p}:{st.st_mtime_ns}:{st.st_size}".encode())
+        if source._table is not None:
+            h.update(source._table.tobytes())
+        os.makedirs(cache_dir, exist_ok=True)
+        self.base = os.path.join(cache_dir, f"decoded_{s}_{h.hexdigest()}")
+        self._imgs = _shared_memmap(self.base + ".imgs", (n, s, s, 3))
+        self._lbls = _shared_memmap(self.base + ".lbls", (n, s, s))
+        self._valid = _shared_memmap(self.base + ".valid", (n,))
 
     def __len__(self):
         return len(self.source)
 
+    def _store(self, i: int, img: np.ndarray, lbl: np.ndarray):
+        self._imgs[i] = img
+        self._lbls[i] = lbl
+
+    @staticmethod
+    def _row_runs(indices, row_bytes: int, total_bytes: int):
+        """Byte ranges covering the given memmap rows, consecutive rows
+        coalesced and each range aligned down to mmap's flush granularity
+        (mmap.flush requires an ALLOCATIONGRANULARITY-aligned offset)."""
+        import mmap as _mmap
+
+        gran = _mmap.ALLOCATIONGRANULARITY
+        runs = []
+        for i in sorted(set(int(i) for i in indices)):
+            if runs and i == runs[-1][1]:
+                runs[-1][1] = i + 1
+            else:
+                runs.append([i, i + 1])
+        out = []
+        for lo_row, hi_row in runs:
+            lo = (lo_row * row_bytes) // gran * gran
+            hi = min(hi_row * row_bytes, total_bytes)
+            # merge with the previous range if page alignment made them touch
+            if out and lo <= out[-1][1]:
+                out[-1] = (out[-1][0], max(hi, out[-1][1]))
+            else:
+                out.append((lo, hi))
+        return out
+
+    def _flush_rows(self, mm: np.memmap, indices) -> None:
+        """msync only the pages covering the written rows (a whole-map flush
+        is O(cache size) a batch)."""
+        buf = mm._mmap
+        for lo, hi in self._row_runs(indices, mm.strides[0], len(buf)):
+            buf.flush(lo, hi - lo)
+
+    def _commit(self, indices) -> None:
+        """Set the valid flags, after the pixel pages are on disk: writeback
+        is not program order, and a flag persisted over never-written pixels
+        would serve zeros forever.  A crash before the flags decodes again."""
+        if self._disk:
+            self._flush_rows(self._imgs, indices)
+            self._flush_rows(self._lbls, indices)
+        for i in indices:
+            self._valid[i] = 1
+
     def load(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         if not self._valid[i]:
-            self._imgs[i], self._lbls[i] = self.source.load(i)
-            self._valid[i] = True
+            self._store(i, *self.source.load(i))
+            self._commit((i,))
         return np.array(self._imgs[i]), np.array(self._lbls[i])
+
+    def load_batch(self, indices):
+        """(images, labels) of ``indices``; the missing samples decoded as
+        one batch (natively where the source can), then stored."""
+        indices = [int(i) for i in indices]
+        missing = [i for i in dict.fromkeys(indices) if not self._valid[i]]
+        if missing:
+            loader = getattr(self.source, "load_batch", None)
+            out = loader(missing) if loader else None
+            if out is None:  # no native decoder: PIL per sample
+                out = tuple(np.stack(x) for x in zip(*[self.source.load(i) for i in missing]))
+            for k, i in enumerate(missing):
+                self._store(i, out[0][k], out[1][k])
+            self._commit(missing)
+        # fancy indexing already yields fresh arrays
+        return np.asarray(self._imgs[indices]), np.asarray(self._lbls[indices])
 
     def load_label(self, i: int) -> np.ndarray:
         return self.source.load_label(i)
+
+
+def _shared_memmap(path: str, shape) -> np.memmap:
+    """A uint8 memmap of ``shape`` at ``path``, opened ``r+``; created
+    zero-filled first if absent.  The file is written whole under a private
+    name and hard-linked into place, which fails where another process
+    linked first, so no process ever truncates a file another has open."""
+    if not os.path.exists(path):
+        import uuid
+
+        tmp = f"{path}.{uuid.uuid4().hex}.tmp"
+        with open(tmp, "xb") as f:
+            f.truncate(int(np.prod(shape)))
+        try:
+            os.link(tmp, path)
+        except FileExistsError:
+            pass
+        finally:
+            os.remove(tmp)
+    return np.memmap(path, np.uint8, "r+", shape=tuple(shape))
 
 
 def _upsample_bilinear_np(small: np.ndarray, s: int) -> np.ndarray:
@@ -387,7 +520,8 @@ class DeviceCache:
     """The whole decoded set resident on the card (uint8 tensors), batches
     gathered there (``bacs_tpu/data/datasets.py:511-566``): the per-batch
     host decode and host-to-device copy disappear.  The first access
-    decodes the full source on the host, once, and uploads it.  Wraps any
+    decodes the full source on the host, once (a batch through
+    ``load_batch`` where the source has one), and uploads it.  Wraps any
     source exposing ``load``/``load_label``."""
 
     def __init__(self, source, device: torch.device | str = "cuda"):
@@ -405,9 +539,14 @@ class DeviceCache:
     def _ensure(self):
         if self._imgs is not None:
             return
-        pairs = [self.source.load(i) for i in range(len(self.source))]
-        self._host_lbls = np.stack([p[1] for p in pairs])
-        self._imgs = torch.from_numpy(np.stack([p[0] for p in pairs])).to(self.device)
+        # natively decoded where the source can, as JAX's (:537-549)
+        loader = getattr(self.source, "load_batch", None)
+        out = loader(list(range(len(self.source)))) if loader else None
+        if out is None:
+            pairs = [self.source.load(i) for i in range(len(self.source))]
+            out = np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+        self._host_lbls = out[1]
+        self._imgs = torch.from_numpy(out[0]).to(self.device)
         self._lbls = torch.from_numpy(self._host_lbls).to(self.device)
 
     def load_batch(self, indices) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -421,9 +560,12 @@ class DeviceCache:
         return img[0].cpu().numpy(), lbl[0].cpu().numpy()
 
     def load_label(self, i: int) -> np.ndarray:
-        """The label from the decoded set (a synthetic source's label costs
-        a whole image's generation, so the scenario's label scan decodes
-        the set once here)."""
+        """A file-backed source's full-resolution label, as JAX's; else the
+        label from the decoded set (a synthetic source's label costs a whole
+        image's generation, so the scenario's label scan decodes the set
+        once here)."""
+        if hasattr(self.source, "label_paths"):
+            return self.source.load_label(i)
         self._ensure()
         return self._host_lbls[i]
 

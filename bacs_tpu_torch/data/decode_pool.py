@@ -13,8 +13,10 @@ second decode thread slower, ``bacs_tpu/data/datamodule.py:309-313``).
   once per DataModule and reused across epochs and tasks.
 - **no CUDA in the children**: a child unpickles its source, which imports
   ``bacs_tpu_torch.data.datasets`` and with it torch (a few seconds a
-  child), and decodes with numpy and PIL only.  ``CUDA_VISIBLE_DEVICES`` is
-  emptied in the child before anything could touch the card.
+  child), and decodes with the native decoder (each call on every
+  hardware thread, as JAX's workers do), or numpy and PIL.
+  ``CUDA_VISIBLE_DEVICES`` is emptied in the child before anything could
+  touch the card.
 - **order-preserving window**: batches are submitted ``workers + 2`` ahead
   and yielded strictly in submission order, so the stream is bit-identical
   to serial decoding at any worker count; a worker's exception re-raises
@@ -40,7 +42,14 @@ _SRC = None
 
 def gather_host(source, indices) -> Tuple[np.ndarray, np.ndarray]:
     """Decode one index batch: (images [n, s, s, 3], labels [n, s, s])
-    uint8, one ``load`` per sample."""
+    uint8, through the source's ``load_batch`` where it has one that
+    answers (a folder source's native decode, a cache's), else one ``load``
+    per sample (``bacs_tpu/data/decode_pool.py:41-51``)."""
+    batch = getattr(source, "load_batch", None)
+    if batch is not None:
+        out = batch([int(i) for i in indices])
+        if out is not None:
+            return out
     imgs, lbls = [], []
     for i in indices:
         img, lbl = source.load(int(i))
@@ -67,6 +76,11 @@ class DecodePool:
         import multiprocessing as mp
 
         self.workers = workers
+        if hasattr(source, "load_batch"):
+            # build the native decoder here, once, before the workers load it
+            from bacs_tpu_torch.data import native_decode
+
+            native_decode.available()
         ctx = mp.get_context("spawn")
         self._pool = ctx.Pool(workers, initializer=_worker_init, initargs=(source,))
 

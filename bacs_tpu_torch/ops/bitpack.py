@@ -48,8 +48,13 @@ def unpack_bits(packed: np.ndarray, shape: tuple, bits: int) -> np.ndarray:
 
     packed: uint8 [N, bits*H*W//8]; shape: the original (N, H, W).
     """
+    from bacs_tpu_torch.data.native import unpack_bitplanes
+
     n, h, w = shape
     planes = np.asarray(packed, np.uint8).reshape(n, bits, h // 8, w)
+    native = unpack_bitplanes(planes, n, bits, h // 8, w)
+    if native is not None:  # the host library's loop, as JAX's
+        return native
     # byte at (g, w) expands LSB-first to pixels (8g+k, w), k = 0..7
     plane_bits = np.unpackbits(planes, axis=2, bitorder="little")
     out = np.zeros((n, h, w), np.uint8)

@@ -33,10 +33,16 @@ rank resumes from the same file.
 Not ported, because they exist only for the TPU or its host; a config that
 sets one gets one log line that it is ignored: multihost streams,
 ``training.spatial_partition`` (GSPMD),
-``training.boundary_gc`` (XLA's executable cache),
-``training.steps_per_dispatch`` (``make_multi_step``) and
-``training.profile_dir`` (the ``jax.profiler`` trace).  After each task's
-test the callbacks run (``_run_callbacks``): media collages
+``training.boundary_gc`` (XLA's executable cache) and
+``training.steps_per_dispatch`` (``make_multi_step``).
+``training.profile_dir`` traces task 0's step loop, as JAX's
+``jax.profiler`` trace does (``bacs_tpu/train/loop.py:441-442,584-586``):
+``torch.profiler`` from before the first step to after the last, the CPU's
+activity and, on the card, CUDA's, written as one Chrome trace per rank
+(``trace.json``, or ``trace_rank<r>.json`` under data parallelism).  There
+is no knob for the window: a long task 0 gives a large trace, as in JAX.
+The Trainer logs the DataModule's host decoder (native or PIL) at start.
+After each task's test the callbacks run (``_run_callbacks``): media collages
 (``training.log_images``), prototype plots (``log_prototypes``), the drift
 snapshot (``log_drift``, measured every ``drift_measure_every`` train
 steps of the later tasks and logged as ``representation_drift``), all
@@ -82,7 +88,7 @@ from bacs_tpu_torch.viz.media import MediaLogger
 from bacs_tpu_torch.viz.prototypes_viz import PrototypeLogger
 
 # training keys that tune the TPU or its host, ignored here
-TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch", "profile_dir")
+TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch")
 
 
 def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
@@ -221,6 +227,9 @@ class Trainer:
             if key in tcfg:
                 self.logger.info(f"training.{key}={tcfg[key]!r} tunes the TPU or its "
                                  "host and is ignored")
+        self.logger.info(f"host decode: {dm.decoder}")
+        # task 0's step loop under torch.profiler (bacs_tpu/train/loop.py:177-179)
+        self.profile_dir = tcfg.get("profile_dir", None)
         # observability callbacks (bacs_tpu/train/loop.py:156-175; reference:
         # visualization/, trainer.py:203-223), run after each task's test
         out_dir = str(tcfg.get("media_dir", "media"))
@@ -392,78 +401,84 @@ class Trainer:
         train_step, eval_step, put_batch = make_steps(ctx, self.method, dm.num_classes,
                                                       device=self.device)
         t_train = time.perf_counter()
+        profiler = self._start_profile() if self.profile_dir and task_id == 0 else None
 
-        max_iters = self._max_iters(task) * self.accumulate  # mini-steps
-        step_count = 0
-        steps_epoch = dm.steps_per_epoch(self.n_devices)
-        # mid-task resume restarts the SAME epoch and skips the batches the
-        # restored epoch_step says were already consumed (the per-epoch data
-        # order is deterministic); a full epoch_step means the epoch finished.
-        resume_skip = 0
-        if self._resume_epoch >= 0:
-            start_epoch = self._resume_epoch
-            resume_skip = int(self.state.epoch_step)
-            if resume_skip >= steps_epoch:
-                start_epoch += 1
-                resume_skip = 0
-        else:
-            start_epoch = 0
-        self._resume_epoch = -1
-        # mid-epoch checkpoint cadence: twice per epoch like the reference
-        # (trainer.py:190-201), overridable via training.ckpt_every_steps
-        ckpt_every = int(self.config["training"].get("ckpt_every_steps", 0)
-                         or max(steps_epoch // 2, 1))
-        last_slot = 0  # alternate last0/last1: a crash mid-save keeps the other
-        for epoch in range(start_epoch, self._epochs_for(task_id)):
-            skip = resume_skip if epoch == start_epoch else 0
-            saved_chunks = skip // ckpt_every if ckpt_every else 0
-            self.state.epoch, self.state.epoch_step = epoch, skip
-            batches = dm.train_batches(epoch=epoch, n_devices=self.n_devices,
-                                       rank=self.rank if self.group is not None else None)
-            for i, batch in enumerate(batches):
-                if i < skip:
-                    step_count += 1  # already consumed before the interruption
-                    continue
-                if step_count >= max_iters:
-                    # a run resumed at its step budget trains no further step
-                    # (the JAX loop trains one: ROADMAP.md queue 3)
-                    break
-                t0 = time.perf_counter()
-                self.state, metrics = train_step(self.state, put_batch(batch))
-                step_count += 1
-                if self.drift is not None and task_id > 0 and self.rank == 0:
-                    d = self.drift.measure(ctx, self.state, step_count)
-                    if d is not None:
-                        self.logger.log_metrics({"representation_drift": d})
-                if step_count <= 2 or step_count % 50 == 0:
-                    self.logger.info(f"task {task_id} epoch {epoch} step {step_count} "
-                                     f"loss {float(metrics['loss']):.4f}")
-                if step_count > 2:
-                    float(metrics["loss"])  # a host read, so the time is real
-                    dt = time.perf_counter() - t0
-                    if dt < 5.0:  # leave out first-call compilations
-                        self._timing["images"] += batch["image"].shape[0] * self.n_devices
-                        self._timing["seconds"] += dt
-                if (self.writes_checkpoints and ckpt_every
-                        and (i + 1) // ckpt_every > saved_chunks and (i + 1) < steps_epoch):
-                    saved_chunks = (i + 1) // ckpt_every
+        try:  # the profiler stops and writes its trace also where a step raises
+            max_iters = self._max_iters(task) * self.accumulate  # mini-steps
+            step_count = 0
+            steps_epoch = dm.steps_per_epoch(self.n_devices)
+            # mid-task resume restarts the SAME epoch and skips the batches the
+            # restored epoch_step says were already consumed (the per-epoch data
+            # order is deterministic); a full epoch_step means the epoch finished.
+            resume_skip = 0
+            if self._resume_epoch >= 0:
+                start_epoch = self._resume_epoch
+                resume_skip = int(self.state.epoch_step)
+                if resume_skip >= steps_epoch:
+                    start_epoch += 1
+                    resume_skip = 0
+            else:
+                start_epoch = 0
+            self._resume_epoch = -1
+            # mid-epoch checkpoint cadence: twice per epoch like the reference
+            # (trainer.py:190-201), overridable via training.ckpt_every_steps
+            ckpt_every = int(self.config["training"].get("ckpt_every_steps", 0)
+                             or max(steps_epoch // 2, 1))
+            last_slot = 0  # alternate last0/last1: a crash mid-save keeps the other
+            for epoch in range(start_epoch, self._epochs_for(task_id)):
+                skip = resume_skip if epoch == start_epoch else 0
+                saved_chunks = skip // ckpt_every if ckpt_every else 0
+                self.state.epoch, self.state.epoch_step = epoch, skip
+                batches = dm.train_batches(epoch=epoch, n_devices=self.n_devices,
+                                           rank=self.rank if self.group is not None else None)
+                for i, batch in enumerate(batches):
+                    if i < skip:
+                        step_count += 1  # already consumed before the interruption
+                        continue
+                    if step_count >= max_iters:
+                        # a run resumed at its step budget trains no further step
+                        # (the JAX loop trains one: ROADMAP.md queue 3)
+                        break
+                    t0 = time.perf_counter()
+                    self.state, metrics = train_step(self.state, put_batch(batch))
+                    step_count += 1
+                    if self.drift is not None and task_id > 0 and self.rank == 0:
+                        d = self.drift.measure(ctx, self.state, step_count)
+                        if d is not None:
+                            self.logger.log_metrics({"representation_drift": d})
+                    if step_count <= 2 or step_count % 50 == 0:
+                        self.logger.info(f"task {task_id} epoch {epoch} step {step_count} "
+                                         f"loss {float(metrics['loss']):.4f}")
+                    if step_count > 2:
+                        float(metrics["loss"])  # a host read, so the time is real
+                        dt = time.perf_counter() - t0
+                        if dt < 5.0:  # leave out first-call compilations
+                            self._timing["images"] += batch["image"].shape[0] * self.n_devices
+                            self._timing["seconds"] += dt
+                    if (self.writes_checkpoints and ckpt_every
+                            and (i + 1) // ckpt_every > saved_chunks and (i + 1) < steps_epoch):
+                        saved_chunks = (i + 1) // ckpt_every
+                        checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
+                                                        f"last{last_slot}", self.saver,
+                                                        block=False)
+                        last_slot = 1 - last_slot
+                    if step_count >= max_iters:
+                        break
+                # periodic validation on the current (and previous) task's val set
+                # (reference: training.val_every; model.py:385 dual val loaders)
+                val_every = int(self.config["training"].get("val_every", 0) or 0)
+                if (val_every and (epoch + 1) % val_every == 0
+                        and epoch + 1 < self._epochs_for(task_id)):
+                    self._run_validation(task_id, ctx, eval_step, put_batch, epoch)
+                if self.writes_checkpoints:
                     checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
-                                                    f"last{last_slot}", self.saver,
-                                                    block=False)
+                                                    f"last{last_slot}", self.saver, block=False)
                     last_slot = 1 - last_slot
                 if step_count >= max_iters:
                     break
-            # periodic validation on the current (and previous) task's val set
-            # (reference: training.val_every; model.py:385 dual val loaders)
-            val_every = int(self.config["training"].get("val_every", 0) or 0)
-            if val_every and (epoch + 1) % val_every == 0 and epoch + 1 < self._epochs_for(task_id):
-                self._run_validation(task_id, ctx, eval_step, put_batch, epoch)
-            if self.writes_checkpoints:
-                checkpoint.save_task_checkpoint(self.ckpt_dir, task_id, self.state,
-                                                f"last{last_slot}", self.saver, block=False)
-                last_slot = 1 - last_slot
-            if step_count >= max_iters:
-                break
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
         t_end = time.perf_counter()
 
         # buffers are populated from CANONICAL (non-augmented) images; replay
@@ -481,6 +496,26 @@ class Trainer:
             "boundary": t_train - t_start, "train": t_end - t_train,
             "end_task": t_test - t_end, "test": t_done - t_test, "wall": t_done - t_start})
         return results
+
+    def _start_profile(self):
+        """A started ``torch.profiler`` of the CPU and, on the card, CUDA."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Stop ``profiler`` and write its Chrome trace into ``profile_dir``."""
+        profiler.stop()
+        name = "trace.json" if self.group is None else f"trace_rank{self.rank}.json"
+        path = os.path.join(os.path.expanduser(str(self.profile_dir)), name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        profiler.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
 
     def _set_active_classes(self, task: TaskInfo) -> None:
         """TranSeg's class tokens in use: the task's classes, on the model

@@ -11,6 +11,7 @@ datasets, weight import and checkpoint serving, on one NVIDIA GPU (H100).
     python3 chip_smoke.py --real-data
     python3 chip_smoke.py --ddp
     python3 chip_smoke.py --export-ood
+    python3 chip_smoke.py --host-data
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -195,11 +196,11 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    file's, K3 and K4 launched at task 1; the predict command line
    (``bacs_tpu_torch.predict.main``, in this process) on its checkpoint over
    8 of the tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in
-   f32 on the card and on the CPU over 4 of them (the share of pixels that differ, within
+   f32 on the card and on the CPU over 2 of them (the share of pixels that differ, within
    ``SERVE_PIXEL_TOL``); a reference-layout DeepLabV3 checkpoint of seeded
    values (``reference_deeplab_shapes``) through the ``import_ckpt``
    command line's ``main --populate-buffer`` (in this process), then resumed at task 1 on
-   the card; then the decode pool's host img/s at 0, 2 and 4 workers;
+   the card;
 37. ADE20K at 151 classes: an ADE tree (36 train, 16 validation images),
    ``conf/experiments/joint`` (DeepLabV3-RN101, CE, batch 12, bf16) through
    ``main.train`` in-process (K1 each way and K2 per step and eval batch at
@@ -264,6 +265,24 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    ``MediaLogger.flush`` (the collage's shape), ``plot`` where matplotlib
    and scikit-learn are installed; then ``ood_counts``, ``collect`` and
    the drift card against CPU in f32 at RN101 4 x 128^2 (TF32 off);
+44. the host data path on [36]'s VOC tree (after phase 41): the ``g++``
+   probe of ``jpeglib.h`` and ``png.h``, the host libraries' build seconds
+   and ``native_decode.available()`` (both headers found: the build must
+   succeed); every pair decoded natively and by PIL (labels equal but for
+   boundary pixels a rounding tie moves, at most 1e-4 of them; images
+   within JAX's bound, mean < 1.5 and max <= 16 levels); host img/s of the
+   native decoder and of PIL through the DataModule's host stream at 0, 2
+   and 4 decode workers, 3 passes each, beside the host's cores;
+   ``DecodedCache`` on disk: the cold and warm passes' img/s and its bytes,
+   a fresh cache over its files bit-equal to the cold pass; the VOC runbook
+   (``voc_runbook.main --stage all`` on the tree and [36]'s release
+   backbone, in this process) exiting 0, then its training command through
+   ``bacs_tpu_torch.main.main`` in debug mode (15-5: 2 tasks; no
+   checkpoints) with ``cache_decoded=disk`` and ``training.profile_dir``:
+   the fit's seconds, task 0's Chrome trace's MiB and its CUDA kernels, K1
+   and K5 among them; ``make_pretrained_backbone`` (ResNet-50, 256^2, 48
+   rich images, one epoch) whose file passes the runbook's
+   ``--stage backbone`` and ``--stage convert --backbone resnet50``;
 t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    versions and their times before each one's redesign (K12 also beside
    the unfused ABN + max-pool pair, K1 and K4 beside the unfused
@@ -280,7 +299,8 @@ Every profiled window logs the card's SM clock over it (``[clock]``,
 
 ``--transeg`` only builds and runs phases [33]-[35], ``--real-data``
 phases [36]-[38], ``--ddp`` phases [40] and [41], ``--export-ood`` phases
-[42] and [43] (with [14]'s set-up over 2 fill batches).
+[42] and [43] (with [14]'s set-up over 2 fill batches), ``--host-data``
+phase [44] (with [36]'s tree and release backbone).
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -3791,15 +3811,17 @@ VOC_TREE = dict(n_train=32, n_val=16, size=CROP)
 VOC_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "training.num_workers=2",
                  "training.initial_increment=15", "training.increment=5",
                  "training.mode=overlap", "training.epochs=1", "training.val_every=0"]
-PREDICT_IMAGES, SERVE_CHECK_IMAGES = 8, 4
+PREDICT_IMAGES, SERVE_CHECK_IMAGES = 8, 2
 # the share of pixels whose class may differ between the f32 Predictor on
 # the card (cuDNN, TF32 off) and on the CPU: the ties within rounding
 SERVE_PIXEL_TOL = 1e-3
 # [37] ADE20K: conf/experiments/joint (DeepLabV3-RN101, CE, batch 12, bf16)
 ADE_CLASSES_BG = ADE_CLASSES + 1  # 151 with the background
 ADE_TREE = dict(n_train=36, n_val=16, size=CROP)
+# (its decode in the prefetch thread since [44] came; the decode pool runs in
+# [36]'s training and [44]'s rates)
 ADE_OVERRIDES = ["training.epochs=1", "training.val_every=0", "~training.ckpt_dir",
-                 "training.num_workers=2"]
+                 "training.num_workers=0"]
 ADE_BATCH = 12
 # [38] the domains: 3 Cityscapes cities at 256 px, one a task, on
 # conf/continual_debug's DeepLabV3-RN18 at 128^2; then its synthetic_domain
@@ -3834,7 +3856,8 @@ def run_here_per_task(main_fn, label: str, args: list, log_path: str, reset_coun
     return stdout, {"per_task": per_task, "last": last}
 
 
-def run_here(main_fn, label: str, args: list, log_path: str, reset_counts, counts) -> tuple:
+def run_here(main_fn, label: str, args: list, log_path: str, reset_counts, counts,
+             phase: str = "[36]") -> tuple:
     """Call a command line's ``main(argv)`` in this process (the program's
     own entry point, as ``python -m`` calls it, without a second process's
     start: torch's import, the kernels' load and Triton's compiles), its
@@ -3847,7 +3870,7 @@ def run_here(main_fn, label: str, args: list, log_path: str, reset_counts, count
     launches = counts()
     with open(log_path, "w") as f:
         f.write(buf.getvalue())
-    log(f"[36] {label}, in this process: {time.perf_counter() - t0:.1f} s (log {log_path})")
+    log(f"{phase} {label}, in this process: {time.perf_counter() - t0:.1f} s (log {log_path})")
     return buf.getvalue(), launches
 
 
@@ -3985,8 +4008,9 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        # half the predicted images, one batch of SERVE_CHECK_IMAGES (8 before
-        # phases [42] and [43] came): the CPU's f32 forward is the cost
+        # a quarter of the predicted images, one batch of SERVE_CHECK_IMAGES
+        # (8 before phases [42] and [43] came, 4 before [44]): the CPU's f32
+        # forward is the cost
         masks = {d: Predictor.from_checkpoint(ckpt, config, device=d, dtype=torch.float32)
                  .predict_files(images[:SERVE_CHECK_IMAGES], batch_size=SERVE_CHECK_IMAGES)
                  for d in ("cuda", "cpu")}
@@ -4024,40 +4048,9 @@ def voc_weights_leg(seed: int, dev, reset_counts, counts) -> dict:
     log(f"[36] {m.group(0)} (a reference checkpoint of {len(shapes)} keys, task 0) "
         f"and resumed at task 1 on the card in {time.perf_counter() - t0:.1f} s: final mIoU "
         f"{miou:.4f}, launches {out['resume_launches']}")
-    out["root"] = root
+    out.update(root=root, bb_path=bb_path)
     trainer.datamodule.close()
     return out
-
-
-DECODE_PASSES = 2  # 3 before phases [42] and [43] came
-
-
-def decode_pool_rates(root: str) -> dict:
-    """Host decode img/s of the VOC tree's train images through the
-    DataModule's host stream at 0, 2 and 4 workers (batches of 12),
-    ``DECODE_PASSES`` passes each: the first with the workers' spawn."""
-    from bacs_tpu_torch.data.datamodule import DataModule, _host_cores
-    from bacs_tpu_torch.data.datasets import make_voc_source
-
-    src = make_voc_source(root, "train", CROP)
-    idx = [list(range(i, min(i + 12, len(src)))) for i in range(0, len(src), 12)]
-    rates = {}
-    for workers in (0, 2, 4):
-        dm = DataModule(src, src, N_CLASSES, CROP, 12, input_workers=workers, device="cpu")
-        passes = []
-        for _ in range(DECODE_PASSES):
-            t0 = time.perf_counter()
-            n = sum(len(b[0]) for b in dm._host_stream(src, idx))
-            passes.append(n / (time.perf_counter() - t0))
-        dm.close()
-        rates[workers] = passes
-    log(f"[36] decode pool, host numbers: {len(src)} VOC images of "
-        f"{VOC_TREE['size']}-{int(VOC_TREE['size'] * 1.6)} px decoded to {CROP}^2, img/s "
-        f"({DECODE_PASSES} passes, the first with the spawn): "
-        + ", ".join(f"{w} workers " + " / ".join(f"{r:.1f}" for r in p)
-                    for w, p in rates.items())
-        + f"; host cores {_host_cores()} (os.cpu_count {os.cpu_count()})")
-    return rates
 
 
 def ade_full_width(seed: int, dev, reset_counts, counts) -> dict:
@@ -4258,11 +4251,10 @@ def domain_runs(seed: int, reset_counts, counts) -> dict:
 
 
 def real_data_phases(seed: int, dev, reset_counts, counts) -> dict:
-    """[36]-[38] and the decode pool's rates; returns their results and the
-    launches of their main paths, summed by counter."""
+    """[36]-[38]; returns their results and the launches of their main
+    paths, summed by counter."""
     t0 = time.perf_counter()
     voc = voc_weights_leg(seed, dev, reset_counts, counts)
-    rates = decode_pool_rates(voc["root"])
     t36 = time.perf_counter() - t0
     ade = ade_full_width(seed, dev, reset_counts, counts)
     t37 = time.perf_counter() - t0 - t36
@@ -4274,7 +4266,7 @@ def real_data_phases(seed: int, dev, reset_counts, counts) -> dict:
     launches = {k: sum(p.get(k, 0) for p in parts) for k in counts()}
     log(f"[time] [36] {t36:.1f} s, [37] {t37:.1f} s, [38] {t38:.1f} s; launches of their "
         f"main paths {launches}")
-    return dict(voc=voc, rates=rates, ade=ade, domains=domains, launches=launches,
+    return dict(voc=voc, ade=ade, domains=domains, launches=launches,
                 seconds=(t36, t37, t38))
 
 
@@ -4968,6 +4960,359 @@ def ddp_main(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- the host data path
+
+# [44] the host data path on [36]'s VOC tree: the host library's build, the
+# native batch decoder against PIL, the decode rates of both at 0, 2 and 4
+# workers, the disk cache, the VOC runbook, its training command with the
+# disk cache and the profiler (debug mode: 6 images a task; cut from 15-1's
+# 6 tasks to 15-5's 2, and no checkpoints), and the warm-start pre-run at a
+# cut (ResNet-50, 256^2, 48 rich images, one epoch; its defaults are 1536
+# images and 8 epochs)
+HOST_PASSES, HOST_BATCH = 3, 12
+# each timed pass streams the train images' batches again until it holds
+# at least this many batches for each worker (one for the serial stream),
+# so a pool's fill and drain are a small share of a pass
+HOST_BATCHES_PER_WORKER = 8
+HOST_FIT_CUTS = ["training.increment=5", "~training.ckpt_dir"]
+PRERUN_ARGS = ["--backbone", "resnet50", "--crop", "256", "--epochs", "1", "--n-train", "48"]
+# JAX's bound on the native decoder's images against PIL's (tests/test_native.py)
+DECODE_MEAN_TOL, DECODE_MAX_TOL = 1.5, 16
+# label pixels whose class a nearest-neighbour rounding tie may move (the
+# two decoders' conventions agree away from ties, tests/test_native.py:76-80)
+LABEL_TIE_SHARE = 1e-4
+
+
+class PilFolderSource:
+    """A folder source that decodes with PIL only, a pair at a time (a host
+    where the native decoder does not build), for the decode pool's
+    workers to time."""
+
+    def __init__(self, source):
+        self.source = source
+        self.size, self.class_names = source.size, source.class_names
+
+    def __len__(self):
+        return len(self.source)
+
+    def load(self, i):
+        return self.source.load(i)
+
+    def load_label(self, i):
+        return self.source.load_label(i)
+
+
+def host_decode_checks(root: str) -> dict:
+    """Every train and validation pair of the tree decoded natively and by
+    PIL: images within JAX's bound; labels equal but where a rounding tie of
+    the two nearest-neighbour conventions moves a class boundary by a pixel
+    (at most ``LABEL_TIE_SHARE`` of the pixels, each moved one taking a
+    class PIL has within one pixel of it).  Returns the worst and the
+    moved label pixels."""
+    from bacs_tpu_torch.data import native_decode
+    from bacs_tpu_torch.data.datasets import _load_pair, make_voc_source
+
+    worst = {"mean": 0.0, "max": 0, "pairs": 0, "labels_moved": 0, "pixels": 0}
+    for split in ("train", "val"):
+        src = make_voc_source(root, split, CROP)
+        before = native_decode.decode_batch.launches
+        imgs, lbls, failed = native_decode.decode_batch(src.image_paths, src.label_paths, CROP)
+        assert native_decode.decode_batch.launches == before + 1 and not failed.any(), failed
+        for i in range(len(src)):
+            pil_img, pil_lbl = _load_pair(src.image_paths[i], src.label_paths[i], CROP)
+            for y, x in np.argwhere(lbls[i] != pil_lbl):
+                near = pil_lbl[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2]
+                assert lbls[i][y, x] in near, (src.label_paths[i], y, x)
+                worst["labels_moved"] += 1
+            worst["pixels"] += pil_lbl.size
+            diff = np.abs(imgs[i].astype(np.int32) - pil_img.astype(np.int32))
+            worst["mean"] = max(worst["mean"], float(diff.mean()))
+            worst["max"] = max(worst["max"], int(diff.max()))
+            worst["pairs"] += 1
+    assert worst["mean"] < DECODE_MEAN_TOL and worst["max"] <= DECODE_MAX_TOL, worst
+    assert worst["labels_moved"] <= LABEL_TIE_SHARE * worst["pixels"], worst
+    return worst
+
+
+def start_pools(root: str, native: bool) -> dict:
+    """{(decoder, workers): (source, pool)}: decode pools of 2 and 4 workers
+    over the tree's train images, natively (where the decoder builds) and by
+    PIL, all spawned at once (their spawn overlaps the runbook's stages)."""
+    from bacs_tpu_torch.data.datasets import make_voc_source
+    from bacs_tpu_torch.data.decode_pool import DecodePool
+
+    src = make_voc_source(root, "train", CROP)
+    sources = {"native": src, "PIL": PilFolderSource(src)}
+    return {(name, workers): (source, DecodePool(source, workers))
+            for name, source in sources.items() if native or name == "PIL"
+            for workers in (2, 4)}
+
+
+def host_decode_rates(pools: dict) -> dict:
+    """Host decode img/s of the tree's train images as the DataModule's host
+    stream decodes them (batches of ``HOST_BATCH``): in this process (0
+    workers) and through ``pools`` (2 and 4), natively (each call on every
+    hardware thread) and by PIL, ``HOST_PASSES`` passes each.  A pass
+    streams the tree's batches again until it holds at least
+    ``HOST_BATCHES_PER_WORKER`` batches a worker (the files' reads after
+    the first are warm in the page cache); ``images`` is a pass's size.  A
+    pool's first pass is not timed: its workers may still be starting."""
+    from bacs_tpu_torch.data.decode_pool import gather_host
+
+    sources = {name: source for (name, _), (source, _) in pools.items()}
+    n = len(next(iter(sources.values())))
+    idx = [list(range(i, min(i + HOST_BATCH, n))) for i in range(0, n, HOST_BATCH)]
+    rates = {"images": {}}
+    for workers in (0, 2, 4):
+        stream = idx * -(-HOST_BATCHES_PER_WORKER * max(workers, 1) // len(idx))
+        rates["images"][workers] = sum(map(len, stream))
+        for name, source in sources.items():
+            passes = []
+            if workers:
+                for _ in pools[(name, workers)][1].stream(stream):
+                    pass
+            for _ in range(HOST_PASSES):
+                t0 = time.perf_counter()
+                batches = ((gather_host(source, b) for b in stream) if workers == 0
+                           else pools[(name, workers)][1].stream(stream))
+                passes.append(sum(len(b[0]) for b in batches) / (time.perf_counter() - t0))
+            rates[f"{name} {workers}"] = passes
+    for _, pool in pools.values():
+        pool.close()
+    return rates
+
+
+def class_presence_times(root: str) -> dict:
+    """``compute_class_sets``'s scan of the tree's train and validation
+    labels (full-size PNGs through ``load_label``), its presence step on
+    the host label library against the ``np.bincount(...) > 0`` it replaced,
+    each the best of ``HOST_PASSES`` passes over the decoded labels; the
+    two give the same sets."""
+    from bacs_tpu_torch.data import native
+    from bacs_tpu_torch.data.datasets import make_voc_source
+
+    t0 = time.perf_counter()
+    labels = [src.load_label(i) for split in ("train", "val")
+              for src in [make_voc_source(root, split, CROP)] for i in range(len(src))]
+    out = {"labels": len(labels), "pixels": sum(lbl.size for lbl in labels),
+           "decode_ms": (time.perf_counter() - t0) * 1e3, "library": native.available()}
+    presence = {
+        "library": lambda a: native.class_presence(a[None].astype(np.uint8))[0],
+        "bincount": lambda a: np.bincount(a.astype(np.uint8).ravel(), minlength=256) > 0}
+    got = {}
+    for name, fn in presence.items():
+        best = float("inf")
+        for _ in range(HOST_PASSES):
+            t0 = time.perf_counter()
+            got[name] = [fn(lbl) for lbl in labels]
+            best = min(best, time.perf_counter() - t0)
+        out[f"{name}_ms"] = best * 1e3
+    assert all(np.array_equal(a, b) for a, b in zip(got["library"], got["bincount"]))
+    return out
+
+
+def disk_cache_run(root: str) -> dict:
+    """``DecodedCache`` on disk over the tree's train images: the cold pass
+    (decode and store) and the warm pass in img/s, the bytes of its files,
+    and a fresh cache over the same files served bit-equal to the cold
+    pass, which is the source's own decode."""
+    import shutil
+
+    from bacs_tpu_torch.data.datasets import DecodedCache, make_voc_source
+    from bacs_tpu_torch.data.decode_pool import gather_host
+
+    src = make_voc_source(root, "train", CROP)
+    cache_dir = os.path.abspath(os.path.join(REAL_ROOT, "host_cache"))
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    idx = [list(range(i, min(i + HOST_BATCH, len(src))))
+           for i in range(0, len(src), HOST_BATCH)]
+    cache = DecodedCache(src, cache_dir)
+    out = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        got = [cache.load_batch(b) for b in idx]
+        out[name] = len(src) / (time.perf_counter() - t0)
+        if name == "cold":
+            cold = got
+    files = [os.path.join(cache_dir, f) for f in os.listdir(cache_dir)]
+    out["bytes"] = sum(os.path.getsize(f) for f in files)
+    fresh = DecodedCache(src, cache_dir)
+    assert fresh._valid.all() and fresh.base == cache.base
+    for b, (ci, cl) in zip(idx, cold):
+        fi, fl = fresh.load_batch(b)
+        si, sl = gather_host(src, b)
+        assert np.array_equal(fi, ci) and np.array_equal(fl, cl)
+        assert np.array_equal(si, ci) and np.array_equal(sl, cl)
+    out["files"] = len(files)
+    shutil.rmtree(cache_dir)
+    return out
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: launches} of a Chrome trace's CUDA kernels."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return dict(collections.Counter(e["name"] for e in events if e.get("cat") == "kernel"))
+
+
+def host_data_phase(seed: int, root: str, bb_path: str, reset_counts, counts) -> dict:
+    """[44]; returns its results and the launches of its main paths (the
+    traced fit and the pre-run), summed by counter."""
+    import glob
+    import re
+    import shutil
+
+    from bacs_tpu_torch import main as cli
+    from bacs_tpu_torch import make_pretrained_backbone, voc_runbook
+    from bacs_tpu_torch.data import native, native_decode
+    from bacs_tpu_torch.data.datamodule import _host_cores
+    from bacs_tpu_torch.kernels import host_build
+
+    t_phase = time.perf_counter()
+    base = os.path.abspath(os.path.join(REAL_ROOT, "host"))
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = {"probe": host_build.header_probe()}
+    out["native"], out["label_ops"] = native_decode.available(), native.available()
+    out["t_build"] = dict(host_build.build_seconds)  # the first build, in [36] or here
+    log(f"[44] g++ header probe {out['probe']}; the host libraries' g++ seconds in this "
+        f"process {out['t_build'] or 'none (built before)'}; native_decode.available() "
+        f"{out['native']}, native.available() {out['label_ops']}")
+    if all(out["probe"].values()):
+        assert out["native"], "both image headers found, yet the native decoder did not build"
+        out["decode"] = host_decode_checks(root)
+        log(f"[44] {out['decode']['pairs']} VOC pairs decoded natively and by PIL at {CROP}^2: "
+            f"labels equal but {out['decode']['labels_moved']} of {out['decode']['pixels']} "
+            f"pixels (boundary ties), images at most {out['decode']['mean']:.4f} in the mean and "
+            f"{out['decode']['max']} levels apart (JAX's bound: mean < {DECODE_MEAN_TOL}, "
+            f"max <= {DECODE_MAX_TOL})")
+    else:
+        log("[44] native decode: not on this host (g++ finds no "
+            + " and no ".join(h for h, found in out["probe"].items() if not found)
+            + "): folder trees decode with PIL here, as the JAX package's would; the "
+            "native decoder's checks and rates are the CPU tests' (tests/test_torch_native.py)")
+    # the runbook's stages while the decode pools spawn
+    t0 = time.perf_counter()
+    pools = start_pools(root, out["native"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = voc_runbook.main(["--root", root, "--backbone-ckpt", bb_path, "--stage", "all"])
+    with open(os.path.join(base, "runbook.log"), "w") as f:
+        f.write(buf.getvalue())
+    assert rc == 0, buf.getvalue()
+    cmd = voc_runbook.train_command(root, bb_path, smoke=True)
+    log(f"[44] bacs_tpu_torch.voc_runbook --stage all: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s (the decode pools spawning meanwhile); its command "
+        + " ".join(cmd[1:]))
+    rates = host_decode_rates(pools)
+    out["rates"] = rates
+    log(f"[44] host decode img/s of {VOC_TREE['n_train']} VOC images of "
+        f"{VOC_TREE['size']}-{int(VOC_TREE['size'] * 1.6)} px to {CROP}^2, streamed again "
+        f"to at least {HOST_BATCHES_PER_WORKER} batches of up to {HOST_BATCH} a worker "
+        f"(images a pass at 0, 2 and 4 workers: {list(rates['images'].values())}; "
+        f"{HOST_PASSES} passes after a pool's first, the files warm in the page cache): "
+        + "; ".join(f"{k} workers " + " / ".join(f"{r:.1f}" for r in v)
+                    for k, v in rates.items() if isinstance(v, list))
+        + f"; host cores {_host_cores()} (os.cpu_count {os.cpu_count()})")
+    out["presence"] = class_presence_times(root)
+    log(f"[44] compute_class_sets' scan of {out['presence']['labels']} full-size VOC labels "
+        f"({out['presence']['pixels']} pixels): PNG decode {out['presence']['decode_ms']:.1f} ms; "
+        f"presence on the host label library (built: {out['presence']['library']}) "
+        f"{out['presence']['library_ms']:.3f} ms against np.bincount's "
+        f"{out['presence']['bincount_ms']:.3f} ms (best of {HOST_PASSES}), the same sets")
+    out["disk"] = disk_cache_run(root)
+    log(f"[44] cache_decoded=disk over {VOC_TREE['n_train']} images: cold "
+        f"{out['disk']['cold']:.1f} img/s, warm {out['disk']['warm']:.1f} img/s, "
+        f"{out['disk']['bytes'] / 2**20:.1f} MiB in {out['disk']['files']} files; a fresh "
+        "cache over the files bit-equal to the cold pass and to the source's decode")
+
+    # the runbook's training command with the disk cache and the profiler,
+    # in this process
+    prof = os.path.join(base, "profile")
+    t0 = time.perf_counter()
+    stdout, fit_launches = run_here(
+        cli.main, "the runbook's command", cmd[3:] + HOST_FIT_CUTS + [
+            "+dataset.dataset.cache_decoded=disk", f"+training.profile_dir={prof}"],
+        os.path.join(base, "fit.log"), reset_counts, counts, phase="[44]")
+    out["t_fit"] = time.perf_counter() - t0
+    assert "host decode: native" in stdout or not out["native"], stdout[:2000]
+    assert re.search(r"loaded \d+ pretrained backbone tensors", stdout), stdout[:2000]
+    miou = float(re.search(r"final mIoU: (\S+)", stdout).group(1))
+    assert np.isfinite(miou), miou
+    trace = os.path.join(prof, "trace.json")
+    assert os.listdir(prof) == ["trace.json"], os.listdir(prof)
+    kernels = trace_kernels(trace)
+    k1 = sum(v for k, v in kernels.items() if "sums_kernel" in k)
+    k5 = sum(v for k, v in kernels.items() if "abn_eval_kernel" in k)
+    assert k1 > 0 and k5 > 0, sorted(kernels)[:40]
+    cached = glob.glob(os.path.join(root, "cache", "decoded_*"))
+    assert len(cached) == 6, cached  # train and val, three files each
+    out.update(fit_launches=fit_launches, trace_mib=os.path.getsize(trace) / 2**20,
+               trace_kernels=len(kernels), fit_miou=miou)
+    log(f"[44] the traced fit (2 tasks, debug, cache_decoded=disk): {out['t_fit']:.1f} s, final "
+        f"mIoU {miou:.4f}, launches {fit_launches}; task 0's trace {out['trace_mib']:.1f} MiB, "
+        f"{len(kernels)} CUDA kernels by name, K1 (sums_kernel) {k1} and K5 "
+        f"(abn_eval_kernel) {k5} launches in it")
+
+    # the warm-start pre-run, its file through the runbook's stages
+    prerun_backbone = PRERUN_ARGS[PRERUN_ARGS.index("--backbone") + 1]
+    bb = os.path.join(base, f"{prerun_backbone}_rich.pth.tar")
+    t0 = time.perf_counter()
+    stdout, pre_launches = run_here(
+        make_pretrained_backbone.main, "bacs_tpu_torch.make_pretrained_backbone",
+        PRERUN_ARGS + ["--out", bb, "--seed", str(7 + seed)], os.path.join(base, "prerun.log"),
+        reset_counts, counts, phase="[44]")
+    out["t_prerun"] = time.perf_counter() - t0
+    result = json.loads(stdout.strip().splitlines()[-1])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs = [voc_runbook.main(["--root", root, "--backbone-ckpt", bb, "--stage", "backbone"]),
+               voc_runbook.main(["--root", root, "--backbone-ckpt", bb, "--stage", "convert",
+                                 "--backbone", prerun_backbone])]
+    assert rcs == [0, 0], buf.getvalue()
+    m = re.search(r"converted (\d+)/(\d+)", buf.getvalue())
+    assert m and m.group(1) == m.group(2) == str(result["n_tensors"]), (buf.getvalue(), result)
+    out.update(prerun=result, prerun_launches=pre_launches)
+    log(f"[44] make_pretrained_backbone {' '.join(PRERUN_ARGS)}: {out['t_prerun']:.1f} s, "
+        f"{json.dumps(result)}; launches {pre_launches}; runbook --stage backbone and "
+        f"--stage convert --backbone {prerun_backbone}: exit {rcs}, {m.group(0)} tensors")
+    out["launches"] = {k: fit_launches.get(k, 0) + pre_launches.get(k, 0) for k in counts()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] [44] {out['seconds']:.1f} s; launches of its main paths {out['launches']}")
+    return out
+
+
+def host_data_main(args) -> int:
+    """``--host-data``: build, write [36]'s VOC tree and release backbone,
+    then [44] alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    import shutil
+
+    from bacs_tpu_torch.data.layouts import generate_voc
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    base = os.path.abspath(os.path.join(REAL_ROOT, "voc"))
+    shutil.rmtree(base, ignore_errors=True)
+    root, bb_path = os.path.join(base, "data"), os.path.join(base, "resnet101_iabn_sync.pth.tar")
+    t0 = time.perf_counter()
+    generate_voc(root, seed=args.seed, **VOC_TREE)
+    seeded_release(bb_path, args.seed + 36)
+    log(f"[44] [36]'s VOC tree and release backbone in {time.perf_counter() - t0:.1f} s")
+    reset_counts, counts = launch_counters()
+    host_data_phase(args.seed, root, bb_path, reset_counts, counts)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4988,7 +5333,12 @@ def main() -> int:
     ap.add_argument("--export-ood", action="store_true",
                     help="only build and run the export phase [42] and the OOD and "
                          "loggers' phase [43]")
+    ap.add_argument("--host-data", action="store_true",
+                    help="only build, write [36]'s VOC tree and release backbone, and run "
+                         "the host data path's phase [44]")
     args = ap.parse_args()
+    if args.host_data:
+        return host_data_main(args)
     if args.export_ood:
         return export_ood_main(args)
     if args.ddp:
@@ -5552,6 +5902,12 @@ def main() -> int:
     t_nonfused = time.perf_counter() - t_nonfused
     log(f"[time] [41] {t_nonfused:.1f} s; card launches {nonfused}")
 
+    # 44. the host data path on [36]'s tree: the native decoder against PIL,
+    # decode rates, the disk cache, the runbook, its traced fit, the pre-run
+    host = host_data_phase(args.seed, real["voc"]["root"], real["voc"]["bb_path"],
+                           reset_counts, counts)
+    torch.cuda.empty_cache()
+
     # kernel times at the training shape, beside the plain versions (those
     # copy their interpolation matrices from the host, which a CUDA graph
     # cannot capture, so they are timed host-launched by CUDA events; at
@@ -5652,7 +6008,8 @@ def main() -> int:
         f"{t_cli:.1f} s, phases [25]-[27] {t_more:.1f} s, phases [28]-[32] {t_unet:.1f} s, "
         f"phases [33]-[35] {t_transeg:.1f} s, phases [36]-[38] {t_real:.1f} s, phase [39] "
         f"{t_options:.1f} s, phase [40] {ddp['wall']:.1f} s, phase [41] {t_nonfused:.1f} s, "
-        f"phase [42] {t_export:.1f} s, phase [43] {t_ood:.1f} s; the f32 card-against-CPU "
+        f"phase [42] {t_export:.1f} s, phase [43] {t_ood:.1f} s, phase [44] "
+        f"{host['seconds']:.1f} s; the f32 card-against-CPU "
         "holds " + ", ".join(f"{k} {v:.1f} s" for k, v in held.items()))
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -5838,6 +6195,11 @@ def main() -> int:
         row["export_launches"] = sum(export_launches.get(k, 0) for k in keys)
         row["ood_viz_launches"] = sum(ood_launches.get(k, 0) for k in keys)
         row["launches"] += row["export_launches"] + row["ood_viz_launches"]
+    # the host data path's traced fit and pre-run ([44])
+    for row in rows:
+        keys = next(v for k, v in TRANSEG_ROW_KEYS.items() if row["name"].endswith(k))
+        row["host_data_launches"] = sum(host["launches"].get(k, 0) for k in keys)
+        row["launches"] += row["host_data_launches"]
     # the registered ops that keep K5 and K10 as nodes of the exported graph
     rows[0]["exported_op"], rows[1]["exported_op"] = "bacs::abn_eval", "bacs::upsample_argmax_conf"
     print(json.dumps({"kernels": rows}))

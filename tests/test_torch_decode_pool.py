@@ -1,9 +1,11 @@
 """The port's decode pool (``bacs_tpu_torch/data/decode_pool.py``), on the
 CPU, at 2 workers at most.
 
-- The pool's stream equals serial decoding and JAX's ``gather_host`` (JAX's
-  native decoder masked), batch for batch, and a pool serves several
-  epochs.
+- The pool's stream equals serial decoding and JAX's ``gather_host``,
+  batch for batch, with the native batch decoder on both sides (each
+  worker decodes natively) and with PIL on both sides (JAX's decoder and
+  the port's masked; the pool's workers get a source without
+  ``load_batch``), and a pool serves several epochs.
 - The DataModule's train and eval streams are bit-identical at 0, 1 and 2
   workers (1 decodes in the prefetch thread, as 0 does).
 - A worker's exception re-raises at the consumer.
@@ -40,23 +42,44 @@ def pool(voc_source):
 BATCHES = [[0, 3, 1], [2, 2, 4], [9, 8, 7], [5, 6, 0], [1, 2, 3]]
 
 
-def test_pool_stream_matches_serial_and_jax(voc_root, voc_source, pool, monkeypatch):
+class PilSource(datasets.FolderSource):
+    """A folder source that decodes with PIL only (a host where the native
+    decoder does not build), for the pool's workers."""
+
+    def load_batch(self, indices):
+        return None
+
+
+@pytest.mark.parametrize("decoder", ["native", "pil"])
+def test_pool_stream_matches_serial_and_jax(voc_root, voc_source, pool, monkeypatch, decoder):
     from bacs_tpu.data import decode_pool as jax_decode_pool
     from bacs_tpu.data import native_decode
     from bacs_tpu.data.datasets import make_voc_source
+    from bacs_tpu_torch.data import native_decode as port_native_decode
 
-    monkeypatch.setattr(native_decode, "_LIB", None)
-    monkeypatch.setattr(native_decode, "_TRIED", True)
+    if decoder == "native":
+        assert native_decode.available() and port_native_decode.available()
+        source, stream = voc_source, pool.stream
+    else:
+        for module in (native_decode, port_native_decode):
+            monkeypatch.setattr(module, "_LIB", None)
+            monkeypatch.setattr(module, "_TRIED", True)
+        source = PilSource(voc_source.image_paths, voc_source.label_paths, 48,
+                           voc_source.class_names)
+        pil_pool = decode_pool.DecodePool(source, workers=1)
+        stream = pil_pool.stream
     ref_source = make_voc_source(voc_root, "train", 48)
     serial = [decode_pool.gather_host(voc_source, idx) for idx in BATCHES]
     ref = [jax_decode_pool.gather_host(ref_source, idx) for idx in BATCHES]
     for epoch in range(2):  # the pool serves epoch after epoch
-        pooled = list(pool.stream(BATCHES))
+        pooled = list(stream(BATCHES))
         assert len(pooled) == len(serial) == len(ref)
         for (si, sl), (pi, pl), (ri, rl) in zip(serial, pooled, ref):
             assert pi.shape == (3, 48, 48, 3) and pi.dtype == np.uint8
             assert np.array_equal(si, pi) and np.array_equal(sl, pl)
             assert np.array_equal(ri, pi) and np.array_equal(rl, pl)
+    if decoder == "pil":
+        pil_pool.close()
 
 
 def test_worker_count_does_not_change_the_streams(voc_source):

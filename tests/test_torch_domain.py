@@ -9,7 +9,8 @@
   ``n_domains`` source (``conf/continual_debug``'s ``synthetic_domain``):
   the DataModule's tasks, train indices, unaugmented train stream and
   eval streams (each task validating on its own 20 % of the train source)
-  equal JAX's, JAX's native decoder masked.
+  equal JAX's, the Cityscapes tree decoded natively on both sides and
+  with PIL on both sides (both packages' native decoders masked).
 - The port's CLI trains ``conf/continual_debug`` with
   ``dataset=synthetic_domain`` on the CPU: 3 domain tasks.
 """
@@ -106,9 +107,16 @@ def _hold_streams(got, ref):
                 np.testing.assert_allclose(i1, i2, rtol=0, atol=1e-6)
 
 
-def test_cityscapes_city_split_matches_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(native_decode, "_LIB", None)
-    monkeypatch.setattr(native_decode, "_TRIED", True)
+@pytest.mark.parametrize("decoder", ["native", "pil"])
+def test_cityscapes_city_split_matches_jax(tmp_path, monkeypatch, decoder):
+    from bacs_tpu_torch.data import native_decode as port_native_decode
+
+    if decoder == "native":
+        assert native_decode.available() and port_native_decode.available()
+    else:
+        for module in (native_decode, port_native_decode):
+            monkeypatch.setattr(module, "_LIB", None)
+            monkeypatch.setattr(module, "_TRIED", True)
     root = str(tmp_path)
     gen_cityscapes_layout.generate(root, cities=4, per_city=5, val_cities=1,
                                    val_per_city=2, size=40)

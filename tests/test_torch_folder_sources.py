@@ -7,10 +7,15 @@ streams and its layout writer against the JAX package, on the CPU.
   tables, the class names and Cityscapes' per-city ``domain_ids`` equal.
 - ``create_datamodule`` on those trees (VOC continual, ADE20K and
   Cityscapes joint): the train index batches, the unaugmented train
-  stream's labels and the eval streams' indices, real counts, labels (and
-  images to 1e-6) equal JAX's, with JAX's native batch decoder masked: it
-  differs from PIL by a few levels (``tests/test_native.py``), and the
-  port decodes with PIL as JAX's ``load`` does.
+  stream's labels, the eval streams' indices, real counts, labels (and
+  images to 1e-6) and their decoded uint8 batches (bit for bit) equal
+  JAX's, with both packages' native batch decoders on (the path each takes
+  where the decoder builds) and with both masked (the PIL path of a host
+  without the image headers).  The two decoders differ by a few levels
+  (``tests/test_native.py``), so the native case fails where only one
+  package decodes natively.
+- ``dataset.download`` on a complete tree fetches nothing; on a missing
+  one it raises ``DownloadError`` when the archive cannot be fetched.
 - ``bacs_tpu_torch.data.layouts`` writes the scripts' files byte for byte.
 """
 
@@ -24,7 +29,10 @@ import pytest
 from bacs_tpu.data import datamodule as jax_datamodule
 from bacs_tpu.data import datasets as jax_datasets
 from bacs_tpu.data import native_decode
-from bacs_tpu_torch.data import datamodule, datasets, layouts
+from bacs_tpu.data.decode_pool import gather_host as jax_gather_host
+from bacs_tpu_torch.data import datamodule, datasets, download, layouts
+from bacs_tpu_torch.data import native_decode as port_native_decode
+from bacs_tpu_torch.data.decode_pool import gather_host
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -48,11 +56,17 @@ def trees(tmp_path_factory):
     return _write_trees(str(tmp_path_factory.mktemp("jax_trees")))
 
 
-@pytest.fixture
-def no_native(monkeypatch):
-    """JAX's sources decode with PIL, as the port's do."""
-    monkeypatch.setattr(native_decode, "_LIB", None)
-    monkeypatch.setattr(native_decode, "_TRIED", True)
+@pytest.fixture(params=["native", "pil"])
+def decoder(request, monkeypatch):
+    """Both packages' folder sources decode natively ("native": each
+    decoder must build), or both with PIL ("pil": both decoders masked)."""
+    if request.param == "native":
+        assert native_decode.available() and port_native_decode.available()
+    else:
+        for module in (native_decode, port_native_decode):
+            monkeypatch.setattr(module, "_LIB", None)
+            monkeypatch.setattr(module, "_TRIED", True)
+    return request.param
 
 
 MAKERS = {"voc": "make_voc_source", "ade": "make_ade_source", "cs": "make_cityscapes_source"}
@@ -126,7 +140,7 @@ def _streams(dm):
     ("ade", {}),
     ("cs", {}),
 ])
-def test_datamodule_streams_match_jax(trees, name, training, no_native):
+def test_datamodule_streams_match_jax(trees, name, training, decoder):
     root = os.path.join(trees, name)
     shutil.rmtree(os.path.join(root, "cache"), ignore_errors=True)
     ref = jax_datamodule.create_datamodule(_config(name, root, **training))
@@ -139,6 +153,14 @@ def test_datamodule_streams_match_jax(trees, name, training, no_native):
         ref.set_task_id(t)
         assert np.array_equal(got.train_indices(), ref.train_indices())
     a, b = _streams(got), _streams(ref)
+    # the decoded host batches of every task's eval indices, bit for bit
+    for t in range(got.n_tasks):
+        got.set_task_id(t)
+        for d in got.eval_task_range(t):
+            for idx in got.eval_index_batches(d)[0]:
+                for x, y in zip(gather_host(got.val_source, idx),
+                                jax_gather_host(ref.val_source, idx)):
+                    assert x.dtype == y.dtype == np.uint8 and np.array_equal(x, y)
     for x, y in zip(a["train_labels"], b["train_labels"]):
         assert len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
     assert len(a["eval"]) == len(b["eval"])
@@ -176,8 +198,16 @@ def test_layouts_write_the_scripts_files(trees, tmp_path):
     assert layouts.VAL_CITIES == gen_cityscapes_layout.VAL_CITIES
 
 
-def test_download_still_raises(trees):
+def test_download_still_raises(trees, tmp_path, monkeypatch):
+    """``dataset.download``: a complete tree is read as it is, nothing
+    fetched; a missing one raises ``DownloadError`` at once where its
+    archive cannot be fetched (a refused local port)."""
+    for var in ("http_proxy", "HTTP_PROXY", "https_proxy", "HTTPS_PROXY"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(download, "VOC_URL", "http://127.0.0.1:9/VOCtrainval.tar")
     cfg = _config("voc", os.path.join(trees, "voc"))
     cfg["dataset"]["dataset"]["download"] = True
-    with pytest.raises(NotImplementedError, match="network"):
+    assert len(datamodule.create_datamodule(cfg, "cpu").train_source) == 8
+    cfg["dataset"]["dataset"]["root"] = str(tmp_path)
+    with pytest.raises(download.DownloadError, match="layout"):
         datamodule.create_datamodule(cfg, "cpu")
