@@ -10,9 +10,10 @@ whole batches with the padding's labels ignored and ``n_real`` given.
   ``RandomState((seed, t, epoch).__hash__() % 2**31)``, the tiling of a
   task smaller than a batch, the subsets' ``RandomState(seed + t)`` and
   ``RandomState(seed + 77 + t)`` draws (``:197-305``).
-- The augmentation draws come from a ``torch.Generator`` on the card,
-  seeded from the same numpy draw that seeds JAX's key (``:305``): the two
-  packages crop differently from one seed, as their generators differ.
+- The augmentation draws come from the epoch's key stream
+  (``ops/rng.py``), keyed by the same numpy draw that seeds JAX's key
+  (``:305``): the card and the CPU crop alike from one seed; the port and
+  JAX do not, as they split their keys differently.
 - Host decode runs in a prefetch thread (``_prefetch``, two batches ahead)
   into pinned host memory; the consumer thread copies each batch to the
   card without blocking and transforms it there.  With
@@ -63,6 +64,7 @@ from bacs_tpu_torch.data.datasets import (
     make_voc_source,
 )
 from bacs_tpu_torch.data.decode_pool import DecodePool, gather_host, pool_eligible
+from bacs_tpu_torch.ops import rng
 
 
 def _prefetch(iterator, depth: int = 2):
@@ -338,12 +340,13 @@ class DataModule:
         batches, seed, table = self.train_index_batches(epoch, n_devices)
         lo, hi = self._rows(n_devices, rank)
         table = torch.from_numpy(table).to(self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        # the epoch's key stream, keyed by its seed: each batch's crops take
+        # the next key, the same draws on the card and on the CPU
+        draws = rng.KeyStream(rng.key(seed))
         for imgs, lbls in self._device_stream(self.train_source, [b[lo:hi] for b in batches]):
             if augment:
                 shard = {} if rank is None else {"rows": (lo, len(batches[0]))}
-                yield transforms.train_transform(gen, imgs, lbls, table, crop=self.crop_size,
+                yield transforms.train_transform(draws, imgs, lbls, table, crop=self.crop_size,
                                                  **shard)
             else:
                 yield transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)

@@ -7,7 +7,8 @@ Port of ``bacs_tpu/data/transforms.py``: ``normalize_image`` /
 flip, then normalize and remap, ``:101-118``), ``eval_transform``
 (``:141-161``) and ``replay_augment`` (``:121-138``), which re-applies the
 train augmentation to buffered crops at every replay.  The draws
-(:func:`sample_crop_params`) come from a ``torch.Generator``; what they
+(:func:`sample_crop_params`) take the next key of a key stream
+(``ops/rng.py``: the same numbers on the card and on the CPU); what they
 make of the pixels (:func:`apply_crop_params`, :func:`resize_region`) is a
 function of the parameters (i, j, ch, cw, flip), computed in the same
 float32 order as the JAX code, so the two packages agree on the same
@@ -22,6 +23,8 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from bacs_tpu_torch.ops import rng
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -51,7 +54,7 @@ def denormalize_image(x: torch.Tensor) -> torch.Tensor:
 def sample_crop_params(
     n: int,
     src_hw: Tuple[int, int],
-    generator: Optional[torch.Generator] = None,
+    draws: Optional[rng.KeyStream] = None,
     device: torch.device | str = "cpu",
     scale: Tuple[float, float] = (0.5, 2.0),
     ratio: Tuple[float, float] = (3 / 4, 4 / 3),
@@ -60,16 +63,21 @@ def sample_crop_params(
     ``_sample_crop_params`` (``bacs_tpu/data/transforms.py:48-63``): area
     uniform in scale x the source area, log aspect uniform in log(ratio),
     sides clamped to [8, source side], top-left uniform.  Returns [n]
-    tensors ``i``, ``j``, ``ch``, ``cw`` (f32) and ``flip`` (bool)."""
+    tensors ``i``, ``j``, ``ch``, ``cw`` (f32) and ``flip`` (bool) on
+    ``device``, from [5, n] uniforms of the next key of ``draws``.  They are
+    drawn and computed on the host and copied without waiting: the card's
+    ``exp`` differs from the CPU's in the last bit, and the crops must be
+    the same on every device."""
     h, w = src_hw
-    u = torch.rand((5, n), generator=generator, device=device)
+    u = rng.uniform(rng.stream_of(draws).next(), (5, n))
     area = h * w * (scale[0] + u[0] * (scale[1] - scale[0]))
     lo, hi = math.log(ratio[0]), math.log(ratio[1])
     aspect = torch.exp(lo + u[1] * (hi - lo))
     cw = torch.clamp(torch.sqrt(area * aspect), 8.0, w)
     ch = torch.clamp(torch.sqrt(area / aspect), 8.0, h)
-    return {"i": u[2] * (h - ch), "j": u[3] * (w - cw), "ch": ch, "cw": cw,
-            "flip": u[4] < 0.5}
+    params = {"i": u[2] * (h - ch), "j": u[3] * (w - cw), "ch": ch, "cw": cw,
+              "flip": u[4] < 0.5}
+    return {k: rng.to_device(v, device) for k, v in params.items()}
 
 
 def resize_region(img: torch.Tensor, i, j, ch, cw, out: int, method: str) -> torch.Tensor:
@@ -124,12 +132,12 @@ def apply_crop_params(images: torch.Tensor, labels: torch.Tensor,
 
 
 def replay_augment(images: torch.Tensor, labels: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   draws: Optional[rng.KeyStream] = None):
     """Re-augment a buffered batch at replay time (``replay_augment``,
     ``bacs_tpu/data/transforms.py:121-138``): a fresh crop and flip per
-    image, drawn from ``generator`` on the images' device."""
+    image, drawn from ``draws`` on the images' device."""
     params = sample_crop_params(images.shape[0], tuple(images.shape[1:3]),
-                                generator, images.device)
+                                draws, images.device)
     return apply_crop_params(images, labels, params)
 
 
@@ -139,19 +147,19 @@ def remap_labels(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[labels.long().clamp(0, 255)]
 
 
-def train_transform(generator: Optional[torch.Generator], images: torch.Tensor,
+def train_transform(draws: Optional[rng.KeyStream], images: torch.Tensor,
                     labels: torch.Tensor, table: torch.Tensor, crop: int = 512,
                     scale: Tuple[float, float] = (0.5, 2.0),
                     rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """uint8 images [N, H, W, 3] and labels [N, H, W] -> the augmented batch
     {image: normalized f32 [N, crop, crop, 3], label: int32 [N, crop, crop]}:
-    a crop region and a flip per image drawn from ``generator`` on the
+    a crop region and a flip per image drawn from ``draws`` on the
     images' device, the region resized to ``crop`` (bilinear images,
     nearest labels), then normalize and remap.  ``rows`` = (first row,
     global batch): the images are rows ``first..first + N`` of a global
     batch, and the draws are the global batch's, those rows taken."""
     lo, total = rows or (0, images.shape[0])
-    params = sample_crop_params(total, tuple(images.shape[1:3]), generator,
+    params = sample_crop_params(total, tuple(images.shape[1:3]), draws,
                                 images.device, scale)
     params = {k: v[lo:lo + images.shape[0]] for k, v in params.items()}
     img, lbl = apply_crop_params(images, labels, params, out=crop)

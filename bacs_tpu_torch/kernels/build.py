@@ -88,6 +88,14 @@ SIGNATURES = {
     "upsample_ukd_grad": _PAIR + [_P] + _PLAN + [_P, _P, _P],
     # (problem, thresholds, max_entropy, ent_scale, plan, out, counts, stream)
     "upsample_plop_pseudo": _FAMILY + [_P, _P, _F] + _PLAN + [_P, _P, _P],
+    # (k0, k1, n, mode, lo, span, p, out, stream)
+    "threefry_fill": [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _I, _F, _F, _F,
+                      _P, _P],
+    # (x, is_bf16, n, h, w, C, H, W, ytab, ylam, xtab, xlam, out, stream)
+    "resize_bilinear_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (g, is_bf16, n, h, w, C, H, W, yoff, ysrc, yw, xoff, xsrc, xw, t, dx,
+    #  stream)
+    "resize_bilinear_grad": [_P, _I, _I, _I, _I, _I, _I, _I] + [_P] * 9,
     # (c, is_bf16, vec [2, C], slope, n, H, W, C, p, stream)
     "stem_pool_fwd": [_P, _I, _P, _F, _I, _I, _I, _I, _P, _P],
     # (c, dap, is_bf16, vec [7, C], slope, n, H, W, C, dc, stream)

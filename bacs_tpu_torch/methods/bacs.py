@@ -26,7 +26,7 @@ one forward; the statistics then come from the merged batch, a departure
 from the reference that JAX makes on purpose).
 
 The buffer lives on the card, and both replay batches are drawn there
-every step from the state's generator, with no host read.
+every step from the step's key stream (``ops/rng.py``), with no host read.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from bacs_tpu_torch.methods.base import (
     ModelContext, StepAux, proto_updates, update_task_prototypes)
 from bacs_tpu_torch.methods.er import ExperienceReplayMethod
 from bacs_tpu_torch.models.base import NetOutput
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.interpolate import resize_bilinear
 from bacs_tpu_torch.ops.losses import cross_entropy
 from bacs_tpu_torch.train import buffer as buffer_lib
@@ -55,7 +56,7 @@ DISTILL_CHUNK = 2
 GAMMA_ROUNDS = 16
 
 
-def random_autocontrast(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+def random_autocontrast(x: torch.Tensor, draws: Optional[rng.KeyStream] = None,
                         p: float = 0.5) -> torch.Tensor:
     """Batch-level RandomAutocontrast on float images [N, H, W, C]
     (reference: bacs_loss.py:108-114): each image's channels stretched to
@@ -64,40 +65,41 @@ def random_autocontrast(x: torch.Tensor, generator: Optional[torch.Generator] = 
     lo = x.amin(dim=(1, 2), keepdim=True)
     hi = x.amax(dim=(1, 2), keepdim=True)
     stretched = (x - lo) / torch.clamp(hi - lo, min=1e-8)
-    apply = torch.rand((), generator=generator, device=x.device) < p
+    apply = rng.bernoulli(rng.stream_of(draws).next(), p, (), x.device)
     return torch.where(apply, stretched, x)
 
 
-def _gamma(a: float, n: int, generator: Optional[torch.Generator],
-           device: torch.device) -> torch.Tensor:
-    """[n] draws of Gamma(a, 1) from ``generator`` by Marsaglia and Tsang's
-    method, on the device and with no host read: ``GAMMA_ROUNDS`` candidates
-    per draw from normals and uniforms, the first accepted one kept; for
-    ``a < 1`` a Gamma(a + 1) draw times ``U ** (1 / a)``."""
+def _gamma(a: float, n: int, draws: Optional[rng.KeyStream]) -> torch.Tensor:
+    """[n] draws of Gamma(a, 1) from ``draws`` by Marsaglia and Tsang's
+    method, on the host (its ``log`` and ``erfinv`` then give the same bits
+    whatever the step's device): ``GAMMA_ROUNDS`` candidates per draw from
+    normals and uniforms, the first accepted one kept; for ``a < 1`` a
+    Gamma(a + 1) draw times ``U ** (1 / a)``."""
     if a <= 0:
         raise ValueError(f"Gamma shape must be positive, got {a}")
     d = (a + 1.0 if a < 1 else a) - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
-    z = torch.randn((GAMMA_ROUNDS, n), generator=generator, device=device)
-    u = torch.rand((GAMMA_ROUNDS, n), generator=generator, device=device)
+    draws = rng.stream_of(draws)
+    z = rng.normal(draws.next(), (GAMMA_ROUNDS, n))
+    u = rng.uniform(draws.next(), (GAMMA_ROUNDS, n))
     v = (1.0 + c * z) ** 3
     log_v = torch.log(torch.clamp(v, min=torch.finfo(v.dtype).tiny))
     ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v + d * log_v)
     first = ok.int().argmax(dim=0, keepdim=True)
     g = torch.where(ok.any(dim=0), d * v.gather(0, first)[0], d)
     if a < 1:
-        g = g * torch.rand(n, generator=generator, device=device) ** (1.0 / a)
+        g = g * rng.uniform(draws.next(), n) ** (1.0 / a)
     return g
 
 
-def beta_sample(a: float, n: int, generator: Optional[torch.Generator],
+def beta_sample(a: float, n: int, draws: Optional[rng.KeyStream],
                 device: torch.device) -> torch.Tensor:
-    """[n] draws of Beta(a, a), as ``jax.random.beta``, from ``generator``
-    (torch's ``Beta`` takes no generator): X / (X + Y) of two Gamma(a)
-    draws."""
-    x = _gamma(a, n, generator, device)
-    y = _gamma(a, n, generator, device)
-    return x / torch.clamp(x + y, min=torch.finfo(x.dtype).tiny)
+    """[n] draws of Beta(a, a), as ``jax.random.beta``, from ``draws``
+    (torch's ``Beta`` takes no key): X / (X + Y) of two Gamma(a) draws,
+    computed on the host and copied to ``device`` without waiting."""
+    x = _gamma(a, n, draws)
+    y = _gamma(a, n, draws)
+    return rng.to_device(x / torch.clamp(x + y, min=torch.finfo(x.dtype).tiny), device)
 
 
 def _distill_chunk(old_att, new_att, keep, lkd_shape):
@@ -176,7 +178,7 @@ class BACSMethod(ExperienceReplayMethod):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
@@ -185,7 +187,7 @@ class BACSMethod(ExperienceReplayMethod):
             mask = self._pseudo_labels(ctx, state, image, mask)
         need_distill = use_der and train and self.lkd > 0
         base = self.compute_base_loss(
-            ctx, state, image, mask, train, generator,
+            ctx, state, image, mask, train, draws,
             use_weighted_ce=self.bg_weighted_ce and use_der,
             need_old_out=need_distill,
         )
@@ -197,7 +199,7 @@ class BACSMethod(ExperienceReplayMethod):
         updates = proto_updates(base)
         if train and use_der and state.buffer is not None and (
                 self.alpha > 0 or self.beta > 0):
-            replay_loss, updates = self._replay_der_loss(ctx, state, generator, updates)
+            replay_loss, updates = self._replay_der_loss(ctx, state, draws, updates)
             loss = loss + replay_loss
         return loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
@@ -242,11 +244,11 @@ class BACSMethod(ExperienceReplayMethod):
 
     # ------------------------------------------------------------------
 
-    def _dark_logits(self, ctx, state, generator):
+    def _dark_logits(self, ctx, state, draws):
         """alpha term (reference: bacs_loss.py:387-431)."""
-        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, generator)
-        inputs = random_autocontrast(mem["images"], generator)
-        out = ctx.forward(state.model, inputs, True, generator)
+        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, draws)
+        inputs = random_autocontrast(mem["images"], draws)
+        out = ctx.forward(state.model, inputs, True, draws)
         return self._dark_from_sem(ctx, out.sem_logits[..., : ctx.n_cur], mem)
 
     def _grow_mask(self, ctx, n_cls: torch.Tensor) -> torch.Tensor:
@@ -302,20 +304,20 @@ class BACSMethod(ExperienceReplayMethod):
         start = 1 if self.ignore_rep_bg else 0
         return ((c >= start) & (c < ctx.task.old_classes)).float()
 
-    def _dark_pp(self, ctx, state, generator, updates):
+    def _dark_pp(self, ctx, state, draws, updates):
         """beta term (reference: bacs_loss.py:342-385): the buffered
         canonical crops get the train augmentation at every replay
         (base_datamodule.py:433-451), and the batch folds into the
         prototypes on top of the main batch's fold (base_loss.py:219-220)."""
         if not self.dark_plus_plus:
             return 0.0, updates
-        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, generator)
+        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, draws)
         weights = self._old_class_weights(ctx, mem["images"].device)
         if self.mixup:
-            return self._dark_pp_mixup(ctx, state, generator, mem, weights), updates
-        images, labels = replay_augment(mem["images"], mem["labels"], generator)
+            return self._dark_pp_mixup(ctx, state, draws, mem, weights), updates
+        images, labels = replay_augment(mem["images"], mem["labels"], draws)
         base = self.compute_base_loss(
-            ctx, state, images, labels, True, generator,
+            ctx, state, images, labels, True, draws,
             class_weights=weights,
             is_replay=True,
             proto_base=(updates.get("prototypes", state.prototypes),
@@ -323,7 +325,7 @@ class BACSMethod(ExperienceReplayMethod):
         )
         return base.loss, proto_updates(base, updates)
 
-    def _dark_pp_mixup(self, ctx, state, generator, mem, weights):
+    def _dark_pp_mixup(self, ctx, state, draws, mem, weights):
         """The beta term on co-occurrence blends (reference: buffer.py:275-303
         ``_co_occurance_image_blend`` and bacs_loss.py:361-374): each
         replayed item's partner is the item of the batch that maximises its
@@ -350,18 +352,18 @@ class BACSMethod(ExperienceReplayMethod):
         sim = sim.masked_fill(torch.eye(b, dtype=torch.bool, device=sim.device), -torch.inf)
         partner = sim.argmax(dim=1)
         n_merged = (sets.sum(dim=1) + sets[partner].sum(dim=1)).float()
-        draw = beta_sample(self.mixup_alpha, b, generator, n_merged.device)
+        draw = beta_sample(self.mixup_alpha, b, draws, n_merged.device)
         lam = torch.where(n_merged > self.mixup_threshold, 0.9, draw)
         lam4 = lam[:, None, None, None]
         mixed = lam4 * mem["images"] + lam4 * mem["images"][partner]
-        logits = ctx.forward(state.model, mixed, True, generator).logits[..., : ctx.n_cur]
+        logits = ctx.forward(state.model, mixed, True, draws).logits[..., : ctx.n_cur]
         ce_a = cross_entropy(logits, mem["labels"], self.ignore_index, class_weights=weights,
                              reduction="none")
         ce_b = cross_entropy(logits, mem["labels"][partner], self.ignore_index,
                              class_weights=weights, reduction="none")
         return (lam[:, None, None] * ce_a + (1 - lam)[:, None, None] * ce_b).mean()
 
-    def _merged_replay_der_loss(self, ctx, state, generator, updates):
+    def _merged_replay_der_loss(self, ctx, state, draws, updates):
         """Both replay batches through one forward (``loss.merged_replay``,
         JAX ``_merged_replay_der_loss``): the autocontrasted alpha sample and
         the re-augmented beta sample, concatenated.  The alpha term comes
@@ -370,12 +372,12 @@ class BACSMethod(ExperienceReplayMethod):
         into the prototypes.  The batch statistics are the merged batch's,
         a departure from the reference's two forwards."""
         n = self.replay_minibatch_size
-        mem_dl = buffer_lib.sample(state.buffer, n, generator)
-        inputs_dl = random_autocontrast(mem_dl["images"], generator)
-        mem_pp = buffer_lib.sample(state.buffer, n, generator)
-        imgs_pp, labs_pp = replay_augment(mem_pp["images"], mem_pp["labels"], generator)
+        mem_dl = buffer_lib.sample(state.buffer, n, draws)
+        inputs_dl = random_autocontrast(mem_dl["images"], draws)
+        mem_pp = buffer_lib.sample(state.buffer, n, draws)
+        imgs_pp, labs_pp = replay_augment(mem_pp["images"], mem_pp["labels"], draws)
         big = torch.cat([inputs_dl, imgs_pp.to(inputs_dl.dtype)])
-        out = ctx.forward(state.model, big, True, generator)
+        out = ctx.forward(state.model, big, True, draws)
         sem = out.sem_logits[..., : ctx.n_cur]
         dark = self._dark_from_sem(ctx, sem[:n], mem_dl)
         half = NetOutput(out.sem_logits[n:], out.penultimate[n:], (), out.out_hw)
@@ -389,23 +391,23 @@ class BACSMethod(ExperienceReplayMethod):
                 out.penultimate[n:], labs_pp, ctx.task, ctx.group)
         return self.alpha * dark + self.beta * pp, updates
 
-    def _replay_der_loss(self, ctx, state, generator, updates):
+    def _replay_der_loss(self, ctx, state, draws, updates):
         """(reference: bacs_loss.py:433-463)."""
         if (self.merged_replay and self.alpha != 0 and self.beta != 0
                 and self.dark_plus_plus and not self.mixup):
-            return self._merged_replay_der_loss(ctx, state, generator, updates)
+            return self._merged_replay_der_loss(ctx, state, draws, updates)
         total = 0.0
         if self.alpha != 0:
-            total = total + self.alpha * self._dark_logits(ctx, state, generator)
+            total = total + self.alpha * self._dark_logits(ctx, state, draws)
         if self.beta != 0:
-            pp, updates = self._dark_pp(ctx, state, generator, updates)
+            pp, updates = self._dark_pp(ctx, state, draws, updates)
             total = total + self.beta * pp
         return total, updates
 
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def end_task(self, state, ctx: ModelContext, data: Any, generator=None):
+    def end_task(self, state, ctx: ModelContext, data: Any, draws=None):
         """Fill the reservoir with this task's data (reference:
         bacs_loss.py:133-203 ``on_train_end``), in the reference's order:
         the prototype sweep, the previous-model snapshot, then the fill.
@@ -416,8 +418,9 @@ class BACSMethod(ExperienceReplayMethod):
         pre-drift ones.  With the seen detector the reference probes the
         penultimate path a second time per batch, so the statistics of
         ``penultimate_stats_keys`` (the backbone) drift twice: a second
-        forward here, whose other statistics are put back.  ``generator``
-        draws the reservoir's uniforms (default: seeded 4321 + task id)."""
+        forward here, whose other statistics are put back.  ``draws`` (a
+        key stream) draws the reservoir's uniforms and the fill's dropout
+        (default: keyed by 4321 + task id, as JAX seeds its key)."""
         task = ctx.task
         if self.track_prototypes:
             state = self._sweep_prototypes(state, ctx, data)
@@ -425,16 +428,15 @@ class BACSMethod(ExperienceReplayMethod):
         if state.buffer is None or not (self.alpha > 0 or self.beta > 0):
             return state
         model = state.model
-        if generator is None:
-            generator = torch.Generator(state.buffer.images.device)
-            generator.manual_seed(4321 + task.task_id)
+        if draws is None:
+            draws = rng.KeyStream(rng.key(4321 + task.task_id))
         train_mode = self.boundary_train_mode
         keys = tuple(model.penultimate_stats_keys)
         w = torch.ones(ctx.n_cur, device=state.buffer.images.device)
         w[0] = 0.0
         for batch in data:
             image, labels = batch["image"], batch["label"]
-            out = ctx.forward(model, image, train_mode, generator)
+            out = ctx.forward(model, image, train_mode, draws)
             nll = cross_entropy(out.logits[..., : ctx.n_cur], labels, self.ignore_index,
                                 class_weights=w, reduction="none")
             losses = -nll.reshape(image.shape[0], -1).mean(dim=1)
@@ -443,11 +445,11 @@ class BACSMethod(ExperienceReplayMethod):
             if self.use_bg_detector and train_mode:
                 kept = {k: b.clone() for k, b in model.named_buffers()
                         if not k.startswith(tuple(key + "." for key in keys))}
-                ctx.forward(model, image, True, generator)
+                ctx.forward(model, image, True, draws)
                 for k, b in model.named_buffers():
                     if k in kept:
                         b.copy_(kept[k])
             buffer_lib.add_batch(state.buffer, image, sem, labels, losses,
                                  task_id=task.task_id, n_classes=ctx.n_cur,
-                                 ignore_index=self.ignore_index, generator=generator)
+                                 ignore_index=self.ignore_index, draws=draws)
         return state

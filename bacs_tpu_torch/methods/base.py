@@ -39,6 +39,7 @@ from torch import nn
 
 from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.ops.interpolate import resize_nearest
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.losses import (
     binary_focal_loss, cross_entropy, unbiased_cross_entropy,
     unbiased_knowledge_distillation, weighted_cross_entropy)
@@ -83,9 +84,9 @@ class ModelContext:
     group: Any = None
 
     def forward(self, model: nn.Module, x: torch.Tensor, train: bool,
-                generator: Optional[torch.Generator] = None) -> NetOutput:
+                draws: Optional[rng.KeyStream] = None) -> NetOutput:
         model.train(train)
-        return model(x, generator=generator)
+        return model(x, draws=draws)
 
     @torch.no_grad()
     def forward_prev(self, state, x: torch.Tensor) -> NetOutput:
@@ -188,10 +189,10 @@ class Method:
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         base = self.compute_base_loss(ctx, state, batch["image"], batch["label"],
-                                      train, generator)
+                                      train, draws)
         return base.loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
             output=base.out,
@@ -297,7 +298,7 @@ class Method:
         image: torch.Tensor,
         labels: torch.Tensor,
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
         task_num: int = -1,
         class_weights: Optional[torch.Tensor] = None,
         use_weighted_ce: bool = False,
@@ -311,7 +312,7 @@ class Method:
         on top of the main batch's prototypes."""
         task = ctx.task
         model = state.model
-        out = ctx.forward(model, image, train, generator)
+        out = ctx.forward(model, image, train, draws)
         old_out = None
         if need_old_out and train and state.prev_model is not None:
             old_out = ctx.forward_prev(state, image)

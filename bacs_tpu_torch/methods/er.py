@@ -18,9 +18,9 @@ Port of ``bacs_tpu/methods/er.py`` (reference loss/experience_replay.py):
 
 The main batch's loss is ``compute_base_loss``'s CE (K1; the seen-weighted
 CE, K3, with ``bg_weighted_ce`` at a task > 0).  The replay partition, the
-batch and the augmentation are drawn on the device from the step's
-generator, with no host read.  ``BACSMethod`` inherits ``__init__`` and
-``init_buffer`` and overrides the rest.
+batch and the augmentation are drawn from the step's key stream
+(``ops/rng.py``), with no host read.  ``BACSMethod`` inherits ``__init__``
+and ``init_buffer`` and overrides the rest.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from bacs_tpu_torch.data.transforms import replay_augment
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux, proto_updates
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.losses import cross_entropy
 from bacs_tpu_torch.train import buffer as buffer_lib
 
@@ -117,17 +118,17 @@ class ExperienceReplayMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         use_er = ctx.task.task_id > 0
         base = self.compute_base_loss(
-            ctx, state, batch["image"], batch["label"], train, generator,
+            ctx, state, batch["image"], batch["label"], train, draws,
             use_weighted_ce=self.bg_weighted_ce and use_er and train,
             same_task=self.same_task,
         )
         loss = base.loss
         if train and use_er and state.buffer is not None:
-            loss = loss + self.alpha * self.alpha * self._replay_er_loss(ctx, state, generator)
+            loss = loss + self.alpha * self.alpha * self._replay_er_loss(ctx, state, draws)
         return loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
             output=base.out,
@@ -135,42 +136,46 @@ class ExperienceReplayMethod(Method):
             state_updates=proto_updates(base),
         )
 
-    def _sample_replay(self, state, generator: Optional[torch.Generator], task_id: int):
+    def _sample_replay(self, state, draws: Optional[rng.KeyStream], task_id: int):
         """A replay batch and its task (a device int; -1 for a flat buffer):
         from task 2 on, a partition drawn by ``partition_scores``, then a
         uniform sample within it (reference er.py:77-97,305-344)."""
         buf = state.buffer
         n = self.replay_minibatch_size
         if not self.same_task:
-            mem = buffer_lib.sample(buf, n, generator)
+            mem = buffer_lib.sample(buf, n, draws)
             mem["task_id"] = -1
             return mem
         if task_id > 1:
             scores = partition_scores(buf.importance, buf.valid, task_id, self.buffer_size)
-            part = torch.multinomial(scores, 1, generator=generator)[0].int()
+            # the Gumbel-max draw of the partition (categorical over the
+            # log-scores), no host read; its logarithms round on the scores'
+            # device, so a near-tie of two partitions may break otherwise on
+            # the card than on the CPU
+            part = rng.categorical(rng.stream_of(draws).next(), torch.log(scores)).int()
         else:
             part = torch.zeros((), dtype=torch.int32, device=buf.valid.device)
-        mem = buffer_lib.sample(buf, n, generator, task_id=part)
+        mem = buffer_lib.sample(buf, n, draws, task_id=part)
         mem["task_id"] = part
         return mem
 
     def _replay_er_loss(self, ctx: ModelContext, state,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+                        draws: Optional[rng.KeyStream]) -> torch.Tensor:
         """The class-weighted CE (K4) of a replayed batch, re-augmented
         (the buffer holds canonical crops), where the classes 1 .. end of
         the replayed task weigh 1 (reference er.py:244-272); the seen
         detector trains on the replayed task's head (``same_task``)."""
         task = ctx.task
-        mem = self._sample_replay(state, generator, task.task_id)
+        mem = self._sample_replay(state, draws, task.task_id)
         cls = torch.arange(task.nb_current_classes, device=mem["labels"].device)
         if self.same_task:
             end = task.initial_classes + task.increment * mem["task_id"]
         else:
             end = task.old_classes
         weights = ((cls >= 1) & (cls < end)).float()
-        images, labels = replay_augment(mem["images"], mem["labels"], generator)
+        images, labels = replay_augment(mem["images"], mem["labels"], draws)
         return self.compute_base_loss(
-            ctx, state, images, labels, True, generator, task_num=mem["task_id"],
+            ctx, state, images, labels, True, draws, task_num=mem["task_id"],
             class_weights=weights, is_replay=True, same_task=self.same_task,
         ).loss
 
@@ -180,8 +185,8 @@ class ExperienceReplayMethod(Method):
     def end_task(self, state, ctx: ModelContext, data: Any):
         """Offer the task's batches to the buffer, the model in eval mode,
         until ``buffer_size`` items were offered (reference er.py:112-151),
-        then the base hooks.  The reservoir's uniforms come from a generator
-        seeded 1234 + task id, as JAX seeds its key."""
+        then the base hooks.  The reservoir's uniforms come from a key
+        stream keyed by 1234 + task id, as JAX seeds its key."""
         task = ctx.task
         if state.buffer is None:
             return super().end_task(state, ctx, data)
@@ -192,8 +197,7 @@ class ExperienceReplayMethod(Method):
             # gets a new Buffer, er.py:36-56)
             buf.num_seen = 0
             buf.class_counts = torch.zeros_like(buf.class_counts)
-        generator = torch.Generator(buf.images.device)
-        generator.manual_seed(1234 + task.task_id)
+        draws = rng.KeyStream(rng.key(1234 + task.task_id))
         w = torch.ones(ctx.n_cur, device=buf.images.device)
         w[0] = 0.0
         seen = 0
@@ -205,20 +209,20 @@ class ExperienceReplayMethod(Method):
             losses = -nll.reshape(image.shape[0], -1).mean(dim=1)
             sem = F.pad(out.sem_logits[..., : ctx.n_cur].float(),
                         (0, task.num_classes - ctx.n_cur))
-            self._buffer_add(buf, image, sem, labels, losses, task, part, generator)
+            self._buffer_add(buf, image, sem, labels, losses, task, part, draws)
             seen += image.shape[0]
             if seen >= self.buffer_size:  # (reference er.py:149-150)
                 break
         return super().end_task(state, ctx, data)
 
     def _buffer_add(self, buf, image, sem, labels, losses, task, part,
-                    generator: Optional[torch.Generator] = None, uniforms=None):
+                    draws: Optional[rng.KeyStream] = None, uniforms=None):
         """Reservoir-add a batch, in place: into the whole buffer, or into
         the partition ``part`` = (first slot, slots), whose views take the
         writes while its reservoir count and class counts ride the buffer's
         (reset at each task's end)."""
         kw = dict(task_id=task.task_id, n_classes=task.nb_current_classes,
-                  ignore_index=self.ignore_index, uniforms=uniforms, generator=generator)
+                  ignore_index=self.ignore_index, uniforms=uniforms, draws=draws)
         if part is None:
             return buffer_lib.add_batch(buf, image, sem, labels, losses, **kw)
         offset, size = part

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.losses import cross_entropy, icarl_criterion
 
 
@@ -32,10 +33,10 @@ class IcarlMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         image, mask = batch["image"], batch["label"]
-        out = ctx.forward(state.model, image, train, generator)
+        out = ctx.forward(state.model, image, train, draws)
         logits = out.logits[..., : ctx.n_cur]
         if state.prev_model is not None and train:
             old = ctx.forward_prev(state, image).logits[..., : ctx.task.old_classes]

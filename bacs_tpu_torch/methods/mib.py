@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux, proto_updates
+from bacs_tpu_torch.ops import rng
 
 
 class MiBMethod(Method):
@@ -39,16 +40,16 @@ class MiBMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         image, mask = batch["image"], batch["label"]
         if self.bg_weighted_ce and train:
-            base = self.compute_base_loss(ctx, state, image, mask, train, generator,
+            base = self.compute_base_loss(ctx, state, image, mask, train, draws,
                                           use_weighted_ce=ctx.task.old_classes != 0)
             out, loss = base.out, base.loss
             updates = proto_updates(base)
         else:
-            out = ctx.forward(state.model, image, train, generator)
+            out = ctx.forward(state.model, image, train, draws)
             loss = self._mib_ce(ctx, out, mask, train)
             updates = self.prototype_updates(ctx, state, out.penultimate, mask, train)
         if state.prev_model is not None and train:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux, proto_updates
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.losses import cross_entropy, features_distillation, pixel_entropy
 from bacs_tpu_torch.ops.upsample_ce import upsampled_ce_sums_per_image
 from bacs_tpu_torch.ops.upsample_pseudo import pseudo_labels, upsampled_plop_pseudo_labels
@@ -89,19 +90,19 @@ class PlopMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
         distill = state.prev_model is not None and train
         old_out = None
         if self.bg_weighted_ce:
-            base = self.compute_base_loss(ctx, state, image, mask, train, generator,
+            base = self.compute_base_loss(ctx, state, image, mask, train, draws,
                                           use_weighted_ce=distill, need_old_out=distill)
             out, old_out, loss = base.out, base.old_out, base.loss
             updates = proto_updates(base)
         else:
-            out = ctx.forward(state.model, image, train, generator)
+            out = ctx.forward(state.model, image, train, draws)
             if distill:
                 old_out = ctx.forward_prev(state, image)
                 loss = self._pseudo_ce(ctx, state, out, old_out, mask)

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from bacs_tpu_torch.methods.base import Method, ModelContext, StepAux
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.interpolate import resize_nearest
 from bacs_tpu_torch.ops.upsample_ce import upsampled_argmax_nearest
 from bacs_tpu_torch.parallel import all_reduce_
@@ -76,11 +77,11 @@ class SDRMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        generator: Optional[torch.Generator] = None,
+        draws: Optional[rng.KeyStream] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
-        out = ctx.forward(state.model, image, train, generator)
+        out = ctx.forward(state.model, image, train, draws)
         sem = out.sem_logits[..., : ctx.n_cur]
         if task.task_id > 0:
             loss = self.uce_with_upsample(ctx, out, mask)

@@ -10,8 +10,9 @@ the heads NHWC ones (``NetOutput.penultimate``).
 
 The trunk's norm is Flax ``nn.BatchNorm(momentum=0.9)``
 (``models/norm.py:BatchNorm``, shared with UNet).
-Dropout draws its mask from the generator the forward is given (the train
-step's), as ``F.dropout`` cannot take one.
+Dropout draws its mask (``ops/rng.bernoulli``, the keep probability) from
+the next key of the key stream the forward is given (the train step's):
+the same mask on the card (``csrc/threefry.cu``) as on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 
 from bacs_tpu_torch.models.norm import BatchNorm
 from bacs_tpu_torch.models.resnet import conv
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.interpolate import resize_bilinear
 from bacs_tpu_torch.ops.losses import jax_abs
 
@@ -42,12 +44,12 @@ class BgDetector(nn.Module):
         self.head_bias = nn.Parameter(torch.zeros(n_tasks, 1))
 
     def trunk(self, x: torch.Tensor,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
         """The shared layers: [N, C, h, w] -> [N, C/4, h, w] f32."""
         y = torch.relu(self.base_bn(self.base_conv(x)))
         if self.training and self.dropout_rate > 0:
             keep = 1.0 - self.dropout_rate
-            mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+            mask = rng.bernoulli(rng.stream_of(draws).next(), keep, y.shape, y.device)
             y = torch.where(mask, y / keep, 0.0)
         return y
 

@@ -27,6 +27,7 @@ from bacs_tpu_torch.models.bg_detector import BgDetector
 from bacs_tpu_torch.models.norm import ABN
 from bacs_tpu_torch.models.resnet import Conv2d, conv, create_resnet
 from bacs_tpu_torch.models.resnet_atrous import create_resnet_atrous
+from bacs_tpu_torch.ops import rng
 
 
 class DeepLabHead(nn.Module):
@@ -105,12 +106,12 @@ class DeepLabV3(nn.Module):
         return self._head(x)[2].permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> NetOutput:
-        """``generator`` draws the detector's dropout mask in training."""
+                draws: Optional[rng.KeyStream] = None) -> NetOutput:
+        """``draws`` (a key stream) draws the detector's dropout mask in training."""
         backbone_out, attentions, sem = self._head(x)
         penultimate = backbone_out
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(backbone_out, generator)
+            penultimate = self.seen_fg_network.trunk(backbone_out, draws)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=nhwc(sem),

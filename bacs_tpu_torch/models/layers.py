@@ -16,7 +16,8 @@ in float32 and cast back to the input's dtype before it weighs the values,
 as ``bacs_tpu/models/layers.py:32-36`` computes it outside any Pallas
 kernel.
 
-Stochastic depth draws its masks from the caller's ``torch.Generator``;
+Stochastic depth draws its masks from the caller's key stream
+(``ops/rng.py``);
 the shipped TranSeg head sets its rate to 0.  The Flax blocks' dropout is
 not ported: no module of the JAX package sets a rate other than 0.
 """
@@ -28,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bacs_tpu_torch.ops import rng
 
 
 class Linear(nn.Linear):
@@ -44,14 +47,14 @@ class Linear(nn.Linear):
 
 
 def _drop_path(x: torch.Tensor, rate: float, train: bool,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
     """Stochastic depth: the whole branch of a sample is dropped with
     probability ``rate`` (reference: networks/utils.py DropPath)."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = rng.bernoulli(rng.stream_of(draws).next(), keep, shape, x.device)
     return x * mask / keep
 
 
@@ -91,10 +94,10 @@ class Block(nn.Module):
         self.mlp_fc2 = Linear(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
         train = self.training
         y = self.attn(self.norm1(x.float()))
-        x = x + _drop_path(y, self.drop_path, train, generator)
+        x = x + _drop_path(y, self.drop_path, train, draws)
         y = self.mlp_fc1(self.norm2(x.float()))
         y = self.mlp_fc2(F.gelu(y, approximate="none"))  # exact erf (layers.py:63)
-        return x + _drop_path(y, self.drop_path, train, generator)
+        return x + _drop_path(y, self.drop_path, train, draws)

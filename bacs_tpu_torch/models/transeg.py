@@ -17,7 +17,7 @@ full-width logits.  The token growth at a task boundary is
 ``train/learner.py:transformer_init``.
 
 Public methods take and return NHWC tensors, as ``models/deeplab.py``
-does: ``forward(x, generator) -> NetOutput``, ``sem_logits(x)`` (the
+does: ``forward(x, draws) -> NetOutput``, ``sem_logits(x)`` (the
 Predictor's), ``seen_map_task`` and ``seen_probs``.  The attentions are the
 backbone's stage maps and then ``image_feats``, the decoder's patch tokens
 [B, h, w, D], which BACS distils.  The head computes in float32 after its
@@ -37,6 +37,7 @@ from bacs_tpu_torch.models.bg_detector import BgDetector
 from bacs_tpu_torch.models.layers import Block
 from bacs_tpu_torch.models.norm import ABN
 from bacs_tpu_torch.models.resnet import Conv2d, create_resnet
+from bacs_tpu_torch.ops import rng
 
 NEG_INF = -1e9  # the fill of inactive class channels
 
@@ -74,7 +75,7 @@ class TransformerHead(nn.Module):
         self.mask_norm_scale = nn.Parameter(torch.ones(num_classes))
         self.mask_norm_bias = nn.Parameter(torch.zeros(num_classes))
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, draws: Optional[rng.KeyStream] = None):
         """[B, C, h, w] backbone features -> (masks [B, h, w, active] f32,
         image_feats [B, h, w, D] f32)."""
         n_cls = self.active_classes
@@ -84,7 +85,7 @@ class TransformerHead(nn.Module):
         tokens = self.class_tokens[:n_cls].expand(b, n_cls, d).to(x.dtype)
         x = torch.cat([x, tokens], dim=1)
         for i in range(self.num_decoder_layers):
-            x = getattr(self, f"block{i}")(x, generator)
+            x = getattr(self, f"block{i}")(x, draws)
         x = self.decoder_norm(x.float())
         patch_tokens, cls_feat = x[:, :-n_cls], x[:, -n_cls:]
         image_feats = patch_tokens.reshape(b, h, w, d)
@@ -139,9 +140,9 @@ class TranSeg(nn.Module):
     def active_classes(self, n: int) -> None:
         self.base_classifier.active_classes = int(n)
 
-    def _run(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def _run(self, x: torch.Tensor, draws: Optional[rng.KeyStream] = None):
         backbone_out, attentions = self.backbone(x.permute(0, 3, 1, 2))
-        masks, image_feats = self.base_classifier(backbone_out, generator)
+        masks, image_feats = self.base_classifier(backbone_out, draws)
         pad = self.num_classes - masks.shape[-1]
         if pad:
             masks = torch.cat([masks, masks.new_full(masks.shape[:3] + (pad,), NEG_INF)], -1)
@@ -153,13 +154,13 @@ class TranSeg(nn.Module):
         return self._run(x)[3]
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> NetOutput:
-        """``generator`` draws the detector's dropout mask in training (and
+                draws: Optional[rng.KeyStream] = None) -> NetOutput:
+        """``draws`` (a key stream) draws the detector's dropout mask in training (and
         the head's stochastic depth, at rate 0 as shipped)."""
-        backbone_out, attentions, image_feats, sem = self._run(x, generator)
+        backbone_out, attentions, image_feats, sem = self._run(x, draws)
         penultimate = backbone_out
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(backbone_out, generator)
+            penultimate = self.seen_fg_network.trunk(backbone_out, draws)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=sem,

@@ -31,6 +31,7 @@ from bacs_tpu_torch.models.base import NetOutput
 from bacs_tpu_torch.models.bg_detector import BgDetector
 from bacs_tpu_torch.models.norm import BatchNorm
 from bacs_tpu_torch.models.resnet import Conv2d
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.ops.interpolate import resize_bilinear
 
 
@@ -157,12 +158,12 @@ class UNet(nn.Module):
         return self._run(x.permute(0, 3, 1, 2))[2].permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> NetOutput:
-        """``generator`` draws the detector's dropout mask in training."""
+                draws: Optional[rng.KeyStream] = None) -> NetOutput:
+        """``draws`` (a key stream) draws the detector's dropout mask in training."""
         bottom, attentions, sem = self._run(x.permute(0, 3, 1, 2))
         penultimate = bottom
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(bottom, generator)
+            penultimate = self.seen_fg_network.trunk(bottom, draws)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=nhwc(sem),

@@ -35,7 +35,6 @@ and K11), and the multihost ``multihost_init``, ``replicate_to_global`` and
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import multiprocessing
 import os
 import queue
@@ -45,6 +44,8 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from bacs_tpu_torch.ops import rng
 
 # all_reduce_ calls and the bytes they carried, for the step's accounting
 counters = {"calls": 0, "bytes": 0}
@@ -261,22 +262,11 @@ def sync_group():
     return _sync_group
 
 
-def rank_generator(generator: Optional[torch.Generator], group) -> Optional[torch.Generator]:
-    """The step's generator on this rank.  JAX splits the state's key and
-    folds the rank into the step's half (``bacs_tpu/train/step.py:34-37``);
-    here a rank's generator is seeded from a digest of the shared
-    generator's state and the rank, and the shared generator is reseeded
-    alike on every rank, so it stays identical across ranks.  With no group
-    the shared generator itself."""
-    if group is None or generator is None:
-        return generator
-    state = generator.get_state().numpy().tobytes()
-
-    def seed(tag: bytes) -> int:
-        return int.from_bytes(hashlib.blake2b(state + tag, digest_size=8).digest(),
-                              "little") >> 1
-
-    out = torch.Generator(generator.device)
-    out.manual_seed(seed(b"rank%d" % rank(group)))
-    generator.manual_seed(seed(b"next"))
-    return out
+def step_draws(key, step: int, group) -> Optional[rng.KeyStream]:
+    """The key stream of train step ``step`` on this rank: fold_in(key,
+    step), then the rank folded in where there is a group, as JAX folds the
+    device's index into the step's key (``bacs_tpu/train/step.py:34-37``).
+    None where the state has no key."""
+    if key is None:
+        return None
+    return rng.KeyStream(rng.step_key(key, step, None if group is None else rank(group)))

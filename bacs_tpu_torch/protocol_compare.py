@@ -10,7 +10,16 @@ and the same output: one JSON line per method (``final_miou``,
 ``oldest_task_miou``, ``task0_miou``, ``avg_iou_per_dataset``,
 ``seconds``), then a markdown table.  Each leg is the port's ``Trainer``
 on the card (``--device cuda``, the default; it raises where torch sees no
-card) unless asked for the CPU.  The protocols "3task", "15-1", "10-1",
+card) unless asked for the CPU.  A leg is a function of its seed: the
+port's draws are counter-based (``ops/rng.py``), its kernels use no float
+atomics and the Trainer runs cuDNN's deterministic algorithms, so two card
+runs of a seed give the same weights bit for bit, and a card run and a CPU
+run of a seed see the same crops, dropout masks and replay picks.  ``--seeds 42-57`` runs each method over a range of seeds;
+``--digest`` adds to each record its seed, the unrounded final mIoU and a
+SHA-256 of the final weights, for paired and repeat comparisons;
+``--pair CARD CPU`` pairs two such outputs by (method, seed) and prints
+each seed's two final mIoUs, their difference and, per method, the
+Wilcoxon signed-rank p-value of the differences.  The protocols "3task", "15-1", "10-1",
 "15-5" and "19-1" train a UNet (``models/unet.py``) unless ``--network
 deeplab`` is given; its logits are at label resolution, so their legs
 launch no upsample kernel.
@@ -19,6 +28,7 @@ launch no upsample kernel.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -151,10 +161,24 @@ def method_overrides(protocol: dict, method: str, seed: int, network: str = "une
     return overrides + list(extra_overrides)
 
 
+def weights_digest(model) -> str:
+    """SHA-256 of a model's state dict: every tensor's name and bytes, in
+    order."""
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def run_method(protocol: dict, method: str, seed: int, network: str = "unet",
                backbone: str = "resnet50", crop: int = 0, extra_overrides: tuple = (),
-               device: str = "cuda") -> dict:
-    """Train one leg on ``device`` and return its JSON record."""
+               device: str = "cuda", digest: bool = False) -> dict:
+    """Train one leg on ``device`` and return its JSON record (with
+    ``digest``, also its seed, the unrounded final mIoU and the final
+    weights' SHA-256)."""
     from bacs_tpu_torch.config import load_config
     from bacs_tpu_torch.train.loop import Trainer
 
@@ -171,6 +195,10 @@ def run_method(protocol: dict, method: str, seed: int, network: str = "unet",
     rows = trainer.per_step_metric._per_step["mIoU"]
     oldest_end = float(rows[-1][0]) if rows and rows[-1] else float("nan")
     avg_iou = [round(float(v), 3) for v in trainer.per_step_metric.get_avg_iou()]
+    extra = {}
+    if digest:
+        extra = dict(seed=seed, final_miou_exact=float(final),
+                     weights_sha256=weights_digest(trainer.state.model))
     return dict(
         method=method,
         final_miou=round(float(final), 3),
@@ -179,6 +207,7 @@ def run_method(protocol: dict, method: str, seed: int, network: str = "unet",
         task0_miou=round(float(rows[0][0]), 3) if rows and rows[0] else float("nan"),
         avg_iou_per_dataset=avg_iou,
         seconds=round(time.time() - t0, 1),
+        **extra,
     )
 
 
@@ -188,6 +217,12 @@ def parse_args(argv=None):
     ap.add_argument("--methods", default=None,
                     help="comma list (default: the protocol's full set)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--seeds", default=None,
+                    help="a range A-B (or a comma list) of seeds: every method at "
+                         "every seed, in place of --seed")
+    ap.add_argument("--digest", action="store_true",
+                    help="add the seed, the unrounded final mIoU and the final "
+                         "weights' SHA-256 to each record")
     ap.add_argument("--network", choices=("unet", "deeplab"), default=None,
                     help="default: the protocol's own network (unet unless the "
                          "protocol pins one, e.g. 15-1-flagship)")
@@ -205,13 +240,69 @@ def parse_args(argv=None):
     ap.add_argument("--override", action="append", default=[],
                     help="extra override(s) appended to every leg, e.g. "
                          "--override training.ckpt_dir=build/ckpt")
+    ap.add_argument("--pair", nargs=2, metavar=("CARD", "CPU"), default=None,
+                    help="pair the --digest records of two outputs (JSON lines; a "
+                         "record with tf32 false pairs as its method + ' tf32 off') and "
+                         "print the paired study; trains nothing")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises without a card")
     return ap.parse_args(argv)
 
 
+def parse_seeds(text: str) -> list:
+    """"42-57" -> [42, ..., 57]; "1,5,9" -> [1, 5, 9]."""
+    if "-" in text:
+        lo, hi = (int(v) for v in text.split("-"))
+        return list(range(lo, hi + 1))
+    return [int(v) for v in text.split(",")]
+
+
+def read_records(path: str) -> list:
+    """The --digest records among an output's lines."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("{") and "final_miou_exact" in line:
+                out.append(json.loads(line))
+    return out
+
+
+def paired(card: list, cpu: list) -> dict:
+    """Per method: the seeds both sides hold, each side's final mIoU, the
+    differences card - CPU, their mean and the two-sided Wilcoxon
+    signed-rank p-value (1.0 where every difference is 0)."""
+    from scipy.stats import wilcoxon
+
+    def label(r):
+        return r["method"] + ("" if r.get("tf32", True) else " tf32 off")
+
+    cpu_by = {(r["method"], r["seed"]): r["final_miou_exact"] for r in cpu}
+    out = {}
+    for name in dict.fromkeys(label(r) for r in card):
+        rows = [(r["seed"], r["final_miou_exact"], cpu_by[(r["method"], r["seed"])])
+                for r in card if label(r) == name and (r["method"], r["seed"]) in cpu_by]
+        diffs = [a - b for _, a, b in rows]
+        p = 1.0 if not any(diffs) else float(wilcoxon(diffs).pvalue)
+        out[name] = dict(rows=rows, mean_card=sum(a for _, a, _ in rows) / len(rows),
+                         mean_cpu=sum(b for _, _, b in rows) / len(rows),
+                         mean_diff=sum(diffs) / len(diffs), wilcoxon_p=p)
+    return out
+
+
 def main(argv=None) -> list:
     args = parse_args(argv)
+    if args.pair:
+        study = paired(read_records(args.pair[0]), read_records(args.pair[1]))
+        for name, s in study.items():
+            print(f"\n## {name}: card mean {s['mean_card']:.4f}, CPU mean "
+                  f"{s['mean_cpu']:.4f}, mean difference {s['mean_diff']:+.4f}, Wilcoxon "
+                  f"p {s['wilcoxon_p']:.3g} ({len(s['rows'])} seeds)\n")
+            print("| seed | card | CPU | card - CPU |")
+            print("|-----:|-----:|----:|-----------:|")
+            for seed, a, b in s["rows"]:
+                print(f"| {seed} | {a:.4f} | {b:.4f} | {a - b:+.4f} |")
+        print(json.dumps(study))
+        return [study]
     p = dict(PROTOCOLS[args.protocol])
     if args.epochs:
         p["epochs"] = args.epochs
@@ -224,16 +315,18 @@ def main(argv=None) -> list:
     if args.mode:
         extra.append(f"training.mode={args.mode}")
     results = []
-    for m in methods:
-        r = run_method(p, m, args.seed, network=network, backbone=backbone,
-                       crop=args.crop, extra_overrides=tuple(extra), device=args.device)
-        results.append(r)
-        print(json.dumps(r), flush=True)
+    for seed in parse_seeds(args.seeds) if args.seeds else [args.seed]:
+        for m in methods:
+            r = run_method(p, m, seed, network=network, backbone=backbone,
+                           crop=args.crop, extra_overrides=tuple(extra),
+                           device=args.device, digest=args.digest)
+            results.append(r)
+            print(json.dumps(r), flush=True)
 
     tag = "" if network == "unet" else f", deeplab/{backbone}"
     if args.mode:
         tag += f", {args.mode}"
-    print(f"\n## {args.protocol} protocol (seed {args.seed}{tag})\n")
+    print(f"\n## {args.protocol} protocol (seed {args.seeds or args.seed}{tag})\n")
     print("| Method | final mIoU | oldest-task mIoU at end | Avg-IoU per dataset |")
     print("|--------|-----------:|------------------------:|---------|")
     for r in results:

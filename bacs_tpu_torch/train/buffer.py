@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from bacs_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize_image
+from bacs_tpu_torch.ops import rng
 
 
 @dataclasses.dataclass
@@ -134,13 +135,17 @@ def add_batch(
     n_classes: int,
     ignore_index: int = 255,
     uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    generator: Optional[torch.Generator] = None,
+    draws: Optional[rng.KeyStream] = None,
 ) -> BufferState:
     """Reservoir-add a batch, in place; returns ``buf``.
 
     ``logits`` are already padded to the buffer's class width.  ``uniforms``
     is a pair of [n] uniform [0, 1) tensors (reservoir draw, eviction draw)
-    used in place of draws from ``generator``.  Every item records the
+    used in place of [2, n] uniforms of the next key of ``draws``.  The
+    eviction's cumulative scores are summed on the host (the item's
+    reservoir test reads the host already), in the CPU's order on every
+    device: ``torch.cumsum`` of floats on the card has no deterministic
+    algorithm.  Every item records the
     batch-wide label set (the reference reads the whole batch's unique
     labels inside its per-item loop, ``buffer.py:240-252``).
     """
@@ -149,7 +154,7 @@ def add_batch(
     n_items = images.shape[0]
     dev = buf.images.device
     if uniforms is None:
-        u_res, u_evict = torch.rand((2, n_items), generator=generator, device=dev)
+        u_res, u_evict = rng.uniform(rng.stream_of(draws).next(), (2, n_items), device=dev)
     else:
         u_res, u_evict = (u.to(dev, torch.float32) for u in uniforms)
     ext = torch.where(labels == ignore_index, n_cols - 1, labels.long()).reshape(-1)
@@ -159,9 +164,9 @@ def add_batch(
         n = buf.num_seen
         idx = n if n < m else -1
         if n >= m and int(torch.floor(u_res[k] * float(max(n, 1)))) < m:
-            cdf = torch.cumsum(_eviction_scores(buf), 0)
+            cdf = torch.cumsum(_eviction_scores(buf).cpu(), 0)
             cdf = cdf / torch.clamp(cdf[-1], min=1e-30)
-            evict = torch.searchsorted(cdf, u_evict[k:k + 1], right=True)
+            evict = torch.searchsorted(cdf, u_evict[k:k + 1].cpu(), right=True)
             idx = min(int(evict), m - 1)
         if idx >= 0:
             old = buf.label_mask[idx] & buf.valid[idx]
@@ -183,20 +188,21 @@ def add_batch(
 def sample(
     buf: BufferState,
     batch_size: int,
-    generator: Optional[torch.Generator] = None,
+    draws: Optional[rng.KeyStream] = None,
     keys: Optional[torch.Tensor] = None,
     task_id: Optional[torch.Tensor | int] = None,
 ) -> dict:
     """A replay batch, uniform without replacement over the valid slots
     (with ``task_id``, a device or Python integer, over the valid slots of
     that task; ``bacs_tpu/train/buffer.py:231-256``): the top
-    ``batch_size`` of Gumbel keys (``keys``, or drawn from ``generator``)
-    with the other slots at -inf.  No host read."""
+    ``batch_size`` of the slots' Gumbel ``keys`` with the other slots at
+    -inf.  Without ``keys`` the slots are ranked by [size] uniforms of the
+    next key of ``draws``, which order them as their Gumbel keys
+    -log(-log(u)) would, with no logarithm to round differently on the
+    card.  No host read."""
     dev = buf.images.device
     if keys is None:
-        tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(buf.size, generator=generator, device=dev).clamp_(min=tiny)
-        keys = -torch.log(-torch.log(u))
+        keys = rng.uniform(rng.stream_of(draws).next(), buf.size, device=dev)
     eligible = buf.valid
     if task_id is not None:
         eligible = eligible & (buf.task_ids == task_id)

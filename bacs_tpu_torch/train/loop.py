@@ -34,7 +34,10 @@ Not ported, because they exist only for the TPU or its host; a config that
 sets one gets one log line that it is ignored: multihost streams,
 ``training.spatial_partition`` (GSPMD),
 ``training.boundary_gc`` (XLA's executable cache) and
-``training.steps_per_dispatch`` (``make_multi_step``).
+``training.steps_per_dispatch`` (``make_multi_step``).  On the card the
+Trainer sets cuDNN's deterministic algorithms, so that with the
+counter-based draws (``ops/rng.py``) and the kernels' fixed-order sums two
+runs of one seed end with the same weights.
 ``training.profile_dir`` traces task 0's step loop, as JAX's
 ``jax.profiler`` trace does (``bacs_tpu/train/loop.py:441-442,584-586``):
 ``torch.profiler`` from before the first step to after the last, the CPU's
@@ -74,6 +77,7 @@ from bacs_tpu_torch.models.layers import Linear
 from bacs_tpu_torch.models.resnet import Conv2d
 from bacs_tpu_torch.models.transeg import TranSeg
 from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.train.learner import get_learner, transformer_init
 from bacs_tpu_torch.train.metrics import PerStepResult, detailed_iou_metrics
 from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary, ood_test
@@ -189,6 +193,13 @@ class Trainer:
                 "Trainer(device='cuda') but torch sees no CUDA device; pass "
                 "device='cpu' (--device cpu) to train on the CPU"
             )
+        if self.device.type == "cuda":
+            # cuDNN's deterministic algorithms: with the counter-based draws
+            # and the kernels' fixed-order sums, a run on the card is a
+            # function of its seed (they cost the CE and BACS steps 0.06 and
+            # 0.35 % of their busy time on an H100, PERF.md)
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.config = config
         tcfg = config["training"]
         n_dev = requested_devices(config)
@@ -356,10 +367,8 @@ class Trainer:
         buffer = None
         if self.method.needs_buffer:
             buffer = self.method.init_buffer(task, (crop, crop), sem_hw, device=self.device)
-        generator = torch.Generator(self.device)
-        generator.manual_seed(self.seed)
         state = TrainState(
-            model, *self._make_tx(task, model), generator=generator,
+            model, *self._make_tx(task, model), key=rng.key(self.seed),
             prototypes=torch.zeros((self.n_tasks, pen_dim), device=self.device),
             proto_counts=torch.zeros((self.n_tasks,), device=self.device),
             buffer=buffer,

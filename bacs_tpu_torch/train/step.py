@@ -7,8 +7,9 @@ its ABN statistics and the optimizer are updated in place and the same
 state object is returned.
 
 - ``train_step(state, batch) -> (state, {"loss": ...})``: the network in
-  train mode; the method's loss (given ``state.generator`` for its random
-  draws), its gradients, one optimizer update (clip, weight decay,
+  train mode; the method's loss (given the step's key stream,
+  ``parallel.step_draws`` of ``state.key`` and ``state.step``, for its
+  random draws), its gradients, one optimizer update (clip, weight decay,
   SGD-nesterov at the scheduled rate), and the method's state updates
   (prototypes and their counts, the buffer).  The gradients stay in the
   parameters' ``.grad`` until the next step.  With gradient accumulation
@@ -29,8 +30,8 @@ the context's process ``group`` (``parallel/``): each rank gets its
 contiguous slice of the global batch, and the steps do what JAX's
 collectives do.  The synchronized norms reduce their statistics across
 the ranks (``parallel.synchronized``), the prototype folds sum theirs, and
-each rank draws from its own generator (``parallel.rank_generator``; JAX
-folds the rank into the step's key).  After the backward one collective
+each rank draws from its own key stream (``parallel.step_draws``: the
+rank folded into the step's key, as JAX folds it).  After the backward one collective
 averages the gradients, the loss and the running statistics
 (``step.py:45-50``): each rank's loss is the mean over its own shard, so
 the loss is the mean of the shard means, not the global batch's mean
@@ -60,7 +61,7 @@ import torch
 from bacs_tpu_torch.methods.base import Method, ModelContext
 from bacs_tpu_torch.ops.confusion import confusion_matrix
 from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
-from bacs_tpu_torch.parallel import all_reduce_, rank_generator, synchronized
+from bacs_tpu_torch.parallel import all_reduce_, step_draws, synchronized
 from bacs_tpu_torch.train.optim import apply_updates, zero_missing_grads
 from bacs_tpu_torch.train.state import TrainState
 
@@ -91,7 +92,7 @@ def _train_step_impl(
     state.optimizer.zero_grad(set_to_none=True)
     with synchronized(group):
         loss, aux = method.compute_loss(ctx, state, batch, True,
-                                        rank_generator(state.generator, group))
+                                        step_draws(state.key, state.step, group))
         loss.backward()
     loss = loss.detach() if group is None else _average_across_ranks(state, loss, group)
     apply_updates(state.optimizer, state.scheduler)

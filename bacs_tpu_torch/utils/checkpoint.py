@@ -5,7 +5,7 @@ orbax.  A checkpoint holds everything a resumed run needs to continue as
 if uninterrupted: the network's parameters and statistics, the optimizer's
 moments and the schedule's position (with gradient accumulation also the
 mean gradient of the mini-steps so far and their count, which the
-optimizer's ``state_dict`` holds, ``train/optim.py``), the counters, the state's generator,
+optimizer's ``state_dict`` holds, ``train/optim.py``), the counters, the state's key,
 the per-task prototypes, SDR's per-class prototypes, the frozen previous model, the replay buffer and
 PLOP's thresholds.  The layout and the resume choice are the JAX
 package's: ``<ckpt_dir>/step_<task>/<slot>``, mid-task saves alternating
@@ -35,6 +35,7 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.train.buffer import BufferState
 from bacs_tpu_torch.train.state import TrainState, frozen_copy
 
@@ -53,7 +54,7 @@ def state_to_dict(state: TrainState) -> Dict[str, Any]:
         "optimizer": state.optimizer.state_dict(),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step, "epoch_step": state.epoch_step, "epoch": state.epoch,
-        "generator": None if state.generator is None else state.generator.get_state(),
+        "key": None if state.key is None else list(state.key),
         "prev_model": None if state.prev_model is None else state.prev_model.state_dict(),
         # the fields themselves: asdict would deep-copy the buffer's tensors
         "buffer": None if state.buffer is None else {
@@ -79,7 +80,7 @@ class AsyncSaver:
     host buffer kept from save to save (pinned, for the card's tensors,
     copied on a side stream that first waits for the current stream; the
     current stream then waits for the copy, so no later step changes a
-    tensor before it is read); the generator's state, the counters and the
+    tensor before it is read); the key, the counters and the
     optimizer's and schedule's other values are taken at the call.  A
     writer thread waits for the copy and writes the snapshot.  ``wait``
     blocks until the write has reached the disk and re-raises the writer's
@@ -206,8 +207,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[tuple[int, str]]:
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (a freshly built state of the same
     structure, on its device) and return it.  A structure mismatch raises.
-    The generator's state is restored where the checkpoint's device type
-    is the state's; otherwise ``state``'s own generator is kept."""
+    The key and the step counter restore as they are, on any device, so a
+    resumed run takes the uninterrupted run's draws.  A checkpoint that
+    holds a ``torch.Generator``'s state in place of a key (the format
+    before the port's draws were counter-based) restores with ``state``'s
+    own key: its draws from the restored step on are the ones that key
+    gives at those steps, not the ones the old generator would have
+    given."""
     device = next(state.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=False)
     state.model.load_state_dict(saved["model"])
@@ -215,15 +221,8 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     state.scheduler.load_state_dict(saved["scheduler"])
     state.step, state.epoch_step, state.epoch = (
         saved["step"], saved["epoch_step"], saved["epoch"])
-    if saved["generator"] is not None:
-        generator = torch.Generator(device)
-        rng = saved["generator"].cpu()
-        # a checkpoint of another device type (the card's state restored on
-        # the CPU, as serving does) cannot continue its draws here: the
-        # template's seeded generator stays
-        if rng.numel() == generator.get_state().numel():
-            generator.set_state(rng)
-            state.generator = generator
+    if saved.get("key") is not None:
+        state.key = rng.as_key(saved["key"])
     if saved["prev_model"] is not None:
         if state.prev_model is None:
             state.prev_model = frozen_copy(state.model)

@@ -12,6 +12,8 @@ datasets, weight import and checkpoint serving, on one NVIDIA GPU (H100).
     python3 chip_smoke.py --ddp
     python3 chip_smoke.py --export-ood
     python3 chip_smoke.py --host-data
+    python3 chip_smoke.py --deterministic
+    python3 chip_smoke.py --reproducible [--parts unet,flagship,trace] [--out DIR]
 
 Run from the root of a checkout.  It builds the hand-written kernels from
 ``bacs_tpu_torch/csrc`` (nvcc, into ``build/``) and Triton at first use
@@ -114,7 +116,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
 24. the continual protocol through the CLI's ``bacs_tpu_torch.main.train``
    in-process: ``conf/bacs/bacs_plus_config`` with ``der_15_1_bg``,
    ``bacs_plus_bg`` and the fused stem, DeepLabV3-ResNet-101 at 512^2 in
-   bf16, batch 12, on the synthetic source at VOC's 21 classes (240 train
+   bf16, batch 12, on the synthetic source at VOC's 21 classes (160 train
    and 24 validation images), one step per new class: all 6 tasks, BACS's
    ``end_task`` filling the 300-slot buffer, checkpoints under ``build/``
    (the mid-task ones asynchronous), the run stopped after task 2's first
@@ -195,7 +197,7 @@ Run from the root of a checkout.  It builds the hand-written kernels from
    detector, BACS+, 2 tasks, 2 decode workers): the loaded count equals the
    file's, K3 and K4 launched at task 1; the predict command line
    (``bacs_tpu_torch.predict.main``, in this process) on its checkpoint over
-   8 of the tree's JPEGs (8 masks, K10); ``Predictor.from_checkpoint`` in
+   4 of the tree's JPEGs (4 masks, K10); ``Predictor.from_checkpoint`` in
    f32 on the card and on the CPU over 2 of them (the share of pixels that differ, within
    ``SERVE_PIXEL_TOL``); a reference-layout DeepLabV3 checkpoint of seeded
    values (``reference_deeplab_shapes``) through the ``import_ckpt``
@@ -293,6 +295,19 @@ t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    inputs (bytes, f32 operations and special-function operations), and
    holds two launches of each staged kernel (K1, K3, K4, K6, K7 forward
    and backward, K2, K8, K9, K10) and of K12 bit-equal.
+45. (run right after 3) holds the port-only kernels against their plain
+   versions: the threefry draws (``csrc/threefry.cu``: bits, uniforms and
+   the dropout mask at the detector's mask [16, 512, 32, 32]) bit-equal,
+   two launches bit-equal, and the card's mask and a train transform's
+   crops equal to the CPU's; the resize kernels
+   (``csrc/resize_bilinear.cu``) against ``F.interpolate`` at the teacher
+   distillation's [16, 32, 32, 256] f32 -> 512^2 (and its chunk of 2), the
+   detector's x16 with aligned corners and UNet-5's four x2 decoder stages
+   in bf16, forward at rtol 1e-6 and gradient at rtol 1e-5 (bf16 one
+   rounding), two launches bit-equal, and whether ``F.interpolate``'s
+   backward is; times each beside its plain version and its bound.  Their
+   launch counters are reset after this phase and read at the end: the
+   whole main path's launches.
 
 Every profiled window logs the card's SM clock over it (``[clock]``,
 ``nvidia-smi`` sampling), beside the busy time it gives.
@@ -300,7 +315,23 @@ Every profiled window logs the card's SM clock over it (``[clock]``,
 ``--transeg`` only builds and runs phases [33]-[35], ``--real-data``
 phases [36]-[38], ``--ddp`` phases [40] and [41], ``--export-ood`` phases
 [42] and [43] (with [14]'s set-up over 2 fill batches), ``--host-data``
-phase [44] (with [36]'s tree and release backbone).
+phase [44] (with [36]'s tree and release backbone).  ``--deterministic``
+runs phase [46]: the CE and BACS steps' busy time with cuDNN's
+deterministic algorithms off and on, in turns, then one step each of CE,
+BACS, MiB, PLOP, ER and UNet-5 (CE; BACS with the detector) at 512^2 under
+``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+set before cuBLAS starts), each from two copies of one state, which must
+end bit-equal.  ``--reproducible`` runs [47] the UNet 15-1 disjoint leg of
+``protocol_compare`` (CE, MiB, BACS) twice for seed 42 (final weights and
+mIoUs bit-equal) and MiB sequential against disjoint (bit-equal), then the
+card's side of the paired study, seeds 42-57 and BACS again with TF32 off;
+[48] the ``15-1-flagship`` iCaRL and ER legs at seeds 44-46; [49] the first
+20 task-1 steps of flagship iCaRL from one task-0 state, on the card in
+f32, again with every weight moved by up to 1e-6 of itself, with TF32,
+and on the CPU, all with the same draws.  Its records go under ``--out``
+(default ``build/reproducible``); ``python -m
+bacs_tpu_torch.protocol_compare --pair`` pairs the card's legs with the
+CPU's.
 ``--family-times`` only builds and times the redesigned kernels (K1-K4,
 K6-K10 and K12) at the main path's shapes (one JSON line), and
 ``--bacs-busy`` the task-1 BACS step's device busy time (phase 14's
@@ -1272,7 +1303,7 @@ def bacs_after_task0(cfg, seed, dev, fill_batches=FILL_BATCHES):
     params_d, stats_d = seeded_variables(cfg, seed, use_bg_detector=True)
     dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
     state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
-                        generator=torch.Generator(dev).manual_seed(seed),
+                        key=seed_key(seed),
                         prototypes=torch.zeros((N_TASKS, dim), device=dev),
                         proto_counts=torch.zeros(N_TASKS, device=dev))
     ctx0, method, _ = bacs_steps(0, dev)
@@ -1315,6 +1346,20 @@ def bacs_busy_main(args) -> int:
     return 0
 
 
+def seed_key(seed: int):
+    """The port's counter-based key of ``seed`` (``ops/rng.py``)."""
+    from bacs_tpu_torch.ops import rng
+
+    return rng.key(seed)
+
+
+def key_stream(key):
+    """A key stream from ``key``: successive draws, the same on every device."""
+    from bacs_tpu_torch.ops import rng
+
+    return rng.KeyStream(key)
+
+
 @contextlib.contextmanager
 def injected_draws(keys, crop_params, lambdas=None):
     """The BACS step's random draws fixed, whatever the device: the two
@@ -1330,12 +1375,12 @@ def injected_draws(keys, crop_params, lambdas=None):
              bacs_mod.replay_augment, bacs_mod.beta_sample)
     sample, autocontrast, _, _ = saved
     turn = itertools.cycle(keys)
-    bacs_mod.buffer_lib.sample = lambda buf, n, gen=None: sample(buf, n, keys=next(turn))
-    bacs_mod.random_autocontrast = lambda x, gen=None, p=0.5: autocontrast(x, gen, 0.0)
-    bacs_mod.replay_augment = lambda im, lab, gen=None: apply_crop_params(
+    bacs_mod.buffer_lib.sample = lambda buf, n, draws=None: sample(buf, n, keys=next(turn))
+    bacs_mod.random_autocontrast = lambda x, draws=None, p=0.5: autocontrast(x, draws, 0.0)
+    bacs_mod.replay_augment = lambda im, lab, draws=None: apply_crop_params(
         im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
     if lambdas is not None:
-        bacs_mod.beta_sample = lambda a, n, gen, device: lambdas.to(device)
+        bacs_mod.beta_sample = lambda a, n, draws, device: lambdas.to(device)
     try:
         yield
     finally:
@@ -1379,7 +1424,7 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
                          torch.randn((slots + 2, crop // 16, crop // 16, N_CLASSES),
                                      generator=gen),
                          fill["label"], -torch.rand(slots + 2, generator=gen), task_id=0,
-                         n_classes=16, generator=gen)
+                         n_classes=16, draws=key_stream(seed_key(seed)))
     dim = len(params["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
     protos = torch.rand((N_TASKS, dim), generator=gen)
     counts = torch.tensor([50.0] + [0.0] * (N_TASKS - 1))
@@ -1394,9 +1439,10 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
         g = torch.Generator(dev).manual_seed(seed + 39)
         keys = [-torch.log(-torch.log(torch.rand(slots, generator=g, device=dev).clamp_(
             min=torch.finfo(torch.float32).tiny))).cpu() for _ in range(2)]
+        draws = key_stream(seed_key(seed + 39))
         crop_params = {k: v.cpu() for k, v in sample_crop_params(
-            replay, (crop, crop), g, dev).items()}
-        lambdas = beta_sample(method.mixup_alpha, replay, g, dev).cpu()
+            replay, (crop, crop), draws, dev).items()}
+        lambdas = beta_sample(method.mixup_alpha, replay, draws, dev).cpu()
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1406,7 +1452,7 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
         for device in (dev, torch.device("cpu")):
             state = train_state(
                 cfg, params, stats, torch.float32, device, smooth=activation == "identity",
-                generator=torch.Generator(device).manual_seed(seed),
+                key=seed_key(seed),
                 prototypes=protos.to(device), proto_counts=counts.to(device),
                 buffer=buf.to(device))
             state.model.seen_fg_network.dropout_rate = 0.0
@@ -1442,7 +1488,7 @@ BACS_OPTIONS = {"pseudo_label": dict(pseudo_label=True, bg_weighted_ce=False),
 OPTION_TURNS = (("two forwards", {}), ("merged_replay", dict(merged_replay=True)),
                 ("merged_replay", dict(merged_replay=True)), ("two forwards", {}),
                 ("mixup", dict(mixup=True)))
-OPTION_STEPS, OPTION_FILL_BATCHES = 2, 2  # 3 and 4 before phase [40] came
+OPTION_STEPS, OPTION_FILL_BATCHES = 1, 2  # 3 and 4 before phase [40], 2 before [45]
 # per step of each turn: (K3, K4, K1) launches each way, train-ABN forwards
 OPTION_LAUNCHES = {"two forwards": (1, 1, 0, TRAIN_ABN_PER_BACS_STEP),
                    "merged_replay": (1, 1, 0, 2 * ABN_PER_FORWARD),
@@ -1539,12 +1585,12 @@ def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict
     def network(images):
         def run():
             state.optimizer.zero_grad(set_to_none=True)
-            out = ctx.forward(model, images, True, state.generator)
+            out = ctx.forward(model, images, True, key_stream(state.key))
             out.sem_logits.float().square().mean().backward()
         return run
 
     with torch.no_grad():
-        pen = ctx.forward(model, image, True, state.generator).penultimate
+        pen = ctx.forward(model, image, True, key_stream(state.key)).penultimate
 
     def detector():
         with torch.no_grad():
@@ -1723,7 +1769,7 @@ def mib_plop_steps_512(cfg, params, stats, seed, dev, reset_counts, counts) -> d
     results = {}
     for name in MIB_PLOP_METHODS:
         state = train_state(cfg, params, stats, torch.bfloat16, dev,
-                            generator=torch.Generator(dev).manual_seed(seed))
+                            key=seed_key(seed))
         ctx0, method, _ = method_steps(name, 0, dev)
         state = method.end_task(state, ctx0, [])
         ctx1, _, (train_step, eval_step, _) = method_steps(name, 1, dev)
@@ -1921,9 +1967,9 @@ def injected_er_draws(keys, crop_params):
 
     saved = (er_mod.buffer_lib.sample, er_mod.replay_augment)
     sample = saved[0]
-    er_mod.buffer_lib.sample = lambda buf, n, gen=None, task_id=None: sample(
+    er_mod.buffer_lib.sample = lambda buf, n, draws=None, task_id=None: sample(
         buf, n, keys=keys.to(buf.valid.device), task_id=task_id)
-    er_mod.replay_augment = lambda im, lab, gen=None: apply_crop_params(
+    er_mod.replay_augment = lambda im, lab, draws=None: apply_crop_params(
         im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
     try:
         yield
@@ -1936,7 +1982,7 @@ def more_state(cfg, params, stats, dtype, device, name, ctx0, method, smooth=Fal
     """A task-0 state of ER, SDR or iCaRL: ER's buffer, SDR's class
     prototypes (zero) on ``device``."""
     state = train_state(cfg, params, stats, dtype, device, smooth=smooth,
-                        generator=torch.Generator(device).manual_seed(seed))
+                        key=seed_key(seed))
     if name == "loss.ExperienceReplay":
         state.buffer = method.init_buffer(ctx0.task, image_hw,
                                           tuple(d // 16 for d in image_hw), device=device)
@@ -2366,7 +2412,7 @@ def unet_full_width(seed, dev, reset_counts, counts) -> dict:
     params_d, stats_d = unet_variables(cfg, seed, use_bg_detector=True)
     dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])
     state = train_state(cfg, params_d, stats_d, torch.bfloat16, dev,
-                        generator=torch.Generator(dev).manual_seed(seed),
+                        key=seed_key(seed),
                         prototypes=torch.zeros((N_TASKS, dim), device=dev),
                         proto_counts=torch.zeros(N_TASKS, device=dev))
     kw = dict(buffer_size=UNET_BACS_SLOTS, replay_minibatch_size=UNET_BACS_REPLAY)
@@ -2551,7 +2597,7 @@ def unet_runner(seed: int) -> dict:
 TRANSEG_YAML = "conf/experiments/network/deep_lab_transformer.yaml"
 TRANSEG_CONFIG = ("conf/experiments", "bacs_transformer_config")
 TRANSEG_ABN = ABN_PER_FORWARD - 3  # DeepLabV3's less the ASPP's 3: the backbone's
-TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 4, 4
+TRANSEG_BATCH, TRANSEG_STEPS, TRANSEG_FILL = 12, 2, 2  # 4 and 4 before [45]
 # [35] the protocol through the CLI on [24]'s synthetic source cut to 48
 # training and 24 validation images (every task keeps some of each; the
 # run's time: 120 / 48 before phase [40] came, 96 / 48 before phases [42]
@@ -2717,7 +2763,7 @@ def transeg_step_card_vs_cpu(seed, dev) -> None:
         # task 0's end_task once, on the CPU
         _, method, _ = bacs_steps(0, "cpu", **kw)
         state = transeg_state(cfg, variables, torch.float32, "cpu", smooth, crop, 16,
-                              generator=torch.Generator().manual_seed(seed),
+                              key=seed_key(seed),
                               prototypes=torch.zeros((N_TASKS, dim)),
                               proto_counts=torch.zeros(N_TASKS))
         state.buffer = method.init_buffer(task0, (crop, crop), (crop // 16, crop // 16),
@@ -2729,7 +2775,7 @@ def transeg_step_card_vs_cpu(seed, dev) -> None:
         for device in (dev, torch.device("cpu")):
             state = transeg_state(
                 cfg, variables, torch.float32, device, smooth, crop, 16,
-                generator=torch.Generator(device).manual_seed(seed),
+                key=seed_key(seed),
                 prototypes=after.prototypes.to(device),
                 proto_counts=after.proto_counts.to(device), buffer=after.buffer.to(device))
             state.model.load_state_dict(after.model.state_dict())
@@ -2947,7 +2993,7 @@ def transeg_full_width(seed, dev, reset_counts, counts) -> dict:
     # task 1 of BACS+ with the detector: task 0's end_task, the token growth
     dim = len(det[0]["seen_fg_network"]["base_bn"]["scale"])
     state = transeg_state(cfg, det, torch.bfloat16, dev, active=16,
-                          generator=torch.Generator(dev).manual_seed(seed),
+                          key=seed_key(seed),
                           prototypes=torch.zeros((N_TASKS, dim), device=dev),
                           proto_counts=torch.zeros(N_TASKS, device=dev))
     state.model.seen_fg_network.dropout_rate = 0.1  # as shipped
@@ -3663,8 +3709,8 @@ def stem_kernel_times(dev, shape=STEM_MAIN) -> dict:
 # and resumes from it
 CLI_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "+network.fused_stem=true",
                  "dataset._target_=dataloaders.SyntheticDataModule",
-                 "+dataset.dataset.n_train=240", "+dataset.dataset.n_val=24",
-                 "+training.steps_per_class=1", "training.epochs=1"]
+                 "+dataset.dataset.n_train=160", "+dataset.dataset.n_val=24",
+                 "+training.steps_per_class=1", "training.epochs=1"]  # 240 before [45]
 CLI_CKPT, CLI_STOP_TASK = "build/chip_smoke_ckpt", 2
 
 
@@ -3811,7 +3857,7 @@ VOC_TREE = dict(n_train=32, n_val=16, size=CROP)
 VOC_OVERRIDES = ["training=der_15_1_bg", "loss=bacs_plus_bg", "training.num_workers=2",
                  "training.initial_increment=15", "training.increment=5",
                  "training.mode=overlap", "training.epochs=1", "training.val_every=0"]
-PREDICT_IMAGES, SERVE_CHECK_IMAGES = 8, 2
+PREDICT_IMAGES, SERVE_CHECK_IMAGES = 4, 2  # 8 before [45]
 # the share of pixels whose class may differ between the f32 Predictor on
 # the card (cuDNN, TF32 off) and on the CPU: the ties within rounding
 SERVE_PIXEL_TOL = 1e-3
@@ -4300,7 +4346,7 @@ def real_data_main(args) -> int:
 # the fused stem, eval steps and task-1 BACS steps after task 0's
 # ``end_task``, with every launch counted on each rank, and one step in a
 # world-1 NCCL group
-DDP_RANKS, DDP_PER_RANK, DDP_STEPS = 2, 4, 2
+DDP_RANKS, DDP_PER_RANK, DDP_STEPS = 2, 4, 1  # 2 steps before [45]
 DDP_BACS_METHOD = {**BACS_METHOD, "replay_minibatch_size": DDP_PER_RANK}
 DDP_GLOBAL = DDP_RANKS * DDP_PER_RANK
 # [40]'s per-step launches: CE (K1 each way, K12 each way, the other 106
@@ -5313,6 +5359,571 @@ def host_data_main(args) -> int:
     return 0
 
 
+# the port-only kernels ([45]): the detector's dropout mask of a 512^2 BACS
+# step, and the bilinear resizes of the main path
+DRAW_SHAPE = (BATCH, 512, CROP // 16, CROP // 16)
+DROPOUT_KEEP = 0.9
+# integer instructions of one threefry draw (csrc/threefry.cu: 20 rounds of
+# add, funnel shift, xor; 5 key injections of two adds; the counters' add
+# and the output xor) at the 128 lanes a clock on each of 132 SMs that can
+# issue one (64 INT32 lanes, and IMAD on 64 FMA lanes)
+THREEFRY_OPS = 73
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# (name, input shape, dtype, output size, aligned corners)
+RESIZE_CASES = (
+    ("distill", (BATCH, CROP // 16, CROP // 16, 256), torch.float32, (CROP, CROP), False),
+    ("distill_chunk", (2, CROP // 16, CROP // 16, 256), torch.float32, (CROP, CROP), False),
+    ("detector", (BATCH, CROP // 16, CROP // 16, 2), torch.float32, (CROP, CROP), True),
+    *((f"unet5_x2_{h}", (BATCH, h, h, c), torch.bfloat16, (2 * h, 2 * h), True)
+      for h, c in ((32, 512), (64, 256), (128, 128), (256, 64))),
+)
+# the case whose times stand in the kernels line: the teacher distillation's
+# call as the main path makes it (chunks of 2 images, methods/bacs.py)
+RESIZE_TIMED = "distill_chunk"
+
+
+def new_kernel_counters():
+    """(reset, read) of the port-only kernels' launch counters.  The phases'
+    own ``launch_counters`` leave them alone, so they count the whole main
+    path from one reset to the read."""
+    from bacs_tpu_torch.ops import rng
+    from bacs_tpu_torch.ops.interpolate import resize_fwd, resize_grad
+
+    fns = dict(threefry=rng.threefry_fill, resize_fwd=resize_fwd, resize_grad=resize_grad)
+
+    def reset():
+        for fn in fns.values():
+            fn.launches = 0
+
+    return reset, lambda: {k: fn.launches for k, fn in fns.items()}
+
+
+def threefry_bound(n: int, out_bytes: int):
+    """(ms, "bytes" or "operations") of ``n`` draws written at
+    ``out_bytes`` each."""
+    t_bytes = n * out_bytes / HBM_BYTES_PER_S
+    t_ops = n * THREEFRY_OPS / INT32_OPS_PER_S
+    return 1000 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def resize_bound(shape, dtype, size, backward: bool):
+    """The resize's bound: its input read once and its output written once
+    (forward x -> y, backward g -> dx); per output element two lerps along
+    W and one along H (9 f32 operations; the backward the same again)."""
+    n, h, w, c = shape
+    esize = torch.finfo(dtype).bits // 8
+    small, big = n * h * w * c, n * size[0] * size[1] * c
+    return bound((small + big) * esize, 9 * big)
+
+
+def draw_checks(dev, seed) -> dict:
+    """[45a] the threefry kernel: bits, uniforms and the dropout mask at the
+    detector's mask shape equal the plain version on the card bit for bit,
+    two launches give the same bits, and the card draws the CPU's numbers
+    (the mask, and a train transform's crop parameters); its times."""
+    from bacs_tpu_torch.data import transforms
+    from bacs_tpu_torch.ops import rng
+
+    k = rng.fold_in(rng.key(seed), 45)
+    n = int(np.prod(DRAW_SHAPE))
+    lo, span = rng._scale(-0.3, 2.5)
+    modes = ((0, {}), (1, dict(lo=lo, span=span)), (2, dict(p=DROPOUT_KEEP)))
+    for mode, kw in modes:
+        got = rng.threefry_fill(k, DRAW_SHAPE, mode, dev, **kw)
+        ref = rng.fill_plain(k, DRAW_SHAPE, mode, dev, **kw)
+        assert torch.equal(got, ref), f"threefry mode {mode} differs from its plain version"
+        assert torch.equal(got, rng.threefry_fill(k, DRAW_SHAPE, mode, dev, **kw))
+    card_mask = rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, dev)
+    cpu_mask = rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, "cpu")
+    assert torch.equal(card_mask.cpu(), cpu_mask), "the card's dropout mask is not the CPU's"
+    keep_share = float(card_mask.float().mean())
+    crops = [transforms.sample_crop_params(BATCH, (CROP, CROP),
+                                           rng.KeyStream(rng.key(seed)), d)
+             for d in (dev, "cpu")]
+    assert all(torch.equal(crops[0][f].cpu(), crops[1][f]) for f in crops[1]), \
+        "the card's crops are not the CPU's"
+    ms = device_ms(lambda: rng.threefry_fill(k, DRAW_SHAPE, 2, dev, p=DROPOUT_KEEP))
+    plain_ms = device_ms(lambda: rng.fill_plain(k, DRAW_SHAPE, 2, dev, p=DROPOUT_KEEP))
+    philox_ms = time_ms(lambda: torch.empty(DRAW_SHAPE, device=dev).bernoulli_(DROPOUT_KEEP))
+    bnd = threefry_bound(n, 1)
+    log(f"[45] threefry {DRAW_SHAPE} ({n} draws): bits, uniforms and the dropout mask "
+        f"bit-equal to the plain version and across two launches; the mask (keep share "
+        f"{keep_share:.5f}) and {BATCH} crops bit-equal to the CPU's; mask {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, torch's Philox bernoulli_ {philox_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bnd, philox_ms=philox_ms,
+                keep_share=keep_share)
+
+
+def resize_plain_fwd(x, size, align):
+    """``F.interpolate`` on an NHWC tensor: the resize's plain version."""
+    import torch.nn.functional as F
+
+    return F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                         align_corners=align).permute(0, 2, 3, 1)
+
+
+def resize_plain_grad(g, shape, size, align):
+    """``F.interpolate``'s backward (float atomics on the card) of NHWC ``g``."""
+    n, h, w, c = shape
+    return torch.ops.aten.upsample_bilinear2d_backward(
+        g.permute(0, 3, 1, 2), list(size), [n, c, h, w], align, None, None
+    ).permute(0, 2, 3, 1)
+
+
+def check_resize(shape, dtype, size, align, device, seed=0) -> dict:
+    """The resize kernels against ``F.interpolate`` on the card: f32 forward
+    at rtol 1e-6 and gradient at rtol 1e-5 (of the largest value); bf16
+    within one bf16 rounding of the plain version computed in f32; two
+    launches bit-equal.  Returns the errors, whether ``F.interpolate``'s own
+    backward was bit-equal across two calls, and the inputs."""
+    from bacs_tpu_torch.ops.interpolate import resize_fwd, resize_grad
+
+    def held(got, ref, rtol):
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= rtol * float(ref.float().abs().max()), err
+        return err
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    g = torch.randn((shape[0], *size, shape[-1]), generator=gen, device=device).to(dtype)
+    n0 = resize_fwd.launches, resize_grad.launches
+    y, dx = resize_fwd(x, size, align), resize_grad(g, shape[1:3], align)
+    assert (resize_fwd.launches - n0[0], resize_grad.launches - n0[1]) == (1, 1)
+    assert y.shape == (shape[0], *size, shape[-1]) and y.dtype == dtype and dx.shape == shape
+    assert torch.equal(y, resize_fwd(x, size, align)), "forward launches differ"
+    assert torch.equal(dx, resize_grad(g, shape[1:3], align)), "backward launches differ"
+    if dtype == torch.float32:
+        e_f = held(y, resize_plain_fwd(x, size, align), 1e-6)
+        ref_dx = resize_plain_grad(g, shape, size, align)
+        e_b = held(dx, ref_dx, 1e-5)
+        repeat = bool(torch.equal(ref_dx, resize_plain_grad(g, shape, size, align)))
+    else:  # one bf16 rounding of the f32 result
+        e_f = held(y, resize_plain_fwd(x.float(), size, align).to(dtype), 2 ** -7)
+        e_b = held(dx, resize_plain_grad(g.float(), shape, size, align).to(dtype), 2 ** -7)
+        repeat = bool(torch.equal(resize_plain_grad(g, shape, size, align),
+                                  resize_plain_grad(g, shape, size, align)))
+    return dict(fwd_err=e_f, bwd_err=e_b, plain_backward_bit_equal=repeat, x=x, g=g)
+
+
+def resize_checks(dev, seed) -> dict:
+    """[45b] ``check_resize`` at each of the main path's shapes
+    (``RESIZE_CASES``), and the times of ``RESIZE_TIMED``."""
+    from bacs_tpu_torch.ops.interpolate import resize_fwd, resize_grad
+
+    out, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+    for name, shape, dtype, size, align in RESIZE_CASES:
+        row = check_resize(shape, dtype, size, align, dev, seed + 45)
+        x, g = row.pop("x"), row.pop("g")
+        errs = {"fwd": max(errs["fwd"], row["fwd_err"]), "bwd": max(errs["bwd"], row["bwd_err"])}
+        row.update(shape=shape, size=size, dtype=str(dtype)[6:], align=align)
+        if name == RESIZE_TIMED:
+            row.update(
+                fwd_ms=device_ms(lambda: resize_fwd(x, size, align), iters=10),
+                bwd_ms=device_ms(lambda: resize_grad(g, shape[1:3], align), iters=10),
+                fwd_plain_ms=device_ms(lambda: resize_plain_fwd(x, size, align), iters=10),
+                bwd_plain_ms=device_ms(lambda: resize_plain_grad(g, shape, size, align),
+                                       iters=10),
+                fwd_bound=resize_bound(shape, dtype, size, False),
+                bwd_bound=resize_bound(shape, dtype, size, True))
+        out[name] = row
+        log(f"[45] resize {name} {shape} {row['dtype']} -> {size} (aligned {align}): "
+            f"forward max abs err {row['fwd_err']:.3g}, gradient {row['bwd_err']:.3g}; two "
+            f"launches bit-equal; F.interpolate's backward twice bit-equal: "
+            f"{row['plain_backward_bit_equal']}"
+            + (f"; forward {row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, bound "
+               f"{row['fwd_bound'][0]:.4f} {row['fwd_bound'][1]}), backward "
+               f"{row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
+               f"{row['bwd_bound'][0]:.4f} {row['bwd_bound'][1]})" if name == RESIZE_TIMED
+               else ""))
+        del x, g
+        torch.cuda.empty_cache()
+    out["errs"] = errs
+    return out
+
+
+def new_kernel_rows(draws: dict, resizes: dict, launches: dict) -> list:
+    """The kernels line's rows of the port-only kernels."""
+    t = resizes[RESIZE_TIMED]
+    common = dict(route="cuda", library_is=None)
+    return [
+        {"name": "threefry_fill (counter-based draws)", **common,
+         "source": "bacs_tpu_torch/csrc/threefry.cu",
+         "replaces": "bacs_tpu/train/step.py:33 (jax.random's threefry, no pl.pallas_call)",
+         "launches": launches["threefry"], "max_abs_err": draws["err"], "ms": draws["ms"],
+         "plain_ms": draws["plain_ms"], "bound_ms": draws["bound"][0],
+         "bound_by": draws["bound"][1], "library_ms": None,
+         "torch_philox_bernoulli_ms": draws["philox_ms"],
+         "shape_is": f"the detector's dropout mask {list(DRAW_SHAPE)}"},
+        {"name": "resize_bilinear_fwd", **common,
+         "source": "bacs_tpu_torch/csrc/resize_bilinear.cu",
+         "replaces": "bacs_tpu/ops/interpolate.py:30 (jax.image.resize, no pl.pallas_call)",
+         "launches": launches["resize_fwd"], "max_abs_err": resizes["errs"]["fwd"],
+         "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"], "bound_ms": t["fwd_bound"][0],
+         "bound_by": t["fwd_bound"][1], "library_ms": t["fwd_plain_ms"],
+         "library_is": "F.interpolate(bilinear), the plain version itself",
+         "shape_is": f"{list(t['shape'])} {t['dtype']} -> {list(t['size'])}"},
+        {"name": "resize_bilinear_grad", **common,
+         "source": "bacs_tpu_torch/csrc/resize_bilinear.cu",
+         "replaces": "bacs_tpu/ops/interpolate.py:30 (jax.image.resize, no pl.pallas_call)",
+         "launches": launches["resize_grad"], "max_abs_err": resizes["errs"]["bwd"],
+         "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"], "bound_ms": t["bwd_bound"][0],
+         "bound_by": t["bwd_bound"][1], "library_ms": t["bwd_plain_ms"],
+         "library_is": "aten.upsample_bilinear2d_backward (F.interpolate's backward, float "
+                       "atomics), the plain version itself",
+         "plain_backward_bit_equal": {k: v["plain_backward_bit_equal"]
+                                      for k, v in resizes.items() if k != "errs"},
+         "shape_is": f"{list(t['shape'])} {t['dtype']} -> {list(t['size'])}"},
+    ]
+
+
+def steps_twice_equal(train, state, batch) -> str:
+    """One train step from two deep copies of ``state`` on one batch: the
+    same loss and every parameter and statistic bit for bit ("equal"), or
+    what differs."""
+    import copy
+
+    runs = []
+    for _ in range(2):
+        s, m = train(copy.deepcopy(state), batch)
+        runs.append((float(m["loss"]), s.model.state_dict()))
+    (l0, a), (l1, b) = runs
+    assert np.isfinite(l0), l0
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if l0 != l1 or diff:
+        return f"differs: losses {l0!r} {l1!r}, {len(diff)} tensors (first {diff[:3]})"
+    return "equal"
+
+
+def deterministic_states(cfg, params, stats, seed, dev):
+    """(name, builder) of the steps ``--deterministic`` runs: each builder
+    returns (train_step, state, batch) at the main path's shapes."""
+    from bacs_tpu_torch.train.learner import multihead_init
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 46)
+
+    def ce():
+        state = train_state(cfg, params, stats, torch.bfloat16, dev, key=seed_key(seed))
+        return ce_steps(dev)[0], state, synthetic_batch(BATCH, CROP, gen, dev)
+
+    def bacs():
+        state, _, _, _ = bacs_after_task0(cfg, seed, dev)
+        _, _, (train1, _, _) = bacs_steps(1, dev)
+        return train1, state, synthetic_batch(BATCH, CROP, gen, dev, 17)
+
+    def mib_plop(name):
+        state = train_state(cfg, params, stats, torch.bfloat16, dev, key=seed_key(seed))
+        ctx0, method, _ = method_steps(name, 0, dev)
+        state = method.end_task(state, ctx0, [])
+        ctx1, _, (train1, _, _) = method_steps(name, 1, dev)
+        multihead_init(state, ctx1.task)
+        batches = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, OLD_CLASSES + 1)
+                   for _ in range(2)]
+        if name == "loss.PlopLoss":
+            state = method.begin_task(state, ctx1, batches)
+        return train1, state, batches[0]
+
+    def er():
+        name = "loss.ExperienceReplay"
+        ctx0, method, _ = more_steps(name, 0, dev)
+        state = more_state(cfg, params, stats, torch.bfloat16, dev, name, ctx0, method,
+                           seed=seed)
+        fill = [synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, OLD_CLASSES)
+                for _ in range(ER_FILL_BATCHES)]
+        state = method.end_task(state, ctx0, fill)
+        ctx1, _, (train1, _, _) = more_steps(name, 1, dev)
+        multihead_init(state, ctx1.task)
+        return train1, state, synthetic_batch(MIB_PLOP_BATCH, CROP, gen, dev, OLD_CLASSES + 1)
+
+    def unet_ce():
+        ucfg = unet_cfg(5)
+        state = train_state(ucfg, *unet_variables(ucfg, seed), torch.bfloat16, dev,
+                            key=seed_key(seed))
+        return ce_steps(dev)[0], state, synthetic_batch(BATCH, CROP, gen, dev)
+
+    def unet_bacs():
+        ucfg = unet_cfg(5)
+        params_d, stats_d = unet_variables(ucfg, seed, use_bg_detector=True)
+        dim = len(params_d["seen_fg_network"]["base_bn"]["scale"])
+        state = train_state(ucfg, params_d, stats_d, torch.bfloat16, dev, key=seed_key(seed),
+                            prototypes=torch.zeros((N_TASKS, dim), device=dev),
+                            proto_counts=torch.zeros(N_TASKS, device=dev))
+        kw = dict(buffer_size=UNET_BACS_SLOTS, replay_minibatch_size=UNET_BACS_REPLAY)
+        ctx0, method, _ = bacs_steps(0, dev, **kw)
+        state.buffer = method.init_buffer(ctx0.task, (CROP, CROP), (CROP, CROP), device=dev)
+        fill = [synthetic_batch(UNET_BACS_BATCH, CROP, gen, dev, n_classes=16)
+                for _ in range(2)]
+        state = method.end_task(state, ctx0, fill)
+        _, _, (train1, _, _) = bacs_steps(1, dev, **kw)
+        return train1, state, synthetic_batch(UNET_BACS_BATCH, CROP, gen, dev, n_classes=17)
+
+    return (("ce", ce), ("bacs", bacs), ("mib", lambda: mib_plop("loss.MiB")),
+            ("plop", lambda: mib_plop("loss.PlopLoss")), ("er", er), ("unet_ce", unet_ce),
+            ("unet_bacs", unet_bacs))
+
+
+def cudnn_cost(train, state, batch, label) -> dict:
+    """Device busy ms of ``train`` with ``torch.backends.cudnn.deterministic``
+    off and on, in turns (off, on, on, off), two profiled steps a turn."""
+    turns = {"off": [], "on": []}
+    for flag in (False, True, True, False):
+        torch.backends.cudnn.deterministic = flag
+        train(state, batch)  # the algorithm choice for this setting
+        turns["on" if flag else "off"].append(busy_ms(lambda: train(state, batch)))
+    torch.backends.cudnn.deterministic = False
+    cost = min(turns["on"]) / min(turns["off"]) - 1
+    log(f"[46] {label} busy ms, cuDNN deterministic off {turns['off']} on {turns['on']}: "
+        f"{100 * cost:+.2f} % (best of each)")
+    return dict(turns, cost=cost)
+
+
+def deterministic_main(args) -> int:
+    """``--deterministic``: [46] the CE and BACS steps' device busy time with
+    cuDNN's deterministic algorithms off and on, then one step of CE, BACS,
+    MiB, PLOP, ER and UNet-5 (CE, and BACS with the detector) at the main
+    path's shapes under ``torch.use_deterministic_algorithms(True)``, each
+    from two copies of one state: no op raises, and the two copies end bit
+    for bit alike."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    # cuBLAS reads its workspace setting when it starts
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    cfg = network_cfg()
+    params, stats = seeded_variables(cfg, args.seed)
+    builders = dict(deterministic_states(cfg, params, stats, args.seed, dev))
+    cost = {}
+    for name in ("ce", "bacs"):
+        train, state, batch = builders[name]()
+        for _ in range(WARMUP_STEPS):
+            state, _ = train(state, batch)
+        cost[name] = cudnn_cost(train, state, batch, f"[9]'s {name} step" if name == "ce"
+                                else "[14]'s BACS step")
+        del state
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    results = {}
+    for name, make in builders.items():
+        try:
+            results[name] = steps_twice_equal(*make())
+        except RuntimeError as e:
+            results[name] = f"raised: {str(e).splitlines()[0]}"
+        log(f"[46] {name} step under torch.use_deterministic_algorithms(True): "
+            f"{results[name]}")
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    print(json.dumps({"cudnn_deterministic": cost, "deterministic_steps": results}))
+    print(nvidia_smi())
+    bad = {k: v for k, v in results.items() if v != "equal"}
+    assert not bad, bad
+    return 0
+
+
+UNET_PAIRED_SEEDS = tuple(range(42, 58))
+UNET_PAIRED_METHODS = ("ce", "mib", "bacs")
+FLAGSHIP_SEEDS = (44, 45, 46)
+TRACE_STEPS = 20
+TRACE_MOVE = 1e-6
+
+
+def reproducible_legs(out_dir: str) -> dict:
+    """[47] the UNet 15-1 disjoint leg (``protocol_compare``) twice for
+    seed 42 (CE, MiB, BACS: final weights and mIoUs bit-equal), MiB
+    sequential against disjoint (bit-equal), then the card's side of the
+    paired study: seeds 42-57 of the three methods, and BACS again with TF32
+    off.  The records go to ``out_dir/card_unet.jsonl``."""
+    from bacs_tpu_torch import protocol_compare as pc
+
+    p = dict(pc.PROTOCOLS["15-1"])
+
+    def leg(method, seed, mode="disjoint", tf32=True):
+        saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if not tf32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            r = pc.run_method(p, method, seed, extra_overrides=(f"training.mode={mode}",),
+                              device="cuda", digest=True)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        return dict(r, mode=mode, tf32=tf32)
+
+    first = [leg(m, 42) for m in UNET_PAIRED_METHODS]
+    again = [leg(m, 42) for m in UNET_PAIRED_METHODS]
+    for a, b in zip(first, again):
+        same = (a["weights_sha256"], a["final_miou_exact"]) == (b["weights_sha256"],
+                                                                b["final_miou_exact"])
+        log(f"[47] {a['method']} seed 42 twice: final mIoU {a['final_miou_exact']!r} "
+            f"{b['final_miou_exact']!r}, weights {a['weights_sha256'][:16]} "
+            f"{b['weights_sha256'][:16]}: {'bit-equal' if same else 'DIFFER'}")
+        assert same, (a, b)
+    seq = leg("mib", 42, mode="sequential")
+    mib = first[1]
+    same = (seq["weights_sha256"], seq["final_miou_exact"]) == (mib["weights_sha256"],
+                                                                mib["final_miou_exact"])
+    log(f"[47] MiB seed 42 sequential {seq['final_miou_exact']!r} against disjoint "
+        f"{mib['final_miou_exact']!r}: {'bit-equal' if same else 'DIFFER'}")
+    assert same, (seq, mib)
+    records = first + [leg(m, s) for s in UNET_PAIRED_SEEDS[1:] for m in UNET_PAIRED_METHODS]
+    records += [leg("bacs", s, tf32=False) for s in UNET_PAIRED_SEEDS]
+    with open(os.path.join(out_dir, "card_unet.jsonl"), "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    for m in UNET_PAIRED_METHODS:
+        v = [r["final_miou_exact"] for r in records if r["method"] == m and r["tf32"]]
+        log(f"[47] card {m} over seeds {UNET_PAIRED_SEEDS[0]}-{UNET_PAIRED_SEEDS[-1]}: mean "
+            f"{np.mean(v):.4f} ({' '.join(f'{x:.3f}' for x in v)})")
+    v = [r["final_miou_exact"] for r in records if not r["tf32"]]
+    log(f"[47] card bacs, TF32 off: mean {np.mean(v):.4f} ({' '.join(f'{x:.3f}' for x in v)})")
+    return dict(repeat=[(a["weights_sha256"], b["weights_sha256"])
+                        for a, b in zip(first, again)], n=len(records))
+
+
+def flagship_legs(out_dir: str) -> list:
+    """[48] ``15-1-flagship`` iCaRL and ER at seeds 44-46 on the card
+    (``out_dir/card_flagship.jsonl``)."""
+    from bacs_tpu_torch import protocol_compare as pc
+
+    p = dict(pc.PROTOCOLS["15-1-flagship"])
+    records = []
+    for seed in FLAGSHIP_SEEDS:
+        for m in ("icarl", "er"):
+            r = pc.run_method(p, m, seed, network="deeplab", backbone="resnet50",
+                              device="cuda", digest=True)
+            records.append(r)
+            log(f"[48] 15-1-flagship {m} seed {seed}: final mIoU {r['final_miou_exact']:.4f}, "
+                f"oldest {r['oldest_task_miou']}, task 0 {r['task0_miou']}, {r['seconds']} s")
+            with open(os.path.join(out_dir, "card_flagship.jsonl"), "a") as f:
+                f.write(json.dumps(r) + "\n")
+    return records
+
+
+class TraceDone(Exception):
+    """Raised by the traced train step once it has taken its steps."""
+
+
+def icarl_trace(seed: int, out_dir: str) -> dict:
+    """[49] the first ``TRACE_STEPS`` task-1 steps of iCaRL on the
+    ``15-1-flagship`` configuration (DeepLabV3-RN50, 256^2, f32), from one
+    task-0 state trained on the card: on the card with TF32 off, again with
+    every weight moved by up to 1e-6 of itself (the growth that rounding
+    alone gives), on the card with TF32 as shipped, and on the CPU, each
+    with the same draws.  The losses go to ``out_dir/icarl_trace.json``."""
+    from unittest import mock
+
+    import bacs_tpu_torch.train.loop as loop_mod
+    from bacs_tpu_torch import protocol_compare as pc
+    from bacs_tpu_torch.config import load_config
+    from bacs_tpu_torch.utils import checkpoint
+
+    p = dict(pc.PROTOCOLS["15-1-flagship"])
+    config = load_config("conf/continual_debug", "config", pc.method_overrides(
+        p, "icarl", seed, network="deeplab", backbone="resnet50"))
+    make_steps = loop_mod.make_steps
+
+    def task1_losses(trainer, move=0.0):
+        losses = []
+
+        def traced(*a, **k):
+            train, ev, put = make_steps(*a, **k)
+
+            def step(state, batch):
+                if move and not losses:
+                    g = torch.Generator().manual_seed(seed)
+                    with torch.no_grad():
+                        for q in state.model.parameters():
+                            u = torch.rand(q.shape, generator=g).to(q.device) * 2 - 1
+                            q.mul_(1 + move * u)
+                state, m = train(state, batch)
+                losses.append(float(m["loss"]))
+                if len(losses) == TRACE_STEPS:
+                    raise TraceDone
+                return state, m
+            return step, ev, put
+
+        with mock.patch.object(loop_mod, "make_steps", traced):
+            try:
+                trainer._run_task(1)
+            except TraceDone:
+                pass
+        return losses
+
+    t0 = time.perf_counter()
+    card = loop_mod.Trainer(config, device="cuda")
+    card._run_task(0)
+    path = checkpoint.save_task_checkpoint(os.path.join("build", "icarl_trace"), 0,
+                                           card.state, "final")
+    log(f"[49] iCaRL task 0 on the card: {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    for name, move, allow in (("card_f32", 0.0, False), ("card_f32_moved", TRACE_MOVE, False),
+                              ("card_tf32", 0.0, True)):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow
+        card.state = card.restore(0, path)
+        runs[name] = task1_losses(card, move)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del card
+    torch.cuda.empty_cache()
+    cpu = loop_mod.Trainer(config, device="cpu")
+    cpu.state = cpu.restore(0, path)
+    runs["cpu"] = task1_losses(cpu)
+    ref = np.array(runs["cpu"])
+    growth = np.abs(np.array(runs["card_f32_moved"]) - np.array(runs["card_f32"]))
+    apart = np.abs(np.array(runs["card_f32"]) - ref)
+    apart_tf32 = np.abs(np.array(runs["card_tf32"]) - ref)
+    for i in range(TRACE_STEPS):
+        log(f"[49] step {i}: CPU {ref[i]:.6f}, card f32 {runs['card_f32'][i]:.6f} "
+            f"(apart {apart[i]:.3g}), moved by {TRACE_MOVE:g} {growth[i]:.3g}, card TF32 "
+            f"{runs['card_tf32'][i]:.6f} (apart {apart_tf32[i]:.3g})")
+    out = dict(runs=runs, apart=apart.tolist(), growth=growth.tolist(),
+               apart_tf32=apart_tf32.tolist(), seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, "icarl_trace.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def reproducible_main(args) -> int:
+    """``--reproducible [--parts unet,flagship,trace]``: [47] the repeat
+    runs and the card's side of the UNet paired study, [48] the flagship's
+    iCaRL and ER seeds, [49] the iCaRL trace, card against CPU.  The records
+    go under ``args.out``; ``python -m bacs_tpu_torch.protocol_compare
+    --pair`` pairs them with the CPU's."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.abspath("build/triton"))
+    from bacs_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    build.load_library()
+    log(f"[1] build {time.perf_counter() - t0:.1f} s; nvidia-smi: {nvidia_smi()}")
+    out_dir = args.out
+    os.makedirs(out_dir, exist_ok=True)
+    parts = args.parts.split(",")
+    summary = {}
+    if "unet" in parts:
+        summary["unet"] = reproducible_legs(out_dir)
+    if "flagship" in parts:
+        summary["flagship"] = [(r["method"], r["seed"], r["final_miou_exact"])
+                               for r in flagship_legs(out_dir)]
+    if "trace" in parts:
+        trace = icarl_trace(42, out_dir)
+        summary["trace"] = dict(max_apart=max(trace["apart"]),
+                                max_growth=max(trace["growth"]))
+    print(json.dumps({"reproducible": summary, "seconds": time.perf_counter() - t0}))
+    print(nvidia_smi())
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5336,7 +5947,22 @@ def main() -> int:
     ap.add_argument("--host-data", action="store_true",
                     help="only build, write [36]'s VOC tree and release backbone, and run "
                          "the host data path's phase [44]")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="only build, time the CE and BACS steps with cuDNN's deterministic "
+                         "algorithms off and on, and run every method's step under "
+                         "torch.use_deterministic_algorithms(True) ([46])")
+    ap.add_argument("--reproducible", action="store_true",
+                    help="only build and run the repeat runs and the card's side of the "
+                         "paired studies ([47]-[49])")
+    ap.add_argument("--parts", default="unet,flagship,trace",
+                    help="with --reproducible: which of unet, flagship, trace")
+    ap.add_argument("--out", default=os.path.join("build", "reproducible"),
+                    help="with --reproducible: the directory of its records")
     args = ap.parse_args()
+    if args.deterministic:
+        return deterministic_main(args)
+    if args.reproducible:
+        return reproducible_main(args)
     if args.host_data:
         return host_data_main(args)
     if args.export_ood:
@@ -5401,6 +6027,15 @@ def main() -> int:
             k10_err = max(k10_err, e)
         log(f"[3] K10 (2, 8, 8, {c})->(128, 128) bfloat16: ok, preds equal at every "
             f"exact tie of integer logits, conf max abs err {e:.3g}")
+
+    # 45. the port-only kernels against their plain versions, then their
+    # launches counted over the whole main path from here
+    t0 = time.perf_counter()
+    draws = draw_checks(dev, args.seed)
+    resizes = resize_checks(dev, args.seed)
+    reset_new, read_new = new_kernel_counters()
+    reset_new()
+    log(f"[time] [45] {time.perf_counter() - t0:.1f} s")
 
     # 4. end-to-end f32, card (kernels) against CPU (plain versions)
     cfg = network_cfg()
@@ -6202,6 +6837,11 @@ def main() -> int:
         row["launches"] += row["host_data_launches"]
     # the registered ops that keep K5 and K10 as nodes of the exported graph
     rows[0]["exported_op"], rows[1]["exported_op"] = "bacs::abn_eval", "bacs::upsample_argmax_conf"
+    # the port-only kernels, launched by every phase since [45]
+    new_launches = read_new()
+    log(f"[45] port-only kernels' launches on the main path: {new_launches}")
+    assert all(v > 0 for v in new_launches.values()), new_launches
+    rows += new_kernel_rows(draws, resizes, new_launches)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.config import load_config
 from bacs_tpu_torch.methods import create_method
 from bacs_tpu_torch.models import create_network
@@ -49,14 +50,14 @@ def bacs_state(seed=0):
     buf.valid.fill_(True)
     buf.num_seen = 4
     return TrainState(model, opt, sched, step=3, epoch_step=1,
-                      generator=torch.Generator().manual_seed(seed),
+                      key=rng.key(seed),
                       prototypes=torch.randn(6, 128), proto_counts=torch.arange(6.0),
                       prev_model=frozen_copy(model), buffer=buf)
 
 
 def change_in_place(state):
     """Every tensor of the state changed where it lies, and the counters
-    and the generator moved on."""
+    and the key moved on."""
     with torch.no_grad():
         for t in list(state.model.state_dict().values()) + [
                 state.prototypes, state.proto_counts, state.buffer.images,
@@ -66,7 +67,7 @@ def change_in_place(state):
         for s in state.optimizer.state.values():
             s["momentum_buffer"].mul_(2)
     state.step += 5
-    state.generator.manual_seed(99)
+    state.key = rng.fold_in(state.key, 99)
 
 
 def assert_same(got, ref, where=""):

@@ -28,6 +28,7 @@ from bacs_tpu.ops import losses as jax_losses
 from bacs_tpu.ops import upsample_ce as jax_uce
 from bacs_tpu.train import buffer as jax_buffer
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.data import transforms
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.methods.bacs import random_autocontrast
@@ -235,12 +236,12 @@ def test_resize_region_and_flip_match_jax():
             ri, rl = ri[:, ::-1], rl[:, ::-1]
         close(img[n], ri)
         np.testing.assert_array_equal(lbl[n].numpy(), rl)
-    # drawn parameters: in range, one per image, on the generator's device
-    drawn = transforms.sample_crop_params(64, (32, 32), torch.Generator().manual_seed(0))
+    # drawn parameters: in range, one per image, on the draws' device
+    drawn = transforms.sample_crop_params(64, (32, 32), rng.KeyStream(rng.key(0)))
     assert ((drawn["ch"] >= 8) & (drawn["ch"] <= 32) & (drawn["i"] >= 0)
             & (drawn["i"] + drawn["ch"] <= 32 + 1e-4)).all()
     img, lbl = transforms.replay_augment(torch.from_numpy(images), torch.from_numpy(labels),
-                                         torch.Generator().manual_seed(1))
+                                         rng.KeyStream(rng.key(1)))
     assert img.shape == images.shape and lbl.dtype == torch.int32
 
 
@@ -306,7 +307,7 @@ def test_buffer_add_batch_matches_jax(image_dtype):
     for k in ("images", "logits", "labels", "n_classes"):
         close(got[k], ref[k], rtol=0, scale_atol=0)
     assert got["labels"].dtype == torch.int32 and got["images"].dtype == torch.float32
-    drawn = buffer.sample(buf, 7, torch.Generator().manual_seed(0))
+    drawn = buffer.sample(buf, 7, rng.KeyStream(rng.key(0)))
     assert sorted(drawn["indices"].tolist()) == list(range(7))
 
 

@@ -46,6 +46,7 @@ from bacs_tpu.train import buffer as jax_buffer
 from bacs_tpu.train import optim as jax_optim
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch import main as port_main
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.methods.base import proto_updates
@@ -76,7 +77,7 @@ def injected_lambdas(monkeypatch):
     monkeypatch.setattr(jax.random, "beta",
                         lambda key, a, b, shape=(), dtype=None: jnp.asarray(LAMBDAS))
     monkeypatch.setattr(port_bacs, "beta_sample",
-                        lambda a, n, generator, device: torch.from_numpy(LAMBDAS.copy()))
+                        lambda a, n, draws, device: torch.from_numpy(LAMBDAS.copy()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,7 +153,7 @@ def port_state():
     prev = frozen_copy(model)
     with torch.no_grad():
         prev.classifier_head.bias[0] += background_offset()[0]
-    return TrainState(model, opt, sched, generator=torch.Generator().manual_seed(0),
+    return TrainState(model, opt, sched, key=rng.key(0),
                       prototypes=torch.from_numpy(protos.copy()),
                       proto_counts=torch.from_numpy(counts.copy()),
                       prev_model=prev, buffer=bs.port_buffer_from(jax_buffer_filled()))
@@ -327,12 +328,12 @@ def test_mixup_takes_both_lambda_branches():
 
 @pytest.mark.parametrize("a", [1.0, 0.4])
 def test_beta_draws_follow_scipy(a):
-    """20 000 draws of the port's Beta(a, a) from one seeded generator: a
+    """20 000 draws of the port's Beta(a, a) from one seeded key stream: a
     Kolmogorov-Smirnov test against ``scipy.stats.beta`` (p > 0.01 at this
-    seed), the same draws again from the same seed, and the generator as
-    their only source (another seed, other draws)."""
+    seed), the same draws again from the same seed, and the key as their
+    only source (another seed, other draws)."""
     draw = lambda seed: port_bacs.beta_sample(  # noqa: E731
-        a, 20000, torch.Generator().manual_seed(seed), torch.device("cpu"))
+        a, 20000, rng.KeyStream(rng.key(seed)), torch.device("cpu"))
     x = draw(3)
     assert x.dtype == torch.float32 and bool(((x >= 0) & (x <= 1)).all())
     p = scipy.stats.kstest(x.numpy(), scipy.stats.beta(a, a).cdf).pvalue

@@ -43,6 +43,7 @@ from bacs_tpu.train import optim as jax_optim
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
 import bacs_tpu_torch.methods.bacs as port_bacs
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.methods.base import proto_updates
@@ -211,7 +212,7 @@ def port_task1_state():
     model = port_model()
     opt, sched = optim.make_optimizer(OPT_CFG, model.parameters(),
                                       optim.poly_schedule(0.01, MAX_ITERS))
-    return TrainState(model, opt, sched, generator=torch.Generator().manual_seed(0),
+    return TrainState(model, opt, sched, key=rng.key(0),
                       prototypes=torch.from_numpy(protos.copy()),
                       proto_counts=torch.from_numpy(counts.copy()),
                       prev_model=frozen_copy(model),

@@ -48,6 +48,7 @@ import pytest
 import torch
 
 import bacs_tpu_torch.methods.bacs as port_bacs
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch import parallel
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.methods import ModelContext, create_method
@@ -257,7 +258,7 @@ def rank_bacs(group, trees, buf, keys):
     load_flax_variables(model, *trees)
     opt, sched = optim.make_optimizer(OPT_CFG, model.parameters(),
                                       optim.poly_schedule(0.01, MAX_ITERS))
-    state = TrainState(model, opt, sched, generator=torch.Generator().manual_seed(0),
+    state = TrainState(model, opt, sched, key=rng.key(0),
                        prototypes=torch.from_numpy(protos.copy()),
                        proto_counts=torch.from_numpy(counts.copy()),
                        prev_model=frozen_copy(model), buffer=buf)

@@ -7,12 +7,24 @@ those of ``chip_smoke.py`` (phases 2, 3, 6, 7, 11, 12, 16, 17 and 21), at
 small shapes and at the serving and training shapes, and the repeatability
 of the upsample+loss family (two launches bit-equal); also the registered
 ops of K5 and K10 against the launches they wrap (phases 2 and 3's shapes)
-and as nodes of a ``torch.export`` program.
+and as nodes of a ``torch.export`` program.  The port-only kernels
+(``chip_smoke.py`` phase 45): the threefry draws bit-equal to their plain
+version and to the CPU's (the detector's dropout mask, a train transform's
+crop parameters); the resize kernels against ``F.interpolate`` at the main
+path's shapes, two launches bit-equal; and one CE and one BACS step at
+512^2 under ``torch.use_deterministic_algorithms(True)`` (in a process of
+its own: cuBLAS reads ``CUBLAS_WORKSPACE_CONFIG`` when it starts).
 """
+
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
 
+from chip_smoke import (
+    DRAW_SHAPE, DROPOUT_KEEP, RESIZE_CASES, check_resize)
 from chip_smoke import (
     K5_SHAPES, K10_CASES, check_abn, check_argmax, check_bacs, check_ce, check_ce_per_image, check_confusion,
     check_pseudo, check_repeatable, check_stem, check_uce, check_ukd, check_wce,
@@ -651,3 +663,75 @@ def test_export_keeps_each_op_as_a_node(cuda):
         before[0] + 1, before[1] + 1)
     ref = m(x)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# ---------------------------------------------------------------- port-only kernels
+
+
+@pytest.mark.parametrize("shape", [DRAW_SHAPE, (7,), (3, 5, 33), (1, 1)],
+                         ids=["mask", "1d", "3d", "one"])
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["bits", "uniform", "bernoulli"])
+def test_threefry_kernel_equals_plain(cuda, shape, mode):
+    from bacs_tpu_torch.ops import rng
+
+    kw = ({}, dict(lo=-0.3, span=2.8), dict(p=DROPOUT_KEEP))[mode]
+    k = rng.fold_in(rng.key(11), mode)
+    before = rng.threefry_fill.launches
+    got = rng.threefry_fill(k, shape, mode, cuda, **kw)
+    assert rng.threefry_fill.launches == before + 1
+    assert torch.equal(got, rng.fill_plain(k, shape, mode, cuda, **kw))
+    assert torch.equal(got.cpu(), rng.fill_plain(k, shape, mode, "cpu", **kw))
+    assert torch.equal(got, rng.threefry_fill(k, shape, mode, cuda, **kw))
+
+
+def test_card_draws_are_the_cpus(cuda):
+    """The same key draws the same dropout mask and crops on the card as on
+    the CPU, through the public draws the main path takes."""
+    from bacs_tpu_torch.data import transforms
+    from bacs_tpu_torch.ops import rng
+
+    k = rng.key(42)
+    assert torch.equal(rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, cuda).cpu(),
+                       rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, "cpu"))
+    crops = [transforms.sample_crop_params(16, (512, 512), rng.KeyStream(k), d)
+             for d in (cuda, "cpu")]
+    for f in crops[1]:
+        assert torch.equal(crops[0][f].cpu(), crops[1][f]), f
+    assert torch.equal(rng.uniform(k, (64,), -1.0, 3.0, cuda).cpu(),
+                       rng.uniform(k, (64,), -1.0, 3.0, "cpu"))
+
+
+@pytest.mark.parametrize("name,shape,dtype,size,align", RESIZE_CASES,
+                         ids=[c[0] for c in RESIZE_CASES])
+def test_resize_kernels_match_interpolate(cuda, name, shape, dtype, size, align):
+    check_resize(shape, dtype, size, align, cuda)
+
+
+@pytest.mark.parametrize("shape,size,align", [((2, 5, 7, 3), (16, 20), False),
+                                              ((2, 9, 7, 4), (5, 3), True),
+                                              ((1, 3, 3, 2), (1, 7), True)])
+def test_resize_kernels_at_odd_shapes(cuda, shape, size, align):
+    for dtype in DTYPES:
+        check_resize(shape, dtype, size, align, cuda)
+
+
+def test_ce_and_bacs_steps_run_deterministically(cuda):
+    """One CE and one BACS step at 512^2 (``chip_smoke.deterministic_states``)
+    under ``torch.use_deterministic_algorithms(True)``, each from two copies
+    of one state: no op raises and the copies end bit-equal."""
+    script = (
+        "import torch, chip_smoke as cs\n"
+        "dev = torch.device('cuda', 0)\n"
+        "cfg = cs.network_cfg()\n"
+        "params, stats = cs.seeded_variables(cfg, 0)\n"
+        "b = dict(cs.deterministic_states(cfg, params, stats, 0, dev))\n"
+        "torch.use_deterministic_algorithms(True)\n"
+        "for name in ('ce', 'bacs'):\n"
+        "    print(name, cs.steps_twice_equal(*b[name]()), flush=True)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=1200)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    assert "ce equal" in lines and "bacs equal" in lines, res.stdout

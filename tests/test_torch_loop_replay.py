@@ -54,6 +54,7 @@ import test_torch_bacs_step as bs
 import test_torch_loop_methods as lm
 import test_torch_more_methods_step as ms
 from bacs_tpu.train import buffer as jax_buffer
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.train import buffer as port_buffer
 from torch_port_helpers import _one_thread  # noqa: F401
@@ -151,20 +152,20 @@ def jax_injected():
 def port_injected():
     keys, crop = tables()
     cur = {"step": None, "uniforms": iter(())}
-    sample, add_batch, multinomial = port_buffer.sample, port_buffer.add_batch, torch.multinomial
+    sample, add_batch, categorical = port_buffer.sample, port_buffer.add_batch, rng.categorical
     autocontrast = port_bacs.random_autocontrast
 
-    def fake_sample(buf, n, generator=None, task_id=None):
+    def fake_sample(buf, n, draws=None, task_id=None):
         step, k = next_draw(cur)
         g = np.asarray(jax.random.gumbel(jnp.asarray(keys[step, k]), (buf.size,)))
         return sample(buf, n, keys=torch.from_numpy(g.copy()), task_id=task_id)
 
-    def fake_multinomial(scores, n, *a, **k):
+    def fake_categorical(key, logits, *a, **k):
         if cur["step"] is None:
-            return multinomial(scores, n, *a, **k)
-        return torch.tensor([PARTITION[cur["step"]]])
+            return categorical(key, logits, *a, **k)
+        return torch.tensor(PARTITION[cur["step"]])
 
-    def fake_augment(images, labels, generator=None):
+    def fake_augment(images, labels, draws=None):
         params = {k: torch.from_numpy(np.ascontiguousarray(v[cur["step"]]))
                   for k, v in crop.items()}
         return apply_crop_params(images, labels, params)
@@ -188,13 +189,13 @@ def port_injected():
         stack.enter_context(mock.patch.object(
             port_buffer, "add_batch",
             lambda *a, **k: add_batch(*a, **{**k, "uniforms": next(cur["uniforms"])})))
-        stack.enter_context(mock.patch.object(torch, "multinomial", fake_multinomial))
+        stack.enter_context(mock.patch.object(rng, "categorical", fake_categorical))
         for module in (port_er, port_bacs):
             stack.enter_context(mock.patch.object(module, "replay_augment", fake_augment))
         stack.enter_context(mock.patch.object(
             port_bacs, "random_autocontrast",
-            lambda x, generator=None, p=0.5: autocontrast(
-                x, generator, 1.0 if COIN[cur["step"]] else 0.0)))
+            lambda x, draws=None, p=0.5: autocontrast(
+                x, draws, 1.0 if COIN[cur["step"]] else 0.0)))
         yield
 
 

@@ -41,6 +41,7 @@ from bacs_tpu.train import optim as jax_optim
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
 from bacs_tpu.train.step import make_steps as jax_make_steps
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.models.deeplab import DeepLabV3
 from bacs_tpu_torch.models.norm import ABN
@@ -167,7 +168,7 @@ def port_state(method):
     model = port_model(cur)
     opt, sched = optim.make_optimizer(OPT_CFG, model.parameters(),
                                       optim.poly_schedule(0.01, MAX_ITERS))
-    state = TrainState(model, opt, sched, generator=torch.Generator().manual_seed(0),
+    state = TrainState(model, opt, sched, key=rng.key(0),
                        prev_model=frozen_copy(port_model(prev)))
     if method == "loss.PlopLoss":
         state.plop_thresholds = torch.from_numpy(thresholds.copy())

@@ -41,6 +41,7 @@ from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
 from bacs_tpu.train.step import make_steps as jax_make_steps
 import bacs_tpu_torch.methods.er as port_er
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.models.deeplab import DeepLabV3
@@ -263,7 +264,7 @@ def port_state(name):
     model = port_model(cur, detector)
     opt, sched = optim.make_optimizer(OPT_CFG, model.parameters(),
                                       optim.poly_schedule(0.01, MAX_ITERS))
-    state = TrainState(model, opt, sched, generator=torch.Generator().manual_seed(0),
+    state = TrainState(model, opt, sched, key=rng.key(0),
                        prototypes=torch.from_numpy(inp["protos"][detector].copy()),
                        proto_counts=torch.from_numpy(inp["counts"].copy()))
     if task_id > 0 and name != "er":

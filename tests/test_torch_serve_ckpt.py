@@ -92,11 +92,13 @@ def test_from_checkpoint_serves_the_trainers_model(trained):
 
 
 def test_from_checkpoint_of_another_device_type(trained, tmp_path):
-    """A checkpoint written on the card restores on the CPU: its generator's
-    state (a CUDA generator's 16 bytes) cannot continue here, so the
-    template's seeded generator stays; the weights are restored."""
+    """A checkpoint written on the card before the draws were
+    counter-based restores on the CPU: its CUDA generator's 16 bytes in
+    place of a key are passed over, the template's key stays; the weights
+    are restored."""
     config, ckpt, trainer = trained
     saved = torch.load(checkpoint.latest_checkpoint(ckpt)[1], weights_only=False)
+    saved.pop("key")
     saved["generator"] = torch.zeros(16, dtype=torch.uint8)
     other = str(tmp_path / "card")
     os.makedirs(os.path.join(other, "step_0"))

@@ -43,6 +43,7 @@ from bacs_tpu.models.norm import ABN as JaxABN
 from bacs_tpu.train.learner import transformer_init as jax_transformer_init
 from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.models import ABN, create_network
 from bacs_tpu_torch.models.layers import Attention, Block, Linear, _drop_path
 from bacs_tpu_torch.models.transeg import NEG_INF, TranSeg, TransformerHead
@@ -153,15 +154,15 @@ def test_block_matches_flax(kind, heads):
 def test_drop_path_drops_whole_samples():
     """Stochastic depth (rate 0 in the shipped head): in training each
     sample's branch is kept, scaled by 1 / (1 - rate), or zeroed whole,
-    drawn from the caller's generator; in eval mode and at rate 0 the
+    drawn from the caller's key stream; in eval mode and at rate 0 the
     branch passes unchanged."""
     x = torch.randn(64, 5, 3, generator=torch.Generator().manual_seed(0)) + 3.0
-    y = _drop_path(x, 0.5, True, torch.Generator().manual_seed(1))
+    y = _drop_path(x, 0.5, True, rng.KeyStream(rng.key(1)))
     kept = (y != 0).flatten(1).all(1)
     assert bool(((y == 0).flatten(1).all(1) | kept).all())
     torch.testing.assert_close(y[kept], x[kept] / 0.5, rtol=0, atol=0)
     assert 16 <= int(kept.sum()) <= 48
-    assert torch.equal(y, _drop_path(x, 0.5, True, torch.Generator().manual_seed(1)))
+    assert torch.equal(y, _drop_path(x, 0.5, True, rng.KeyStream(rng.key(1))))
     assert _drop_path(x, 0.5, False) is x and _drop_path(x, 0.0, True) is x
 
 

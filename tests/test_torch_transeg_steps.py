@@ -60,6 +60,7 @@ from bacs_tpu.train.state import TaskInfo as JaxTaskInfo
 from bacs_tpu.train.state import TrainState as JaxTrainState
 from bacs_tpu.train.step import make_steps as jax_make_steps
 import bacs_tpu_torch.methods.bacs as port_bacs
+from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.data.transforms import apply_crop_params
 from bacs_tpu_torch.methods import ModelContext, create_method
 from bacs_tpu_torch.models.norm import ABN
@@ -376,7 +377,7 @@ def port_task1_state():
     prev, _, stats = grown_variables()
     batch, items, protos, counts, _ = task1_inputs()
     model = port_model(16, True, (prev, stats))
-    state = TrainState(model, *port_opt(model), generator=torch.Generator().manual_seed(0),
+    state = TrainState(model, *port_opt(model), key=rng.key(0),
                        prototypes=torch.from_numpy(protos.copy()),
                        proto_counts=torch.from_numpy(counts.copy()),
                        prev_model=frozen_copy(model),
