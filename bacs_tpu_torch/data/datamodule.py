@@ -10,10 +10,10 @@ whole batches with the padding's labels ignored and ``n_real`` given.
   ``RandomState((seed, t, epoch).__hash__() % 2**31)``, the tiling of a
   task smaller than a batch, the subsets' ``RandomState(seed + t)`` and
   ``RandomState(seed + 77 + t)`` draws (``:197-305``).
-- The augmentation draws come from the epoch's key stream
-  (``ops/rng.py``), keyed by the same numpy draw that seeds JAX's key
-  (``:305``): the card and the CPU crop alike from one seed; the port and
-  JAX do not, as they split their keys differently.
+- The augmentation draws are JAX's (``ops/rng.py``): the epoch's key is
+  ``PRNGKey`` of the same numpy draw (``:305``), split once per batch
+  (``:319``) and per image by ``transforms.train_transform``; the card,
+  the CPU and JAX crop alike from one seed.
 - Host decode runs in a prefetch thread (``_prefetch``, two batches ahead)
   into pinned host memory; the consumer thread copies each batch to the
   card without blocking and transforms it there.  With
@@ -340,13 +340,13 @@ class DataModule:
         batches, seed, table = self.train_index_batches(epoch, n_devices)
         lo, hi = self._rows(n_devices, rank)
         table = torch.from_numpy(table).to(self.device)
-        # the epoch's key stream, keyed by its seed: each batch's crops take
-        # the next key, the same draws on the card and on the CPU
-        draws = rng.KeyStream(rng.key(seed))
+        # the epoch's key (bacs_tpu/data/datamodule.py:305), split once per batch
+        key = rng.key(seed)
         for imgs, lbls in self._device_stream(self.train_source, [b[lo:hi] for b in batches]):
+            key, sub = rng.split(key)
             if augment:
                 shard = {} if rank is None else {"rows": (lo, len(batches[0]))}
-                yield transforms.train_transform(draws, imgs, lbls, table, crop=self.crop_size,
+                yield transforms.train_transform(sub, imgs, lbls, table, crop=self.crop_size,
                                                  **shard)
             else:
                 yield transforms.eval_transform(imgs, lbls, table, crop=self.crop_size)

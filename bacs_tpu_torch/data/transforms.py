@@ -7,21 +7,23 @@ Port of ``bacs_tpu/data/transforms.py``: ``normalize_image`` /
 flip, then normalize and remap, ``:101-118``), ``eval_transform``
 (``:141-161``) and ``replay_augment`` (``:121-138``), which re-applies the
 train augmentation to buffered crops at every replay.  The draws
-(:func:`sample_crop_params`) take the next key of a key stream
-(``ops/rng.py``: the same numbers on the card and on the CPU); what they
-make of the pixels (:func:`apply_crop_params`, :func:`resize_region`) is a
-function of the parameters (i, j, ch, cw, flip), computed in the same
-float32 order as the JAX code, so the two packages agree on the same
-parameters.  The JAX function vmaps over single images; here the batch is
-a dimension, and nothing leaves the device.
+(:func:`sample_crop_params`) are JAX's, bit for bit: a key per image
+(``split(key, N)``), split in two for the crop and the flip and the crop's
+in four scalar uniforms, the region computed in f32 with XLA's CPU ``exp``
+(``ops/rng.py``), on the host, so the numbers are the same on the card and
+on the CPU; what they make of the pixels (:func:`apply_crop_params`,
+:func:`resize_region`) is a function of the parameters (i, j, ch, cw,
+flip), computed in the same float32 order as the JAX code.  The JAX
+function vmaps over single images; here the batch is a dimension, and
+nothing leaves the device.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from bacs_tpu_torch.ops import rng
@@ -54,29 +56,36 @@ def denormalize_image(x: torch.Tensor) -> torch.Tensor:
 def sample_crop_params(
     n: int,
     src_hw: Tuple[int, int],
-    draws: Optional[rng.KeyStream] = None,
+    key: Optional[rng.Key] = None,
     device: torch.device | str = "cpu",
     scale: Tuple[float, float] = (0.5, 2.0),
     ratio: Tuple[float, float] = (3 / 4, 4 / 3),
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """A RandomResizedCrop region and a flip per image, as
-    ``_sample_crop_params`` (``bacs_tpu/data/transforms.py:48-63``): area
-    uniform in scale x the source area, log aspect uniform in log(ratio),
-    sides clamped to [8, source side], top-left uniform.  Returns [n]
-    tensors ``i``, ``j``, ``ch``, ``cw`` (f32) and ``flip`` (bool) on
-    ``device``, from [5, n] uniforms of the next key of ``draws``.  They are
-    drawn and computed on the host and copied without waiting: the card's
-    ``exp`` differs from the CPU's in the last bit, and the crops must be
-    the same on every device."""
+    """A RandomResizedCrop region and a flip per image, JAX's draws from
+    ``key`` for a batch of ``n`` (``train_transform`` and ``_augment_one``,
+    ``_sample_crop_params``, ``bacs_tpu/data/transforms.py:48-63,90-118``):
+    area uniform in scale x the source area, log aspect uniform in
+    log(ratio), sides clamped to [8, source side], top-left uniform, a fair
+    coin for the flip.  ``rows`` = (first, count) keeps those images' draws.
+    Returns tensors ``i``, ``j``, ``ch``, ``cw`` (f32) and ``flip`` (bool)
+    on ``device``, drawn and computed on the host and copied without
+    waiting (the card's ``exp`` differs from the CPU's in the last bit)."""
     h, w = src_hw
-    u = rng.uniform(rng.stream_of(draws).next(), (5, n))
-    area = h * w * (scale[0] + u[0] * (scale[1] - scale[0]))
-    lo, hi = math.log(ratio[0]), math.log(ratio[1])
-    aspect = torch.exp(lo + u[1] * (hi - lo))
-    cw = torch.clamp(torch.sqrt(area * aspect), 8.0, w)
-    ch = torch.clamp(torch.sqrt(area / aspect), 8.0, h)
-    params = {"i": u[2] * (h - ch), "j": u[3] * (w - cw), "ch": ch, "cw": cw,
-              "flip": u[4] < 0.5}
+    per_image = np.asarray(rng.split(rng.given(key), n), np.int64)
+    if rows is not None:
+        per_image = per_image[rows[0]:rows[0] + rows[1]]
+    crop_keys, flip_keys = rng.split_keys(per_image, 2)
+    r_area, r_ratio, r_i, r_j = rng.split_keys(crop_keys, 4)
+    area = (h * w) * rng.scalar_uniforms(r_area, scale[0], scale[1])
+    # jnp.log of the ratio's ends, folded to f32 constants in the jit
+    lo, hi = (float(np.log(np.float32(r))) for r in ratio)
+    log_aspect = rng.scalar_uniforms(r_ratio, lo, hi)
+    cw = torch.clamp(rng.xla_sqrt(area * rng.xla_exp(log_aspect)), 8.0, w)
+    # XLA rewrites area / exp(x) as area * exp(-x)
+    ch = torch.clamp(rng.xla_sqrt(area * rng.xla_exp(-log_aspect)), 8.0, h)
+    params = {"i": rng.scalar_uniforms(r_i) * (h - ch), "j": rng.scalar_uniforms(r_j) * (w - cw),
+              "ch": ch, "cw": cw, "flip": rng.scalar_uniforms(flip_keys) < 0.5}
     return {k: rng.to_device(v, device) for k, v in params.items()}
 
 
@@ -132,12 +141,12 @@ def apply_crop_params(images: torch.Tensor, labels: torch.Tensor,
 
 
 def replay_augment(images: torch.Tensor, labels: torch.Tensor,
-                   draws: Optional[rng.KeyStream] = None):
+                   key: Optional[rng.Key] = None):
     """Re-augment a buffered batch at replay time (``replay_augment``,
     ``bacs_tpu/data/transforms.py:121-138``): a fresh crop and flip per
-    image, drawn from ``draws`` on the images' device."""
+    image, JAX's draws from ``key``, on the images' device."""
     params = sample_crop_params(images.shape[0], tuple(images.shape[1:3]),
-                                draws, images.device)
+                                key, images.device)
     return apply_crop_params(images, labels, params)
 
 
@@ -147,21 +156,20 @@ def remap_labels(labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[labels.long().clamp(0, 255)]
 
 
-def train_transform(draws: Optional[rng.KeyStream], images: torch.Tensor,
+def train_transform(key: Optional[rng.Key], images: torch.Tensor,
                     labels: torch.Tensor, table: torch.Tensor, crop: int = 512,
                     scale: Tuple[float, float] = (0.5, 2.0),
                     rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """uint8 images [N, H, W, 3] and labels [N, H, W] -> the augmented batch
     {image: normalized f32 [N, crop, crop, 3], label: int32 [N, crop, crop]}:
-    a crop region and a flip per image drawn from ``draws`` on the
+    a crop region and a flip per image, JAX's draws from ``key``, on the
     images' device, the region resized to ``crop`` (bilinear images,
     nearest labels), then normalize and remap.  ``rows`` = (first row,
     global batch): the images are rows ``first..first + N`` of a global
     batch, and the draws are the global batch's, those rows taken."""
     lo, total = rows or (0, images.shape[0])
-    params = sample_crop_params(total, tuple(images.shape[1:3]), draws,
-                                images.device, scale)
-    params = {k: v[lo:lo + images.shape[0]] for k, v in params.items()}
+    params = sample_crop_params(total, tuple(images.shape[1:3]), key, images.device,
+                                scale, rows=(lo, images.shape[0]))
     img, lbl = apply_crop_params(images, labels, params, out=crop)
     return {"image": normalize_image(img), "label": remap_labels(lbl, table)}
 

@@ -10,6 +10,14 @@ both packages decode and resize the same files to the same bytes:
     g++ -O3 -shared -fPIC bacs_tpu_torch/csrc/host/fastlabel.cpp \
         -o build/bacs_tpu_torch/libfastlabel_<hash>.so
 
+A third source, ``fastdraw.cpp``, draws ``jax.random``'s normals and
+truncated normals on the host for the initial weights (``ops/rng.py``),
+with no multiply-add fused but the ones it writes as ``fma()``:
+
+    g++ -O3 -march=native -ffp-contract=off -shared -fPIC -pthread \
+        bacs_tpu_torch/csrc/host/fastdraw.cpp \
+        -o build/bacs_tpu_torch/libfastdraw_<hash>.so
+
 The decoder takes the build line its source documents
 (``fastdecode.cpp:17-18``), the one the JAX package's shipped
 ``native/libfastdecode.so`` was built with: JAX loads that file as it is
@@ -42,9 +50,11 @@ from bacs_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
 
 HOST_DIR = CSRC_DIR / "host"
 GXX_FLAGS = {"fastdecode": ("-O3", "-march=native", "-shared", "-fPIC"),
-             "fastlabel": ("-O3", "-shared", "-fPIC")}
+             "fastlabel": ("-O3", "-shared", "-fPIC"),
+             "fastdraw": ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
+                          "-pthread")}
 # libraries each source links, after the output as the JAX package orders them
-LIBS = {"fastdecode": ("-ljpeg", "-lpng"), "fastlabel": ()}
+LIBS = {"fastdecode": ("-ljpeg", "-lpng"), "fastlabel": (), "fastdraw": ()}
 # seconds of each compile this process ran (none where the library was built)
 build_seconds: dict = {}
 

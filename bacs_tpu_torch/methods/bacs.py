@@ -26,12 +26,12 @@ one forward; the statistics then come from the merged batch, a departure
 from the reference that JAX makes on purpose).
 
 The buffer lives on the card, and both replay batches are drawn there
-every step from the step's key stream (``ops/rng.py``), with no host read.
+every step, with no host read, from the step's key split as
+``bacs_tpu/methods/bacs.py`` splits it (``ops/rng.py``: JAX's draws).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -51,12 +51,9 @@ from bacs_tpu_torch.train.state import frozen_copy
 
 # images per chunk of the teacher distillation's full-resolution pass
 DISTILL_CHUNK = 2
-# candidates per draw of the Gamma sampler: a draw whose every candidate is
-# rejected (probability below 0.05 ** 16 each) takes the distribution's mode
-GAMMA_ROUNDS = 16
 
 
-def random_autocontrast(x: torch.Tensor, draws: Optional[rng.KeyStream] = None,
+def random_autocontrast(x: torch.Tensor, key: Optional[rng.Key] = None,
                         p: float = 0.5) -> torch.Tensor:
     """Batch-level RandomAutocontrast on float images [N, H, W, C]
     (reference: bacs_loss.py:108-114): each image's channels stretched to
@@ -65,41 +62,15 @@ def random_autocontrast(x: torch.Tensor, draws: Optional[rng.KeyStream] = None,
     lo = x.amin(dim=(1, 2), keepdim=True)
     hi = x.amax(dim=(1, 2), keepdim=True)
     stretched = (x - lo) / torch.clamp(hi - lo, min=1e-8)
-    apply = rng.bernoulli(rng.stream_of(draws).next(), p, (), x.device)
+    apply = rng.bernoulli(rng.given(key), p, (), x.device)
     return torch.where(apply, stretched, x)
 
 
-def _gamma(a: float, n: int, draws: Optional[rng.KeyStream]) -> torch.Tensor:
-    """[n] draws of Gamma(a, 1) from ``draws`` by Marsaglia and Tsang's
-    method, on the host (its ``log`` and ``erfinv`` then give the same bits
-    whatever the step's device): ``GAMMA_ROUNDS`` candidates per draw from
-    normals and uniforms, the first accepted one kept; for ``a < 1`` a
-    Gamma(a + 1) draw times ``U ** (1 / a)``."""
-    if a <= 0:
-        raise ValueError(f"Gamma shape must be positive, got {a}")
-    d = (a + 1.0 if a < 1 else a) - 1.0 / 3.0
-    c = 1.0 / math.sqrt(9.0 * d)
-    draws = rng.stream_of(draws)
-    z = rng.normal(draws.next(), (GAMMA_ROUNDS, n))
-    u = rng.uniform(draws.next(), (GAMMA_ROUNDS, n))
-    v = (1.0 + c * z) ** 3
-    log_v = torch.log(torch.clamp(v, min=torch.finfo(v.dtype).tiny))
-    ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v + d * log_v)
-    first = ok.int().argmax(dim=0, keepdim=True)
-    g = torch.where(ok.any(dim=0), d * v.gather(0, first)[0], d)
-    if a < 1:
-        g = g * rng.uniform(draws.next(), n) ** (1.0 / a)
-    return g
-
-
-def beta_sample(a: float, n: int, draws: Optional[rng.KeyStream],
-                device: torch.device) -> torch.Tensor:
-    """[n] draws of Beta(a, a), as ``jax.random.beta``, from ``draws``
-    (torch's ``Beta`` takes no key): X / (X + Y) of two Gamma(a) draws,
-    computed on the host and copied to ``device`` without waiting."""
-    x = _gamma(a, n, draws)
-    y = _gamma(a, n, draws)
-    return rng.to_device(x / torch.clamp(x + y, min=torch.finfo(x.dtype).tiny), device)
+def beta_sample(a: float, n: int, key: rng.Key, device: torch.device) -> torch.Tensor:
+    """[n] draws of Beta(a, a), ``jax.random.beta(key, a, a, (n,))`` bit
+    for bit (``rng.beta``: on the host, then copied to ``device`` without
+    waiting)."""
+    return rng.beta(key, a, a, n, device)
 
 
 def _distill_chunk(old_att, new_att, keep, lkd_shape):
@@ -178,16 +149,17 @@ class BACSMethod(ExperienceReplayMethod):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
         use_der = task.task_id > 0
+        r_main, r_replay = rng.split(rng.given(key), 3)[1:] if train else (key, None)
         if train and self.pseudo_label and state.prev_model is not None:
             mask = self._pseudo_labels(ctx, state, image, mask)
         need_distill = use_der and train and self.lkd > 0
         base = self.compute_base_loss(
-            ctx, state, image, mask, train, draws,
+            ctx, state, image, mask, train, r_main,
             use_weighted_ce=self.bg_weighted_ce and use_der,
             need_old_out=need_distill,
         )
@@ -199,7 +171,7 @@ class BACSMethod(ExperienceReplayMethod):
         updates = proto_updates(base)
         if train and use_der and state.buffer is not None and (
                 self.alpha > 0 or self.beta > 0):
-            replay_loss, updates = self._replay_der_loss(ctx, state, draws, updates)
+            replay_loss, updates = self._replay_der_loss(ctx, state, r_replay, updates)
             loss = loss + replay_loss
         return loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
@@ -244,11 +216,12 @@ class BACSMethod(ExperienceReplayMethod):
 
     # ------------------------------------------------------------------
 
-    def _dark_logits(self, ctx, state, draws):
+    def _dark_logits(self, ctx, state, key):
         """alpha term (reference: bacs_loss.py:387-431)."""
-        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, draws)
-        inputs = random_autocontrast(mem["images"], draws)
-        out = ctx.forward(state.model, inputs, True, draws)
+        r_sample, r_aug, r_fwd = rng.split(rng.given(key), 3)
+        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, r_sample)
+        inputs = random_autocontrast(mem["images"], r_aug)
+        out = ctx.forward(state.model, inputs, True, r_fwd)
         return self._dark_from_sem(ctx, out.sem_logits[..., : ctx.n_cur], mem)
 
     def _grow_mask(self, ctx, n_cls: torch.Tensor) -> torch.Tensor:
@@ -304,20 +277,22 @@ class BACSMethod(ExperienceReplayMethod):
         start = 1 if self.ignore_rep_bg else 0
         return ((c >= start) & (c < ctx.task.old_classes)).float()
 
-    def _dark_pp(self, ctx, state, draws, updates):
+    def _dark_pp(self, ctx, state, key, updates):
         """beta term (reference: bacs_loss.py:342-385): the buffered
         canonical crops get the train augmentation at every replay
         (base_datamodule.py:433-451), and the batch folds into the
         prototypes on top of the main batch's fold (base_loss.py:219-220)."""
         if not self.dark_plus_plus:
             return 0.0, updates
-        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, draws)
+        r_sample, r_fwd, r_mix = rng.split(rng.given(key), 3)
+        mem = buffer_lib.sample(state.buffer, self.replay_minibatch_size, r_sample)
         weights = self._old_class_weights(ctx, mem["images"].device)
         if self.mixup:
-            return self._dark_pp_mixup(ctx, state, draws, mem, weights), updates
-        images, labels = replay_augment(mem["images"], mem["labels"], draws)
+            return self._dark_pp_mixup(ctx, state, r_fwd, r_mix, mem, weights), updates
+        r_fwd, r_aug = rng.split(r_fwd)
+        images, labels = replay_augment(mem["images"], mem["labels"], r_aug)
         base = self.compute_base_loss(
-            ctx, state, images, labels, True, draws,
+            ctx, state, images, labels, True, r_fwd,
             class_weights=weights,
             is_replay=True,
             proto_base=(updates.get("prototypes", state.prototypes),
@@ -325,7 +300,7 @@ class BACSMethod(ExperienceReplayMethod):
         )
         return base.loss, proto_updates(base, updates)
 
-    def _dark_pp_mixup(self, ctx, state, draws, mem, weights):
+    def _dark_pp_mixup(self, ctx, state, r_fwd, r_mix, mem, weights):
         """The beta term on co-occurrence blends (reference: buffer.py:275-303
         ``_co_occurance_image_blend`` and bacs_loss.py:361-374): each
         replayed item's partner is the item of the batch that maximises its
@@ -352,18 +327,18 @@ class BACSMethod(ExperienceReplayMethod):
         sim = sim.masked_fill(torch.eye(b, dtype=torch.bool, device=sim.device), -torch.inf)
         partner = sim.argmax(dim=1)
         n_merged = (sets.sum(dim=1) + sets[partner].sum(dim=1)).float()
-        draw = beta_sample(self.mixup_alpha, b, draws, n_merged.device)
+        draw = beta_sample(self.mixup_alpha, b, r_mix, n_merged.device)
         lam = torch.where(n_merged > self.mixup_threshold, 0.9, draw)
         lam4 = lam[:, None, None, None]
         mixed = lam4 * mem["images"] + lam4 * mem["images"][partner]
-        logits = ctx.forward(state.model, mixed, True, draws).logits[..., : ctx.n_cur]
+        logits = ctx.forward(state.model, mixed, True, r_fwd).logits[..., : ctx.n_cur]
         ce_a = cross_entropy(logits, mem["labels"], self.ignore_index, class_weights=weights,
                              reduction="none")
         ce_b = cross_entropy(logits, mem["labels"][partner], self.ignore_index,
                              class_weights=weights, reduction="none")
         return (lam[:, None, None] * ce_a + (1 - lam)[:, None, None] * ce_b).mean()
 
-    def _merged_replay_der_loss(self, ctx, state, draws, updates):
+    def _merged_replay_der_loss(self, ctx, state, key, updates):
         """Both replay batches through one forward (``loss.merged_replay``,
         JAX ``_merged_replay_der_loss``): the autocontrasted alpha sample and
         the re-augmented beta sample, concatenated.  The alpha term comes
@@ -372,12 +347,15 @@ class BACSMethod(ExperienceReplayMethod):
         into the prototypes.  The batch statistics are the merged batch's,
         a departure from the reference's two forwards."""
         n = self.replay_minibatch_size
-        mem_dl = buffer_lib.sample(state.buffer, n, draws)
-        inputs_dl = random_autocontrast(mem_dl["images"], draws)
-        mem_pp = buffer_lib.sample(state.buffer, n, draws)
-        imgs_pp, labs_pp = replay_augment(mem_pp["images"], mem_pp["labels"], draws)
+        r_alpha, r_beta = rng.split(rng.given(key))
+        rs_a, r_aug_a, r_fwd = rng.split(r_alpha, 3)
+        mem_dl = buffer_lib.sample(state.buffer, n, rs_a)
+        inputs_dl = random_autocontrast(mem_dl["images"], r_aug_a)
+        rs_b, r_aug_b = rng.split(r_beta)
+        mem_pp = buffer_lib.sample(state.buffer, n, rs_b)
+        imgs_pp, labs_pp = replay_augment(mem_pp["images"], mem_pp["labels"], r_aug_b)
         big = torch.cat([inputs_dl, imgs_pp.to(inputs_dl.dtype)])
-        out = ctx.forward(state.model, big, True, draws)
+        out = ctx.forward(state.model, big, True, r_fwd)
         sem = out.sem_logits[..., : ctx.n_cur]
         dark = self._dark_from_sem(ctx, sem[:n], mem_dl)
         half = NetOutput(out.sem_logits[n:], out.penultimate[n:], (), out.out_hw)
@@ -391,23 +369,24 @@ class BACSMethod(ExperienceReplayMethod):
                 out.penultimate[n:], labs_pp, ctx.task, ctx.group)
         return self.alpha * dark + self.beta * pp, updates
 
-    def _replay_der_loss(self, ctx, state, draws, updates):
+    def _replay_der_loss(self, ctx, state, key, updates):
         """(reference: bacs_loss.py:433-463)."""
         if (self.merged_replay and self.alpha != 0 and self.beta != 0
                 and self.dark_plus_plus and not self.mixup):
-            return self._merged_replay_der_loss(ctx, state, draws, updates)
+            return self._merged_replay_der_loss(ctx, state, key, updates)
+        r_alpha, r_beta = rng.split(rng.given(key))
         total = 0.0
         if self.alpha != 0:
-            total = total + self.alpha * self._dark_logits(ctx, state, draws)
+            total = total + self.alpha * self._dark_logits(ctx, state, r_alpha)
         if self.beta != 0:
-            pp, updates = self._dark_pp(ctx, state, draws, updates)
+            pp, updates = self._dark_pp(ctx, state, r_beta, updates)
             total = total + self.beta * pp
         return total, updates
 
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def end_task(self, state, ctx: ModelContext, data: Any, draws=None):
+    def end_task(self, state, ctx: ModelContext, data: Any, key=None):
         """Fill the reservoir with this task's data (reference:
         bacs_loss.py:133-203 ``on_train_end``), in the reference's order:
         the prototype sweep, the previous-model snapshot, then the fill.
@@ -418,9 +397,11 @@ class BACSMethod(ExperienceReplayMethod):
         pre-drift ones.  With the seen detector the reference probes the
         penultimate path a second time per batch, so the statistics of
         ``penultimate_stats_keys`` (the backbone) drift twice: a second
-        forward here, whose other statistics are put back.  ``draws`` (a
-        key stream) draws the reservoir's uniforms and the fill's dropout
-        (default: keyed by 4321 + task id, as JAX seeds its key)."""
+        forward here, whose other statistics are put back.  ``key``
+        (default JAX's ``PRNGKey(4321 + task id)``) is split once per batch,
+        and each batch's key in three: the fill's forward, the second
+        forward and the reservoir's uniforms (``bacs_tpu/methods/
+        bacs.py:476-477,522-524``)."""
         task = ctx.task
         if self.track_prototypes:
             state = self._sweep_prototypes(state, ctx, data)
@@ -428,15 +409,17 @@ class BACSMethod(ExperienceReplayMethod):
         if state.buffer is None or not (self.alpha > 0 or self.beta > 0):
             return state
         model = state.model
-        if draws is None:
-            draws = rng.KeyStream(rng.key(4321 + task.task_id))
+        if key is None:
+            key = rng.key(4321 + task.task_id)
         train_mode = self.boundary_train_mode
         keys = tuple(model.penultimate_stats_keys)
         w = torch.ones(ctx.n_cur, device=state.buffer.images.device)
         w[0] = 0.0
         for batch in data:
             image, labels = batch["image"], batch["label"]
-            out = ctx.forward(model, image, train_mode, draws)
+            key, sub = rng.split(key)
+            r1, r2, r_buf = rng.split(sub, 3)
+            out = ctx.forward(model, image, train_mode, r1)
             nll = cross_entropy(out.logits[..., : ctx.n_cur], labels, self.ignore_index,
                                 class_weights=w, reduction="none")
             losses = -nll.reshape(image.shape[0], -1).mean(dim=1)
@@ -445,11 +428,11 @@ class BACSMethod(ExperienceReplayMethod):
             if self.use_bg_detector and train_mode:
                 kept = {k: b.clone() for k, b in model.named_buffers()
                         if not k.startswith(tuple(key + "." for key in keys))}
-                ctx.forward(model, image, True, draws)
+                ctx.forward(model, image, True, r2)
                 for k, b in model.named_buffers():
                     if k in kept:
                         b.copy_(kept[k])
             buffer_lib.add_batch(state.buffer, image, sem, labels, losses,
                                  task_id=task.task_id, n_classes=ctx.n_cur,
-                                 ignore_index=self.ignore_index, draws=draws)
+                                 ignore_index=self.ignore_index, key=r_buf)
         return state

@@ -84,9 +84,9 @@ class ModelContext:
     group: Any = None
 
     def forward(self, model: nn.Module, x: torch.Tensor, train: bool,
-                draws: Optional[rng.KeyStream] = None) -> NetOutput:
+                key: Optional[rng.Key] = None) -> NetOutput:
         model.train(train)
-        return model(x, draws=draws)
+        return model(x, key=key)
 
     @torch.no_grad()
     def forward_prev(self, state, x: torch.Tensor) -> NetOutput:
@@ -189,10 +189,10 @@ class Method:
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         base = self.compute_base_loss(ctx, state, batch["image"], batch["label"],
-                                      train, draws)
+                                      train, key)
         return base.loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
             output=base.out,
@@ -298,7 +298,7 @@ class Method:
         image: torch.Tensor,
         labels: torch.Tensor,
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
         task_num: int = -1,
         class_weights: Optional[torch.Tensor] = None,
         use_weighted_ce: bool = False,
@@ -312,7 +312,7 @@ class Method:
         on top of the main batch's prototypes."""
         task = ctx.task
         model = state.model
-        out = ctx.forward(model, image, train, draws)
+        out = ctx.forward(model, image, train, key)
         old_out = None
         if need_old_out and train and state.prev_model is not None:
             old_out = ctx.forward_prev(state, image)

@@ -18,8 +18,8 @@ Port of ``bacs_tpu/methods/er.py`` (reference loss/experience_replay.py):
 
 The main batch's loss is ``compute_base_loss``'s CE (K1; the seen-weighted
 CE, K3, with ``bg_weighted_ce`` at a task > 0).  The replay partition, the
-batch and the augmentation are drawn from the step's key stream
-(``ops/rng.py``), with no host read.  ``BACSMethod`` inherits ``__init__``
+batch and the augmentation are drawn from the step's key split as JAX
+splits it (``ops/rng.py``), with no host read.  ``BACSMethod`` inherits ``__init__``
 and ``init_buffer`` and overrides the rest.
 """
 
@@ -118,17 +118,18 @@ class ExperienceReplayMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         use_er = ctx.task.task_id > 0
+        key, r_sample = rng.split(rng.given(key)) if train else (key, None)
         base = self.compute_base_loss(
-            ctx, state, batch["image"], batch["label"], train, draws,
+            ctx, state, batch["image"], batch["label"], train, key,
             use_weighted_ce=self.bg_weighted_ce and use_er and train,
             same_task=self.same_task,
         )
         loss = base.loss
         if train and use_er and state.buffer is not None:
-            loss = loss + self.alpha * self.alpha * self._replay_er_loss(ctx, state, draws)
+            loss = loss + self.alpha * self.alpha * self._replay_er_loss(ctx, state, r_sample)
         return loss, StepAux(
             sem_logits=base.out.sem_logits[..., : ctx.n_cur],
             output=base.out,
@@ -136,46 +137,46 @@ class ExperienceReplayMethod(Method):
             state_updates=proto_updates(base),
         )
 
-    def _sample_replay(self, state, draws: Optional[rng.KeyStream], task_id: int):
+    def _sample_replay(self, state, key: rng.Key, task_id: int):
         """A replay batch and its task (a device int; -1 for a flat buffer):
-        from task 2 on, a partition drawn by ``partition_scores``, then a
-        uniform sample within it (reference er.py:77-97,305-344)."""
+        from task 2 on, a partition drawn by ``partition_scores``
+        (``jax.random.choice`` with ``p``), then a uniform sample within it
+        (reference er.py:77-97,305-344), the keys split as
+        ``bacs_tpu/methods/er.py:123-149`` splits them."""
         buf = state.buffer
         n = self.replay_minibatch_size
         if not self.same_task:
-            mem = buffer_lib.sample(buf, n, draws)
+            mem = buffer_lib.sample(buf, n, key)
             mem["task_id"] = -1
             return mem
+        r_task, r_batch = rng.split(rng.given(key))
         if task_id > 1:
             scores = partition_scores(buf.importance, buf.valid, task_id, self.buffer_size)
-            # the Gumbel-max draw of the partition (categorical over the
-            # log-scores), no host read; its logarithms round on the scores'
-            # device, so a near-tie of two partitions may break otherwise on
-            # the card than on the CPU
-            part = rng.categorical(rng.stream_of(draws).next(), torch.log(scores)).int()
+            part = rng.choice(r_task, scores).int()
         else:
             part = torch.zeros((), dtype=torch.int32, device=buf.valid.device)
-        mem = buffer_lib.sample(buf, n, draws, task_id=part)
+        mem = buffer_lib.sample(buf, n, r_batch, task_id=part)
         mem["task_id"] = part
         return mem
 
-    def _replay_er_loss(self, ctx: ModelContext, state,
-                        draws: Optional[rng.KeyStream]) -> torch.Tensor:
+    def _replay_er_loss(self, ctx: ModelContext, state, key: rng.Key) -> torch.Tensor:
         """The class-weighted CE (K4) of a replayed batch, re-augmented
         (the buffer holds canonical crops), where the classes 1 .. end of
         the replayed task weigh 1 (reference er.py:244-272); the seen
         detector trains on the replayed task's head (``same_task``)."""
         task = ctx.task
-        mem = self._sample_replay(state, draws, task.task_id)
+        mem = self._sample_replay(state, key, task.task_id)
         cls = torch.arange(task.nb_current_classes, device=mem["labels"].device)
         if self.same_task:
             end = task.initial_classes + task.increment * mem["task_id"]
         else:
             end = task.old_classes
         weights = ((cls >= 1) & (cls < end)).float()
-        images, labels = replay_augment(mem["images"], mem["labels"], draws)
+        # JAX splits the sample's key again here (er.py:167)
+        _, r_fwd, r_aug = rng.split(rng.given(key), 3)
+        images, labels = replay_augment(mem["images"], mem["labels"], r_aug)
         return self.compute_base_loss(
-            ctx, state, images, labels, True, draws, task_num=mem["task_id"],
+            ctx, state, images, labels, True, r_fwd, task_num=mem["task_id"],
             class_weights=weights, is_replay=True, same_task=self.same_task,
         ).loss
 
@@ -185,8 +186,8 @@ class ExperienceReplayMethod(Method):
     def end_task(self, state, ctx: ModelContext, data: Any):
         """Offer the task's batches to the buffer, the model in eval mode,
         until ``buffer_size`` items were offered (reference er.py:112-151),
-        then the base hooks.  The reservoir's uniforms come from a key
-        stream keyed by 1234 + task id, as JAX seeds its key."""
+        then the base hooks.  The reservoir's uniforms come from JAX's keys:
+        ``PRNGKey(1234 + task id)`` split once per batch."""
         task = ctx.task
         if state.buffer is None:
             return super().end_task(state, ctx, data)
@@ -197,7 +198,7 @@ class ExperienceReplayMethod(Method):
             # gets a new Buffer, er.py:36-56)
             buf.num_seen = 0
             buf.class_counts = torch.zeros_like(buf.class_counts)
-        draws = rng.KeyStream(rng.key(1234 + task.task_id))
+        key = rng.key(1234 + task.task_id)
         w = torch.ones(ctx.n_cur, device=buf.images.device)
         w[0] = 0.0
         seen = 0
@@ -209,20 +210,21 @@ class ExperienceReplayMethod(Method):
             losses = -nll.reshape(image.shape[0], -1).mean(dim=1)
             sem = F.pad(out.sem_logits[..., : ctx.n_cur].float(),
                         (0, task.num_classes - ctx.n_cur))
-            self._buffer_add(buf, image, sem, labels, losses, task, part, draws)
+            key, sub = rng.split(key)
+            self._buffer_add(buf, image, sem, labels, losses, task, part, sub)
             seen += image.shape[0]
             if seen >= self.buffer_size:  # (reference er.py:149-150)
                 break
         return super().end_task(state, ctx, data)
 
     def _buffer_add(self, buf, image, sem, labels, losses, task, part,
-                    draws: Optional[rng.KeyStream] = None, uniforms=None):
+                    key: Optional[rng.Key] = None, uniforms=None):
         """Reservoir-add a batch, in place: into the whole buffer, or into
         the partition ``part`` = (first slot, slots), whose views take the
         writes while its reservoir count and class counts ride the buffer's
         (reset at each task's end)."""
         kw = dict(task_id=task.task_id, n_classes=task.nb_current_classes,
-                  ignore_index=self.ignore_index, uniforms=uniforms, draws=draws)
+                  ignore_index=self.ignore_index, uniforms=uniforms, key=key)
         if part is None:
             return buffer_lib.add_batch(buf, image, sem, labels, losses, **kw)
         offset, size = part

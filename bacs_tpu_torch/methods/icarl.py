@@ -33,10 +33,10 @@ class IcarlMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         image, mask = batch["image"], batch["label"]
-        out = ctx.forward(state.model, image, train, draws)
+        out = ctx.forward(state.model, image, train, key)
         logits = out.logits[..., : ctx.n_cur]
         if state.prev_model is not None and train:
             old = ctx.forward_prev(state, image).logits[..., : ctx.task.old_classes]

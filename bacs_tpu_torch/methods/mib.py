@@ -40,16 +40,16 @@ class MiBMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         image, mask = batch["image"], batch["label"]
         if self.bg_weighted_ce and train:
-            base = self.compute_base_loss(ctx, state, image, mask, train, draws,
+            base = self.compute_base_loss(ctx, state, image, mask, train, key,
                                           use_weighted_ce=ctx.task.old_classes != 0)
             out, loss = base.out, base.loss
             updates = proto_updates(base)
         else:
-            out = ctx.forward(state.model, image, train, draws)
+            out = ctx.forward(state.model, image, train, key)
             loss = self._mib_ce(ctx, out, mask, train)
             updates = self.prototype_updates(ctx, state, out.penultimate, mask, train)
         if state.prev_model is not None and train:

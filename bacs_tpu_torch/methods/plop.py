@@ -90,19 +90,19 @@ class PlopMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
         distill = state.prev_model is not None and train
         old_out = None
         if self.bg_weighted_ce:
-            base = self.compute_base_loss(ctx, state, image, mask, train, draws,
+            base = self.compute_base_loss(ctx, state, image, mask, train, key,
                                           use_weighted_ce=distill, need_old_out=distill)
             out, old_out, loss = base.out, base.old_out, base.loss
             updates = proto_updates(base)
         else:
-            out = ctx.forward(state.model, image, train, draws)
+            out = ctx.forward(state.model, image, train, key)
             if distill:
                 old_out = ctx.forward_prev(state, image)
                 loss = self._pseudo_ce(ctx, state, out, old_out, mask)

@@ -77,11 +77,11 @@ class SDRMethod(Method):
         state,
         batch: Dict[str, torch.Tensor],
         train: bool,
-        draws: Optional[rng.KeyStream] = None,
+        key: Optional[rng.Key] = None,
     ) -> Tuple[torch.Tensor, StepAux]:
         task = ctx.task
         image, mask = batch["image"], batch["label"]
-        out = ctx.forward(state.model, image, train, draws)
+        out = ctx.forward(state.model, image, train, key)
         sem = out.sem_logits[..., : ctx.n_cur]
         if task.task_id > 0:
             loss = self.uce_with_upsample(ctx, out, mask)

@@ -11,8 +11,11 @@ the heads NHWC ones (``NetOutput.penultimate``).
 The trunk's norm is Flax ``nn.BatchNorm(momentum=0.9)``
 (``models/norm.py:BatchNorm``, shared with UNet).
 Dropout draws its mask (``ops/rng.bernoulli``, the keep probability) from
-the next key of the key stream the forward is given (the train step's):
-the same mask on the card (``csrc/threefry.cu``) as on the CPU.
+the key Flax's ``nn.Dropout`` takes: the forward's key with the module path
+``seen_fg_network/dropout`` and the scope's first draw folded in
+(``rng.scope_key``), over the NHWC shape of the JAX trunk's output, so the
+mask is JAX's, and the same on the card (``csrc/threefry.cu``) as on the
+CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from bacs_tpu_torch.ops.interpolate import resize_bilinear
 from bacs_tpu_torch.ops.losses import jax_abs
 
 
+# the Flax module path of the trunk's nn.Dropout (bacs_tpu/models/bg_detector.py:53)
+DROPOUT_SCOPE = ("seen_fg_network", "dropout")
+
+
 class BgDetector(nn.Module):
     def __init__(self, in_channels: int, n_tasks: int, dropout_rate: float = 0.1,
                  upscale: int = 16):
@@ -43,13 +50,15 @@ class BgDetector(nn.Module):
             torch.randn(n_tasks, inter, 1) * (inter * n_tasks) ** -0.5)
         self.head_bias = nn.Parameter(torch.zeros(n_tasks, 1))
 
-    def trunk(self, x: torch.Tensor,
-              draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
-        """The shared layers: [N, C, h, w] -> [N, C/4, h, w] f32."""
+    def trunk(self, x: torch.Tensor, key: Optional[rng.Key] = None) -> torch.Tensor:
+        """The shared layers: [N, C, h, w] -> [N, C/4, h, w] f32; ``key`` is
+        the forward's (JAX's ``rngs={"dropout": key}``)."""
         y = torch.relu(self.base_bn(self.base_conv(x)))
         if self.training and self.dropout_rate > 0:
             keep = 1.0 - self.dropout_rate
-            mask = rng.bernoulli(rng.stream_of(draws).next(), keep, y.shape, y.device)
+            k = rng.scope_key(rng.given(key), DROPOUT_SCOPE, 1)
+            n, c, h, w = y.shape
+            mask = rng.bernoulli(k, keep, (n, h, w, c), y.device).permute(0, 3, 1, 2)
             y = torch.where(mask, y / keep, 0.0)
         return y
 

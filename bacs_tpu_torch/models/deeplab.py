@@ -105,13 +105,13 @@ class DeepLabV3(nn.Module):
         """Pre-upsample logits [N, h, w, C] of an NHWC image batch."""
         return self._head(x)[2].permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor,
-                draws: Optional[rng.KeyStream] = None) -> NetOutput:
-        """``draws`` (a key stream) draws the detector's dropout mask in training."""
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None) -> NetOutput:
+        """``key`` (JAX's dropout key of the apply) draws the detector's
+        dropout mask in training."""
         backbone_out, attentions, sem = self._head(x)
         penultimate = backbone_out
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(backbone_out, draws)
+            penultimate = self.seen_fg_network.trunk(backbone_out, key)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=nhwc(sem),

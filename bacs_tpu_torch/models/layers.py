@@ -16,15 +16,15 @@ in float32 and cast back to the input's dtype before it weighs the values,
 as ``bacs_tpu/models/layers.py:32-36`` computes it outside any Pallas
 kernel.
 
-Stochastic depth draws its masks from the caller's key stream
-(``ops/rng.py``);
+Stochastic depth draws its masks from the keys Flax's ``make_rng`` gives
+the block's scope (``ops/rng.scope_key``);
 the shipped TranSeg head sets its rate to 0.  The Flax blocks' dropout is
 not ported: no module of the JAX package sets a rate other than 0.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,14 +47,15 @@ class Linear(nn.Linear):
 
 
 def _drop_path(x: torch.Tensor, rate: float, train: bool,
-               draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
+               key: Optional[rng.Key] = None) -> torch.Tensor:
     """Stochastic depth: the whole branch of a sample is dropped with
-    probability ``rate`` (reference: networks/utils.py DropPath)."""
+    probability ``rate`` (reference: networks/utils.py DropPath), its mask
+    drawn from ``key``."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = rng.bernoulli(rng.stream_of(draws).next(), keep, shape, x.device)
+    mask = rng.bernoulli(rng.given(key), keep, shape, x.device)
     return x * mask / keep
 
 
@@ -93,11 +94,16 @@ class Block(nn.Module):
         self.mlp_fc1 = Linear(dim, mlp_dim)
         self.mlp_fc2 = Linear(mlp_dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                draws: Optional[rng.KeyStream] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None,
+                scope: Tuple[str, ...] = ()) -> torch.Tensor:
+        """``key`` is the forward's dropout key and ``scope`` this block's
+        Flax module path: the two stochastic-depth masks take the scope's
+        first and second ``make_rng`` keys, as JAX's ``_drop_path`` does."""
         train = self.training
+        keys = (None, None) if key is None else (
+            rng.scope_key(key, scope, 1), rng.scope_key(key, scope, 2))
         y = self.attn(self.norm1(x.float()))
-        x = x + _drop_path(y, self.drop_path, train, draws)
+        x = x + _drop_path(y, self.drop_path, train, keys[0])
         y = self.mlp_fc1(self.norm2(x.float()))
         y = self.mlp_fc2(F.gelu(y, approximate="none"))  # exact erf (layers.py:63)
-        return x + _drop_path(y, self.drop_path, train, draws)
+        return x + _drop_path(y, self.drop_path, train, keys[1])

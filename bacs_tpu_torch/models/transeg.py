@@ -17,7 +17,7 @@ full-width logits.  The token growth at a task boundary is
 ``train/learner.py:transformer_init``.
 
 Public methods take and return NHWC tensors, as ``models/deeplab.py``
-does: ``forward(x, draws) -> NetOutput``, ``sem_logits(x)`` (the
+does: ``forward(x, key) -> NetOutput``, ``sem_logits(x)`` (the
 Predictor's), ``seen_map_task`` and ``seen_probs``.  The attentions are the
 backbone's stage maps and then ``image_feats``, the decoder's patch tokens
 [B, h, w, D], which BACS distils.  The head computes in float32 after its
@@ -45,6 +45,9 @@ NEG_INF = -1e9  # the fill of inactive class channels
 class TransformerHead(nn.Module):
     """(reference: networks/transeg.py:85-175)"""
 
+    # the head's Flax module path (TranSeg's ``base_classifier``)
+    scope = ("base_classifier",)
+
     def __init__(
         self,
         in_channels: int,
@@ -62,8 +65,8 @@ class TransformerHead(nn.Module):
         self.active_classes = active_classes or num_classes
         self.num_decoder_layers = num_decoder_layers
         self.feature_embedding = Conv2d(in_channels, d, 1)
-        # initial values as Flax draws them (train/loop.py:init_weights
-        # redraws them from the run's seed)
+        # initial values of Flax's distributions (utils/flax_init.py draws
+        # JAX's own from the run's seed)
         self.pos_embed = nn.Parameter(torch.randn(1, patches, patches, d))
         self.class_tokens = nn.Parameter(
             nn.init.trunc_normal_(torch.empty(num_classes, d), std=0.02, a=-0.04, b=0.04))
@@ -75,7 +78,7 @@ class TransformerHead(nn.Module):
         self.mask_norm_scale = nn.Parameter(torch.ones(num_classes))
         self.mask_norm_bias = nn.Parameter(torch.zeros(num_classes))
 
-    def forward(self, x: torch.Tensor, draws: Optional[rng.KeyStream] = None):
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None):
         """[B, C, h, w] backbone features -> (masks [B, h, w, active] f32,
         image_feats [B, h, w, D] f32)."""
         n_cls = self.active_classes
@@ -85,7 +88,7 @@ class TransformerHead(nn.Module):
         tokens = self.class_tokens[:n_cls].expand(b, n_cls, d).to(x.dtype)
         x = torch.cat([x, tokens], dim=1)
         for i in range(self.num_decoder_layers):
-            x = getattr(self, f"block{i}")(x, draws)
+            x = getattr(self, f"block{i}")(x, key, self.scope + (f"block{i}",))
         x = self.decoder_norm(x.float())
         patch_tokens, cls_feat = x[:, :-n_cls], x[:, -n_cls:]
         image_feats = patch_tokens.reshape(b, h, w, d)
@@ -140,9 +143,9 @@ class TranSeg(nn.Module):
     def active_classes(self, n: int) -> None:
         self.base_classifier.active_classes = int(n)
 
-    def _run(self, x: torch.Tensor, draws: Optional[rng.KeyStream] = None):
+    def _run(self, x: torch.Tensor, key: Optional[rng.Key] = None):
         backbone_out, attentions = self.backbone(x.permute(0, 3, 1, 2))
-        masks, image_feats = self.base_classifier(backbone_out, draws)
+        masks, image_feats = self.base_classifier(backbone_out, key)
         pad = self.num_classes - masks.shape[-1]
         if pad:
             masks = torch.cat([masks, masks.new_full(masks.shape[:3] + (pad,), NEG_INF)], -1)
@@ -153,14 +156,14 @@ class TranSeg(nn.Module):
         inactive channels ``NEG_INF``."""
         return self._run(x)[3]
 
-    def forward(self, x: torch.Tensor,
-                draws: Optional[rng.KeyStream] = None) -> NetOutput:
-        """``draws`` (a key stream) draws the detector's dropout mask in training (and
-        the head's stochastic depth, at rate 0 as shipped)."""
-        backbone_out, attentions, image_feats, sem = self._run(x, draws)
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None) -> NetOutput:
+        """``key`` (JAX's dropout key of the apply) draws the detector's
+        dropout mask in training (and the head's stochastic depth, at rate 0
+        as shipped)."""
+        backbone_out, attentions, image_feats, sem = self._run(x, key)
         penultimate = backbone_out
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(backbone_out, draws)
+            penultimate = self.seen_fg_network.trunk(backbone_out, key)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=sem,

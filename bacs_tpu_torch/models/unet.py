@@ -157,13 +157,13 @@ class UNet(nn.Module):
         """Logits [N, H, W, C] of an NHWC image batch (the Predictor's)."""
         return self._run(x.permute(0, 3, 1, 2))[2].permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor,
-                draws: Optional[rng.KeyStream] = None) -> NetOutput:
-        """``draws`` (a key stream) draws the detector's dropout mask in training."""
+    def forward(self, x: torch.Tensor, key: Optional[rng.Key] = None) -> NetOutput:
+        """``key`` (JAX's dropout key of the apply) draws the detector's
+        dropout mask in training."""
         bottom, attentions, sem = self._run(x.permute(0, 3, 1, 2))
         penultimate = bottom
         if self.use_bg_detector:
-            penultimate = self.seen_fg_network.trunk(bottom, draws)
+            penultimate = self.seen_fg_network.trunk(bottom, key)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return NetOutput(
             sem_logits=nhwc(sem),

@@ -45,7 +45,6 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from bacs_tpu_torch.ops import rng
 
 # all_reduce_ calls and the bytes they carried, for the step's accounting
 counters = {"calls": 0, "bytes": 0}
@@ -260,13 +259,3 @@ def synchronized(group):
 def sync_group():
     """The group a synchronized norm reduces over now, or None."""
     return _sync_group
-
-
-def step_draws(key, step: int, group) -> Optional[rng.KeyStream]:
-    """The key stream of train step ``step`` on this rank: fold_in(key,
-    step), then the rank folded in where there is a group, as JAX folds the
-    device's index into the step's key (``bacs_tpu/train/step.py:34-37``).
-    None where the state has no key."""
-    if key is None:
-        return None
-    return rng.KeyStream(rng.step_key(key, step, None if group is None else rank(group)))

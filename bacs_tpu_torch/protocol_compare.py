@@ -10,16 +10,22 @@ and the same output: one JSON line per method (``final_miou``,
 ``oldest_task_miou``, ``task0_miou``, ``avg_iou_per_dataset``,
 ``seconds``), then a markdown table.  Each leg is the port's ``Trainer``
 on the card (``--device cuda``, the default; it raises where torch sees no
-card) unless asked for the CPU.  A leg is a function of its seed: the
-port's draws are counter-based (``ops/rng.py``), its kernels use no float
-atomics and the Trainer runs cuDNN's deterministic algorithms, so two card
-runs of a seed give the same weights bit for bit, and a card run and a CPU
-run of a seed see the same crops, dropout masks and replay picks.  ``--seeds 42-57`` runs each method over a range of seeds;
+card) unless asked for the CPU.  A leg is a function of its seed, and the
+seed names JAX's run: the port draws JAX's initial weights and keys for it
+(``utils/flax_init.py``, ``ops/rng.py``), its kernels use no float atomics
+and the Trainer runs cuDNN's deterministic algorithms, so two card runs of
+a seed give the same weights bit for bit, and a card run, a CPU run and
+``scripts/protocol_compare.py``'s run of a seed see the same initial
+weights, crops, dropout masks and replay picks.  ``--seeds 42-57`` runs each method over a range of seeds;
 ``--digest`` adds to each record its seed, the unrounded final mIoU and a
 SHA-256 of the final weights, for paired and repeat comparisons;
-``--pair CARD CPU`` pairs two such outputs by (method, seed) and prints
-each seed's two final mIoUs, their difference and, per method, the
-Wilcoxon signed-rank p-value of the differences.  The protocols "3task", "15-1", "10-1",
+``--pair A B`` pairs two such outputs by (method, seed) and prints each
+seed's two final mIoUs, their difference A - B and, per method, the
+Wilcoxon signed-rank p-value of the differences; either output may also be
+``scripts/protocol_compare.py``'s (JAX's records carry no seed and a
+final mIoU rounded to 3 decimals: each takes the seed of the ``## ...
+(seed N`` line after it), so a port leg pairs with JAX's leg of the same
+seed, the same experiment in two implementations.  The protocols "3task", "15-1", "10-1",
 "15-5" and "19-1" train a UNet (``models/unet.py``) unless ``--network
 deeplab`` is given; its logits are at label resolution, so their legs
 launch no upsample kernel.
@@ -240,10 +246,11 @@ def parse_args(argv=None):
     ap.add_argument("--override", action="append", default=[],
                     help="extra override(s) appended to every leg, e.g. "
                          "--override training.ckpt_dir=build/ckpt")
-    ap.add_argument("--pair", nargs=2, metavar=("CARD", "CPU"), default=None,
+    ap.add_argument("--pair", nargs=2, metavar=("A", "B"), default=None,
                     help="pair the --digest records of two outputs (JSON lines; a "
-                         "record with tf32 false pairs as its method + ' tf32 off') and "
-                         "print the paired study; trains nothing")
+                         "record with tf32 false pairs as its method + ' tf32 off'; "
+                         "scripts/protocol_compare.py's lines too) and print the "
+                         "paired study; trains nothing")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda raises without a card")
     return ap.parse_args(argv)
@@ -258,29 +265,48 @@ def parse_seeds(text: str) -> list:
 
 
 def read_records(path: str) -> list:
-    """The --digest records among an output's lines."""
-    out = []
+    """The --digest records among an output's lines, and the records of
+    ``scripts/protocol_compare.py`` (no seed, ``final_miou`` to 3 decimals),
+    each given the seed of the next ``## <protocol> protocol (seed N``
+    line and its ``final_miou`` as ``final_miou_exact``."""
+    out, pending = [], []
     with open(path) as f:
         for line in f:
             if line.startswith("{") and "final_miou_exact" in line:
                 out.append(json.loads(line))
+            elif line.startswith("{") and '"final_miou"' in line:
+                r = json.loads(line)
+                pending.append(dict(r, final_miou_exact=r["final_miou"], rounded=True))
+            elif line.startswith("## ") and "(seed " in line and pending:
+                seed = int(line.split("(seed ")[1].split(",")[0].split(")")[0])
+                out += [dict(r, seed=seed) for r in pending]
+                pending = []
     return out
 
 
 def paired(card: list, cpu: list) -> dict:
     """Per method: the seeds both sides hold, each side's final mIoU, the
-    differences card - CPU, their mean and the two-sided Wilcoxon
-    signed-rank p-value (1.0 where every difference is 0)."""
+    differences first - second (card - CPU, or port - JAX), their mean and
+    the two-sided Wilcoxon signed-rank p-value (1.0 where every difference
+    is 0).  Where either side's record is rounded (JAX's runner prints 3
+    decimals), both values are compared at 3 decimals."""
     from scipy.stats import wilcoxon
 
     def label(r):
         return r["method"] + ("" if r.get("tf32", True) else " tf32 off")
 
-    cpu_by = {(r["method"], r["seed"]): r["final_miou_exact"] for r in cpu}
+    def value(r, rounded):
+        return round(r["final_miou_exact"], 3) if rounded else r["final_miou_exact"]
+
+    cpu_by = {(r["method"], r["seed"]): r for r in cpu}
     out = {}
     for name in dict.fromkeys(label(r) for r in card):
-        rows = [(r["seed"], r["final_miou_exact"], cpu_by[(r["method"], r["seed"])])
-                for r in card if label(r) == name and (r["method"], r["seed"]) in cpu_by]
+        pairs = [(r, cpu_by[(r["method"], r["seed"])]) for r in card
+                 if label(r) == name and (r["method"], r["seed"]) in cpu_by]
+        rows = []
+        for r, c in pairs:
+            rounded = r.get("rounded", False) or c.get("rounded", False)
+            rows.append((r["seed"], value(r, rounded), value(c, rounded)))
         diffs = [a - b for _, a, b in rows]
         p = 1.0 if not any(diffs) else float(wilcoxon(diffs).pvalue)
         out[name] = dict(rows=rows, mean_card=sum(a for _, a, _ in rows) / len(rows),
@@ -293,12 +319,13 @@ def main(argv=None) -> list:
     args = parse_args(argv)
     if args.pair:
         study = paired(read_records(args.pair[0]), read_records(args.pair[1]))
+        first, second = args.pair
         for name, s in study.items():
-            print(f"\n## {name}: card mean {s['mean_card']:.4f}, CPU mean "
+            print(f"\n## {name}: A ({first}) mean {s['mean_card']:.4f}, B ({second}) mean "
                   f"{s['mean_cpu']:.4f}, mean difference {s['mean_diff']:+.4f}, Wilcoxon "
                   f"p {s['wilcoxon_p']:.3g} ({len(s['rows'])} seeds)\n")
-            print("| seed | card | CPU | card - CPU |")
-            print("|-----:|-----:|----:|-----------:|")
+            print("| seed | A | B | A - B |")
+            print("|-----:|--:|--:|------:|")
             for seed, a, b in s["rows"]:
                 print(f"| {seed} | {a:.4f} | {b:.4f} | {a - b:+.4f} |")
         print(json.dumps(study))

@@ -135,13 +135,13 @@ def add_batch(
     n_classes: int,
     ignore_index: int = 255,
     uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    draws: Optional[rng.KeyStream] = None,
+    key: Optional[rng.Key] = None,
 ) -> BufferState:
     """Reservoir-add a batch, in place; returns ``buf``.
 
     ``logits`` are already padded to the buffer's class width.  ``uniforms``
     is a pair of [n] uniform [0, 1) tensors (reservoir draw, eviction draw)
-    used in place of [2, n] uniforms of the next key of ``draws``.  The
+    used in place of JAX's: [n] uniforms of each half of ``split(key)``.  The
     eviction's cumulative scores are summed on the host (the item's
     reservoir test reads the host already), in the CPU's order on every
     device: ``torch.cumsum`` of floats on the card has no deterministic
@@ -154,7 +154,8 @@ def add_batch(
     n_items = images.shape[0]
     dev = buf.images.device
     if uniforms is None:
-        u_res, u_evict = rng.uniform(rng.stream_of(draws).next(), (2, n_items), device=dev)
+        k1, k2 = rng.split(rng.given(key))
+        u_res, u_evict = (rng.uniform(k, n_items, device=dev) for k in (k1, k2))
     else:
         u_res, u_evict = (u.to(dev, torch.float32) for u in uniforms)
     ext = torch.where(labels == ignore_index, n_cols - 1, labels.long()).reshape(-1)
@@ -188,7 +189,7 @@ def add_batch(
 def sample(
     buf: BufferState,
     batch_size: int,
-    draws: Optional[rng.KeyStream] = None,
+    key: Optional[rng.Key] = None,
     keys: Optional[torch.Tensor] = None,
     task_id: Optional[torch.Tensor | int] = None,
 ) -> dict:
@@ -196,13 +197,13 @@ def sample(
     (with ``task_id``, a device or Python integer, over the valid slots of
     that task; ``bacs_tpu/train/buffer.py:231-256``): the top
     ``batch_size`` of the slots' Gumbel ``keys`` with the other slots at
-    -inf.  Without ``keys`` the slots are ranked by [size] uniforms of the
-    next key of ``draws``, which order them as their Gumbel keys
-    -log(-log(u)) would, with no logarithm to round differently on the
-    card.  No host read."""
+    -inf.  Without ``keys`` the slots are ranked by [size] uniforms of
+    ``key``, which order them as JAX's Gumbel keys -log(-log(u)) of the
+    same key do, with no logarithm to round differently on the card.  No
+    host read."""
     dev = buf.images.device
     if keys is None:
-        keys = rng.uniform(rng.stream_of(draws).next(), buf.size, device=dev)
+        keys = rng.uniform(rng.given(key), buf.size, device=dev)
     eligible = buf.valid
     if task_id is not None:
         eligible = eligible & (buf.task_ids == task_id)

@@ -55,7 +55,10 @@ visible warns and runs on those there are, as the JAX loop does.  A
 ``network.backbone_weights_path`` that exists is loaded into the new
 network's backbone (the PLOP release layout, ``utils/torch_weights.py``);
 one that does not is logged, and the network trains from its seeded
-weights, as in JAX.
+weights, as in JAX.  A seed names JAX's run: the network's initial weights
+are the ones JAX's ``model.init`` draws for it (``utils/flax_init.py``) and
+the state's key is JAX's ``r_state``, split by each train step as JAX
+splits it.
 """
 
 from __future__ import annotations
@@ -73,11 +76,7 @@ from bacs_tpu_torch.data.datamodule import create_datamodule
 from bacs_tpu_torch.methods import create_method
 from bacs_tpu_torch.methods.base import ModelContext
 from bacs_tpu_torch.models import create_network
-from bacs_tpu_torch.models.layers import Linear
-from bacs_tpu_torch.models.resnet import Conv2d
 from bacs_tpu_torch.models.transeg import TranSeg
-from bacs_tpu_torch.models.unet import ConvTranspose2d, UNet
-from bacs_tpu_torch.ops import rng
 from bacs_tpu_torch.train.learner import get_learner, transformer_init
 from bacs_tpu_torch.train.metrics import PerStepResult, detailed_iou_metrics
 from bacs_tpu_torch.train.ood import aux_bg_step, aux_bg_summary, ood_test
@@ -85,6 +84,7 @@ from bacs_tpu_torch.train.optim import make_optimizer, make_schedule
 from bacs_tpu_torch.train.state import TaskInfo, TrainState, frozen_copy
 from bacs_tpu_torch.train.step import make_steps
 from bacs_tpu_torch.utils import checkpoint
+from bacs_tpu_torch.utils.flax_init import init_weights, trainer_keys
 from bacs_tpu_torch.utils.logging import Logger
 from bacs_tpu_torch.utils.torch_weights import load_backbone_into
 from bacs_tpu_torch.viz.drift import DriftProbe
@@ -93,74 +93,6 @@ from bacs_tpu_torch.viz.prototypes_viz import PrototypeLogger
 
 # training keys that tune the TPU or its host, ignored here
 TPU_ONLY_KEYS = ("spatial_partition", "boundary_gc", "steps_per_dispatch")
-
-
-def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
-    """Flax's default kernel initialiser: a normal truncated at two standard
-    deviations, scaled to variance 1 / fan_in."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    return torch.nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
-                                       generator=g)
-
-
-# convolutions of DeepLabV3 and TranSeg that keep Flax's default initialiser
-FLAX_DEFAULT_CONVS = ("classifier_head", "seen_fg_network.base_conv",
-                      "base_classifier.feature_embedding")
-
-
-def init_weights(model: torch.nn.Module, seed: int) -> None:
-    """Draw the network's weights as the JAX package initialises them, from
-    ``seed``.  The ResNet backbone's and the ASPP's convolutions are
-    He-normal over the fan-out (``bacs_tpu/models/resnet.py:59``); every
-    other convolution keeps Flax's default, LeCun-normal truncated over the
-    fan-in (kh kw in): the classifier, TranSeg's feature embedding, the
-    detector's trunk convolution, and every UNet convolution and transpose
-    convolution; so does every TranSeg ``Dense`` (``Linear``, over its
-    inputs).  The detector's heads are LeCun-normal over D x T; biases 0.
-    TranSeg's head draws as ``bacs_tpu/models/transeg.py`` declares it:
-    ``pos_embed`` normal(1), ``class_tokens`` 0.02 x a standard normal
-    truncated to [-2, 2], ``proj_*`` normal(D^-1/2), LayerNorms and
-    ``mask_norm`` 1 and 0.  The numbers differ from JAX's (another
-    generator)."""
-    g = torch.Generator().manual_seed(seed)
-    flax_default = isinstance(model, UNet)
-    with torch.no_grad():
-        for name, m in model.named_modules():
-            if isinstance(m, torch.nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                continue
-            if isinstance(m, Linear):
-                w = _lecun_normal(m.weight.shape, m.in_features, g)
-            elif isinstance(m, ConvTranspose2d):
-                in_c, _, kh, kw = m.weight.shape
-                w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
-            elif isinstance(m, Conv2d):
-                out_c, in_c, kh, kw = m.weight.shape
-                if flax_default or name in FLAX_DEFAULT_CONVS:
-                    w = _lecun_normal(m.weight.shape, in_c * kh * kw, g)
-                else:
-                    w = torch.randn(m.weight.shape, generator=g) * (2.0 / (out_c * kh * kw)) ** 0.5
-            else:
-                continue
-            m.weight.copy_(w)
-            if m.bias is not None:
-                m.bias.zero_()
-        det = getattr(model, "seen_fg_network", None)
-        if det is not None:
-            t, d, _ = det.head_kernel.shape
-            det.head_kernel.copy_(_lecun_normal(det.head_kernel.shape, d * t, g))
-        if isinstance(model, TranSeg):
-            head = model.base_classifier
-            d = head.proj_patch.shape[0]
-            head.pos_embed.copy_(torch.randn(head.pos_embed.shape, generator=g))
-            head.class_tokens.copy_(torch.nn.init.trunc_normal_(
-                torch.empty(head.class_tokens.shape), std=0.02, a=-0.04, b=0.04,
-                generator=g))
-            for p in (head.proj_patch, head.proj_classes):
-                p.copy_(torch.randn(p.shape, generator=g) * d ** -0.5)
-            head.mask_norm_scale.fill_(1.0)
-            head.mask_norm_bias.zero_()
 
 
 def requested_devices(config) -> int:
@@ -368,7 +300,7 @@ class Trainer:
         if self.method.needs_buffer:
             buffer = self.method.init_buffer(task, (crop, crop), sem_hw, device=self.device)
         state = TrainState(
-            model, *self._make_tx(task, model), key=rng.key(self.seed),
+            model, *self._make_tx(task, model), key=trainer_keys(self.seed)[2],
             prototypes=torch.zeros((self.n_tasks, pen_dim), device=self.device),
             proto_counts=torch.zeros((self.n_tasks,), device=self.device),
             buffer=buffer,

@@ -5,10 +5,11 @@ copied as it is.  The JAX ``TrainState`` is one pytree carried through a
 jitted step; in PyTorch the network holds its parameters and statistics
 and the optimizer its moments, so the state is a plain dataclass of those
 objects, the continual-learning tensors and the counters.  The JAX state's
-``rng`` key becomes ``key``, a counter-based key (``ops/rng.py``, two
-uint32 words on the host) that the train step folds with ``step`` (and a
-rank) into the key stream it hands to the method (dropout, replay draws),
-so the draws are the same on the card and on the CPU; the frozen previous
+``rng`` key becomes ``key``, JAX's threefry key (``ops/rng.py``, two
+uint32 words on the host), which each train step splits as JAX does: one
+half carried in the state, the other (with a rank folded in) the step's
+key for the method's draws (dropout, replay); so the draws are JAX's and
+the same on the card and on the CPU; the frozen previous
 model is a module (``prev_params`` and
 ``prev_batch_stats`` in JAX).
 """
@@ -33,8 +34,8 @@ class TrainState:
     step: int = 0
     # batches consumed in the current epoch (mid-epoch resume granularity)
     epoch_step: int = 0
-    # the run's key (ops/rng.key of the seed); a step's draws take
-    # fold_in(key, step) and the rank, so they depend on nothing else
+    # the carried key (JAX's state.rng: the third of split(PRNGKey(seed),
+    # 3) at the start, split again by every train step)
     key: Optional[Tuple[int, int]] = None
     # per-task foreground prototypes [n_tasks, D] and their feature counts
     # [n_tasks], f32 (reference: loss/prototypes.py:53-90)

@@ -7,10 +7,11 @@ its ABN statistics and the optimizer are updated in place and the same
 state object is returned.
 
 - ``train_step(state, batch) -> (state, {"loss": ...})``: the network in
-  train mode; the method's loss (given the step's key stream,
-  ``parallel.step_draws`` of ``state.key`` and ``state.step``, for its
-  random draws), its gradients, one optimizer update (clip, weight decay,
-  SGD-nesterov at the scheduled rate), and the method's state updates
+  train mode; the method's loss (given the step's key for its random
+  draws: ``state.key`` split in two, one half carried in the state and
+  the other the step's, as JAX splits ``state.rng``), its gradients, one
+  optimizer update (clip, weight decay, SGD-nesterov at the scheduled
+  rate), and the method's state updates
   (prototypes and their counts, the buffer).  The gradients stay in the
   parameters' ``.grad`` until the next step.  With gradient accumulation
   over k mini-steps (``train/optim.py``) a call is one mini-step: its
@@ -30,9 +31,9 @@ the context's process ``group`` (``parallel/``): each rank gets its
 contiguous slice of the global batch, and the steps do what JAX's
 collectives do.  The synchronized norms reduce their statistics across
 the ranks (``parallel.synchronized``), the prototype folds sum theirs, and
-each rank draws from its own key stream (``parallel.step_draws``: the
-rank folded into the step's key, as JAX folds it).  After the backward one collective
-averages the gradients, the loss and the running statistics
+each rank draws from its own key (``rng.train_step_keys``: the rank
+folded into the step's key, as JAX folds it).  After the backward one
+collective averages the gradients, the loss and the running statistics
 (``step.py:45-50``): each rank's loss is the mean over its own shard, so
 the loss is the mean of the shard means, not the global batch's mean
 where shards hold different counts of ignored pixels.  A parameter the
@@ -61,7 +62,8 @@ import torch
 from bacs_tpu_torch.methods.base import Method, ModelContext
 from bacs_tpu_torch.ops.confusion import confusion_matrix
 from bacs_tpu_torch.ops.upsample_confusion import upsampled_confusion
-from bacs_tpu_torch.parallel import all_reduce_, step_draws, synchronized
+from bacs_tpu_torch.ops import rng
+from bacs_tpu_torch.parallel import all_reduce_, rank, synchronized
 from bacs_tpu_torch.train.optim import apply_updates, zero_missing_grads
 from bacs_tpu_torch.train.state import TrainState
 
@@ -90,9 +92,10 @@ def _train_step_impl(
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     group = ctx.group
     state.optimizer.zero_grad(set_to_none=True)
+    state.key, step_key = rng.train_step_keys(rng.given(state.key),
+                                              None if group is None else rank(group))
     with synchronized(group):
-        loss, aux = method.compute_loss(ctx, state, batch, True,
-                                        step_draws(state.key, state.step, group))
+        loss, aux = method.compute_loss(ctx, state, batch, True, step_key)
         loss.backward()
     loss = loss.detach() if group is None else _average_across_ranks(state, loss, group)
     apply_updates(state.optimizer, state.scheduler)

@@ -207,13 +207,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[tuple[int, str]]:
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (a freshly built state of the same
     structure, on its device) and return it.  A structure mismatch raises.
-    The key and the step counter restore as they are, on any device, so a
-    resumed run takes the uninterrupted run's draws.  A checkpoint that
-    holds a ``torch.Generator``'s state in place of a key (the format
-    before the port's draws were counter-based) restores with ``state``'s
-    own key: its draws from the restored step on are the ones that key
-    gives at those steps, not the ones the old generator would have
-    given."""
+    The key (the state's carried key, JAX's ``state.rng``) and the step
+    counter restore as they are, on any device, so a resumed run takes the
+    uninterrupted run's draws.  A checkpoint that holds the seed's key (the
+    format before the key was carried from step to step) restores that key
+    and continues its chain from there; one that holds a
+    ``torch.Generator``'s state in place of a key (the format before the
+    port's draws were counter-based) restores with ``state``'s own key."""
     device = next(state.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=False)
     state.model.load_state_dict(saved["model"])

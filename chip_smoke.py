@@ -297,9 +297,13 @@ t. times K1-K4, K6-K10 and K12 at the main path's shapes beside their plain
    and backward, K2, K8, K9, K10) and of K12 bit-equal.
 45. (run right after 3) holds the port-only kernels against their plain
    versions: the threefry draws (``csrc/threefry.cu``: bits, uniforms and
-   the dropout mask at the detector's mask [16, 512, 32, 32]) bit-equal,
-   two launches bit-equal, and the card's mask and a train transform's
-   crops equal to the CPU's; the resize kernels
+   the dropout mask at the detector's NHWC mask [16, 32, 32, 512])
+   bit-equal, two launches bit-equal, and the card's mask and a train
+   transform's crops equal to the CPU's; a seed names one run on every
+   device (``seed_checks``): the Trainer's initial weights (JAX's
+   ``model.init`` draws, RN101 with the detector) drawn into the network on
+   the card, the first train step's dropout mask and a batch's crops equal
+   the CPU's by SHA-256; the resize kernels
    (``csrc/resize_bilinear.cu``) against ``F.interpolate`` at the teacher
    distillation's [16, 32, 32, 256] f32 -> 512^2 (and its chunk of 2), the
    detector's x16 with aligned corners and UNet-5's four x2 decoder stages
@@ -325,7 +329,8 @@ end bit-equal.  ``--reproducible`` runs [47] the UNet 15-1 disjoint leg of
 ``protocol_compare`` (CE, MiB, BACS) twice for seed 42 (final weights and
 mIoUs bit-equal) and MiB sequential against disjoint (bit-equal), then the
 card's side of the paired study, seeds 42-57 and BACS again with TF32 off;
-[48] the ``15-1-flagship`` iCaRL and ER legs at seeds 44-46; [49] the first
+[48] the ``15-1-flagship`` iCaRL legs at seeds 42-46 and BACS+ at 42,
+each seed JAX's initial weights and draws; [49] the first
 20 task-1 steps of flagship iCaRL from one task-0 state, on the card in
 f32, again with every weight moved by up to 1e-6 of itself, with TF32,
 and on the CPU, all with the same draws.  Its records go under ``--out``
@@ -1353,13 +1358,6 @@ def seed_key(seed: int):
     return rng.key(seed)
 
 
-def key_stream(key):
-    """A key stream from ``key``: successive draws, the same on every device."""
-    from bacs_tpu_torch.ops import rng
-
-    return rng.KeyStream(key)
-
-
 @contextlib.contextmanager
 def injected_draws(keys, crop_params, lambdas=None):
     """The BACS step's random draws fixed, whatever the device: the two
@@ -1375,12 +1373,12 @@ def injected_draws(keys, crop_params, lambdas=None):
              bacs_mod.replay_augment, bacs_mod.beta_sample)
     sample, autocontrast, _, _ = saved
     turn = itertools.cycle(keys)
-    bacs_mod.buffer_lib.sample = lambda buf, n, draws=None: sample(buf, n, keys=next(turn))
-    bacs_mod.random_autocontrast = lambda x, draws=None, p=0.5: autocontrast(x, draws, 0.0)
-    bacs_mod.replay_augment = lambda im, lab, draws=None: apply_crop_params(
+    bacs_mod.buffer_lib.sample = lambda buf, n, key=None: sample(buf, n, keys=next(turn))
+    bacs_mod.random_autocontrast = lambda x, key=None, p=0.5: autocontrast(x, key, 0.0)
+    bacs_mod.replay_augment = lambda im, lab, key=None: apply_crop_params(
         im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
     if lambdas is not None:
-        bacs_mod.beta_sample = lambda a, n, draws, device: lambdas.to(device)
+        bacs_mod.beta_sample = lambda a, n, key, device: lambdas.to(device)
     try:
         yield
     finally:
@@ -1390,7 +1388,7 @@ def injected_draws(keys, crop_params, lambdas=None):
 
 def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
                           activations=("identity", "leaky"), method_kw=None,
-                          variables=None):
+                          variables=None, replay=4, slots=8):
     """[13] One f32 BACS step at task 1, RN101 4 x 128^2 (replay 4 from 8
     slots), on the card and on the CPU (TF32 off), with identity and with
     the configured leaky activations; the draws injected and the
@@ -1399,13 +1397,14 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
     the prototypes, as phase [8].  With ``method_kw`` (phase [39], one of
     BACS's options) the draws, mixup's Beta draws among them, are taken on
     the card from a seeded generator and copied to the CPU.  ``variables``:
-    the seeded variables by activation, made here unless given."""
+    the seeded variables by activation, made here unless given; ``replay``
+    from ``slots``: the replay batches and the buffer's size."""
     from bacs_tpu_torch.data.transforms import sample_crop_params
     from bacs_tpu_torch.methods.bacs import beta_sample
     from bacs_tpu_torch.train import buffer as buffer_lib
     from bacs_tpu_torch.train.state import TaskInfo, frozen_copy
 
-    crop, n, replay, slots = 128, 4, 4, 8
+    crop, n = 128, 4
     options = dict(method_kw or {})
     method_kw = dict(options, buffer_size=slots, replay_minibatch_size=replay)
     # statistics calibrated for each network's own activations, so the
@@ -1424,7 +1423,7 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
                          torch.randn((slots + 2, crop // 16, crop // 16, N_CLASSES),
                                      generator=gen),
                          fill["label"], -torch.rand(slots + 2, generator=gen), task_id=0,
-                         n_classes=16, draws=key_stream(seed_key(seed)))
+                         n_classes=16, key=seed_key(seed))
     dim = len(params["seen_fg_network"]["base_bn"]["scale"])  # the trunk's width
     protos = torch.rand((N_TASKS, dim), generator=gen)
     counts = torch.tensor([50.0] + [0.0] * (N_TASKS - 1))
@@ -1439,10 +1438,9 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
         g = torch.Generator(dev).manual_seed(seed + 39)
         keys = [-torch.log(-torch.log(torch.rand(slots, generator=g, device=dev).clamp_(
             min=torch.finfo(torch.float32).tiny))).cpu() for _ in range(2)]
-        draws = key_stream(seed_key(seed + 39))
         crop_params = {k: v.cpu() for k, v in sample_crop_params(
-            replay, (crop, crop), draws, dev).items()}
-        lambdas = beta_sample(method.mixup_alpha, replay, draws, dev).cpu()
+            replay, (crop, crop), seed_key(seed + 39), dev).items()}
+        lambdas = beta_sample(method.mixup_alpha, replay, seed_key(seed + 40), dev).cpu()
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1485,6 +1483,13 @@ def bacs_step_card_vs_cpu(cfg, seed, dev, label="[13] f32 BACS step",
 BACS_OPTIONS = {"pseudo_label": dict(pseudo_label=True, bg_weighted_ce=False),
                 "use_cosine_dist": dict(use_cosine_dist=True), "mixup": dict(mixup=True),
                 "merged_replay": dict(merged_replay=True)}
+# the f32 holds' (replay, slots): mixup's blends 0.9 (a + partner) repeat
+# an image wherever two items pick each other, so at replay 4 the ASPP's
+# global-pool ABN can normalise over two distinct images, ill-conditioned
+# (at seed 0 the card's own run moved global_pooling_conv's gradient by
+# 2.85e-4 under a 1e-6 weight move, the card against the CPU 3.07e-4);
+# replay 8 from 16 slots gives it at least four
+OPTION_REPLAY = {"mixup": (8, 16)}
 OPTION_TURNS = (("two forwards", {}), ("merged_replay", dict(merged_replay=True)),
                 ("merged_replay", dict(merged_replay=True)), ("two forwards", {}),
                 ("mixup", dict(mixup=True)))
@@ -1585,12 +1590,12 @@ def bacs_step_parts(state, ctx, method, batch, att, seen, timer=busy_ms) -> dict
     def network(images):
         def run():
             state.optimizer.zero_grad(set_to_none=True)
-            out = ctx.forward(model, images, True, key_stream(state.key))
+            out = ctx.forward(model, images, True, state.key)
             out.sem_logits.float().square().mean().backward()
         return run
 
     with torch.no_grad():
-        pen = ctx.forward(model, image, True, key_stream(state.key)).penultimate
+        pen = ctx.forward(model, image, True, state.key).penultimate
 
     def detector():
         with torch.no_grad():
@@ -1967,9 +1972,9 @@ def injected_er_draws(keys, crop_params):
 
     saved = (er_mod.buffer_lib.sample, er_mod.replay_augment)
     sample = saved[0]
-    er_mod.buffer_lib.sample = lambda buf, n, draws=None, task_id=None: sample(
+    er_mod.buffer_lib.sample = lambda buf, n, key=None, task_id=None: sample(
         buf, n, keys=keys.to(buf.valid.device), task_id=task_id)
-    er_mod.replay_augment = lambda im, lab, draws=None: apply_crop_params(
+    er_mod.replay_augment = lambda im, lab, key=None: apply_crop_params(
         im, lab, {k: v.to(im.device) for k, v in crop_params.items()})
     try:
         yield
@@ -2260,16 +2265,21 @@ def unet_step_card_vs_cpu(seed, dev) -> None:
     """[28] one f32 CE train step of UNet-4 at 4 x 128^2 on the card and on
     the CPU (TF32 off), held by ``hold_step`` (ReLU: the norm rule of the
     leaky steps, as a kink within rounding moves a channel's gradient
-    through its batch norm); then the eval step on both: loss rtol 1e-5,
-    the confusion matrices counting every valid pixel, at most 1e-3 of
-    them differently (argmax near-ties)."""
+    through its batch norm); then the eval step on both from one state,
+    the card's after its step (its weights and statistics copied to the
+    CPU's network): loss rtol 1e-5, the confusion matrices counting every
+    valid pixel, at most 1e-3 of them differently (argmax near-ties).
+    Each device's own post-step state would hold the eval loss to the
+    train step's kink drift, which only the norm rule bounds: moving the
+    weights by 1e-6 of themselves moves that loss by 1.7e-5 relative on
+    the CPU alone at seed 0."""
     cfg = unet_cfg(4)
     params, stats = unet_variables(cfg, seed)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     small = synthetic_batch(4, 128, torch.Generator().manual_seed(seed), "cpu")
-    runs, evals = [], []  # the card's, then the CPU's
+    runs, stepped, evals = [], [], []  # the card's, then the CPU's
     for device in (dev, torch.device("cpu")):
         state = train_state(cfg, params, stats, torch.float32, device)
         p0 = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
@@ -2277,17 +2287,22 @@ def unet_step_card_vs_cpu(seed, dev) -> None:
         batch = put_batch(small)
         state, metrics = train_step(state, batch)
         runs.append((float(metrics["loss"]), *grads_and_stats(state.model)))
-        cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=device)
+        stepped.append((state, eval_step, batch))
+    card_state = stepped[0][0]
+    stepped[1][0].model.load_state_dict({k: v.cpu() for k, v in
+                                         card_state.model.state_dict().items()})
+    for state, eval_step, batch in stepped:
+        cm = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int32, device=batch["label"].device)
         cm, loss = eval_step(state, cm, batch)
         evals.append((cm.cpu(), float(loss)))
-        del state
+    del stepped, card_state, state
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     hold_step("[28] f32 UNet-4 CE step card vs CPU, 4 x 128^2", "ReLU", *runs, p0)
     (cm_g, loss_g), (cm_c, loss_c) = evals
     valid = int((small["label"] != 255).sum())
     moved = int((cm_g - cm_c).abs().sum()) // 2
-    log(f"[28] eval step card vs CPU: loss {loss_g:.7f} vs {loss_c:.7f}; {moved} of {valid} "
-        "pixels counted differently")
+    log(f"[28] eval step card vs CPU on the card's post-step state: loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; {moved} of {valid} pixels counted differently")
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
     assert int(cm_g.sum()) == int(cm_c.sum()) == valid and moved <= 1e-3 * valid
     torch.cuda.empty_cache()
@@ -5361,7 +5376,7 @@ def host_data_main(args) -> int:
 
 # the port-only kernels ([45]): the detector's dropout mask of a 512^2 BACS
 # step, and the bilinear resizes of the main path
-DRAW_SHAPE = (BATCH, 512, CROP // 16, CROP // 16)
+DRAW_SHAPE = (BATCH, CROP // 16, CROP // 16, 512)  # NHWC, as JAX draws it
 DROPOUT_KEEP = 0.9
 # integer instructions of one threefry draw (csrc/threefry.cu: 20 rounds of
 # add, funnel shift, xor; 5 key injections of two adds; the counters' add
@@ -5437,8 +5452,7 @@ def draw_checks(dev, seed) -> dict:
     cpu_mask = rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, "cpu")
     assert torch.equal(card_mask.cpu(), cpu_mask), "the card's dropout mask is not the CPU's"
     keep_share = float(card_mask.float().mean())
-    crops = [transforms.sample_crop_params(BATCH, (CROP, CROP),
-                                           rng.KeyStream(rng.key(seed)), d)
+    crops = [transforms.sample_crop_params(BATCH, (CROP, CROP), rng.key(seed), d)
              for d in (dev, "cpu")]
     assert all(torch.equal(crops[0][f].cpu(), crops[1][f]) for f in crops[1]), \
         "the card's crops are not the CPU's"
@@ -5453,6 +5467,59 @@ def draw_checks(dev, seed) -> dict:
         f"{bnd[0]:.4f} ms ({bnd[1]})")
     return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=bnd, philox_ms=philox_ms,
                 keep_share=keep_share)
+
+
+def seed_checks(dev, seed) -> None:
+    """[45s] A seed names one run on every device: the Trainer's initial
+    weights for ``seed`` (RN101 DeepLabV3 with the detector, JAX's
+    ``model.init`` draws, ``utils/flax_init.py``) drawn into the network on
+    the card equal the CPU's by SHA-256 of every tensor of the state dict,
+    and so do the first train step's dropout mask (the Trainer's key
+    ``r_state`` split as a step splits it, the detector's scope folded in)
+    and a batch's crop parameters (the DataModule's first batch key)."""
+    import hashlib
+
+    from bacs_tpu_torch.data import transforms
+    from bacs_tpu_torch.models import create_network
+    from bacs_tpu_torch.models.bg_detector import DROPOUT_SCOPE
+    from bacs_tpu_torch.ops import rng
+    from bacs_tpu_torch.utils.flax_init import init_weights, trainer_keys
+
+    def sha(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    t0 = time.perf_counter()
+    model = create_network("deeplab", N_CLASSES, n_tasks=N_TASKS, use_bg_detector=True,
+                           backbone="resnet101")
+    init_weights(model, seed)
+    cpu_sha = sha(model.state_dict().values())
+    model.to(dev)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    t1 = time.perf_counter()
+    init_weights(model, seed)
+    torch.cuda.synchronize(dev)
+    draw_s = time.perf_counter() - t1
+    card_sha = sha(model.state_dict().values())
+    assert card_sha == cpu_sha, "the card's initial weights are not the CPU's"
+    _, step_key = rng.train_step_keys(trainer_keys(seed)[2])
+    mask_key = rng.scope_key(step_key, DROPOUT_SCOPE, 1)
+    masks = [sha([rng.bernoulli(mask_key, DROPOUT_KEEP, DRAW_SHAPE, d)]) for d in (dev, "cpu")]
+    assert masks[0] == masks[1], "the card's first-step dropout mask is not the CPU's"
+    batch_key = rng.split(rng.key(seed))[1]
+    crops = [sha(transforms.sample_crop_params(BATCH, (CROP, CROP), batch_key, d).values())
+             for d in (dev, "cpu")]
+    assert crops[0] == crops[1], "the card's crop parameters are not the CPU's"
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[45] seed {seed}: the Trainer's initial weights ({n} parameters, RN101 DeepLabV3 "
+        f"with the detector, drawn for the card in {draw_s:.2f} s) sha256 {card_sha[:16]} "
+        f"on the card and on the CPU; the first step's dropout mask {masks[0][:16]} and "
+        f"a batch's {BATCH} crops {crops[0][:16]} equal too ({time.perf_counter() - t0:.1f} s)")
+    del model
 
 
 def resize_plain_fwd(x, size, align):
@@ -5729,7 +5796,10 @@ def deterministic_main(args) -> int:
 
 UNET_PAIRED_SEEDS = tuple(range(42, 58))
 UNET_PAIRED_METHODS = ("ce", "mib", "bacs")
-FLAGSHIP_SEEDS = (44, 45, 46)
+# [48]: iCaRL at seeds 42-46 and BACS+ at 42, each seed JAX's initial weights
+# and draws; RESULTS' iCaRL (docs/RESULTS.md:17, JAX on a v5e, seed 42)
+FLAGSHIP_LEGS = tuple(("icarl", s) for s in range(42, 47)) + (("bacs_plus", 42),)
+RESULTS_ICARL = 0.563
 TRACE_STEPS = 20
 TRACE_MOVE = 1e-6
 
@@ -5787,21 +5857,24 @@ def reproducible_legs(out_dir: str) -> dict:
 
 
 def flagship_legs(out_dir: str) -> list:
-    """[48] ``15-1-flagship`` iCaRL and ER at seeds 44-46 on the card
+    """[48] ``15-1-flagship`` on the card (``FLAGSHIP_LEGS``: iCaRL at seeds
+    42-46, BACS+ at 42; a seed names JAX's run, its initial weights and
+    draws, so seed 42 is RESULTS' experiment up to the TPU's numerics),
+    each final mIoU beside RESULTS' iCaRL ``RESULTS_ICARL``
     (``out_dir/card_flagship.jsonl``)."""
     from bacs_tpu_torch import protocol_compare as pc
 
     p = dict(pc.PROTOCOLS["15-1-flagship"])
     records = []
-    for seed in FLAGSHIP_SEEDS:
-        for m in ("icarl", "er"):
-            r = pc.run_method(p, m, seed, network="deeplab", backbone="resnet50",
-                              device="cuda", digest=True)
-            records.append(r)
-            log(f"[48] 15-1-flagship {m} seed {seed}: final mIoU {r['final_miou_exact']:.4f}, "
-                f"oldest {r['oldest_task_miou']}, task 0 {r['task0_miou']}, {r['seconds']} s")
-            with open(os.path.join(out_dir, "card_flagship.jsonl"), "a") as f:
-                f.write(json.dumps(r) + "\n")
+    for m, seed in FLAGSHIP_LEGS:
+        r = pc.run_method(p, m, seed, network="deeplab", backbone="resnet50",
+                          device="cuda", digest=True)
+        records.append(r)
+        log(f"[48] 15-1-flagship {m} seed {seed}: final mIoU {r['final_miou_exact']:.4f} "
+            f"(RESULTS' iCaRL {RESULTS_ICARL}), oldest {r['oldest_task_miou']}, task 0 "
+            f"{r['task0_miou']}, {r['seconds']} s")
+        with open(os.path.join(out_dir, "card_flagship.jsonl"), "a") as f:
+            f.write(json.dumps(r) + "\n")
     return records
 
 
@@ -5892,7 +5965,7 @@ def icarl_trace(seed: int, out_dir: str) -> dict:
 def reproducible_main(args) -> int:
     """``--reproducible [--parts unet,flagship,trace]``: [47] the repeat
     runs and the card's side of the UNet paired study, [48] the flagship's
-    iCaRL and ER seeds, [49] the iCaRL trace, card against CPU.  The records
+    iCaRL seeds and BACS+, [49] the iCaRL trace, card against CPU.  The records
     go under ``args.out``; ``python -m bacs_tpu_torch.protocol_compare
     --pair`` pairs them with the CPU's."""
     if not torch.cuda.is_available():
@@ -6032,6 +6105,7 @@ def main() -> int:
     # launches counted over the whole main path from here
     t0 = time.perf_counter()
     draws = draw_checks(dev, args.seed)
+    seed_checks(dev, args.seed)
     resizes = resize_checks(dev, args.seed)
     reset_new, read_new = new_kernel_counters()
     reset_new()
@@ -6517,8 +6591,10 @@ def main() -> int:
     t_options = time.perf_counter()
     smooth = {"identity": seeded_variables(cfg, args.seed, use_bg_detector=True, smooth=True)}
     for option, kw in BACS_OPTIONS.items():
+        replay, slots = OPTION_REPLAY.get(option, (4, 8))
         bacs_step_card_vs_cpu(cfg, args.seed, dev, label=f"[39] f32 BACS step, {option}",
-                              activations=("identity",), method_kw=kw, variables=smooth)
+                              activations=("identity",), method_kw=kw, variables=smooth,
+                              replay=replay, slots=slots)
     torch.cuda.empty_cache()
     options = bacs_options_512(cfg, args.seed, dev, reset_counts, counts)
     t_options = time.perf_counter() - t_options

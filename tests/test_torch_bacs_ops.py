@@ -237,11 +237,11 @@ def test_resize_region_and_flip_match_jax():
         close(img[n], ri)
         np.testing.assert_array_equal(lbl[n].numpy(), rl)
     # drawn parameters: in range, one per image, on the draws' device
-    drawn = transforms.sample_crop_params(64, (32, 32), rng.KeyStream(rng.key(0)))
+    drawn = transforms.sample_crop_params(64, (32, 32), rng.key(0))
     assert ((drawn["ch"] >= 8) & (drawn["ch"] <= 32) & (drawn["i"] >= 0)
             & (drawn["i"] + drawn["ch"] <= 32 + 1e-4)).all()
     img, lbl = transforms.replay_augment(torch.from_numpy(images), torch.from_numpy(labels),
-                                         rng.KeyStream(rng.key(1)))
+                                         rng.key(1))
     assert img.shape == images.shape and lbl.dtype == torch.int32
 
 
@@ -307,7 +307,7 @@ def test_buffer_add_batch_matches_jax(image_dtype):
     for k in ("images", "logits", "labels", "n_classes"):
         close(got[k], ref[k], rtol=0, scale_atol=0)
     assert got["labels"].dtype == torch.int32 and got["images"].dtype == torch.float32
-    drawn = buffer.sample(buf, 7, rng.KeyStream(rng.key(0)))
+    drawn = buffer.sample(buf, 7, rng.key(0))
     assert sorted(drawn["indices"].tolist()) == list(range(7))
 
 

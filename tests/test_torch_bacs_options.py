@@ -328,12 +328,12 @@ def test_mixup_takes_both_lambda_branches():
 
 @pytest.mark.parametrize("a", [1.0, 0.4])
 def test_beta_draws_follow_scipy(a):
-    """20 000 draws of the port's Beta(a, a) from one seeded key stream: a
+    """20 000 draws of the port's Beta(a, a) from one seeded key: a
     Kolmogorov-Smirnov test against ``scipy.stats.beta`` (p > 0.01 at this
     seed), the same draws again from the same seed, and the key as their
     only source (another seed, other draws)."""
     draw = lambda seed: port_bacs.beta_sample(  # noqa: E731
-        a, 20000, rng.KeyStream(rng.key(seed)), torch.device("cpu"))
+        a, 20000, rng.key(seed), torch.device("cpu"))
     x = draw(3)
     assert x.dtype == torch.float32 and bool(((x >= 0) & (x <= 1)).all())
     p = scipy.stats.kstest(x.numpy(), scipy.stats.beta(a, a).cdf).pvalue

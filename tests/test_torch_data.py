@@ -222,7 +222,7 @@ def test_train_transform_matches_jax_given_the_crop_parameters(monkeypatch):
     imgs = rs.randint(0, 256, (3, 20, 20, 3)).astype(np.uint8)
     lbls = rs.randint(0, 6, (3, 20, 20)).astype(np.uint8)
     table = np.concatenate([np.arange(6), np.full(250, 255)]).astype(np.int32)
-    params = transforms.sample_crop_params(3, (20, 20), rng.KeyStream(rng.key(5)))
+    params = transforms.sample_crop_params(3, (20, 20), rng.key(5))
     params["flip"] = torch.tensor([True, False, True])
     monkeypatch.setattr(transforms, "sample_crop_params", lambda *a, **k: params)
     got = transforms.train_transform(None, torch.from_numpy(imgs), torch.from_numpy(lbls),

@@ -693,7 +693,7 @@ def test_card_draws_are_the_cpus(cuda):
     k = rng.key(42)
     assert torch.equal(rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, cuda).cpu(),
                        rng.bernoulli(k, DROPOUT_KEEP, DRAW_SHAPE, "cpu"))
-    crops = [transforms.sample_crop_params(16, (512, 512), rng.KeyStream(k), d)
+    crops = [transforms.sample_crop_params(16, (512, 512), k, d)
              for d in (cuda, "cpu")]
     for f in crops[1]:
         assert torch.equal(crops[0][f].cpu(), crops[1][f]), f

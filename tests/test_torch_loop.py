@@ -29,11 +29,11 @@ process (cached).  Three runs:
   only task 0's mIoU within MIOU_TOL (measured: equal), as the drift moves
   the later tasks' mIoU by up to 0.019 at values from 0.024.
 - ``bacs_smooth``: BACS (replay 2 from 8 slots) on the smooth network.
-  Its tasks after the first differ in their random draws (the replay
-  batches and the reservoir's evictions come from each package's own
-  generator; measured: task 1's losses 1.4e-3 apart, task 2's 8e-2), so
-  only task 0 is held: its losses within SMOOTH_LOSS_RTOL (measured: at
-  most 4.7e-6), its mIoU within MIOU_TOL (measured: equal).
+  Only task 0 is held: its losses within SMOOTH_LOSS_RTOL (measured: at
+  most 4.7e-6), its mIoU within MIOU_TOL (measured: equal); the replay of
+  two images puts the ASPP's global-pool ABN over two images, and the
+  whole runs with every draw taken from the seed are
+  ``tests/test_torch_seed_runs.py``'s.
 
 All three: the same metric keys (``test.<d>/Task <t>/...``,
 ``Final/test.<d>/...``), task count and number of train steps.  Batch 3,
@@ -166,7 +166,7 @@ def test_trainer_matches_jax(name):
     assert len(got["losses"]) == len(ref["losses"]) == 3 * got["steps_per_task"] == 6
     ref_miou, got_miou = _miou(ref), _miou(got)
     assert got_miou.keys() == ref_miou.keys()
-    # bacs: task 0 only (its later tasks draw from each package's generator)
+    # bacs: task 0 only (see the docstring)
     n = len(got["losses"]) if name.startswith("ce") else got["steps_per_task"]
     rtol = SMOOTH_LOSS_RTOL if name.endswith("_smooth") else LEAKY_LOSS_RTOL
     np.testing.assert_allclose(got["losses"][:n], ref["losses"][:n], rtol=rtol)

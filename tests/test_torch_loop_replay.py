@@ -152,20 +152,20 @@ def jax_injected():
 def port_injected():
     keys, crop = tables()
     cur = {"step": None, "uniforms": iter(())}
-    sample, add_batch, categorical = port_buffer.sample, port_buffer.add_batch, rng.categorical
+    sample, add_batch, choice = port_buffer.sample, port_buffer.add_batch, rng.choice
     autocontrast = port_bacs.random_autocontrast
 
-    def fake_sample(buf, n, draws=None, task_id=None):
+    def fake_sample(buf, n, key=None, task_id=None):
         step, k = next_draw(cur)
         g = np.asarray(jax.random.gumbel(jnp.asarray(keys[step, k]), (buf.size,)))
         return sample(buf, n, keys=torch.from_numpy(g.copy()), task_id=task_id)
 
-    def fake_categorical(key, logits, *a, **k):
+    def fake_choice(key, p):
         if cur["step"] is None:
-            return categorical(key, logits, *a, **k)
+            return choice(key, p)
         return torch.tensor(PARTITION[cur["step"]])
 
-    def fake_augment(images, labels, draws=None):
+    def fake_augment(images, labels, key=None):
         params = {k: torch.from_numpy(np.ascontiguousarray(v[cur["step"]]))
                   for k, v in crop.items()}
         return apply_crop_params(images, labels, params)
@@ -189,13 +189,13 @@ def port_injected():
         stack.enter_context(mock.patch.object(
             port_buffer, "add_batch",
             lambda *a, **k: add_batch(*a, **{**k, "uniforms": next(cur["uniforms"])})))
-        stack.enter_context(mock.patch.object(rng, "categorical", fake_categorical))
+        stack.enter_context(mock.patch.object(rng, "choice", fake_choice))
         for module in (port_er, port_bacs):
             stack.enter_context(mock.patch.object(module, "replay_augment", fake_augment))
         stack.enter_context(mock.patch.object(
             port_bacs, "random_autocontrast",
-            lambda x, draws=None, p=0.5: autocontrast(
-                x, draws, 1.0 if COIN[cur["step"]] else 0.0)))
+            lambda x, key=None, p=0.5: autocontrast(
+                x, key, 1.0 if COIN[cur["step"]] else 0.0)))
         yield
 
 

@@ -7,10 +7,10 @@ initialised by the JAX package, every 1-D ``scale`` and ``bias`` (ABN,
 LayerNorm, Dense and convolution biases) and ``mask_norm`` redrawn, carried
 across by ``utils/flax_weights.py``.  Forward and gradients, with
 ``active_classes`` below and at ``num_classes``, with and without the
-background detector (its dropout at rate 0 on both sides: the packages
-draw masks from different generators).  Also the weights' round trip,
-``transformer_init`` in its three modes against JAX's and ``init_weights``'
-TranSeg distributions.  The steps are in ``tests/test_torch_transeg_steps.py``,
+background detector (its dropout at rate 0 on both sides; its masks are
+held in ``tests/test_torch_seed_keys.py``).  Also the weights' round trip,
+``transformer_init`` in its three modes against JAX's and the TranSeg
+distributions of ``init_weights`` (JAX's ``model.init`` draws for a seed).  The steps are in ``tests/test_torch_transeg_steps.py``,
 the Trainer in ``tests/test_torch_transeg_loop.py``.
 
 Tolerances.  The blocks and the head are smooth (LayerNorm, softmax, exact
@@ -48,7 +48,7 @@ from bacs_tpu_torch.models import ABN, create_network
 from bacs_tpu_torch.models.layers import Attention, Block, Linear, _drop_path
 from bacs_tpu_torch.models.transeg import NEG_INF, TranSeg, TransformerHead
 from bacs_tpu_torch.train.learner import get_learner, transformer_init
-from bacs_tpu_torch.train.loop import init_weights
+from bacs_tpu_torch.utils.flax_init import init_weights
 from bacs_tpu_torch.train.state import TaskInfo, TrainState
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict, load_flax_variables, state_dict_to_flax)
@@ -154,15 +154,15 @@ def test_block_matches_flax(kind, heads):
 def test_drop_path_drops_whole_samples():
     """Stochastic depth (rate 0 in the shipped head): in training each
     sample's branch is kept, scaled by 1 / (1 - rate), or zeroed whole,
-    drawn from the caller's key stream; in eval mode and at rate 0 the
+    drawn from the caller's key; in eval mode and at rate 0 the
     branch passes unchanged."""
     x = torch.randn(64, 5, 3, generator=torch.Generator().manual_seed(0)) + 3.0
-    y = _drop_path(x, 0.5, True, rng.KeyStream(rng.key(1)))
+    y = _drop_path(x, 0.5, True, rng.key(1))
     kept = (y != 0).flatten(1).all(1)
     assert bool(((y == 0).flatten(1).all(1) | kept).all())
     torch.testing.assert_close(y[kept], x[kept] / 0.5, rtol=0, atol=0)
     assert 16 <= int(kept.sum()) <= 48
-    assert torch.equal(y, _drop_path(x, 0.5, True, rng.KeyStream(rng.key(1))))
+    assert torch.equal(y, _drop_path(x, 0.5, True, rng.key(1)))
     assert _drop_path(x, 0.5, False) is x and _drop_path(x, 0.0, True) is x
 
 

@@ -2,12 +2,13 @@
 
 UNet-3 and UNet-4 at 32^2, 5 classes, bilinear and transpose, with and
 without the background detector (four networks that hold every pair of
-those choices; the detector's dropout at rate 0 on both sides,
-as the packages draw their masks from different generators), from the
+those choices; the detector's dropout at rate 0 on both sides, its
+masks held in ``tests/test_torch_seed_keys.py``), from the
 same Flax variables: initialised by the JAX package, every norm vector
 and convolution bias redrawn by ``randomize_abn``, carried across by
 ``utils/flax_weights.py``.  Also the ``flax_weights`` round trip of the
-transpose convolutions, ``init_weights``' UNet distributions and the
+transpose convolutions, the distributions of ``init_weights`` (JAX's
+``model.init`` draws for a seed, ``utils/flax_init.py``) and the
 Predictor on UNet against the JAX Predictor.  The steps on UNet are in
 ``tests/test_torch_unet_steps.py``.
 
@@ -37,7 +38,7 @@ from bacs_tpu.serve import Predictor as JaxPredictor
 from bacs_tpu_torch.models import create_network
 from bacs_tpu_torch.models.unet import ConvTranspose2d, DoubleConv, UNet
 from bacs_tpu_torch.serve import Predictor
-from bacs_tpu_torch.train.loop import init_weights
+from bacs_tpu_torch.utils.flax_init import init_weights
 from bacs_tpu_torch.utils.flax_weights import (
     flax_to_state_dict,
     load_flax_variables,
@@ -73,8 +74,8 @@ def smooth_forward(self, x):
 
 @contextlib.contextmanager
 def variant(smooth):
-    """The JAX detector without dropout (the packages draw their masks from
-    different generators) and, with ``smooth``, both packages' UNet blocks
+    """The JAX detector without dropout (the port's is set to 0 alike) and,
+    with ``smooth``, both packages' UNet blocks
     without their ReLUs: no kink, so gradients agree to rounding."""
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(
@@ -262,9 +263,10 @@ def test_flax_state_dict_round_trip_with_transpose_convolutions():
 
 @pytest.mark.parametrize("bilinear", [True, False], ids=["bilinear", "tconv"])
 def test_init_weights_draws_flax_defaults(bilinear):
-    """Every UNet convolution, transpose convolution and the classifier:
-    LeCun normal truncated at two deviations over the fan-in kh kw in,
-    biases 0 (Flax's defaults; the JAX UNet sets no initialiser)."""
+    """JAX's initial weights for a seed (``utils/flax_init.py``): every
+    UNet convolution, transpose convolution and the classifier LeCun
+    normal truncated at two deviations over the fan-in kh kw in, biases 0
+    (Flax's defaults; the JAX UNet sets no initialiser)."""
     model = create_network("unet", 21, n_tasks=3, use_bg_detector=True, num_layers=4,
                            bilinear=bilinear)
     init_weights(model, 3)
@@ -310,8 +312,10 @@ def test_predictor_on_unet_matches_jax(bilinear):
 
 
 def test_init_weights_keeps_deeplab_he_and_flax_defaults_elsewhere():
-    """DeepLabV3: the backbone's and ASPP's convolutions He normal over the
-    fan-out (``bacs_tpu/models/resnet.py:59``); the classifier and the
+    """JAX's initial weights for a seed (``utils/flax_init.py``, held bit
+    for bit in ``tests/test_torch_seed_init.py``), DeepLabV3: the
+    backbone's and ASPP's convolutions He normal over the fan-out
+    (``bacs_tpu/models/resnet.py:59``); the classifier and the
     detector's trunk convolution Flax's default, LeCun normal truncated
     over the fan-in (``bacs_tpu/models/bg_detector.py:44-51`` sets no
     initialiser); the detector's heads LeCun over D x T, truncated."""
